@@ -1,0 +1,111 @@
+"""Ragged decode attention over a paged KV cache: the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Replaces ``repro/kernels/attention/decode.py::decode_attention_pallas``;
+the kernel is ``kernels/csrc/decode_attention.cu``; the plain version is
+the port of ``repro/kernels/attention/ref.py::decode_attention_ref``.
+
+Layout: q (B, H, hd) -- one token per slot, GQA-grouped so that head h
+reads kv head h // grp; k_pages / v_pages (P, page, Hkv, hd); table
+(B, n_pages) int32 page ids; lengths (B,) int32 valid tokens per slot
+(0 = inactive slot -> zero output, no NaNs).  Returns (B, H, hd) fp32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import cuda
+
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Each slot's pages in logical order: (B, n_pages * page, Hkv, hd)."""
+    b = table.shape[0]
+    return pages[table.long()].reshape(b, -1, pages.shape[2], pages.shape[3])
+
+
+def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, H, hd): query head h reads kv head
+    h // grp, the (B, Hkv, grp, hd) grouping of the kernels."""
+    return kv.repeat_interleave(n_heads // kv.shape[2], dim=2)
+
+
+def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           window: int = 0) -> torch.Tensor:
+    """Gather pages to a dense view, mask keys past each slot's length
+    (and older than its window), fp32 softmax; P is cast to V's dtype
+    before the P @ V product, as in the kernel."""
+    b, h, hd = q.shape
+    k = expand_kv(gather_pages(k_pages, table), h)
+    v = expand_kv(gather_pages(v_pages, table), h)
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) \
+        / math.sqrt(hd)
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    lengths = lengths.long()[:, None]
+    mask = kpos < lengths
+    if window > 0:
+        mask &= kpos >= lengths - window
+    scores = torch.where(mask[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhs,bshd->bhd", probs.float(), v.float())
+    # fully-masked rows (inactive slots, lengths == 0) -> exact zeros
+    return torch.where(lengths[:, :, None] > 0, out, 0.0)
+
+
+def _check_paged(name: str, q, k_pages, v_pages, table, lengths,
+                 q_heads_dim: int) -> None:
+    cuda.require_cuda(name, q, k_pages, v_pages, table, lengths)
+    if q.dim() != q_heads_dim + 2:
+        raise ValueError(f"{name}: q has shape {tuple(q.shape)}")
+    if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
+        raise ValueError(f"{name}: k/v pools must share one (P, page, Hkv, "
+                         f"hd) shape, got {tuple(k_pages.shape)} and "
+                         f"{tuple(v_pages.shape)}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"{name}: q and the pools must share one dtype")
+    if table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: table and lengths/starts must be int32")
+    h, hd = q.shape[q_heads_dim], q.shape[-1]
+    hkv = k_pages.shape[2]
+    if hd != k_pages.shape[3] or hkv == 0 or h % hkv:
+        raise ValueError(f"{name}: {h} query heads of width {hd} do not "
+                         f"group over pools {tuple(k_pages.shape)}")
+    if table.dim() != 2 or table.shape[0] != q.shape[0] \
+            or lengths.shape != (q.shape[0],):
+        raise ValueError(f"{name}: table (B, n_pages) and (B,) lengths "
+                         f"must match q's batch")
+
+
+def decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, table: torch.Tensor,
+                          lengths: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """Launch ``repro_decode_attention`` (one block per slot and kv
+    head); raises on anything the kernel does not take."""
+    _check_paged("decode_attention", q, k_pages, v_pages, table, lengths,
+                 q_heads_dim=1)
+    b, h, hd = q.shape
+    _, page, hkv, _ = k_pages.shape
+    grp = h // hkv
+    smem = 4 * (2 * grp * hd + 32 * (2 * hd + 1) + 32 * grp + 3 * grp)
+    if smem > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"decode_attention: group {grp} x head width {hd} "
+                         f"needs {smem} bytes of shared memory")
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    rc = cuda.library().repro_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        *cuda.c_ints("decode_attention", b, h, hkv, hd, page, table.shape[1],
+                     k_pages.shape[0], max(0, int(window))),
+        cuda.dtype_code(q), cuda.stream_of(q))
+    cuda.check(rc, "decode_attention")
+    decode_attention_cuda.launches += 1
+    return out
+
+
+decode_attention_cuda.launches = 0

@@ -1,0 +1,228 @@
+"""Core layers of the paged serving path: norms, rotary embeddings, paged
+attention, MLPs -- the port of ``repro/models/layers.py``.
+
+Every matmul and attention contraction routes through
+``kernels.dispatch``, which picks the CUDA kernel for CUDA tensors and the
+plain PyTorch version for CPU tensors.  Tensor layouts are the JAX
+package's: activations (B, S, d), heads (B, S, H, hd), weights (K, ...).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..core.memory import DtypePolicy
+from ..kernels import dispatch
+
+Params = Dict[str, torch.Tensor]
+
+
+# --------------------------------------------------------------------------
+# initializers: the JAX package's distributions, drawn from a seeded
+# torch.Generator (same distributions, different numbers)
+# --------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               in_axis_size: Optional[int] = None) -> torch.Tensor:
+    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in), fp32.  A
+    leading stacked-layer axis in ``shape`` needs ``in_axis_size``."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(1.0 / math.sqrt(max(fan_in, 1)))
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+# --------------------------------------------------------------------------
+# normalization
+# --------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, lead=(), device=None) -> Params:
+    return {"scale": torch.zeros(tuple(lead) + (d,), dtype=torch.float32,
+                                 device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """(1 + scale) RMSNorm: variance in fp32, the normalize/scale
+    multiplies in the input dtype."""
+    dt = x.dtype
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(dt)
+    return x * inv * (1.0 + p["scale"]).to(dt)
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings (half-split layout)
+# --------------------------------------------------------------------------
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int.  Angles in fp32; the
+    first and second halves of hd are the rotated pairs."""
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angle = positions.float()[..., None] * freqs              # (B, S, hd/2)
+    sin = torch.sin(angle)[:, :, None, :]
+    cos = torch.cos(angle)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    window: int = 0              # 0 = global causal; >0 = sliding window
+    rope_theta: float = 1e4
+    qkv_bias: bool = False
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Contract x (..., K) with a float weight w (K, ...)."""
+    return dispatch.matmul(x, w)
+
+
+def attention_init(gen: torch.Generator, s: AttnSpec, lead=()) -> Params:
+    lead = tuple(lead)
+    p = {
+        "wq": dense_init(gen, lead + (s.d_model, s.n_heads, s.head_dim),
+                         s.d_model),
+        "wk": dense_init(gen, lead + (s.d_model, s.n_kv_heads, s.head_dim),
+                         s.d_model),
+        "wv": dense_init(gen, lead + (s.d_model, s.n_kv_heads, s.head_dim),
+                         s.d_model),
+        "wo": dense_init(gen, lead + (s.n_heads, s.head_dim, s.d_model),
+                         s.n_heads * s.head_dim),
+    }
+    if s.qkv_bias:
+        for name, heads in (("bq", s.n_heads), ("bk", s.n_kv_heads),
+                            ("bv", s.n_kv_heads)):
+            p[name] = torch.zeros(lead + (heads, s.head_dim),
+                                  dtype=torch.float32, device=gen.device)
+    return p
+
+
+def _qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
+         dt: DtypePolicy):
+    cdt = dt.compute
+    # (b,s,d) x (d,h,k) -> (b,s,h,k): dispatch contracts last-vs-first
+    q = project(x, p["wq"].to(cdt))
+    k = project(x, p["wk"].to(cdt))
+    v = project(x, p["wv"].to(cdt))
+    if s.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    q = apply_rope(q, positions, theta=s.rope_theta)
+    k = apply_rope(k, positions, theta=s.rope_theta)
+    return q, k, v
+
+
+def _out_proj(p: Params, s: AttnSpec, out: torch.Tensor,
+              dt: DtypePolicy) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, d) via wo (H, hd, d)."""
+    b, sq = out.shape[:2]
+    wo = p["wo"].to(dt.compute)
+    return project(out.reshape(b, sq, s.n_heads * s.head_dim),
+                   wo.reshape(s.n_heads * s.head_dim, s.d_model))
+
+
+def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,
+                           lengths: torch.Tensor, table: torch.Tensor,
+                           k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           dt: DtypePolicy) -> torch.Tensor:
+    """One-token ragged decode against the paged KV cache.
+
+    x: (B, 1, d).  lengths: (B,) int32 tokens already cached per slot --
+    the new token lands at position ``lengths[b]`` (inactive slots point
+    at the trash page 0).  table: (B, n_pages) int32 page ids into the
+    shared (P, page, Hkv, hd) pools, which are written in place.
+    Returns (B, 1, d)."""
+    b = x.shape[0]
+    page = k_pages.shape[1]
+    q, k, v = _qkv(p, s, x, lengths[:, None], dt)
+    pid = table[torch.arange(b, device=x.device), lengths // page].long()
+    off = (lengths % page).long()
+    # in-place pool write (the JAX package's donated .at[].set); inactive
+    # slots all hit the never-read trash page, so their duplicate indices
+    # are harmless
+    k_pages.index_put_((pid, off), k[:, 0].to(k_pages.dtype))
+    v_pages.index_put_((pid, off), v[:, 0].to(v_pages.dtype))
+    out = dispatch.decode_attention(q[:, 0], k_pages, v_pages, table,
+                                    lengths + 1, window=s.window,
+                                    out_dtype=dt.compute)
+    return _out_proj(p, s, out[:, None], dt)
+
+
+def attention_prefill_paged(p: Params, s: AttnSpec, x: torch.Tensor,
+                            starts: torch.Tensor, tables: torch.Tensor,
+                            k_pages: torch.Tensor, v_pages: torch.Tensor,
+                            dt: DtypePolicy) -> torch.Tensor:
+    """Chunked prefill: one page-aligned chunk each from B distinct slots.
+
+    x: (B, C, d) with C == page size (the caller pads final partial
+    chunks; padded positions are never read back).  starts: (B,) int32
+    page-aligned chunk offsets; tables: (B, n_pages) each slot's page ids.
+    Chunk b's queries sit at ``starts[b] + [0, C)`` and attend causally
+    over that slot's cached history plus the chunk itself.  The pools are
+    written in place.  Returns (B, C, d)."""
+    b, c, _ = x.shape
+    page = k_pages.shape[1]
+    positions = starts[:, None] + torch.arange(c, device=x.device,
+                                               dtype=starts.dtype)[None, :]
+    q, k, v = _qkv(p, s, x, positions, dt)
+    pid = tables[torch.arange(b, device=x.device), starts // page].long()
+    # in-place whole-page write (the JAX package's donated .at[].set)
+    k_pages.index_copy_(0, pid, k.to(k_pages.dtype))
+    v_pages.index_copy_(0, pid, v.to(v_pages.dtype))
+    out = dispatch.prefill_attention(q, k_pages, v_pages, tables, starts,
+                                     window=s.window, out_dtype=dt.compute)
+    return _out_proj(p, s, out, dt)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, activation: str,
+             lead=()) -> Params:
+    lead = tuple(lead)
+    if activation in ("swiglu", "geglu"):
+        return {"wg": dense_init(gen, lead + (d, ff), d),
+                "wu": dense_init(gen, lead + (d, ff), d),
+                "wd": dense_init(gen, lead + (ff, d), ff)}
+    return {"wi": dense_init(gen, lead + (d, ff), d),
+            "wd": dense_init(gen, lead + (ff, d), ff)}
+
+
+def mlp_apply(p: Params, x: torch.Tensor, activation: str,
+              dt: DtypePolicy) -> torch.Tensor:
+    cdt = dt.compute
+    if activation in ("swiglu", "geglu"):
+        g = project(x, p["wg"].to(cdt))
+        u = project(x, p["wu"].to(cdt))
+        act = F.silu(g) if activation == "swiglu" \
+            else F.gelu(g, approximate="tanh")
+        return project(act * u, p["wd"].to(cdt))
+    h = project(x, p["wi"].to(cdt))
+    h = F.relu(h) if activation == "relu" else F.gelu(h, approximate="tanh")
+    return project(h, p["wd"].to(cdt))

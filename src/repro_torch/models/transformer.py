@@ -1,0 +1,265 @@
+"""The paged-serving decoder LM -- the port of ``repro/models/transformer.py``
+for attention + MLP stacks.
+
+Layer stacking keeps the JAX package's layout (paper §2.5 loop
+flattening): ``prefix`` layers, ``n_periods`` repetitions of the layer
+*pattern* stored with a leading period axis, and a ``tail``.  JAX scans
+over the period axis; here a Python loop walks it, and each layer sees
+views of the stacked params and pools, so pool writes land in place.
+
+Params are a nested dict with the JAX tree's keys and nesting
+(``embed``, ``final_norm/scale``, ``prefix``/``stack``/``tail`` lists of
+``{"ln1", "ln2", "attn", "mlp"}``), so ``convert.params_from_jax`` maps a
+JAX tree one to one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+
+from ..configs.base import ArchConfig, LayerKind
+from ..core.device import DeviceLike, resolve_device
+from ..core.memory import BF16_POLICY, DtypePolicy
+from ..core.quant import kv_dtype_of
+from ..kernels import dispatch
+from . import layers
+from .layers import Params
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    prefix: Tuple[LayerKind, ...]
+    period: Tuple[LayerKind, ...]
+    n_periods: int
+    tail: Tuple[LayerKind, ...]
+
+
+def make_layout(cfg: ArchConfig) -> Layout:
+    kinds = cfg.layer_kinds()
+    pre = tuple(cfg.prefix)
+    rest = kinds[len(pre):]
+    if cfg.pattern and len(rest) >= len(cfg.pattern):
+        p = len(cfg.pattern)
+        n_periods = len(rest) // p
+        tail = rest[n_periods * p:]
+        return Layout(pre, tuple(cfg.pattern), n_periods, tail)
+    return Layout(kinds, (), 0, ())
+
+
+def _attn_spec(cfg: ArchConfig, mixer: str) -> layers.AttnSpec:
+    return layers.AttnSpec(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        window=cfg.window if mixer == "swa" else 0,
+        rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
+
+
+def paged_supported(cfg: ArchConfig) -> bool:
+    """Can this port serve the arch from a paged KV cache?  Every mixer
+    must be attention-family and every FFN a dense MLP (MoE FFNs and
+    recurrent mixers come with later slices of the port)."""
+    return all(m in ("attn", "swa") and f == "mlp"
+               for m, f in cfg.layer_kinds())
+
+
+def _require_paged(cfg: ArchConfig) -> None:
+    if not paged_supported(cfg):
+        raise ValueError(
+            f"arch {cfg.name} has layers this port does not run yet; paged "
+            "serving here requires attention + MLP stacks")
+
+
+# --------------------------------------------------------------------------
+# layer init / prefill / decode
+# --------------------------------------------------------------------------
+
+def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
+               lead=()) -> Params:
+    """One layer's params; ``lead`` = (n_periods,) stacks a period."""
+    mixer, _ = kind
+    return {"ln1": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
+            "ln2": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
+            "attn": layers.attention_init(gen, _attn_spec(cfg, mixer), lead),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                   cfg.activation, lead)}
+
+
+def layer_cache_init_paged(cfg: ArchConfig, total_pages: int, page_size: int,
+                           dtype: torch.dtype, device,
+                           lead=()) -> Dict[str, torch.Tensor]:
+    """Shared (P, page, Hkv, hd) K/V page pools of one attention layer."""
+    shape = tuple(lead) + (total_pages, page_size, cfg.n_kv_heads,
+                           cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
+                        x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                        starts: torch.Tensor, tables: torch.Tensor,
+                        dt: DtypePolicy) -> torch.Tensor:
+    """One page-aligned prompt chunk each of B distinct slots through one
+    layer (x (B, C, d), starts (B,), tables (B, n_pages))."""
+    h = layers.rmsnorm(p["ln1"], x)
+    h = layers.attention_prefill_paged(
+        p["attn"], _attn_spec(cfg, kind[0]), h, starts, tables,
+        cache["k_pages"], cache["v_pages"], dt)
+    x = x + h
+    h = layers.rmsnorm(p["ln2"], x)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt)
+
+
+def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
+                 x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 lengths: torch.Tensor, table: torch.Tensor,
+                 dt: DtypePolicy) -> torch.Tensor:
+    """One decode token per slot through one layer, on the paged ragged
+    path: every slot decodes at its own length."""
+    h = layers.rmsnorm(p["ln1"], x)
+    h = layers.attention_decode_paged(
+        p["attn"], _attn_spec(cfg, kind[0]), h, lengths, table,
+        cache["k_pages"], cache["v_pages"], dt)
+    x = x + h
+    h = layers.rmsnorm(p["ln2"], x)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt)
+
+
+def _index(tree, i: int):
+    """Period ``i`` of a stacked subtree, as views."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------------
+# the model
+# --------------------------------------------------------------------------
+
+class Model:
+    """Paged serving forwards of one arch, on one device.
+
+    ``device`` defaults to the CUDA card and raises without one; pass
+    ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
+
+    def __init__(self, cfg: ArchConfig, dt: DtypePolicy = BF16_POLICY,
+                 device: DeviceLike = None):
+        _require_paged(cfg)
+        if cfg.input_mode != "tokens":
+            raise ValueError(f"arch {cfg.name} takes {cfg.input_mode}; the "
+                             "port serves token-mode archs")
+        self.cfg = cfg
+        self.dt = dt
+        self.device = resolve_device(device)
+        self.layout = make_layout(cfg)
+
+    # ------------------------------ init ------------------------------
+    def init(self, seed: int) -> Params:
+        """Random params from a seeded ``torch.Generator`` on the model's
+        device, in the policy's param dtype."""
+        cfg, lay, pdt = self.cfg, self.layout, self.dt.param
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params: Params = {
+            "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model)),
+            "final_norm": layers.rmsnorm_init(cfg.d_model, (), self.device),
+        }
+        if not cfg.tie_embeddings:
+            params["head"] = layers.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), cfg.d_model)
+        params["prefix"] = [layer_init(gen, cfg, k) for k in lay.prefix]
+        params["stack"] = [layer_init(gen, cfg, k, (lay.n_periods,))
+                           for k in lay.period] if lay.n_periods else []
+        params["tail"] = [layer_init(gen, cfg, k) for k in lay.tail]
+        return _cast(params, pdt)
+
+    # ------------------------------ pieces -----------------------------
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        cdt = self.dt.compute
+        x = params["embed"].to(cdt)[tokens.long()]
+        if self.cfg.embed_scale:
+            # sqrt(d) rounded to the compute dtype first, as the JAX
+            # package multiplies by jnp.asarray(sqrt(d), compute)
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=cdt).item()
+        return x
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = layers.rmsnorm(params["final_norm"], x)
+        # the tied head is a transposed view; the matmul kernel reads it
+        # through its strides, so no 256000-row copy is made per call
+        head = params["embed"].T if self.cfg.tie_embeddings \
+            else params["head"]
+        return dispatch.matmul(x, head.to(self.dt.compute))
+
+    def _layers(self, params: Params, cache
+                ) -> Iterator[Tuple[Params, LayerKind, Dict[str, Any]]]:
+        """(layer params, kind, layer pools) in execution order."""
+        lay = self.layout
+        yield from zip(params["prefix"], lay.prefix, cache["prefix"])
+        for i in range(lay.n_periods):
+            for j, kind in enumerate(lay.period):
+                yield (_index(params["stack"][j], i), kind,
+                       _index(cache["stack"][j], i))
+        yield from zip(params["tail"], lay.tail, cache["tail"])
+
+    # ------------------------------ paged serving ---------------------
+    def init_paged_cache(self, slots: int, max_len: int, page_size: int,
+                         total_pages: Optional[int] = None
+                         ) -> Dict[str, Any]:
+        """Per-attention-layer (P, page, Hkv, hd) pools; stacked periods
+        carry a leading period axis.  Physical page 0 is the TRASH page:
+        the scheduler points inactive slots' tables at it, so their
+        (masked, discarded) writes never land in a live sequence."""
+        cfg, lay = self.cfg, self.layout
+        dtype = kv_dtype_of(cfg.kv_dtype, self.dt.compute)
+        if total_pages is None:
+            total_pages = 1 + slots * (-(-max_len // page_size))
+
+        def pools(lead=()):
+            return layer_cache_init_paged(cfg, total_pages, page_size, dtype,
+                                          self.device, lead)
+        return {"prefix": [pools() for _ in lay.prefix],
+                "stack": [pools((lay.n_periods,)) for _ in lay.period]
+                if lay.n_periods else [],
+                "tail": [pools() for _ in lay.tail]}
+
+    def prefill_step_paged(self, params: Params, cache,
+                           tokens: torch.Tensor, starts: torch.Tensor,
+                           tables: torch.Tensor,
+                           last_idx: torch.Tensor) -> torch.Tensor:
+        """One page-aligned prompt chunk each of B DISTINCT slots through
+        the stack, writing the chunks' K/V into ``cache`` in place.
+
+        tokens: (B, C) with C == page size; starts: (B,) int32 chunk
+        offsets; tables: (B, n_pages) int32; last_idx: (B,) index of the
+        last REAL prompt token of each chunk.  Returns logits (B, V) at
+        last_idx."""
+        x = self._embed(params, tokens)
+        for p, kind, c in self._layers(params, cache):
+            x = layer_prefill_paged(p, self.cfg, kind, x, c, starts, tables,
+                                    self.dt)
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_last = x[rows, last_idx.long()][:, None]
+        return self._logits(params, x_last)[:, 0]
+
+    def decode_step(self, params: Params, cache, tokens: torch.Tensor, *,
+                    paged: Tuple[torch.Tensor, torch.Tensor]
+                    ) -> torch.Tensor:
+        """One token for every slot.  ``paged`` = (lengths (B,), table
+        (B, n_pages)), both int32: every slot decodes at its own length
+        against the shared page pools, which are written in place.
+        tokens: (B, 1).  Returns logits (B, V)."""
+        lengths, table = paged
+        x = self._embed(params, tokens)
+        for p, kind, c in self._layers(params, cache):
+            x = layer_decode(p, self.cfg, kind, x, c, lengths, table,
+                             self.dt)
+        return self._logits(params, x)[:, 0]
+
+
+def _cast(tree, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)

@@ -1,0 +1,160 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc and skips without one (the
+``card`` fixture decides inside the test run, never at import).  The
+file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Small shapes cover what the full-width chip_smoke.py does not: ragged
+GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots.  fp32
+runs with TF32 off; tolerances are those of tests/test_paged_decode.py.
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.attention import (decode_attention_cuda,
+                                           decode_attention_plain,
+                                           prefill_attention_cuda,
+                                           prefill_attention_plain)
+from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+
+torch.set_num_threads(1)
+TOLS = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    tol = TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (3, 37, 70), (65, 130, 67),
+                                   (130, 16, 200), (5, 2048, 256)])
+def test_matmul_ragged_edges(card, dtype, m, k, n):
+    gen = torch.Generator(device=card).manual_seed(m * 1000 + n)
+    a = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    b = (torch.randn(k, n, generator=gen, device=card)
+         / math.sqrt(k)).to(dtype)
+    out = matmul_cuda(a, b)
+    assert out.dtype == dtype and out.shape == (m, n)
+    _close(out, matmul_plain(a, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_transposed_b_and_row_independence(card, dtype):
+    """The tied head's embed.T view is read through its strides, and a
+    row's result does not depend on how many rows share the call."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    embed = torch.randn(300, 96, generator=gen, device=card).to(dtype)
+    a = torch.randn(70, 96, generator=gen, device=card).to(dtype)
+    full = matmul_cuda(a, embed.T)
+    _close(full, matmul_plain(a, embed.T), dtype)
+    assert torch.equal(matmul_cuda(a[:3].contiguous(), embed.T), full[:3])
+
+
+def _pools(dtype, card, *, slots, h, hkv, hd, page, n_pages, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    pool = 1 + slots * n_pages
+    kp = torch.randn(pool, page, hkv, hd, generator=gen, device=card)
+    vp = torch.randn(pool, page, hkv, hd, generator=gen, device=card)
+    perm = torch.randperm(pool - 1, generator=gen, device=card) + 1
+    table = perm[:slots * n_pages].reshape(slots, n_pages).int()
+    return gen, kp.to(dtype), vp.to(dtype), table
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grp", [1, 4, 8])
+@pytest.mark.parametrize("window", [0, 5])
+def test_decode_kernel_matches_plain(card, dtype, grp, window):
+    hkv, hd, page, n_pages = 2, 32, 4, 9
+    gen, kp, vp, table = _pools(dtype, card, slots=4, h=grp * hkv, hkv=hkv,
+                                hd=hd, page=page, n_pages=n_pages)
+    q = torch.randn(4, grp * hkv, hd, generator=gen, device=card).to(dtype)
+    lengths = torch.tensor([0, 1, 17, 36], dtype=torch.int32, device=card)
+    out = decode_attention_cuda(q, kp, vp, table, lengths, window=window)
+    _close(out, decode_attention_plain(q, kp, vp, table, lengths,
+                                       window=window), dtype)
+    assert torch.count_nonzero(out[0]) == 0          # lengths == 0 -> 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grp", [1, 4, 8])
+@pytest.mark.parametrize("window", [0, 6])
+def test_prefill_kernel_matches_plain(card, dtype, grp, window):
+    hkv, hd, page, n_pages, c = 2, 32, 8, 6, 8
+    gen, kp, vp, table = _pools(dtype, card, slots=3, h=grp * hkv, hkv=hkv,
+                                hd=hd, page=page, n_pages=n_pages)
+    q = torch.randn(3, c, grp * hkv, hd, generator=gen,
+                    device=card).to(dtype)
+    starts = torch.tensor([0, 8, 40], dtype=torch.int32, device=card)
+    out = prefill_attention_cuda(q, kp, vp, table, starts, window=window)
+    _close(out, prefill_attention_plain(q, kp, vp, table, starts,
+                                        window=window), dtype)
+
+
+def test_wrappers_count_launches_and_reject_cpu_tensors(card):
+    a = torch.ones(2, 3, device=card)
+    before = matmul_cuda.launches
+    matmul_cuda(a, a.T.contiguous())
+    assert matmul_cuda.launches == before + 1
+    with pytest.raises(ValueError):
+        matmul_cuda(a, torch.ones(3, 2))
+    with pytest.raises(TypeError):
+        matmul_cuda(a, torch.ones(3, 2, device=card, dtype=torch.bfloat16))
+    with dispatch.stats_scope() as stats:
+        dispatch.matmul(a, a.T)
+        assert stats() == {("matmul", "kernel"): 1}
+
+
+@pytest.mark.parametrize("layout", ["prefix", "scan"])
+def test_paged_model_kernels_match_plain(card, layout):
+    """A small paged model on the card, once through the kernels and once
+    through the plain versions (device routing overridden for the second
+    run): prefill of a padded partial page, then ragged decode steps."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import F32_POLICY
+    from repro_torch.models.transformer import Model
+    cfg = get_arch("gemma-2b").smoke()
+    if layout == "scan":
+        cfg = dataclasses.replace(cfg, n_layers=5, prefix=(("attn", "mlp"),),
+                                  pattern=(("attn", "mlp"),) * 2)
+    model = Model(cfg, dt=F32_POLICY, device=card)
+    params = model.init(seed=0)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=card)  # noqa
+
+    def run():
+        cache = model.init_paged_cache(2, 32, 4)
+        table = i32([[1, 2, 3, 4, 5, 6, 7, 8], [0] * 8])
+        out = [model.prefill_step_paged(params, cache, i32([[5, 9, 2, 7]]),
+                                        i32([0]), table[:1], i32([3])),
+               model.prefill_step_paged(params, cache, i32([[3, 1, 0, 0]]),
+                                        i32([4]), table[:1], i32([1]))]
+        for step, tok in enumerate((11, 12, 13)):
+            out.append(model.decode_step(
+                params, cache, i32([[tok], [0]]),
+                paged=(i32([6 + step, 0]), table))[:1])
+        return torch.cat(out)
+
+    kernel = run()
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        plain = run()
+    torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,196 @@
+"""The plain PyTorch version beside each CUDA kernel is held to the JAX
+package's Pallas kernel (run in interpret mode on the CPU, as the JAX
+package's own tests run it) and to its ``ref.py`` oracle, in fp32 at
+rtol = atol = 2e-4 (tests/test_paged_decode.py's fp32 tolerance).
+
+Inputs are drawn from seeded numpy and handed to both sides.  The CUDA
+kernels themselves run only on the card (tests/test_torch_cuda.py); here
+the wrappers must refuse CPU tensors and dispatch must route CPU tensors
+to the plain versions.
+"""
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.core.scaling import TilePlan
+from repro.kernels.attention import ref as jax_ref
+from repro.kernels.attention.decode import decode_attention_pallas
+from repro.kernels.attention.prefill import prefill_attention_pallas
+from repro.kernels.matmul import ref as jax_mm_ref
+from repro.kernels.matmul.matmul import matmul_pallas
+from repro_torch.kernels import cuda, dispatch
+from repro_torch.kernels.attention import (decode_attention_cuda,
+                                           decode_attention_plain,
+                                           prefill_attention_cuda,
+                                           prefill_attention_plain)
+from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+
+torch.set_num_threads(1)
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **TOL)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------- matmul
+def test_matmul_plain_matches_pallas_kernel():
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((16, 32), np.float32)
+    b = rng.standard_normal((32, 24), np.float32)
+    plan = TilePlan(8, 8, 16, 0, (2, 3, 2), 0.0, 0.0)   # 2 K steps
+    want = matmul_pallas(jnp.asarray(a), jnp.asarray(b), plan,
+                         interpret=True)
+    _close(matmul_plain(_t(a), _t(b)), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 37, 70), (1, 130, 3), (65, 16, 257)])
+def test_matmul_plain_matches_ref_on_ragged_shapes(m, k, n):
+    """Ragged M/N/K: the CUDA kernel masks these edges (the Pallas kernel
+    asserts divisibility, so the oracle here is ``ref.matmul_ref``)."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.standard_normal((m, k), np.float32)
+    b = rng.standard_normal((k, n), np.float32)
+    want = jax_mm_ref.matmul_ref(jnp.asarray(a), jnp.asarray(b))
+    _close(matmul_plain(_t(a), _t(b)), want)
+    # the tied head's transposed operand gives the same product
+    _close(matmul_plain(_t(a), _t(b.T.copy()).T), want)
+
+
+def test_dispatch_matmul_routes_cpu_tensors_to_plain():
+    rng = np.random.default_rng(1)
+    x = _t(rng.standard_normal((2, 3, 8), np.float32))
+    w = _t(rng.standard_normal((8, 4, 5), np.float32))
+    with dispatch.stats_scope() as stats:
+        out = dispatch.matmul(x, w)
+        assert stats() == {("matmul", "plain"): 1}
+    assert out.shape == (2, 3, 4, 5)
+    want = np.einsum("bsk,khd->bshd", x.numpy(), w.numpy())
+    _close(out, want)
+
+
+# ------------------------------------------------------------ attention
+def _paged(rng, *, slots, h, hkv, hd, page, n_pages):
+    pool = 1 + slots * n_pages
+    kp = (0.5 * rng.standard_normal((pool, page, hkv, hd))).astype(
+        np.float32)
+    vp = (0.5 * rng.standard_normal((pool, page, hkv, hd))).astype(
+        np.float32)
+    table = (1 + rng.permutation(pool - 1)[:slots * n_pages]).reshape(
+        slots, n_pages).astype(np.int32)
+    return kp, vp, table
+
+
+# (grp, window): GQA groups 1/4/8, with and without a sliding window
+CASES = [(1, 0), (4, 0), (8, 0), (4, 6)]
+
+
+@pytest.mark.parametrize("grp,window", CASES)
+def test_decode_plain_matches_pallas_and_ref(grp, window):
+    """Ragged lengths incl. an inactive slot (0 -> zeros), one token, a
+    page boundary and a full table; pages_per_tile=3 does not divide the
+    4 logical pages, so the Pallas kernel pads its table."""
+    rng = np.random.default_rng(grp * 10 + window)
+    hkv, hd, page, n_pages = 2, 16, 4, 4
+    kp, vp, table = _paged(rng, slots=4, h=grp * hkv, hkv=hkv, hd=hd,
+                           page=page, n_pages=n_pages)
+    q = (0.5 * rng.standard_normal((4, grp * hkv, hd))).astype(np.float32)
+    lengths = np.asarray([0, 1, 9, 16], np.int32)
+    ours = decode_attention_plain(_t(q), _t(kp), _t(vp), _t(table),
+                                  _t(lengths), window=window)
+    args = tuple(map(jnp.asarray, (q, kp, vp, table, lengths)))
+    _close(ours, decode_attention_pallas(*args, window=window,
+                                         pages_per_tile=3, interpret=True))
+    _close(ours, jax_ref.decode_attention_ref(*args, window=window))
+    assert float(ours[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("grp,window", CASES)
+def test_prefill_plain_matches_pallas_and_ref(grp, window):
+    """Chunks at a fresh start, behind one page of history and behind
+    two (the causal mask kpos <= start + row // grp), with
+    pages_per_tile=3 not dividing the 4 logical pages."""
+    rng = np.random.default_rng(100 + grp * 10 + window)
+    hkv, hd, page, n_pages = 2, 16, 4, 4
+    kp, vp, table = _paged(rng, slots=3, h=grp * hkv, hkv=hkv, hd=hd,
+                           page=page, n_pages=n_pages)
+    q = (0.5 * rng.standard_normal((3, page, grp * hkv, hd))).astype(
+        np.float32)
+    starts = np.asarray([0, 4, 8], np.int32)
+    ours = prefill_attention_plain(_t(q), _t(kp), _t(vp), _t(table),
+                                   _t(starts), window=window)
+    args = tuple(map(jnp.asarray, (q, kp, vp, table, starts)))
+    _close(ours, prefill_attention_pallas(*args, window=window,
+                                          pages_per_tile=3, interpret=True))
+    _close(ours, jax_ref.prefill_attention_ref(*args, window=window))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises: no quiet CPU fallback."""
+    q = torch.zeros(1, 2, 8)
+    pools = torch.zeros(3, 4, 1, 8)
+    table = torch.ones(1, 2, dtype=torch.int32)
+    ones = torch.ones(1, dtype=torch.int32)
+    before = dispatch.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_cuda(torch.zeros(2, 3), torch.zeros(3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(q, pools, pools, table, ones)
+    with pytest.raises(ValueError, match="CUDA"):
+        prefill_attention_cuda(q[:, None], pools, pools, table, ones)
+    assert dispatch.launch_counts() == before
+    assert set(before) == {"matmul", "decode_attention", "prefill_attention"}
+
+
+def test_dispatch_attention_routes_by_device():
+    rng = np.random.default_rng(7)
+    kp, vp, table = _paged(rng, slots=2, h=4, hkv=2, hd=8, page=4,
+                           n_pages=2)
+    q = _t(rng.standard_normal((2, 4, 8)).astype(np.float32))
+    lengths = _t(np.asarray([3, 8], np.int32))
+    with dispatch.stats_scope() as stats:
+        out = dispatch.decode_attention(q, _t(kp), _t(vp), _t(table),
+                                        lengths, out_dtype=torch.bfloat16)
+        pre = dispatch.prefill_attention(q[:, None], _t(kp), _t(vp),
+                                         _t(table), lengths)
+        assert stats() == {("decode_attention", "plain"): 1,
+                           ("prefill_attention", "plain"): 1}
+    assert out.dtype == torch.bfloat16 and pre.dtype == torch.float32
+
+
+# ----------------------------------------------------------------- build
+def test_library_path_follows_sources(tmp_path, monkeypatch):
+    """The build directory is named by a hash of the sources: an edited
+    source rebuilds, an unchanged one reuses the library."""
+    src = tmp_path / "csrc"
+    shutil.copytree(cuda.CSRC, src)
+    monkeypatch.setattr(cuda, "CSRC", src)
+    monkeypatch.setattr(cuda, "BUILD_ROOT", tmp_path / "build")
+    first = cuda.library_path()
+    assert first == cuda.library_path()
+    assert first.parent.parent == tmp_path / "build"
+    (src / "matmul.cu").write_text((src / "matmul.cu").read_text() + "\n")
+    assert cuda.library_path() != first
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(cuda, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(cuda.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda.build()
+
+
+def test_c_int_arguments_are_range_checked():
+    assert cuda.c_ints("k", 0, 2 ** 31 - 1) == (0, 2 ** 31 - 1)
+    for bad in (-1, 2 ** 31):
+        with pytest.raises(ValueError, match="C int"):
+            cuda.c_ints("k", bad)
