@@ -10,18 +10,24 @@ Phases, one output line or more each:
               name and power limit.
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the serving path's full-width gemma-2b shapes, in bf16 and
-              fp32 (rtol = atol = 5e-2 and 2e-4); kernel, plain and library
-              times from CUDA events, and the bound the card's peak rates
-              set for the same work.
+              fp32 (rtol = atol = 5e-2 and 2e-4; the int8 kernels compute
+              in fp32 and are held at 2e-4 with either input type);
+              kernel, plain and library times from CUDA events, and the
+              bound the card's peak rates set for the same work.
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
-              with the static and once with the continuous schedule: the
-              two must emit identical token streams, every kernel must
-              launch on the way, and no call may take the plain route.
+              with the static and once with the continuous schedule, with
+              float KV and weights and again with int8 KV pages, int8
+              weights and the prefix cache: each pair must emit identical
+              token streams, every kernel of its path must launch, and no
+              call may take the plain route.  A fully-covered static run
+              (every prompt one cached page) must copy-on-write and emit
+              the streams of the same run without sharing.
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
               full-width model in fp32, once through the kernels and once
-              through the plain versions, both on the card: logits within
-              1e-3 of max |logit|.
+              through the plain versions, both on the card, with float and
+              with int8 KV pages and weights: logits within 1e-3 of
+              max |logit|.
 5. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -49,16 +55,36 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}
 SERVE_ARGS = ["--arch", "gemma-2b", "--slots", "4", "--requests", "6",
               "--prompt-len", "100", "--max-new", "16", "--max-len", "256"]
+INT8_ARGS = ["--kv-dtype", "int8", "--weights-dtype", "int8"]
+PREFIX_ARGS = ["--prefix-cache", "--shared-prefix-len", "64",
+               "--shared-frac", "1.0"]
+# every prompt is the same single page: all but the first request are
+# fully covered by the prefix cache
+COVERED_ARGS = ["--arch", "gemma-2b", "--slots", "4", "--requests", "3",
+                "--prompt-len", "64", "--shared-prefix-len", "64",
+                "--shared-frac", "1.0", "--max-new", "4", "--max-len", "256"]
 REPLACES = {
     "matmul": "src/repro/kernels/matmul/matmul.py:109",
     "decode_attention": "src/repro/kernels/attention/decode.py:114",
     "prefill_attention": "src/repro/kernels/attention/prefill.py:121",
+    "quantized_matmul": "src/repro/kernels/matmul/matmul.py:75",
+    "decode_attention_int8": "src/repro/kernels/attention/decode.py:62",
+    "prefill_attention_int8": "src/repro/kernels/attention/prefill.py:63",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "prefill_attention": "src/repro_torch/kernels/csrc/prefill_attention.cu",
+    "quantized_matmul": "src/repro_torch/kernels/csrc/quantized_matmul.cu",
+    "decode_attention_int8":
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "prefill_attention_int8":
+        "src/repro_torch/kernels/csrc/prefill_attention.cu",
 }
+# the case of each kernel that the summary line reports (bf16)
+SUMMARY_CASE = {"matmul": "M=4 K=2048 N=16384",
+                "quantized_matmul": "M=4 K=2048 N=16384"}
+WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 
 
 def emit(obj) -> None:
@@ -99,11 +125,12 @@ def compare(torch, name: str, got, want, dtype: str) -> float:
     return diff.max().item()
 
 
-def row(name, case, dtype, err, ms, plain_ms, bnd, library_ms=None):
+def row(name, case, dtype, err, ms, plain_ms, bnd, library_ms=None,
+        **extra):
     bound_ms, bound_by = bnd
     r = {"kernel": name, "case": case, "dtype": dtype, "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": library_ms}
+         "bound_by": bound_by, "library_ms": library_ms, **extra}
     emit(r)
     return r
 
@@ -141,6 +168,41 @@ def check_matmul(torch, dtype_name: str):
     return rows
 
 
+def check_quantized_matmul(torch, dtype_name: str, matmul_rows):
+    """B5 at the four projection/MLP weight shapes, M = 4 and 256, beside
+    B1's bf16 time at the same shape (from ``matmul_rows``)."""
+    from repro_torch.core.quant import quantize_channelwise
+    from repro_torch.kernels.matmul import (quantized_matmul_cuda,
+                                            quantized_matmul_plain)
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b1 = {r["case"]: r["ms"] for r in matmul_rows
+          if r["kernel"] == "matmul" and r["dtype"] == "bfloat16"}
+    rows = []
+    for m in (4, 256):
+        for k, n in WEIGHT_SHAPES:
+            a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(k, n, generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dtype)
+            b_q, scale = quantize_channelwise(w)
+            del w
+            case = f"M={m} K={k} N={n}"
+            # fp32 arithmetic on both routes whatever A's type
+            err = compare(torch, "quantized_matmul " + case,
+                          quantized_matmul_cuda(a, b_q, scale),
+                          quantized_matmul_plain(a, b_q, scale), "float32")
+            nbytes = k * n + n * 4 + m * k * a.element_size() + m * n * 4
+            rows.append(row(
+                "quantized_matmul", case, dtype_name, err,
+                time_ms(torch, lambda: quantized_matmul_cuda(a, b_q, scale)),
+                time_ms(torch, lambda: quantized_matmul_plain(a, b_q,
+                                                              scale)),
+                bound(nbytes, 2.0 * m * n * k, dtype_name), None,
+                b1_bf16_ms=b1[case]))
+            del a, b_q, scale
+    return rows
+
+
 def paged_inputs(torch, dtype, gen, *, b, h, hkv, hd, page, n_pages):
     pool = 1 + b * n_pages
     kp = torch.randn(pool, page, hkv, hd, generator=gen, device="cuda")
@@ -151,7 +213,9 @@ def paged_inputs(torch, dtype, gen, *, b, h, hkv, hd, page, n_pages):
 
 
 def check_decode(torch, dtype_name: str):
+    from repro_torch.core.quant import quantize_pages
     from repro_torch.kernels.attention import (decode_attention_cuda,
+                                               decode_attention_int8_cuda,
                                                decode_attention_plain)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -181,11 +245,37 @@ def check_decode(torch, dtype_name: str):
             time_ms(torch, lambda: decode_attention_plain(
                 q, kp, vp, table, lengths, window=window), 50),
             bound(nbytes, 4.0 * h * hd * live, dtype_name)))
+    # the int8 branch on the same inputs, quantized page by page
+    kq, ks = quantize_pages(kp)
+    vq, vs = quantize_pages(vp)
+    for window in (0, 100):
+        args = (q, kq, vq, table, lengths, ks, vs)
+        err = compare(torch, f"decode int8 window={window}",
+                      decode_attention_int8_cuda(*args, window=window),
+                      decode_attention_plain(*args, window=window),
+                      "float32")
+        live = sum(min(n, window) if window else n for n in lens)
+        pages = sum(-(-n // page) - ((max(0, n - window) // page) if window
+                                     else 0) for n in lens)
+        nbytes = (q.numel() * q.element_size() + 2 * live * hkv * hd
+                  + 2 * pages * hkv * 4 + table.numel() * 4 + b * 4
+                  + b * h * hd * 4)
+        rows.append(row(
+            "decode_attention_int8",
+            f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens} "
+            f"window={window} int8 pools", dtype_name, err,
+            time_ms(torch, lambda: decode_attention_int8_cuda(
+                *args, window=window), 50),
+            time_ms(torch, lambda: decode_attention_plain(
+                *args, window=window), 50),
+            bound(nbytes, 4.0 * h * hd * live, dtype_name)))
     return rows
 
 
 def check_prefill(torch, dtype_name: str):
+    from repro_torch.core.quant import quantize_pages
     from repro_torch.kernels.attention import (prefill_attention_cuda,
+                                               prefill_attention_int8_cuda,
                                                prefill_attention_plain)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -219,60 +309,139 @@ def check_prefill(torch, dtype_name: str):
             time_ms(torch, lambda: prefill_attention_plain(
                 q, kp, vp, table, starts, window=window), 20),
             bound(nbytes, 4.0 * hd * h * seen, dtype_name)))
+    kq, ks = quantize_pages(kp)
+    vq, vs = quantize_pages(vp)
+    for window in (0, 100):
+        args = (q, kq, vq, table, starts, ks, vs)
+        err = compare(torch, f"prefill int8 window={window}",
+                      prefill_attention_int8_cuda(*args, window=window),
+                      prefill_attention_plain(*args, window=window),
+                      "float32")
+        seen = sum(min(s + i + 1, window) if window else s + i + 1
+                   for s in st for i in range(c))
+        lo = [max(0, s - window + 1) if window else 0 for s in st]
+        kv_rows = sum(s + c - l for s, l in zip(st, lo))
+        pages = sum(-(-(s + c) // page) - l // page for s, l in zip(st, lo))
+        nbytes = (q.numel() * q.element_size() + 2 * kv_rows * hkv * hd
+                  + 2 * pages * hkv * 4 + table.numel() * 4 + b * 4
+                  + q.numel() * 4)
+        rows.append(row(
+            "prefill_attention_int8",
+            f"B={b} C={c} H={h} Hkv={hkv} hd={hd} page={page} starts={st} "
+            f"window={window} int8 pools", dtype_name, err,
+            time_ms(torch, lambda: prefill_attention_int8_cuda(
+                *args, window=window), 20),
+            time_ms(torch, lambda: prefill_attention_plain(
+                *args, window=window), 20),
+            bound(nbytes, 4.0 * hd * h * seen, dtype_name)))
     return rows
 
 
 # ------------------------------------------------------------ phase 3
-def serve_phase(torch):
+FLOAT_PATH = ("matmul", "decode_attention", "prefill_attention")
+INT8_PATH = ("matmul", "quantized_matmul", "decode_attention_int8",
+             "prefill_attention_int8")
+
+
+def serve_run(torch, label, argv, path):
+    """One ``serve.main`` run with every launch count set to 0 just before
+    it and read just after; raises on a plain route, on a kernel of
+    ``path`` that never launched, or on one off the path that did."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
-    reports, launches = {}, {}
-    for schedule, extra in (("static", []),
-                            ("continuous", ["--clock", "tick"])):
-        dispatch.reset_launch_counts()
-        rep = serve.main(SERVE_ARGS + ["--schedule", schedule] + extra)
-        launches[schedule] = dispatch.launch_counts()
-        reports[schedule] = rep
-        streams = {r.rid: list(r.out) for r in rep["done"]}
-        emit({"phase": "serve", "schedule": schedule,
-              "requests": len(rep["done"]), "new_tokens": rep["new_tokens"],
-              "tok_s": rep["tok_s"], "seconds": rep["seconds"],
-              "ttft_p50": rep["ttft_p50"], "ttft_p99": rep["ttft_p99"],
-              "ttft_unit": "ticks" if schedule == "continuous" else None,
-              "phases": rep["phases"],
-              "routes": {f"{op}/{route}": n
-                         for (op, route), n in rep["routes"].items()},
-              "launches": launches[schedule], "streams": streams})
-        if len(rep["done"]) != 6 or any(len(r.out) != 16
-                                        for r in rep["done"]):
-            raise AssertionError(f"{schedule}: not every request served")
-        plain = {k: n for k, n in rep["routes"].items() if k[1] == "plain"}
-        if plain:
-            raise AssertionError(f"{schedule}: plain routes on the card: "
-                                 f"{plain}")
-        missing = [op for op, n in launches[schedule].items() if n == 0]
-        if missing:
-            raise AssertionError(f"{schedule}: kernels never launched: "
-                                 f"{missing}")
-    s = {r.rid: list(r.out) for r in reports["static"]["done"]}
-    c = {r.rid: list(r.out) for r in reports["continuous"]["done"]}
-    if s != c:
-        raise AssertionError(f"static and continuous streams differ:\n"
-                             f"{s}\n{c}")
-    emit({"phase": "serve", "identical_streams": True})
-    return {op: launches["static"][op] + launches["continuous"][op]
-            for op in launches["static"]}
+    dispatch.reset_launch_counts()
+    rep = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    streams = {r.rid: list(r.out) for r in rep["done"]}
+    emit({"phase": "serve", "run": label,
+          "requests": len(rep["done"]), "new_tokens": rep["new_tokens"],
+          "tok_s": rep["tok_s"], "seconds": rep["seconds"],
+          "ttft_p50": rep["ttft_p50"], "ttft_p99": rep["ttft_p99"],
+          "phases": rep["phases"], "prefix": rep["prefix"],
+          "max_resident_kv_bytes": rep["max_resident_kv_bytes"],
+          "routes": {f"{op}/{route}": n
+                     for (op, route), n in rep["routes"].items()},
+          "launches": launches, "streams": streams})
+    plain = {k: n for k, n in rep["routes"].items() if k[1] == "plain"}
+    if plain:
+        raise AssertionError(f"{label}: plain routes on the card: {plain}")
+    wrong = [op for op, n in launches.items() if (n > 0) != (op in path)]
+    if wrong:
+        raise AssertionError(f"{label}: launches off the expected path "
+                             f"{path}: {launches}")
+    return rep, streams, launches
+
+
+def serve_phase(torch):
+    launches = {}
+
+    def add(counts):
+        for op, n in counts.items():
+            launches[op] = launches.get(op, 0) + n
+
+    kv_bytes = {}
+    for name, extra, path in (("float", [], FLOAT_PATH),
+                              ("int8+prefix", INT8_ARGS + PREFIX_ARGS,
+                               INT8_PATH)):
+        streams = {}
+        for schedule, sched_args in (("static", []),
+                                     ("continuous", ["--clock", "tick"])):
+            rep, streams[schedule], counts = serve_run(
+                torch, f"{name} {schedule}",
+                SERVE_ARGS + extra + ["--schedule", schedule] + sched_args,
+                path)
+            add(counts)
+            if len(rep["done"]) != 6 or any(len(r.out) != 16
+                                            for r in rep["done"]):
+                raise AssertionError(f"{name} {schedule}: not every request "
+                                     f"served")
+            if rep["prefix"] is not None and rep["prefix"]["hits"] == 0:
+                raise AssertionError(f"{name} {schedule}: no prefix hit")
+            if schedule == "continuous":
+                kv_bytes[name] = rep["max_resident_kv_bytes"]
+        if streams["static"] != streams["continuous"]:
+            raise AssertionError(f"{name}: static and continuous streams "
+                                 f"differ:\n{streams['static']}\n"
+                                 f"{streams['continuous']}")
+        emit({"phase": "serve", "run": name, "identical_streams": True})
+    emit({"phase": "serve", "max_resident_kv_bytes": kv_bytes})
+
+    # fully covered: every request after the first binds the cached page
+    # and takes its first token through a decode that copies that page
+    rep, shared, counts = serve_run(
+        torch, "int8 fully-covered static",
+        COVERED_ARGS + INT8_ARGS + ["--prefix-cache"], INT8_PATH)
+    add(counts)
+    if rep["prefix"]["cow_copies"] < 1:
+        raise AssertionError(f"fully-covered run made no copy: "
+                             f"{rep['prefix']}")
+    _, alone, counts = serve_run(torch, "int8 unshared static",
+                                 COVERED_ARGS + INT8_ARGS, INT8_PATH)
+    add(counts)
+    if shared != alone:
+        raise AssertionError(f"sharing changed the streams:\n{shared}\n"
+                             f"{alone}")
+    emit({"phase": "serve", "run": "int8 fully-covered",
+          "cow_copies": rep["prefix"]["cow_copies"],
+          "streams_equal_unshared": True})
+    return launches
 
 
 # ------------------------------------------------------------ phase 4
-def model_phase(torch):
+def model_phase(torch, int8: bool):
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.core.memory import DtypePolicy
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
     f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
-    model = Model(get_arch("gemma-2b"), dt=f32, device="cuda")
-    params = model.init(seed=1)
+    cfg = get_arch("gemma-2b")
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8", weights_dtype="int8")
+    model = Model(cfg, dt=f32, device="cuda")
+    params = model.bind_params(model.init(seed=1))
     gen = torch.Generator(device="cuda").manual_seed(3)
     page, prompt_len = 64, 50
     toks = torch.zeros(1, page, dtype=torch.int32, device="cuda")
@@ -306,11 +475,14 @@ def model_phase(torch):
     # of the input token far above the rest; the spread shows the scale
     # of the other logits
     emit({"phase": "model", "arch": "gemma-2b", "dtype": "float32",
+          "kv_dtype": cfg.kv_dtype or "float32",
+          "weights_dtype": cfg.weights_dtype or "float32",
           "positions": 5, "max_abs_err": err, "max_abs_logit": scale,
           "rel_err": err / scale, "logit_std": plain.std().item()})
     if not err <= 1e-3 * scale:
         raise AssertionError(f"full-width logits: max |err| {err:.3e} > "
                              f"1e-3 x {scale:.3e}")
+    del params, kernel, plain
 
 
 # ------------------------------------------------------------ main
@@ -346,22 +518,26 @@ def main(argv=None) -> int:
     rows = []
     for dtype_name in ("bfloat16", "float32"):
         rows += check_matmul(torch, dtype_name)
+    for dtype_name in ("bfloat16", "float32"):
+        rows += check_quantized_matmul(torch, dtype_name, rows)
         rows += check_decode(torch, dtype_name)
         rows += check_prefill(torch, dtype_name)
     torch.cuda.empty_cache()
 
     launches = serve_phase(torch)
     torch.cuda.empty_cache()
-    model_phase(torch)
+    for int8 in (False, True):
+        model_phase(torch, int8)
+        torch.cuda.empty_cache()
 
     # the summary line: per kernel, the times of its first bf16 case at
-    # the serving shapes (matmul: the decode MLP up-projection, M=4 K=2048
-    # N=16384) and the largest error over all its cases
+    # the serving shapes (the GEMMs: the decode MLP up-projection, M=4
+    # K=2048 N=16384) and the largest error over all its cases
     kernels = []
     for name in SOURCES:
         mine = [r for r in rows if r["kernel"] == name]
         rep = [r for r in mine if r["dtype"] == "bfloat16"
-               and (name != "matmul" or r["case"] == "M=4 K=2048 N=16384")][0]
+               and r["case"] == SUMMARY_CASE.get(name, r["case"])][0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

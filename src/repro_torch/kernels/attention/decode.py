@@ -9,20 +9,32 @@ Layout: q (B, H, hd) -- one token per slot, GQA-grouped so that head h
 reads kv head h // grp; k_pages / v_pages (P, page, Hkv, hd); table
 (B, n_pages) int32 page ids; lengths (B,) int32 valid tokens per slot
 (0 = inactive slot -> zero output, no NaNs).  Returns (B, H, hd) fp32.
+
+int8 pools (the quantized branch of the TPU kernel) come with k_scale /
+v_scale (P, Hkv) f32, one scale per (page, kv head): the plain version
+dequantizes at gather time, the kernel as it loads each tile
+(``decode_attention_int8_cuda``); q stays float.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from .. import cuda
 
 
-def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Each slot's pages in logical order: (B, n_pages * page, Hkv, hd)."""
+def gather_pages(pages: torch.Tensor, table: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each slot's pages in logical order: (B, n_pages * page, Hkv, hd).
+    int8 pools dequantize to fp32 through their (P, Hkv) ``scale``."""
     b = table.shape[0]
-    return pages[table.long()].reshape(b, -1, pages.shape[2], pages.shape[3])
+    idx = table.long()
+    g = pages[idx]                       # (B, n_pages, page, Hkv, hd)
+    if scale is not None:
+        g = g.float() * scale[idx][:, :, None, :, None]
+    return g.reshape(b, -1, pages.shape[2], pages.shape[3])
 
 
 def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -33,14 +45,17 @@ def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, table: torch.Tensor,
-                           lengths: torch.Tensor, *,
+                           lengths: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None, *,
                            window: int = 0) -> torch.Tensor:
-    """Gather pages to a dense view, mask keys past each slot's length
-    (and older than its window), fp32 softmax; P is cast to V's dtype
-    before the P @ V product, as in the kernel."""
+    """Gather pages to a dense view (dequantizing int8 pools), mask keys
+    past each slot's length (and older than its window), fp32 softmax; P
+    is cast to V's dtype before the P @ V product, as in the kernel (fp32
+    for dequantized int8 pools)."""
     b, h, hd = q.shape
-    k = expand_kv(gather_pages(k_pages, table), h)
-    v = expand_kv(gather_pages(v_pages, table), h)
+    k = expand_kv(gather_pages(k_pages, table, k_scale), h)
+    v = expand_kv(gather_pages(v_pages, table, v_scale), h)
     scores = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) \
         / math.sqrt(hd)
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -56,16 +71,32 @@ def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _check_paged(name: str, q, k_pages, v_pages, table, lengths,
-                 q_heads_dim: int) -> None:
-    cuda.require_cuda(name, q, k_pages, v_pages, table, lengths)
+                 q_heads_dim: int, k_scale=None, v_scale=None) -> None:
+    """Shapes, dtypes and devices the attention kernels take: float pools
+    of q's dtype, or int8 pools with their (P, Hkv) fp32 scales."""
+    scales = () if k_scale is None and v_scale is None else (k_scale,
+                                                             v_scale)
+    if any(s is None for s in scales):
+        raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
+    cuda.require_cuda(name, q, k_pages, v_pages, table, lengths, *scales)
     if q.dim() != q_heads_dim + 2:
         raise ValueError(f"{name}: q has shape {tuple(q.shape)}")
     if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
         raise ValueError(f"{name}: k/v pools must share one (P, page, Hkv, "
                          f"hd) shape, got {tuple(k_pages.shape)} and "
                          f"{tuple(v_pages.shape)}")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+    if not scales and not (q.dtype == k_pages.dtype == v_pages.dtype):
         raise TypeError(f"{name}: q and the pools must share one dtype")
+    if scales:
+        if q.dtype not in cuda.DTYPE_CODES or k_pages.dtype != torch.int8 \
+                or v_pages.dtype != torch.int8:
+            raise TypeError(f"{name}: scales come with int8 pools and a "
+                            f"float q, got {q.dtype} and {k_pages.dtype}")
+        cell = (k_pages.shape[0], k_pages.shape[2])
+        for s in scales:
+            if s.dtype != torch.float32 or tuple(s.shape) != cell:
+                raise ValueError(f"{name}: scales must be fp32 {cell}, got "
+                                 f"{s.dtype} {tuple(s.shape)}")
     if table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"{name}: table and lengths/starts must be int32")
     h, hd = q.shape[q_heads_dim], q.shape[-1]
@@ -79,33 +110,65 @@ def _check_paged(name: str, q, k_pages, v_pages, table, lengths,
                          f"must match q's batch")
 
 
-def decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
-                          v_pages: torch.Tensor, table: torch.Tensor,
-                          lengths: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
-    """Launch ``repro_decode_attention`` (one block per slot and kv
-    head); raises on anything the kernel does not take."""
-    _check_paged("decode_attention", q, k_pages, v_pages, table, lengths,
-                 q_heads_dim=1)
+def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
+            window: int) -> torch.Tensor:
+    """Launch ``repro_decode_attention`` (float pools) or its int8 entry
+    (one block per slot and kv head) and count it on ``wrapper``."""
+    name = "decode_attention" if k_scale is None else "decode_attention_int8"
+    _check_paged(name, q, k_pages, v_pages, table, lengths, 1, k_scale,
+                 v_scale)
     b, h, hd = q.shape
     _, page, hkv, _ = k_pages.shape
     grp = h // hkv
     smem = 4 * (2 * grp * hd + 32 * (2 * hd + 1) + 32 * grp + 3 * grp)
     if smem > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: group {grp} x head width {hd} "
-                         f"needs {smem} bytes of shared memory")
+        raise ValueError(f"{name}: group {grp} x head width {hd} needs "
+                         f"{smem} bytes of shared memory")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
-    rc = cuda.library().repro_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        *cuda.c_ints("decode_attention", b, h, hkv, hd, page, table.shape[1],
-                     k_pages.shape[0], max(0, int(window))),
-        cuda.dtype_code(q), cuda.stream_of(q))
-    cuda.check(rc, "decode_attention")
-    decode_attention_cuda.launches += 1
+    lib = cuda.library()
+    sizes = cuda.c_ints(name, b, h, hkv, hd, page, table.shape[1],
+                        k_pages.shape[0], max(0, int(window)))
+    if k_scale is None:
+        rc = lib.repro_decode_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), lengths.data_ptr(), out.data_ptr(), *sizes,
+            cuda.dtype_code(q), cuda.stream_of(q))
+    else:
+        rc = lib.repro_decode_attention_int8(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), *sizes, cuda.dtype_code(q),
+            cuda.stream_of(q))
+    cuda.check(rc, name)
+    wrapper.launches += 1
     return out
 
 
+def decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, table: torch.Tensor,
+                          lengths: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """Launch the float-pool kernel; raises on anything it does not
+    take."""
+    return _launch(decode_attention_cuda, q, k_pages, v_pages, table,
+                   lengths, None, None, window)
+
+
+def decode_attention_int8_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, table: torch.Tensor,
+                               lengths: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, *,
+                               window: int = 0) -> torch.Tensor:
+    """Launch the int8-pool kernel (B4a): int8 pools with their (P, Hkv)
+    fp32 scales, a bf16 or fp32 q; raises on anything it does not take."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("decode_attention_int8: k_scale and v_scale are "
+                         "required")
+    return _launch(decode_attention_int8_cuda, q, k_pages, v_pages, table,
+                   lengths, k_scale, v_scale, window)
+
+
 decode_attention_cuda.launches = 0
+decode_attention_int8_cuda.launches = 0

@@ -19,6 +19,12 @@
 // length 0 writes exact zeros.  The grid is (B, Hkv): for gemma-2b
 // (Hkv = 1) that is only B blocks on 132 SMs; splitting the key range
 // across blocks (split-KV) is the first redesign.
+//
+// int8 pools (the TPU kernel's quantized branch, decode.py:62-72, B4a) run
+// the same kernel instantiated on an int8 pool type: each K/V element
+// dequantizes at gather time by its (page, kv head) f32 scale, looked up
+// through the same bounds-checked page id, and P stays fp32 before P @ V
+// (V is already fp32).  The int8 pools read a quarter of fp32's bytes.
 #include "common.cuh"
 
 namespace {
@@ -26,10 +32,12 @@ namespace {
 constexpr int TK = 32;        // keys per tile: one softmax lane per key
 constexpr int THREADS = 256;
 
-template <typename T>
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-              const T* __restrict__ v_pages, const int* __restrict__ table,
+decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+              const TKV* __restrict__ v_pages,
+              const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, const int* __restrict__ table,
               const int* __restrict__ lengths, float* __restrict__ out, int H,
               int Hkv, int hd, int page, int n_pages, int n_pool,
               int window) {
@@ -75,8 +83,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         if (pid < 0 || pid >= n_pool) __trap();  // a page id outside the pool
         const long long off =
             ((pid * page + kpos % page) * Hkv + h) * (long long)hd + d;
-        kv = to_f32(k_pages[off]);
-        vv = to_f32(v_pages[off]);
+        kv = load_kv(k_pages, off, k_scale, pid * Hkv + h);
+        vv = load_kv(v_pages, off, v_scale, pid * Hkv + h);
       }
       k_s[t * kstride + d] = kv;
       v_s[t * hd + d] = vv;
@@ -98,7 +106,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       const float m_new = fmaxf(m_prev, warp_max(s));
       const float p = s > NEG_BIG ? expf(s - m_new) : 0.f;
       const float sum = warp_sum(p);
-      p_s[g * TK + lane] = round_via<T>(p);
+      p_s[g * TK + lane] = round_via<TKV>(p);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         l_s[g] = l_s[g] * alpha + sum;
@@ -124,22 +132,24 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* table, const void* lengths, void* out, int B, int H,
-           int Hkv, int hd, int page, int n_pages, int n_pool, int window,
+           const void* k_scale, const void* v_scale, const void* table,
+           const void* lengths, void* out, int B, int H, int Hkv, int hd,
+           int page, int n_pages, int n_pool, int window,
            cudaStream_t stream) {
   const int grp = H / Hkv;
   const size_t smem =
       sizeof(float) * (2 * grp * hd + TK * (hd + 1) + TK * hd + grp * TK +
                        3 * grp);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_kernel<T><<<dim3(B, Hkv), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(table),
+  decode_kernel<TQ, TKV><<<dim3(B, Hkv), THREADS, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<float*>(out), H, Hkv, hd,
       page, n_pages, n_pool, window);
   return static_cast<int>(cudaGetLastError());
@@ -158,10 +168,31 @@ extern "C" int repro_decode_attention(const void* q, const void* k_pages,
                                       int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, table, lengths, out, B,
-                                 H, Hkv, hd, page, n_pages, n_pool, window, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, B, H, Hkv,
+        hd, page, n_pages, n_pool, window, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k_pages, v_pages, table, lengths, out, B, H, Hkv,
-                         hd, page, n_pages, n_pool, window, s);
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr, table,
+                                lengths, out, B, H, Hkv, hd, page, n_pages,
+                                n_pool, window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 branch: k/v_pages int8, k/v_scale (n_pool, Hkv) f32, q of the
+// float type `dtype`; otherwise as repro_decode_attention.
+extern "C" int repro_decode_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* lengths, void* out, int B, int H, int Hkv, int hd, int page,
+    int n_pages, int n_pool, int window, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, table, lengths, out, B, H, Hkv,
+        hd, page, n_pages, n_pool, window, s);
+  if (dtype == DTYPE_F32)
+    return launch<float, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
+                                 table, lengths, out, B, H, Hkv, hd, page,
+                                 n_pages, n_pool, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,11 @@
 // kpos > qpos - window.  A block visits only the key tiles its own rows can
 // see.  Scores and the P @ V product run on fp32 FMA units; moving both
 // products onto the tensor cores (wgmma) is the next step.
+//
+// int8 pools (the TPU kernel's quantized branch, prefill.py:63-73, B4b)
+// run the same kernel instantiated on an int8 pool type, dequantizing each
+// K/V element at gather time by its (page, kv head) f32 scale, with P kept
+// in fp32 before P @ V, as in decode_attention.cu.
 #include "common.cuh"
 
 namespace {
@@ -28,10 +33,12 @@ constexpr int TK = 32;        // keys per tile: one softmax lane per key
 constexpr int RB = 32;        // query rows per block
 constexpr int THREADS = 256;
 
-template <typename T>
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-               const T* __restrict__ v_pages, const int* __restrict__ table,
+prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+               const TKV* __restrict__ v_pages,
+               const float* __restrict__ k_scale,
+               const float* __restrict__ v_scale, const int* __restrict__ table,
                const int* __restrict__ starts, float* __restrict__ out, int C,
                int H, int Hkv, int hd, int page, int n_pages, int n_pool,
                int window) {
@@ -83,8 +90,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         if (pid < 0 || pid >= n_pool) __trap();  // a page id outside the pool
         const long long off =
             ((pid * page + kpos % page) * Hkv + h) * (long long)hd + d;
-        kv = to_f32(k_pages[off]);
-        vv = to_f32(v_pages[off]);
+        kv = load_kv(k_pages, off, k_scale, pid * Hkv + h);
+        vv = load_kv(v_pages, off, v_scale, pid * Hkv + h);
       }
       k_s[t * kstride + d] = kv;
       v_s[t * hd + d] = vv;
@@ -109,7 +116,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       const float m_new = fmaxf(m_prev, warp_max(s));
       const float p = s > NEG_BIG ? expf(s - m_new) : 0.f;
       const float sum = warp_sum(p);
-      p_s[r * TK + lane] = round_via<T>(p);
+      p_s[r * TK + lane] = round_via<TKV>(p);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         l_s[r] = l_s[r] * alpha + sum;
@@ -137,22 +144,24 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* table, const void* starts, void* out, int B, int C,
-           int H, int Hkv, int hd, int page, int n_pages, int n_pool,
-           int window, cudaStream_t stream) {
+           const void* k_scale, const void* v_scale, const void* table,
+           const void* starts, void* out, int B, int C, int H, int Hkv,
+           int hd, int page, int n_pages, int n_pool, int window,
+           cudaStream_t stream) {
   const int rows = C * (H / Hkv);
   const size_t smem = sizeof(float) * (2 * RB * hd + TK * (hd + 1) +
                                        TK * hd + RB * TK + 3 * RB);
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_kernel<TQ, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B, Hkv, (rows + RB - 1) / RB);
-  prefill_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(table),
+  prefill_kernel<TQ, TKV><<<grid, THREADS, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table),
       static_cast<const int*>(starts), static_cast<float*>(out), C, H, Hkv,
       hd, page, n_pages, n_pool, window);
   return static_cast<int>(cudaGetLastError());
@@ -171,11 +180,31 @@ extern "C" int repro_prefill_attention(const void* q, const void* k_pages,
                                        int window, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, table, starts, out, B,
-                                 C, H, Hkv, hd, page, n_pages, n_pool, window,
-                                 s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, table, starts, out, B, C, H,
+        Hkv, hd, page, n_pages, n_pool, window, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k_pages, v_pages, table, starts, out, B, C, H,
-                         Hkv, hd, page, n_pages, n_pool, window, s);
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr, table,
+                                starts, out, B, C, H, Hkv, hd, page, n_pages,
+                                n_pool, window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 branch: k/v_pages int8, k/v_scale (n_pool, Hkv) f32, q of the
+// float type `dtype`; otherwise as repro_prefill_attention.
+extern "C" int repro_prefill_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* starts, void* out, int B, int C, int H, int Hkv, int hd,
+    int page, int n_pages, int n_pool, int window, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, table, starts, out, B, C, H,
+        Hkv, hd, page, n_pages, n_pool, window, s);
+  if (dtype == DTYPE_F32)
+    return launch<float, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
+                                 table, starts, out, B, C, H, Hkv, hd, page,
+                                 n_pages, n_pool, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

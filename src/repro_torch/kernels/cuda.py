@@ -35,8 +35,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry points: pointers and the stream as c_void_p, sizes as c_int
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P] + [_I] * 7 + [_P],
+    "repro_quantized_matmul": [_P] * 4 + [_I] * 5 + [_P],
     "repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
+    "repro_decode_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
     "repro_prefill_attention": [_P] * 6 + [_I] * 10 + [_P],
+    "repro_prefill_attention_int8": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

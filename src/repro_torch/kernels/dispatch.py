@@ -16,16 +16,23 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .attention import (decode_attention_cuda, decode_attention_plain,
-                        prefill_attention_cuda, prefill_attention_plain)
-from .matmul import matmul_cuda, matmul_plain
+from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
+                        decode_attention_plain, prefill_attention_cuda,
+                        prefill_attention_int8_cuda, prefill_attention_plain)
+from .matmul import (matmul_cuda, matmul_plain, quantized_matmul_cuda,
+                     quantized_matmul_plain)
 
 _stats: Counter = Counter()
 
-# every kernel wrapper, by op name; each carries its launch count
+# every kernel wrapper, by op name; each carries its launch count.  The
+# int8 attention branches count under their own names, so a run shows
+# which branch launched.
 KERNELS = {"matmul": matmul_cuda,
+           "quantized_matmul": quantized_matmul_cuda,
            "decode_attention": decode_attention_cuda,
-           "prefill_attention": prefill_attention_cuda}
+           "decode_attention_int8": decode_attention_int8_cuda,
+           "prefill_attention": prefill_attention_cuda,
+           "prefill_attention_int8": prefill_attention_int8_cuda}
 
 
 def reset_stats() -> None:
@@ -74,29 +81,65 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + w.shape[1:])
 
 
+def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor) -> torch.Tensor:
+    """Int8-weight matmul with per-output-channel dequant (§4.4 type
+    demotion).  x: (..., K) float; w_q: (K, N) int8; w_scale: (N,) fp32
+    (``core.quant.quantize_channelwise``).  Returns x.shape[:-1] + (N,)
+    fp32."""
+    k = x.shape[-1]
+    a = x.reshape(-1, k)
+    fn = quantized_matmul_cuda if _on_card("quantized_matmul", x) \
+        else quantized_matmul_plain
+    return fn(a, w_q, w_scale).reshape(x.shape[:-1] + w_q.shape[1:])
+
+
 def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, table: torch.Tensor,
-                     lengths: torch.Tensor, *, window: int = 0,
+                     lengths: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None, *,
+                     window: int = 0,
                      out_dtype: Optional[torch.dtype] = None
                      ) -> torch.Tensor:
     """Ragged decode attention over a paged KV cache (layout in
-    ``attention/decode.py``).  Returns (B, H, hd) in ``out_dtype``
+    ``attention/decode.py``).  int8 pools pass their (P, Hkv) fp32
+    ``k_scale`` / ``v_scale`` (both or neither) and take the int8 branch,
+    op ``decode_attention_int8``.  Returns (B, H, hd) in ``out_dtype``
     (default q's dtype)."""
-    fn = decode_attention_cuda if _on_card("decode_attention", q) \
-        else decode_attention_plain
-    out = fn(q, k_pages, v_pages, table, lengths, window=window)
+    if k_scale is None:
+        fn = decode_attention_cuda if _on_card("decode_attention", q) \
+            else decode_attention_plain
+        out = fn(q, k_pages, v_pages, table, lengths, window=window)
+    elif _on_card("decode_attention_int8", q):
+        out = decode_attention_int8_cuda(q, k_pages, v_pages, table, lengths,
+                                         k_scale, v_scale, window=window)
+    else:
+        out = decode_attention_plain(q, k_pages, v_pages, table, lengths,
+                                     k_scale, v_scale, window=window)
     return out.to(q.dtype if out_dtype is None else out_dtype)
 
 
 def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, table: torch.Tensor,
-                      starts: torch.Tensor, *, window: int = 0,
+                      starts: torch.Tensor,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None, *,
+                      window: int = 0,
                       out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """Ragged multi-token prefill attention over a paged KV cache (layout
-    in ``attention/prefill.py``).  Returns (B, C, H, hd) in ``out_dtype``
-    (default q's dtype)."""
-    fn = prefill_attention_cuda if _on_card("prefill_attention", q) \
-        else prefill_attention_plain
-    out = fn(q, k_pages, v_pages, table, starts, window=window)
+    in ``attention/prefill.py``); int8 pools as in ``decode_attention``
+    (op ``prefill_attention_int8``).  Returns (B, C, H, hd) in
+    ``out_dtype`` (default q's dtype)."""
+    if k_scale is None:
+        fn = prefill_attention_cuda if _on_card("prefill_attention", q) \
+            else prefill_attention_plain
+        out = fn(q, k_pages, v_pages, table, starts, window=window)
+    elif _on_card("prefill_attention_int8", q):
+        out = prefill_attention_int8_cuda(q, k_pages, v_pages, table, starts,
+                                          k_scale, v_scale, window=window)
+    else:
+        out = prefill_attention_plain(q, k_pages, v_pages, table, starts,
+                                      k_scale, v_scale, window=window)
     return out.to(q.dtype if out_dtype is None else out_dtype)

@@ -1,9 +1,11 @@
-"""C = A @ B with fp32 accumulation: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""C = A @ B with fp32 accumulation, and its int8-weight variant: the CUDA
+kernels' wrappers and their plain PyTorch versions.
 
-Replaces ``repro/kernels/matmul/matmul.py::matmul_pallas``; the kernel is
-``kernels/csrc/matmul.cu``.  Both versions return A's dtype, the JAX
-lowering's ``astype(result_type(x, w))`` of the fp32 accumulator.
+Replaces ``repro/kernels/matmul/matmul.py::matmul_pallas`` (kernel
+``kernels/csrc/matmul.cu``) and ``::quantized_matmul_pallas`` (kernel
+``kernels/csrc/quantized_matmul.cu``).  ``matmul`` returns A's dtype, the
+JAX lowering's ``astype(result_type(x, w))`` of the fp32 accumulator;
+``quantized_matmul`` returns fp32, as the JAX op does.
 """
 from __future__ import annotations
 
@@ -16,6 +18,11 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b (K, N), accumulated in fp32, in the promoted dtype."""
     out_dtype = torch.promote_types(a.dtype, b.dtype)
     return (a.float() @ b.float()).to(out_dtype)
+
+
+def _check_rows(name: str, m: int) -> None:
+    if -(-m // 64) > 65535:                    # the grid's row-tile axis
+        raise ValueError(f"{name}: M={m} exceeds 65535 row tiles of 64")
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,8 +43,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return c
-    if -(-m // 64) > 65535:                    # the grid's row-tile axis
-        raise ValueError(f"matmul: M={m} exceeds 65535 row tiles of 64")
+    _check_rows("matmul", m)
     rc = cuda.library().repro_matmul(
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         *cuda.c_ints("matmul", m, n, k, k, b.stride(0), b.stride(1)),
@@ -48,3 +54,47 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 matmul_cuda.launches = 0
+
+
+def quantized_matmul_plain(a: torch.Tensor, b_q: torch.Tensor,
+                           b_scale: torch.Tensor) -> torch.Tensor:
+    """a (M, K) float @ dequantized b_q (K, N) int8 with per-column f32
+    scales (N,): B is dequantized to fp32 first, then multiplied in fp32
+    (``repro/kernels/matmul/ref.py::quantized_matmul_ref``).  Returns
+    (M, N) fp32."""
+    b = b_q.float() * b_scale.float()[None, :]
+    return a.float() @ b
+
+
+def quantized_matmul_cuda(a: torch.Tensor, b_q: torch.Tensor,
+                          b_scale: torch.Tensor) -> torch.Tensor:
+    """Launch ``repro_quantized_matmul``: a (M, K) bf16 or fp32, b_q
+    (K, N) int8, b_scale (N,) fp32, all contiguous on one CUDA device.
+    The scale multiplies each column's fp32 sum once, at the flush, so the
+    result agrees with the plain version at fp32 tolerance, not bit for
+    bit.  Returns a new (M, N) fp32 tensor."""
+    cuda.require_cuda("quantized_matmul", a, b_q, b_scale)
+    if a.dim() != 2 or b_q.dim() != 2 or a.shape[1] != b_q.shape[0] \
+            or b_scale.shape != (b_q.shape[1],):
+        raise ValueError(f"quantized_matmul: want (M, K) @ (K, N) with (N,) "
+                         f"scales, got {tuple(a.shape)} @ "
+                         f"{tuple(b_q.shape)}, {tuple(b_scale.shape)}")
+    if b_q.dtype != torch.int8 or b_scale.dtype != torch.float32:
+        raise TypeError(f"quantized_matmul: want int8 weights and fp32 "
+                        f"scales, got {b_q.dtype} and {b_scale.dtype}")
+    m, k = a.shape
+    n = b_q.shape[1]
+    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return c
+    _check_rows("quantized_matmul", m)
+    rc = cuda.library().repro_quantized_matmul(
+        a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
+        *cuda.c_ints("quantized_matmul", m, n, k, k),
+        cuda.dtype_code(a), cuda.stream_of(a))
+    cuda.check(rc, "quantized_matmul")
+    quantized_matmul_cuda.launches += 1
+    return c
+
+
+quantized_matmul_cuda.launches = 0

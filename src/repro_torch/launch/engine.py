@@ -6,7 +6,8 @@ discipline (concurrently executing stages connected by explicit state):
 * **load generation** (``launch/loadgen.py``) -- timed request streams on
   a virtual clock;
 * **admission / resources** (``launch/serve.PagedScheduler``) -- page
-  reservation, tables, reclamation, recycling;
+  reservation, prefix sharing (a fully-covered prompt skips prefill and
+  goes straight to decode), tables, reclamation, recycling;
 * **batch composition** (:class:`BatchPolicy`) -- each iteration picks
   page-sized prefill chunks from MULTIPLE waiting slots and decode steps
   for running slots under a per-iteration token budget;
@@ -47,10 +48,12 @@ class StepPlan:
 @dataclass
 class _PrefillState:
     """A slot's in-flight chunked prefill: page-padded prompt tokens, the
-    true prompt length, and the next chunk's offset."""
+    true prompt length, the next chunk's offset, and how many leading
+    tokens a prefix-cache hit let it skip."""
     toks: np.ndarray
     ln: int
     pos: int = 0
+    skipped: int = 0
 
 
 class BatchPolicy:
@@ -125,6 +128,7 @@ class StepExecutor:
         idle) ride along with a zero length and an all-trash table view,
         so their masked writes can never touch a live page."""
         sched = self.sched
+        sched.prepare_decode(decode_slots)   # copy-on-write sweep first
         mask = np.zeros((sched.slots,), bool)
         mask[decode_slots] = True
         lengths = np.where(mask, sched.lengths, 0).astype(np.int32)
@@ -167,6 +171,9 @@ class ContinuousEngine:
         self.admission_order: List[int] = []
         self.iterations = 0
         self.max_resident = 0
+        # peak bytes of live KV pool (pages x per-page bytes at the storage
+        # dtype, scales included): comparable across kv dtypes
+        self.max_resident_kv_bytes = 0
 
     # ------------------------------------------------------------- warmup
     def warmup(self) -> None:
@@ -211,9 +218,24 @@ class ContinuousEngine:
                 break                      # FCFS: never bypass the head
             r = self.waiting.pop(0)
             ln = len(r.prompt)
-            toks = np.zeros((-(-ln // sched.page) * sched.page,), np.int32)
-            toks[:ln] = r.prompt
-            self.states[slot] = _PrefillState(toks, ln)
+            shared = int(sched.shared_tokens[slot])
+            if shared >= ln:
+                # fully covered by the prefix cache: no prefill forward at
+                # all; the slot goes straight to running with lengths =
+                # ln - 1 and the last prompt token teacher-forced through
+                # the next batched decode, whose append copy-on-writes the
+                # shared page it lands in (reserve stashed the spare page)
+                sched.lengths[slot] = ln - 1
+                self.cur[slot] = int(r.prompt[ln - 1])
+                self.states[slot] = None
+            else:
+                # partial coverage is page-aligned (the trie matches whole
+                # chunks): prefill resumes at the first uncovered chunk
+                toks = np.zeros((-(-ln // sched.page) * sched.page,),
+                                np.int32)
+                toks[:ln] = r.prompt
+                self.states[slot] = _PrefillState(toks, ln, pos=shared,
+                                                  skipped=shared)
             self.admission_order.append(r.rid)
             self.metrics.on_admit(r.rid, now)
 
@@ -249,6 +271,8 @@ class ContinuousEngine:
         self.max_resident = max(
             self.max_resident,
             sum(1 for a in sched.active if a is not None))
+        self.max_resident_kv_bytes = max(
+            self.max_resident_kv_bytes, sched.kv_bytes_resident())
 
         running = [i for i in range(sched.slots)
                    if sched.active[i] is not None and self.states[i] is None]
@@ -289,7 +313,8 @@ class ContinuousEngine:
             # last chunk: the first generated token is born (TTFT moment)
             r = sched.active[slot]
             sched.lengths[slot] = st.ln
-            sched.prefill_tokens += st.ln
+            sched.prefill_tokens += st.ln - st.skipped
+            sched.cache_prefix(slot, r.prompt)
             first = int(first_toks[row])
             r.out.append(first)
             self.cur[slot] = first

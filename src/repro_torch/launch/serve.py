@@ -6,7 +6,12 @@ when its whole lifetime's pages can be reserved), chunked prefill (the
 ragged multi-token prefill kernel), batched decode over ragged lengths
 (every slot at its own position, the ragged decode kernel), sliding-window
 page reclamation and slot recycling.  The scheduler computes addresses
-(page tables); the kernels only ever see dense tiles.
+(page tables); the kernels only ever see dense tiles.  With
+``--prefix-cache`` requests share the KV pages of common prompt prefixes
+(refcounted pages, copy-on-write appends, prefill skipping); with
+``--kv-dtype int8`` the pools hold int8 pages with per-(page, kv head)
+scales, and ``--weights-dtype int8`` runs every projection and MLP GEMM on
+int8 weights (type demotion, paper §4.4).
 
 Two schedules (``--schedule {static,continuous}``):
 
@@ -22,13 +27,17 @@ Two schedules (``--schedule {static,continuous}``):
       --max-len 256                 # on the CUDA card (the default)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --smoke --device cpu          # the plain PyTorch versions on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+      --kv-dtype int8 --weights-dtype int8 --prefix-cache \\
+      --shared-prefix-len 64 --shared-frac 1.0 --prompt-len 100 \\
+      --max-len 256                 # int8 + prefix sharing on the card
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +47,7 @@ from ..core.memory import DtypePolicy
 from ..kernels import dispatch
 from ..models.transformer import Model, paged_supported
 from .loadgen import Request, poisson_stream
+from .prefix import PrefixCache
 
 DEFAULT_PAGE_SIZE = 64
 
@@ -47,15 +57,23 @@ class PageAllocator:
 
     Physical page 0 is reserved as the TRASH page: inactive slots' tables
     point every logical page at it, so their masked decode writes can
-    never corrupt a live sequence.  ``alloc`` hands pages out at refcount
-    1 and ``release`` returns a page to the free list when its last holder
-    lets go (sharing pages between requests comes with prefix caching).
+    never corrupt a live sequence.
+
+    Every live page carries a reference count: ``alloc`` hands out pages
+    at refcount 1, ``share`` adds a holder (another slot's table binding,
+    or the prefix cache), and ``release`` drops one -- the page only
+    returns to the free list when its last holder lets go.
     """
 
     def __init__(self, total_pages: int):
         self.total = total_pages
         self._free = list(range(total_pages - 1, 0, -1))
         self.ref = [0] * total_pages
+        # called with the page list every ``alloc`` hands out: the paged
+        # scheduler resets int8 scale rows here, so a recycled page's stale
+        # scales never leak into its next sequence (copy-on-write copies
+        # its payload AFTER alloc, so copied scales survive the reset)
+        self.on_alloc = None
 
     def available(self) -> int:
         return len(self._free)
@@ -73,7 +91,13 @@ class PageAllocator:
         for p in got:
             assert self.ref[p] == 0, f"page {p} allocated while referenced"
             self.ref[p] = 1
+        if got and self.on_alloc is not None:
+            self.on_alloc(got)
         return got
+
+    def share(self, page: int) -> None:
+        assert self.ref[page] > 0, f"cannot share free page {page}"
+        self.ref[page] += 1
 
     def release(self, pages: List[int]) -> None:
         for p in reversed(pages):
@@ -83,17 +107,78 @@ class PageAllocator:
                 self._free.append(p)
 
 
+def _cache_leaves(cache) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every pool leaf: ``k_pages``/``v_pages``
+    (P, page, Hkv, hd) and, for int8 pools, ``k_scale``/``v_scale``
+    (P, Hkv); stacked periods carry a leading period axis (ndim 5 / 3)."""
+    for group in ("prefix", "stack", "tail"):
+        for layer in cache[group]:
+            yield from layer.items()
+
+
+def _pool_axis(leaf: torch.Tensor) -> int:
+    return 1 if leaf.ndim in (3, 5) else 0
+
+
+def _copy_cache_page(cache, src: int, dst: int) -> None:
+    """Copy one physical page across every layer's pools, in place (the
+    copy-on-write payload).  Scale rows ride the same copy, so a copied
+    page dequantizes as its source does."""
+    for _, leaf in _cache_leaves(cache):
+        if _pool_axis(leaf):
+            leaf[:, dst] = leaf[:, src]
+        else:
+            leaf[dst] = leaf[src]
+
+
+def _reset_page_scales(cache, pages: List[int]) -> None:
+    """Zero the int8 scale rows of freshly allocated pages, in place.  A
+    recycled page still holds its previous sequence's payload and scales;
+    ``append_token_quantized`` treats scale 0 as an empty page and wipes
+    the stale payload on the first write, so this reset is what makes
+    page reuse sound under quantization.  No-op for float pools."""
+    idx = torch.tensor(pages, dtype=torch.long)
+    for name, leaf in _cache_leaves(cache):
+        if name.endswith("_scale"):
+            idx = idx.to(leaf.device)
+            if _pool_axis(leaf):
+                leaf[:, idx] = 0.0
+            else:
+                leaf[idx] = 0.0
+
+
+def _page_bytes(cache) -> int:
+    """Bytes ONE physical page occupies across every pool leaf: K/V pages
+    at the storage dtype plus any scale rows."""
+    total = 0
+    for _, leaf in _cache_leaves(cache):
+        ax = _pool_axis(leaf)
+        total += leaf.numel() // leaf.shape[ax] * leaf.element_size()
+    return total
+
+
 class PagedScheduler:
-    """Admission, chunked prefill, batched ragged decode, slot recycling."""
+    """Admission, chunked prefill, batched ragged decode, slot recycling.
+
+    With ``prefix_cache=True`` the scheduler also shares KV pages across
+    requests: finished prefills publish their full pages into a token-id
+    trie (``launch/prefix.PrefixCache``), ``reserve`` binds a new
+    request's leading table rows to matching cached pages (refcounted,
+    prefill skipped for covered chunks), and a decode append into a page
+    with other holders copies it first (copy-on-write).  The kernels
+    resolve ``(slot, page_idx)`` through the same tables either way.
+    """
 
     def __init__(self, model: Model, params, *, slots: int, max_len: int,
-                 page_size: int = 0, total_pages: int = 0, log=print):
+                 page_size: int = 0, total_pages: int = 0,
+                 prefix_cache: bool = False, log=print):
         if not paged_supported(model.cfg):
             raise ValueError(
                 f"arch {model.cfg.name} has layers this port cannot serve "
                 "from a paged cache (attention + MLP stacks only)")
         self.model = model
-        self.params = params
+        # int8 weights are quantized here, once (Model.bind_params)
+        self.params = model.bind_params(params)
         self.device = model.device
         self.slots = slots
         self.max_len = max_len
@@ -104,6 +189,12 @@ class PagedScheduler:
         self.alloc = PageAllocator(total)
         self.cache = model.init_paged_cache(slots, max_len, self.page,
                                             total_pages=total)
+        # int8 pools carry per-page scale rows; their lifecycle is slaved
+        # to the allocator via on_alloc (reset on reuse)
+        self._page_bytes = _page_bytes(self.cache)
+        if any(name.endswith("_scale")
+               for name, _ in _cache_leaves(self.cache)):
+            self.alloc.on_alloc = self._reset_scales
         self.table = np.zeros((slots, self.n_slot_pages), np.int32)
         self.lengths = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
@@ -121,6 +212,15 @@ class PagedScheduler:
         self.rejected = 0                 # inadmissible requests, counted
         self.rejected_requests: List[Request] = []
         self.truncated = 0                # finished early at max_len
+        # ---- prefix sharing (refcounted pages + copy-on-write) ----
+        self.prefix = PrefixCache(self.page) if prefix_cache else None
+        self.shared_tokens = np.zeros((slots,), np.int64)
+        self.shared_tokens_total = 0      # prompt tokens never prefilled
+        self.cow_copies = 0
+        # a fully-covered request's first decode appends into a shared
+        # page; its copy-on-write page is reserved at admission so a
+        # request still never stalls mid-decode
+        self.cow_stash: List[List[int]] = [[] for _ in range(slots)]
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array as an int32 tensor on the model's device."""
@@ -151,47 +251,141 @@ class PagedScheduler:
     def reserve(self, r: Request, slot: int) -> bool:
         """Reserve the request's whole-lifetime pages up front (a request
         never stalls mid-decode on an empty free list) and bind it to
-        ``slot``.  Prefill is the caller's business."""
+        ``slot``.  Prefill is the caller's business.
+
+        With a prefix cache, matching cached pages are bound shared
+        (refcounted) instead of allocated: ``shared_tokens[slot]`` tells
+        the caller how many leading prompt tokens already hold valid K/V
+        -- prefill starts there.  When the cache covers the whole prompt
+        the request also reserves one copy-on-write page (its first
+        decode append lands mid-page in shared memory)."""
         need = self.pages_needed(r)
-        if need > self.n_slot_pages or self.alloc.available() < need:
+        if need > self.n_slot_pages:
             return False
-        pages = self.alloc.alloc(need)
+        shared: List[int] = []
+        covered = 0
+        if self.prefix is not None:
+            shared, covered = self.prefix.match(r.prompt)
+            # pin before any eviction below can free them out from under us
+            for p in shared:
+                self.alloc.share(p)
+        n_cow = 1 if covered >= len(r.prompt) else 0
+        n_priv = need - len(shared) + n_cow
+        if self.alloc.available() < n_priv and self.prefix is not None:
+            self.prefix.evict(n_priv - self.alloc.available(), self.alloc)
+        if self.alloc.available() < n_priv:
+            self.alloc.release(shared)     # unpin: admission failed
+            return False
+        pages = self.alloc.alloc(n_priv)
+        self.cow_stash[slot] = pages[need - len(shared):]
+        pages = shared + pages[:need - len(shared)]
         self.slot_pages[slot] = pages
         self.reclaimed[slot] = 0
         self.table[slot] = 0
         self.table[slot, :need] = pages
         self.lengths[slot] = 0
         self.active[slot] = r
+        self.shared_tokens[slot] = covered
+        self.shared_tokens_total += covered
         self.check_page_accounting()
         return True
 
     def try_admit(self, r: Request, slot: int) -> bool:
         """Static-schedule admission: reserve, then chunk-prefill the
-        prompt to completion."""
+        (non-shared tail of the) prompt to completion.  A fully-covered
+        prompt skips prefill: its first token is born from one masked
+        ragged decode of the last prompt token (also the copy-on-write
+        moment for the shared page it lands in)."""
         if not self.reserve(r, slot):
             return False
-        first = self._prefill_prompt(r, slot)
-        self.lengths[slot] = len(r.prompt)
+        ln = len(r.prompt)
+        start = int(self.shared_tokens[slot])
+        if start >= ln:
+            self.lengths[slot] = ln - 1
+            first = self._first_token_via_decode(slot, int(r.prompt[ln - 1]))
+        else:
+            first = self._prefill_prompt(r, slot, start=start)
+        self.lengths[slot] = ln
+        self.cache_prefix(slot, r.prompt)
         r.out.append(first)
         self._reclaim_slot(slot)    # long prompts can outrun the window
         return True
 
-    def _prefill_prompt(self, r: Request, slot: int) -> int:
-        """Chunked prefill, one page per forward; returns the first
-        generated token from the last real prompt position's logits."""
+    def _prefill_prompt(self, r: Request, slot: int, start: int = 0) -> int:
+        """Chunked prefill, one page per forward, from page-aligned
+        ``start`` (shared leading chunks already hold valid K/V); returns
+        the first generated token from the last real prompt position's
+        logits."""
         ln = len(r.prompt)
         padded = -(-ln // self.page) * self.page
         toks = np.zeros((padded,), np.int32)
         toks[:ln] = r.prompt
         table_row = self._dev(self.table[slot:slot + 1])
         logits = None
-        for t0 in range(0, ln, self.page):
+        for t0 in range(start, ln, self.page):
             last = min(ln, t0 + self.page) - 1 - t0
             logits = self.model.prefill_step_paged(
                 self.params, self.cache, self._dev(toks[None, t0:t0 + self.page]),
                 self._dev([t0]), table_row, self._dev([last]))
-        self.prefill_tokens += ln
+        self.prefill_tokens += ln - start
         return int(torch.argmax(logits[0]).item())
+
+    def _first_token_via_decode(self, slot: int, token: int) -> int:
+        """One masked ragged decode advancing only ``slot`` (other slots'
+        ride-along writes land on the trash page): teacher-forces the
+        last prompt token at position ``lengths[slot]`` and returns the
+        argmax of its logits -- the fully-covered admission's first
+        token."""
+        self.prepare_decode([slot])
+        mask = np.zeros((self.slots,), bool)
+        mask[slot] = True
+        lengths = np.where(mask, self.lengths, 0).astype(np.int32)
+        table = np.where(mask[:, None], self.table, 0).astype(np.int32)
+        cur = np.zeros((self.slots,), np.int32)
+        cur[slot] = token
+        nxt = self.step(cur, view=(lengths, table))
+        return int(nxt[slot])
+
+    # --------------------------------------------------- prefix sharing
+    def cache_prefix(self, slot: int, prompt) -> None:
+        """Publish the slot's fully-prefilled prompt chunks into the
+        prefix trie (no-op without a cache)."""
+        if self.prefix is None:
+            return
+        self.prefix.insert(prompt, self.slot_pages[slot], self.alloc)
+        self.check_page_accounting()
+
+    def _cow_page(self, slot: int, idx: int) -> None:
+        """Give ``slot`` a private copy of its logical page ``idx`` if the
+        page has other holders (prefix cache or sharer slots): stashed
+        page first, then eviction-backed allocation; payload and int8
+        scale rows copied, table rebound, source released."""
+        src = self.slot_pages[slot][idx]
+        if self.alloc.ref[src] <= 1:
+            return
+        if self.cow_stash[slot]:
+            dst = self.cow_stash[slot].pop()
+        else:
+            need = 1 - self.alloc.available()
+            if need > 0 and self.prefix is not None:
+                self.prefix.evict(need, self.alloc)
+            dst = self.alloc.alloc(1)[0]
+        _copy_cache_page(self.cache, src, dst)
+        self.slot_pages[slot][idx] = dst
+        self.table[slot, idx] = dst
+        self.alloc.release([src])
+        self.cow_copies += 1
+        self.check_page_accounting()
+
+    def prepare_decode(self, slots: List[int]) -> None:
+        """Copy-on-write sweep before a batched decode step: a slot whose
+        next append position sits in a page with other holders gets a
+        private copy first, so the write never touches a shared prefix."""
+        for slot in slots:
+            idx = int(self.lengths[slot]) // self.page
+            if idx >= len(self.slot_pages[slot]):
+                continue                 # guard: decode loop ends the req
+            self._cow_page(slot, idx)
 
     def _reclaim_slot(self, slot: int) -> int:
         """Sliding-window page reclamation (delay buffering §2.2 applied
@@ -218,21 +412,41 @@ class PagedScheduler:
             self.check_page_accounting()
         return freed
 
+    def _reset_scales(self, pages: List[int]) -> None:
+        """Allocator ``on_alloc`` hook: zero the scale rows of every page
+        the allocator just handed out (see ``_reset_page_scales``)."""
+        _reset_page_scales(self.cache, pages)
+
+    def held_pages(self) -> int:
+        """Physical pages with at least one holder (excl. trash page 0);
+        a page shared by several holders counts once."""
+        return self.alloc.held()
+
+    def kv_bytes_resident(self) -> int:
+        """Bytes of KV pool held by live pages at the storage dtype (pools
+        plus scale rows): the residency that makes fp32, bf16 and int8
+        serving comparable."""
+        return self.held_pages() * self._page_bytes
+
     def check_page_accounting(self) -> None:
-        """Invariant: every page is free, held, or the trash page; the
-        total reference count equals the live slot bindings; and every
-        active slot's cursor sits inside its live binding."""
-        held = self.alloc.held()
+        """Invariant, refcount-aware: every page is free, held or the
+        trash page; the total reference count equals the holders we can
+        name (slot bindings, one per sharing slot; reserved copy-on-write
+        pages; prefix-trie nodes); every active slot's cursor sits inside
+        its live binding; and every int8 pool has its scale leaf."""
+        held = self.held_pages()
         free = self.alloc.available()
         assert held + free + 1 == self.alloc.total, (
             f"page accounting broken: held={held} free={free} "
             f"trash=1 != total={self.alloc.total}")
-        expected = sum(len(p) - r for p, r in zip(self.slot_pages,
-                                                  self.reclaimed))
+        expected = (sum(len(p) - r for p, r in zip(self.slot_pages,
+                                                   self.reclaimed))
+                    + sum(len(s) for s in self.cow_stash)
+                    + (self.prefix.n_pages() if self.prefix else 0))
         refs = sum(self.alloc.ref[1:])
         assert refs == expected, (
-            f"refcount accounting broken: sum(ref)={refs} != slot "
-            f"bindings {expected}")
+            f"refcount accounting broken: sum(ref)={refs} != "
+            f"slot bindings + cow stash + trie = {expected}")
         for slot, r in enumerate(self.active):
             if r is None:
                 continue
@@ -243,13 +457,33 @@ class PagedScheduler:
             assert ln >= self.reclaimed[slot] * self.page, (
                 f"slot {slot} cursor {ln} behind reclaimed frontier "
                 f"{self.reclaimed[slot] * self.page}")
+        self._check_scale_lockstep()
+
+    def _check_scale_lockstep(self) -> None:
+        """Every int8 pages leaf carries a companion scale leaf over the
+        same pool: scales are allocated and recycled with their pages."""
+        for group in ("prefix", "stack", "tail"):
+            for layer in self.cache[group]:
+                for k in ("k_pages", "v_pages"):
+                    v = layer[k]
+                    if v.dtype != torch.int8:
+                        continue
+                    s = layer.get(k[0] + "_scale")
+                    assert s is not None, (
+                        f"int8 pool {k} has no companion {k[0]}_scale")
+                    assert s.shape[_pool_axis(s)] == v.shape[_pool_axis(v)], (
+                        f"scale pool {s.shape} != page pool {v.shape} "
+                        f"for {k}")
 
     def _recycle(self, slot: int) -> None:
-        self.alloc.release(self.slot_pages[slot][self.reclaimed[slot]:])
+        self.alloc.release(self.slot_pages[slot][self.reclaimed[slot]:]
+                           + self.cow_stash[slot])
         self.slot_pages[slot] = []
+        self.cow_stash[slot] = []
         self.reclaimed[slot] = 0
         self.table[slot] = 0
         self.lengths[slot] = 0
+        self.shared_tokens[slot] = 0
         self.active[slot] = None
         self.check_page_accounting()
 
@@ -313,6 +547,8 @@ class PagedScheduler:
                         "admission deadlock: empty batch but queued "
                         "requests cannot reserve pages")
                 break
+            self.prepare_decode([i for i, r in enumerate(self.active)
+                                 if r is not None])
             nxt = self.step(cur)
             for i, r in enumerate(self.active):
                 if r is None:
@@ -352,6 +588,26 @@ def main(argv=None) -> Dict:
     ap.add_argument("--total-pages", type=int, default=0,
                     help="page-pool size; 0 = full capacity "
                          "(slots x max_len); smaller oversubscribes")
+    ap.add_argument("--kv-dtype", default="",
+                    choices=("", "fp32", "bf16", "int8"),
+                    help="KV pool storage dtype ('' = model compute dtype); "
+                         "int8 stores symmetric-quantized pages with "
+                         "per-(page, kv-head) fp32 scales that the "
+                         "attention kernels dequantize at tile load")
+    ap.add_argument("--weights-dtype", default="", choices=("", "int8"),
+                    help="projection/MLP weight GEMMs: int8 quantizes each "
+                         "weight per output channel once and routes through "
+                         "dispatch.quantized_matmul (fp32 accumulate)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share KV pages across requests with common prompt "
+                         "prefixes (refcounted pages, copy-on-write "
+                         "appends, prefill skipping)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="loadgen: length of the common prompt prefix "
+                         "sharing requests start with")
+    ap.add_argument("--shared-frac", type=float, default=0.0,
+                    help="loadgen: fraction of requests that carry the "
+                         "shared prefix (0..1)")
     ap.add_argument("--schedule", default="static",
                     choices=("static", "continuous"),
                     help="static run-to-completion or continuous batching "
@@ -379,27 +635,38 @@ def main(argv=None) -> Dict:
     if args.smoke:
         cfg = cfg.smoke()
     cfg = dataclasses.replace(cfg, kv_cache="paged",
-                              kv_page_size=args.page_size)
+                              kv_page_size=args.page_size,
+                              kv_dtype=args.kv_dtype,
+                              weights_dtype=args.weights_dtype)
     model = Model(cfg, dt=DtypePolicy(param=torch.bfloat16),
                   device=args.device)
     params = model.init(seed=0)
     server = PagedScheduler(model, params, slots=args.slots,
                             max_len=args.max_len, page_size=args.page_size,
-                            total_pages=args.total_pages)
+                            total_pages=args.total_pages,
+                            prefix_cache=args.prefix_cache)
     print(f"[paged] arch={cfg.name} device={model.device} "
           f"page_size={server.page} pool={server.alloc.total} pages "
-          f"({server.n_slot_pages}/slot max)")
-    # static requests are the rate-0 stream: the same seeded prompts the
-    # JAX package's static path draws, so both schedules serve one list
+          f"({server.n_slot_pages}/slot max, "
+          f"kv_dtype={args.kv_dtype or 'compute'}, "
+          f"weights_dtype={args.weights_dtype or 'compute'}, "
+          f"page_bytes={server._page_bytes}, "
+          f"prefix_cache={'on' if args.prefix_cache else 'off'})")
+    # static requests are the rate-0 stream, so both schedules serve one
+    # list (without a shared prefix these are the prompts the JAX
+    # package's static path draws)
     reqs = poisson_stream(args.requests,
                           rate=args.rate if args.schedule == "continuous"
                           else 0.0,
                           vocab_size=cfg.vocab_size,
                           prompt_len=args.prompt_len, max_new=args.max_new,
-                          seed=args.seed)
+                          seed=args.seed,
+                          shared_prefix_len=args.shared_prefix_len,
+                          shared_frac=args.shared_frac)
     dispatch.reset_stats()
     summary: Dict = {}
     phases: Dict = {}
+    max_kv_bytes = None
     if args.schedule == "continuous":
         from .engine import ContinuousEngine
         engine = ContinuousEngine(server, token_budget=args.token_budget,
@@ -409,6 +676,7 @@ def main(argv=None) -> Dict:
         done = engine.run(reqs)      # ends in a host read of the tokens
         dt = time.time() - t0
         summary = engine.metrics.summary()
+        max_kv_bytes = engine.max_resident_kv_bytes
         ex = engine.executor
         phases = {"prefill_calls": ex.prefill_calls,
                   "prefill_seconds": ex.t_prefill,
@@ -438,13 +706,25 @@ def main(argv=None) -> Dict:
     if server.truncated or server.rejected:
         print(f"[paged] truncated={server.truncated} "
               f"rejected={server.rejected}")
+    prefix = None
+    if server.prefix is not None:
+        prefix = {"hits": server.prefix.hits,
+                  "misses": server.prefix.misses,
+                  "shared_tokens": server.shared_tokens_total,
+                  "cow_copies": server.cow_copies,
+                  "evictions": server.prefix.evictions,
+                  "cached_pages": server.prefix.n_pages()}
+        print("[prefix] " + " ".join(f"{k}={v}" for k, v in prefix.items()))
+    if max_kv_bytes is not None:
+        print(f"[paged] max_resident_kv_bytes={max_kv_bytes}")
     routes = dispatch.stats()
     for (op, route), n in sorted(routes.items()):
-        print(f"[dispatch] {op:>17s} -> {route:<6s} x{n}")
+        print(f"[dispatch] {op:>22s} -> {route:<6s} x{n}")
     return {"done": done, "new_tokens": total_new, "seconds": dt,
             "tok_s": total_new / dt, "ttft_p50": summary.get("ttft_p50"),
             "ttft_p99": summary.get("ttft_p99"), "routes": routes,
-            "phases": phases}
+            "phases": phases, "prefix": prefix,
+            "max_resident_kv_bytes": max_kv_bytes}
 
 
 if __name__ == "__main__":

@@ -10,15 +10,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..core import quant
 from ..core.memory import DtypePolicy
 from ..kernels import dispatch
 
 Params = Dict[str, torch.Tensor]
+# an int8 projection weight: {"q": int8 of the float weight's shape,
+# "scale": fp32 of its output dims} (see ``quantize_weight``)
+Weight = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 # --------------------------------------------------------------------------
@@ -94,11 +98,54 @@ class AttnSpec:
     window: int = 0              # 0 = global causal; >0 = sliding window
     rope_theta: float = 1e4
     qkv_bias: bool = False
+    # "" = float weight GEMMs (dispatch.matmul); "int8" = per-channel
+    # quantized projections through dispatch.quantized_matmul (§4.4),
+    # copied from ArchConfig.weights_dtype by the model
+    weights_dtype: str = ""
 
 
-def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Contract x (..., K) with a float weight w (K, ...)."""
+def quantize_weight(w: torch.Tensor, n_lead: int,
+                    n_out: int) -> Dict[str, torch.Tensor]:
+    """Quantize a projection weight per output channel, once: the weight
+    ``project`` would quantize at every call in the JAX package.
+
+    w (*lead, *K dims, *out dims) in the compute dtype: ``n_lead`` leading
+    axes (a stacked period axis) quantize independently, the last
+    ``n_out`` axes are the output channels, the rest the contraction.
+    Returns ``{"q": int8 of w's shape, "scale": fp32 (*lead, *out
+    dims)}``: ``quantize_channelwise`` of the (K, N) matrix ``project``
+    contracts, so the ints and scales are the JAX package's bit for bit."""
+    lead = w.shape[:n_lead]
+    out_dims = w.shape[w.dim() - n_out:]
+    q, scale = quant.quantize_channelwise(
+        w.reshape(lead + (-1, math.prod(out_dims))))
+    return {"q": q.reshape(w.shape), "scale": scale.reshape(lead + out_dims)}
+
+
+def project(x: torch.Tensor, w: Weight,
+            weights_dtype: str = "") -> torch.Tensor:
+    """Contract x (..., K) with a weight (K, ...) at the configured weight
+    dtype.  ``"int8"`` takes a ``quantize_weight`` dict and routes through
+    ``dispatch.quantized_matmul`` (the fp32 result cast back to x's
+    dtype, as the JAX package does); "" takes a float weight."""
+    if weights_dtype == "int8":
+        if not isinstance(w, dict):
+            raise TypeError("weights_dtype='int8' needs weights quantized "
+                            "by Model.bind_params (quantize_weight)")
+        k = x.shape[-1]
+        out = dispatch.quantized_matmul(x, w["q"].reshape(k, -1),
+                                        w["scale"].reshape(-1))
+        return out.reshape(x.shape[:-1] + w["scale"].shape).to(x.dtype)
+    if weights_dtype:
+        raise ValueError(f"weights_dtype {weights_dtype!r} is not supported "
+                         "(float '' or 'int8')")
     return dispatch.matmul(x, w)
+
+
+def _cast(w: Weight, dtype: torch.dtype) -> Weight:
+    """A float weight in the compute dtype; quantized weights as they
+    are."""
+    return w if isinstance(w, dict) else w.to(dtype)
 
 
 def attention_init(gen: torch.Generator, s: AttnSpec, lead=()) -> Params:
@@ -125,9 +172,9 @@ def _qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
          dt: DtypePolicy):
     cdt = dt.compute
     # (b,s,d) x (d,h,k) -> (b,s,h,k): dispatch contracts last-vs-first
-    q = project(x, p["wq"].to(cdt))
-    k = project(x, p["wk"].to(cdt))
-    v = project(x, p["wv"].to(cdt))
+    q = project(x, _cast(p["wq"], cdt), s.weights_dtype)
+    k = project(x, _cast(p["wk"], cdt), s.weights_dtype)
+    v = project(x, _cast(p["wv"], cdt), s.weights_dtype)
     if s.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -141,42 +188,62 @@ def _out_proj(p: Params, s: AttnSpec, out: torch.Tensor,
               dt: DtypePolicy) -> torch.Tensor:
     """(B, S, H, hd) -> (B, S, d) via wo (H, hd, d)."""
     b, sq = out.shape[:2]
-    wo = p["wo"].to(dt.compute)
-    return project(out.reshape(b, sq, s.n_heads * s.head_dim),
-                   wo.reshape(s.n_heads * s.head_dim, s.d_model))
+    wo = _cast(p["wo"], dt.compute)
+    if not isinstance(wo, dict):
+        wo = wo.reshape(s.n_heads * s.head_dim, s.d_model)
+    return project(out.reshape(b, sq, s.n_heads * s.head_dim), wo,
+                   s.weights_dtype)
 
 
 def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                            lengths: torch.Tensor, table: torch.Tensor,
                            k_pages: torch.Tensor, v_pages: torch.Tensor,
-                           dt: DtypePolicy) -> torch.Tensor:
+                           dt: DtypePolicy,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """One-token ragged decode against the paged KV cache.
 
     x: (B, 1, d).  lengths: (B,) int32 tokens already cached per slot --
     the new token lands at position ``lengths[b]`` (inactive slots point
     at the trash page 0).  table: (B, n_pages) int32 page ids into the
-    shared (P, page, Hkv, hd) pools, which are written in place.
+    shared (P, page, Hkv, hd) pools, which are written in place.  int8
+    pools carry ``k_scale`` / ``v_scale`` (P, Hkv) fp32, also written in
+    place: the append runs the running-max requantize of ``core.quant``.
     Returns (B, 1, d)."""
     b = x.shape[0]
     page = k_pages.shape[1]
     q, k, v = _qkv(p, s, x, lengths[:, None], dt)
     pid = table[torch.arange(b, device=x.device), lengths // page].long()
     off = (lengths % page).long()
-    # in-place pool write (the JAX package's donated .at[].set); inactive
+    # in-place pool writes (the JAX package's donated .at[].set); inactive
     # slots all hit the never-read trash page, so their duplicate indices
     # are harmless
-    k_pages.index_put_((pid, off), k[:, 0].to(k_pages.dtype))
-    v_pages.index_put_((pid, off), v[:, 0].to(v_pages.dtype))
+    if k_scale is not None:
+        # gather the B target pages, append with the running-max rescale,
+        # scatter pages and scales back
+        for pages, scale, new in ((k_pages, k_scale, k), (v_pages, v_scale,
+                                                          v)):
+            pq, sc = quant.append_token_quantized(pages[pid], scale[pid],
+                                                  new[:, 0], off)
+            pages.index_copy_(0, pid, pq)
+            scale.index_copy_(0, pid, sc)
+    else:
+        k_pages.index_put_((pid, off), k[:, 0].to(k_pages.dtype))
+        v_pages.index_put_((pid, off), v[:, 0].to(v_pages.dtype))
     out = dispatch.decode_attention(q[:, 0], k_pages, v_pages, table,
-                                    lengths + 1, window=s.window,
-                                    out_dtype=dt.compute)
+                                    lengths + 1, k_scale, v_scale,
+                                    window=s.window, out_dtype=dt.compute)
     return _out_proj(p, s, out[:, None], dt)
 
 
 def attention_prefill_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                             starts: torch.Tensor, tables: torch.Tensor,
                             k_pages: torch.Tensor, v_pages: torch.Tensor,
-                            dt: DtypePolicy) -> torch.Tensor:
+                            dt: DtypePolicy,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Chunked prefill: one page-aligned chunk each from B distinct slots.
 
     x: (B, C, d) with C == page size (the caller pads final partial
@@ -184,18 +251,28 @@ def attention_prefill_paged(p: Params, s: AttnSpec, x: torch.Tensor,
     page-aligned chunk offsets; tables: (B, n_pages) each slot's page ids.
     Chunk b's queries sit at ``starts[b] + [0, C)`` and attend causally
     over that slot's cached history plus the chunk itself.  The pools are
-    written in place.  Returns (B, C, d)."""
+    written in place; int8 pools get a clean abs-max scale per page
+    (``quant.quantize_pages`` over the whole padded chunk, as in the JAX
+    package).  Returns (B, C, d)."""
     b, c, _ = x.shape
     page = k_pages.shape[1]
     positions = starts[:, None] + torch.arange(c, device=x.device,
                                                dtype=starts.dtype)[None, :]
     q, k, v = _qkv(p, s, x, positions, dt)
     pid = tables[torch.arange(b, device=x.device), starts // page].long()
-    # in-place whole-page write (the JAX package's donated .at[].set)
-    k_pages.index_copy_(0, pid, k.to(k_pages.dtype))
-    v_pages.index_copy_(0, pid, v.to(v_pages.dtype))
+    # in-place whole-page writes (the JAX package's donated .at[].set)
+    if k_scale is not None:
+        for pages, scale, new in ((k_pages, k_scale, k), (v_pages, v_scale,
+                                                          v)):
+            pq, sc = quant.quantize_pages(new)
+            pages.index_copy_(0, pid, pq)
+            scale.index_copy_(0, pid, sc)
+    else:
+        k_pages.index_copy_(0, pid, k.to(k_pages.dtype))
+        v_pages.index_copy_(0, pid, v.to(v_pages.dtype))
     out = dispatch.prefill_attention(q, k_pages, v_pages, tables, starts,
-                                     window=s.window, out_dtype=dt.compute)
+                                     k_scale, v_scale, window=s.window,
+                                     out_dtype=dt.compute)
     return _out_proj(p, s, out, dt)
 
 
@@ -215,14 +292,37 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, activation: str,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, activation: str,
-              dt: DtypePolicy) -> torch.Tensor:
+              dt: DtypePolicy, weights_dtype: str = "") -> torch.Tensor:
     cdt = dt.compute
+
+    def mm(h, name):
+        return project(h, _cast(p[name], cdt), weights_dtype)
     if activation in ("swiglu", "geglu"):
-        g = project(x, p["wg"].to(cdt))
-        u = project(x, p["wu"].to(cdt))
+        g = mm(x, "wg")
+        u = mm(x, "wu")
         act = F.silu(g) if activation == "swiglu" \
             else F.gelu(g, approximate="tanh")
-        return project(act * u, p["wd"].to(cdt))
-    h = project(x, p["wi"].to(cdt))
+        return mm(act * u, "wd")
+    h = mm(x, "wi")
     h = F.relu(h) if activation == "relu" else F.gelu(h, approximate="tanh")
-    return project(h, p["wd"].to(cdt))
+    return mm(h, "wd")
+
+
+# output axes of each projection weight: q/k/v (d, heads, hd) end in
+# (heads, hd); wo (H, hd, d) and the MLP weights end in one axis
+OUT_DIMS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "wg": 1, "wu": 1, "wi": 1,
+            "wd": 1}
+
+
+def quantize_layer_weights(p: Params, cdt: torch.dtype,
+                           n_lead: int) -> Params:
+    """A layer's params with every projection and MLP weight (cast to the
+    compute dtype, as ``project`` sees it) replaced by its
+    ``quantize_weight`` dict; norms and biases stay as they are."""
+    out: Params = {}
+    for key, sub in p.items():
+        if key in ("attn", "mlp"):
+            sub = {name: quantize_weight(w.to(cdt), n_lead, OUT_DIMS[name])
+                   if name in OUT_DIMS else w for name, w in sub.items()}
+        out[key] = sub
+    return out

@@ -53,7 +53,8 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> layers.AttnSpec:
         d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
         window=cfg.window if mixer == "swa" else 0,
-        rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
+        rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias,
+        weights_dtype=cfg.weights_dtype)
 
 
 def paged_supported(cfg: ArchConfig) -> bool:
@@ -89,11 +90,19 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
 def layer_cache_init_paged(cfg: ArchConfig, total_pages: int, page_size: int,
                            dtype: torch.dtype, device,
                            lead=()) -> Dict[str, torch.Tensor]:
-    """Shared (P, page, Hkv, hd) K/V page pools of one attention layer."""
-    shape = tuple(lead) + (total_pages, page_size, cfg.n_kv_heads,
-                           cfg.head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    """Shared (P, page, Hkv, hd) K/V page pools of one attention layer;
+    int8 pools add zeroed (P, Hkv) fp32 ``k_scale`` / ``v_scale`` (a zero
+    scale marks a clean page: the running-max append wipes any stale
+    payload on its first write)."""
+    lead = tuple(lead)
+    shape = lead + (total_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(lead + (total_pages, cfg.n_kv_heads),
+                                      dtype=torch.float32, device=device)
+    return cache
 
 
 def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
@@ -105,10 +114,12 @@ def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
     h = layers.rmsnorm(p["ln1"], x)
     h = layers.attention_prefill_paged(
         p["attn"], _attn_spec(cfg, kind[0]), h, starts, tables,
-        cache["k_pages"], cache["v_pages"], dt)
+        cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
+        cache.get("v_scale"))
     x = x + h
     h = layers.rmsnorm(p["ln2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                                cfg.weights_dtype)
 
 
 def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
@@ -120,10 +131,12 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
     h = layers.rmsnorm(p["ln1"], x)
     h = layers.attention_decode_paged(
         p["attn"], _attn_spec(cfg, kind[0]), h, lengths, table,
-        cache["k_pages"], cache["v_pages"], dt)
+        cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
+        cache.get("v_scale"))
     x = x + h
     h = layers.rmsnorm(p["ln2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                                cfg.weights_dtype)
 
 
 def _index(tree, i: int):
@@ -149,6 +162,9 @@ class Model:
         if cfg.input_mode != "tokens":
             raise ValueError(f"arch {cfg.name} takes {cfg.input_mode}; the "
                              "port serves token-mode archs")
+        if cfg.weights_dtype not in ("", "int8"):
+            raise ValueError(f"weights_dtype {cfg.weights_dtype!r} is not "
+                             "supported (float '' or 'int8')")
         self.cfg = cfg
         self.dt = dt
         self.device = resolve_device(device)
@@ -172,6 +188,22 @@ class Model:
                            for k in lay.period] if lay.n_periods else []
         params["tail"] = [layer_init(gen, cfg, k) for k in lay.tail]
         return _cast(params, pdt)
+
+    def bind_params(self, params: Params) -> Params:
+        """The params the paged forwards run on.  With
+        ``weights_dtype="int8"`` every projection and MLP weight is
+        quantized per output channel here, once, from its compute-dtype
+        cast (the JAX package quantizes the same input at every call, so
+        the ints and scales are its own); the embedding, the head and the
+        norms stay float.  Float weights are returned as they are."""
+        if self.cfg.weights_dtype != "int8":
+            return params
+        cdt = self.dt.compute
+        out = dict(params)
+        for group, n_lead in (("prefix", 0), ("stack", 1), ("tail", 0)):
+            out[group] = [layers.quantize_layer_weights(p, cdt, n_lead)
+                          for p in params[group]]
+        return out
 
     # ------------------------------ pieces -----------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -206,8 +238,9 @@ class Model:
     def init_paged_cache(self, slots: int, max_len: int, page_size: int,
                          total_pages: Optional[int] = None
                          ) -> Dict[str, Any]:
-        """Per-attention-layer (P, page, Hkv, hd) pools; stacked periods
-        carry a leading period axis.  Physical page 0 is the TRASH page:
+        """Per-attention-layer (P, page, Hkv, hd) pools of
+        ``cfg.kv_dtype`` ("" = the compute dtype; "int8" adds (P, Hkv)
+        fp32 scale leaves); stacked periods carry a leading period axis.  Physical page 0 is the TRASH page:
         the scheduler points inactive slots' tables at it, so their
         (masked, discarded) writes never land in a live sequence."""
         cfg, lay = self.cfg, self.layout

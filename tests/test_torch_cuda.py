@@ -8,20 +8,28 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Small shapes cover what the full-width chip_smoke.py does not: ragged
-GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots.  fp32
-runs with TF32 off; tolerances are those of tests/test_paged_decode.py.
+GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots, for
+the float kernels and for the int8 ones (the int8-weight GEMM and the
+int8 branches of the attention kernels).  fp32 runs with TF32 off;
+tolerances are those of tests/test_paged_decode.py (the int8 kernels
+compute in fp32, so a bf16 q costs only its own rounding).
 """
 import math
 
 import pytest
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.attention import (decode_attention_cuda,
+                                           decode_attention_int8_cuda,
                                            decode_attention_plain,
                                            prefill_attention_cuda,
+                                           prefill_attention_int8_cuda,
                                            prefill_attention_plain)
-from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
+                                        quantized_matmul_cuda,
+                                        quantized_matmul_plain)
 
 torch.set_num_threads(1)
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -68,6 +76,38 @@ def test_matmul_transposed_b_and_row_independence(card, dtype):
     assert torch.equal(matmul_cuda(a[:3].contiguous(), embed.T), full[:3])
 
 
+def _int8_weight(card, gen, k, n):
+    w = torch.randn(k, n, generator=gen, device=card) / math.sqrt(k)
+    return quant.quantize_channelwise(w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (3, 37, 70), (65, 130, 67),
+                                   (130, 16, 200), (5, 2048, 256)])
+def test_quantized_matmul_ragged_edges(card, dtype, m, k, n):
+    gen = torch.Generator(device=card).manual_seed(m * 1000 + n + 1)
+    q, s = _int8_weight(card, gen, k, n)
+    a = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    out = quantized_matmul_cuda(a, q, s)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    # fp32 arithmetic in both; only the order of the scale multiply differs
+    _close(out, quantized_matmul_plain(a, q, s), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantized_matmul_row_independence(card, dtype):
+    """A row's result does not depend on how many rows share the call, so
+    B=1 static and B=4 continuous prefill agree bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, s = _int8_weight(card, gen, 96, 300)
+    a = torch.randn(70, 96, generator=gen, device=card).to(dtype)
+    full = quantized_matmul_cuda(a, q, s)
+    assert torch.equal(quantized_matmul_cuda(a[:3].contiguous(), q, s),
+                       full[:3])
+    assert torch.equal(quantized_matmul_cuda(a[64:].contiguous(), q, s),
+                       full[64:])
+
+
 def _pools(dtype, card, *, slots, h, hkv, hd, page, n_pages, seed=0):
     gen = torch.Generator(device=card).manual_seed(seed)
     pool = 1 + slots * n_pages
@@ -108,6 +148,78 @@ def test_prefill_kernel_matches_plain(card, dtype, grp, window):
                                         window=window), dtype)
 
 
+def _int8(kp, vp):
+    kq, ks = quant.quantize_pages(kp.float())
+    vq, vs = quant.quantize_pages(vp.float())
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grp", [1, 4, 8])
+@pytest.mark.parametrize("window", [0, 5])
+def test_decode_int8_kernel_matches_plain(card, dtype, grp, window):
+    hkv, hd, page, n_pages = 2, 32, 4, 9
+    gen, kp, vp, table = _pools(torch.float32, card, slots=4, h=grp * hkv,
+                                hkv=hkv, hd=hd, page=page, n_pages=n_pages)
+    kq, vq, ks, vs = _int8(kp, vp)
+    q = torch.randn(4, grp * hkv, hd, generator=gen, device=card).to(dtype)
+    lengths = torch.tensor([0, 1, 17, 36], dtype=torch.int32, device=card)
+    out = decode_attention_int8_cuda(q, kq, vq, table, lengths, ks, vs,
+                                     window=window)
+    _close(out, decode_attention_plain(q, kq, vq, table, lengths, ks, vs,
+                                       window=window), torch.float32)
+    assert torch.count_nonzero(out[0]) == 0          # lengths == 0 -> 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grp", [1, 4, 8])
+@pytest.mark.parametrize("window", [0, 6])
+def test_prefill_int8_kernel_matches_plain(card, dtype, grp, window):
+    hkv, hd, page, n_pages, c = 2, 32, 8, 6, 8
+    gen, kp, vp, table = _pools(torch.float32, card, slots=3, h=grp * hkv,
+                                hkv=hkv, hd=hd, page=page, n_pages=n_pages)
+    kq, vq, ks, vs = _int8(kp, vp)
+    q = torch.randn(3, c, grp * hkv, hd, generator=gen,
+                    device=card).to(dtype)
+    starts = torch.tensor([0, 8, 40], dtype=torch.int32, device=card)
+    out = prefill_attention_int8_cuda(q, kq, vq, table, starts, ks, vs,
+                                      window=window)
+    _close(out, prefill_attention_plain(q, kq, vq, table, starts, ks, vs,
+                                        window=window), torch.float32)
+
+
+def test_int8_wrappers_count_launches_and_reject_bad_inputs(card):
+    gen, kp, vp, table = _pools(torch.float32, card, slots=2, h=4, hkv=2,
+                                hd=8, page=4, n_pages=2)
+    kq, vq, ks, vs = _int8(kp, vp)
+    q = torch.randn(2, 4, 8, generator=gen, device=card)
+    lengths = torch.tensor([3, 8], dtype=torch.int32, device=card)
+    before = dispatch.launch_counts()
+    with dispatch.stats_scope() as stats:
+        dispatch.decode_attention(q, kq, vq, table, lengths, ks, vs)
+        dispatch.prefill_attention(q[:, None], kq, vq, table, lengths, ks, vs)
+        w, sc = _int8_weight(card, gen, 8, 5)
+        dispatch.quantized_matmul(q, w, sc)
+        assert stats() == {("decode_attention_int8", "kernel"): 1,
+                           ("prefill_attention_int8", "kernel"): 1,
+                           ("quantized_matmul", "kernel"): 1}
+    after = dispatch.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "matmul": 0, "decode_attention": 0, "prefill_attention": 0,
+        "decode_attention_int8": 1, "prefill_attention_int8": 1,
+        "quantized_matmul": 1}
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_int8_cuda(q, kq, vq, table, lengths, ks.cpu(), vs)
+    with pytest.raises(TypeError):             # float pools with scales
+        decode_attention_int8_cuda(q, kp, vp, table, lengths, ks, vs)
+    with pytest.raises(ValueError):            # scales of the wrong shape
+        prefill_attention_int8_cuda(q[:, None], kq, vq, table, lengths,
+                                    ks[:1], vs)
+    with pytest.raises(TypeError):             # float weights
+        quantized_matmul_cuda(q[0], w.float(), sc)
+    assert dispatch.launch_counts() == after
+
+
 def test_wrappers_count_launches_and_reject_cpu_tensors(card):
     a = torch.ones(2, 3, device=card)
     before = matmul_cuda.launches
@@ -122,8 +234,9 @@ def test_wrappers_count_launches_and_reject_cpu_tensors(card):
         assert stats() == {("matmul", "kernel"): 1}
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("layout", ["prefix", "scan"])
-def test_paged_model_kernels_match_plain(card, layout):
+def test_paged_model_kernels_match_plain(card, layout, int8):
     """A small paged model on the card, once through the kernels and once
     through the plain versions (device routing overridden for the second
     run): prefill of a padded partial page, then ragged decode steps."""
@@ -137,8 +250,10 @@ def test_paged_model_kernels_match_plain(card, layout):
     if layout == "scan":
         cfg = dataclasses.replace(cfg, n_layers=5, prefix=(("attn", "mlp"),),
                                   pattern=(("attn", "mlp"),) * 2)
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8", weights_dtype="int8")
     model = Model(cfg, dt=F32_POLICY, device=card)
-    params = model.init(seed=0)
+    params = model.bind_params(model.init(seed=0))
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=card)  # noqa
 
     def run():

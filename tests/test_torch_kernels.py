@@ -20,13 +20,19 @@ from repro.kernels.attention import ref as jax_ref
 from repro.kernels.attention.decode import decode_attention_pallas
 from repro.kernels.attention.prefill import prefill_attention_pallas
 from repro.kernels.matmul import ref as jax_mm_ref
-from repro.kernels.matmul.matmul import matmul_pallas
+from repro.kernels.matmul.matmul import (matmul_pallas,
+                                         quantized_matmul_pallas)
+from repro_torch.core import quant
 from repro_torch.kernels import cuda, dispatch
 from repro_torch.kernels.attention import (decode_attention_cuda,
+                                           decode_attention_int8_cuda,
                                            decode_attention_plain,
                                            prefill_attention_cuda,
+                                           prefill_attention_int8_cuda,
                                            prefill_attention_plain)
-from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
+                                        quantized_matmul_cuda,
+                                        quantized_matmul_plain)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -75,6 +81,54 @@ def test_dispatch_matmul_routes_cpu_tensors_to_plain():
     assert out.shape == (2, 3, 4, 5)
     want = np.einsum("bsk,khd->bshd", x.numpy(), w.numpy())
     _close(out, want)
+
+
+# ------------------------------------------------------ quantized matmul
+def _int8_weight(rng, k, n):
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    q, s = quant.quantize_channelwise(_t(w))
+    return q, s
+
+
+def test_quantized_matmul_plain_matches_pallas_kernel():
+    """B5's plain version (dequantize, then an fp32 product) against the
+    TPU kernel (scale applied once at the K flush), in interpret mode,
+    with bf16 and fp32 activations."""
+    rng = np.random.default_rng(20)
+    q, s = _int8_weight(rng, 32, 24)
+    plan = TilePlan(8, 8, 16, 0, (2, 3, 2), 0.0, 0.0)   # 2 K steps
+    for dtype in (torch.float32, torch.bfloat16):
+        a = _t(rng.standard_normal((16, 32)).astype(np.float32)).to(dtype)
+        ja = jnp.asarray(a.float().numpy()).astype(
+            jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+        want = quantized_matmul_pallas(ja, jnp.asarray(q.numpy()),
+                                       jnp.asarray(s.numpy()), plan,
+                                       interpret=True)
+        got = quantized_matmul_plain(a, q, s)
+        assert got.dtype == torch.float32
+        _close(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 37, 70), (1, 130, 3), (65, 16, 257)])
+def test_quantized_matmul_plain_matches_ref_on_ragged_shapes(m, k, n):
+    rng = np.random.default_rng(m + k + n + 1)
+    q, s = _int8_weight(rng, k, n)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    want = jax_mm_ref.quantized_matmul_ref(
+        jnp.asarray(a), jnp.asarray(q.numpy()), jnp.asarray(s.numpy()))
+    _close(quantized_matmul_plain(_t(a), q, s), want)
+
+
+def test_dispatch_quantized_matmul_routes_cpu_tensors_to_plain():
+    rng = np.random.default_rng(21)
+    q, s = _int8_weight(rng, 8, 20)
+    x = _t(rng.standard_normal((2, 3, 8)).astype(np.float32))
+    with dispatch.stats_scope() as stats:
+        out = dispatch.quantized_matmul(x, q, s)
+        assert stats() == {("quantized_matmul", "plain"): 1}
+    assert out.shape == (2, 3, 20) and out.dtype == torch.float32
+    _close(out, np.einsum("bsk,kn->bsn", x.numpy(),
+                          quant.dequantize(q, s).numpy()))
 
 
 # ------------------------------------------------------------ attention
@@ -133,6 +187,82 @@ def test_prefill_plain_matches_pallas_and_ref(grp, window):
     _close(ours, jax_ref.prefill_attention_ref(*args, window=window))
 
 
+# Quantization noise bound of the int8 pools against the fp32 oracle
+# (tests/test_paged_decode.py's INT8_KV_MAX_ABS_ERR)
+INT8_KV_MAX_ABS_ERR = 5e-2
+
+
+def _int8_pools(kp, vp):
+    kq, ks = quant.quantize_pages(_t(kp))
+    vq, vs = quant.quantize_pages(_t(vp))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("grp,window", CASES)
+def test_decode_int8_plain_matches_pallas_and_ref(grp, window):
+    """int8 pools with their scales: the plain version dequantizes at
+    gather time, the TPU kernel at tile load (interpret mode); both agree
+    at fp32 tolerance and stay within the quantization bound of the fp32
+    oracle."""
+    rng = np.random.default_rng(200 + grp * 10 + window)
+    hkv, hd, page, n_pages = 2, 16, 4, 4
+    kp, vp, table = _paged(rng, slots=4, h=grp * hkv, hkv=hkv, hd=hd,
+                           page=page, n_pages=n_pages)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    q = (0.5 * rng.standard_normal((4, grp * hkv, hd))).astype(np.float32)
+    lengths = np.asarray([0, 1, 9, 16], np.int32)
+    ours = decode_attention_plain(_t(q), kq, vq, _t(table), _t(lengths),
+                                  ks, vs, window=window)
+    jargs = tuple(map(jnp.asarray, (q, kq.numpy(), vq.numpy(), table,
+                                    lengths, ks.numpy(), vs.numpy())))
+    _close(ours, decode_attention_pallas(*jargs, window=window,
+                                         pages_per_tile=3, interpret=True))
+    _close(ours, jax_ref.decode_attention_ref(*jargs, window=window))
+    full = decode_attention_plain(_t(q), _t(kp), _t(vp), _t(table),
+                                  _t(lengths), window=window)
+    assert float((ours - full).abs().max()) < INT8_KV_MAX_ABS_ERR
+    assert float(ours[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("grp,window", CASES)
+def test_prefill_int8_plain_matches_pallas_and_ref(grp, window):
+    rng = np.random.default_rng(300 + grp * 10 + window)
+    hkv, hd, page, n_pages = 2, 16, 4, 4
+    kp, vp, table = _paged(rng, slots=3, h=grp * hkv, hkv=hkv, hd=hd,
+                           page=page, n_pages=n_pages)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    q = (0.5 * rng.standard_normal((3, page, grp * hkv, hd))).astype(
+        np.float32)
+    starts = np.asarray([0, 4, 8], np.int32)
+    ours = prefill_attention_plain(_t(q), kq, vq, _t(table), _t(starts),
+                                   ks, vs, window=window)
+    jargs = tuple(map(jnp.asarray, (q, kq.numpy(), vq.numpy(), table,
+                                    starts, ks.numpy(), vs.numpy())))
+    _close(ours, prefill_attention_pallas(*jargs, window=window,
+                                          pages_per_tile=3, interpret=True))
+    _close(ours, jax_ref.prefill_attention_ref(*jargs, window=window))
+    full = prefill_attention_plain(_t(q), _t(kp), _t(vp), _t(table),
+                                   _t(starts), window=window)
+    assert float((ours - full).abs().max()) < INT8_KV_MAX_ABS_ERR
+
+
+def test_int8_attention_keeps_p_in_fp32_for_bf16_queries():
+    """With int8 pools V is fp32 after dequantization, so P is not rounded
+    to bf16 before P @ V even when q is bf16: the result equals the fp32
+    computation on the bf16-rounded q."""
+    rng = np.random.default_rng(8)
+    kp, vp, table = _paged(rng, slots=2, h=8, hkv=1, hd=16, page=4,
+                           n_pages=3)
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    q = _t((0.5 * rng.standard_normal((2, 8, 16))).astype(np.float32))
+    lengths = _t(np.asarray([5, 12], np.int32))
+    got = decode_attention_plain(q.to(torch.bfloat16), kq, vq, _t(table),
+                                 lengths, ks, vs)
+    want = decode_attention_plain(q.to(torch.bfloat16).float(), kq, vq,
+                                  _t(table), lengths, ks, vs)
+    assert torch.equal(got, want)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: no quiet CPU fallback."""
     q = torch.zeros(1, 2, 8)
@@ -146,8 +276,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(q, pools, pools, table, ones)
     with pytest.raises(ValueError, match="CUDA"):
         prefill_attention_cuda(q[:, None], pools, pools, table, ones)
+    pools8 = torch.zeros(3, 4, 1, 8, dtype=torch.int8)
+    scales = torch.zeros(3, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantized_matmul_cuda(torch.zeros(2, 3), torch.zeros(
+            3, 4, dtype=torch.int8), torch.zeros(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_int8_cuda(q, pools8, pools8, table, ones, scales,
+                                   scales)
+    with pytest.raises(ValueError, match="CUDA"):
+        prefill_attention_int8_cuda(q[:, None], pools8, pools8, table, ones,
+                                    scales, scales)
     assert dispatch.launch_counts() == before
-    assert set(before) == {"matmul", "decode_attention", "prefill_attention"}
+    assert set(before) == {"matmul", "quantized_matmul", "decode_attention",
+                           "decode_attention_int8", "prefill_attention",
+                           "prefill_attention_int8"}
 
 
 def test_dispatch_attention_routes_by_device():
@@ -164,6 +307,16 @@ def test_dispatch_attention_routes_by_device():
         assert stats() == {("decode_attention", "plain"): 1,
                            ("prefill_attention", "plain"): 1}
     assert out.dtype == torch.bfloat16 and pre.dtype == torch.float32
+    # int8 pools with scales take the int8 branch, counted under its name
+    kq, vq, ks, vs = _int8_pools(kp, vp)
+    with dispatch.stats_scope() as stats:
+        out8 = dispatch.decode_attention(q, kq, vq, _t(table), lengths,
+                                         ks, vs)
+        dispatch.prefill_attention(q[:, None], kq, vq, _t(table), lengths,
+                                   ks, vs)
+        assert stats() == {("decode_attention_int8", "plain"): 1,
+                           ("prefill_attention_int8", "plain"): 1}
+    assert float((out8 - out.float()).abs().max()) < INT8_KV_MAX_ABS_ERR
 
 
 # ----------------------------------------------------------------- build

@@ -12,7 +12,8 @@ different orders over several layers.
 Three layouts: gemma-2b smoke (unrolled prefix layers), a scan layout
 (``pattern`` repeated so ``stack`` holds a leading period axis, the
 layout full-width gemma-2b serves with), and gemma3-4b smoke with its
-window cut to 4 so the sliding window binds within 10 positions.
+window cut to 4 so the sliding window binds within 10 positions.  The
+prefix and scan layouts run again with int8 KV pages and int8 weights.
 """
 import dataclasses
 
@@ -91,6 +92,7 @@ def _run_jax(cfg, toks, forced, table):
 def _run_torch(cfg, params_np, toks, forced, table):
     model = Model(cfg, dt=DtypePolicy(compute=torch.float32), device="cpu")
     params = params_from_jax(params_np, "cpu", torch.float32)
+    bound = model.bind_params(params)
     cache = model.init_paged_cache(SLOTS, MAX_LEN, PAGE)
 
     def i32(a):
@@ -98,13 +100,13 @@ def _run_torch(cfg, params_np, toks, forced, table):
     logits = []
     for t0 in range(0, PROMPT, PAGE):
         last = min(PROMPT, t0 + PAGE) - 1 - t0
-        lg = model.prefill_step_paged(params, cache,
+        lg = model.prefill_step_paged(bound, cache,
                                       i32(toks[None, t0:t0 + PAGE]),
                                       i32([t0]), i32(table[:1]), i32([last]))
     logits.append(lg[0].numpy())
     lengths = np.asarray([PROMPT, 0], np.int32)
     for tok in forced:
-        lg = model.decode_step(params, cache, i32([[tok], [0]]),
+        lg = model.decode_step(bound, cache, i32([[tok], [0]]),
                                paged=(i32(lengths), i32(table)))
         logits.append(lg[0].numpy())
         lengths[0] += 1
@@ -154,3 +156,54 @@ def test_paged_logits_match_jax(name):
             tv.numpy().take(range(1, tv.shape[pool_axis]), axis=pool_axis),
             np.asarray(jv).take(range(1, tv.shape[pool_axis]),
                                 axis=pool_axis), **EQ_TOL)
+
+
+INT8 = dict(kv_dtype="int8", weights_dtype="int8")
+
+
+@pytest.mark.parametrize("name", ["gemma-2b-prefix", "gemma-2b-scan"])
+def test_paged_int8_logits_match_jax(name):
+    """int8 KV pages and int8 projection/MLP weights: the port's logits
+    match JAX's paged path at this file's 1e-3 tolerance (so also within
+    1e-3 of max |logit|).  The weights are quantized once
+    (``Model.bind_params``) to the ints JAX derives per call; the port's
+    float logits on the same params miss that tolerance, so a port that
+    ignored ``weights_dtype`` fails here."""
+    jcfg, tcfg = _configs(name)
+    jcfg = dataclasses.replace(jcfg, **INT8)
+    tcfg8 = dataclasses.replace(tcfg, **INT8)
+    rng = np.random.default_rng(2)
+    toks = np.zeros((-(-PROMPT // PAGE) * PAGE,), np.int32)
+    toks[:PROMPT] = rng.integers(0, jcfg.vocab_size, PROMPT)
+    forced = rng.integers(0, jcfg.vocab_size, 4)
+    table = np.zeros((SLOTS, MAX_LEN // PAGE), np.int32)
+    table[0] = np.arange(1, 1 + MAX_LEN // PAGE)
+
+    params_np, want, jcache = _run_jax(jcfg, toks, forced, table)
+    _, got, cache = _run_torch(tcfg8, params_np, toks, forced, table)
+    np.testing.assert_allclose(got, want, **EQ_TOL)
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+    _, float_logits, _ = _run_torch(tcfg, params_np, toks, forced, table)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(float_logits, want, **EQ_TOL)
+
+    # int8 pools and their scale rows, in the JAX layout (page 0 aside):
+    # dequantized, within one quantization step of JAX's
+    leaves, jleaves = dict(_leaves(cache)), dict(_leaves(jcache))
+    assert set(leaves) == set(jleaves)
+    for k, v in leaves.items():
+        if not k.endswith("_pages"):
+            continue
+        assert v.dtype == torch.int8
+        scale = leaves[k[:-len("pages")] + "scale"].numpy()
+        jscale = np.asarray(jleaves[k[:-len("pages")] + "scale"])
+        pool_axis = 1 if v.dim() == 5 else 0
+        sc = np.expand_dims(scale, (-3, -1))
+        jsc = np.expand_dims(jscale, (-3, -1))
+        deq = (v.numpy().astype(np.float32) * sc).take(
+            range(1, v.shape[pool_axis]), axis=pool_axis)
+        jdeq = (np.asarray(jleaves[k]).astype(np.float32) * jsc).take(
+            range(1, v.shape[pool_axis]), axis=pool_axis)
+        step = np.broadcast_to(np.maximum(sc, jsc), v.shape).take(
+            range(1, v.shape[pool_axis]), axis=pool_axis)
+        assert np.all(np.abs(deq - jdeq) <= 1.01 * step + 1e-6), k
