@@ -28,8 +28,32 @@ Phases, one output line or more each:
               through the plain versions, both on the card, with float and
               with int8 KV pages and weights: logits within 1e-3 of
               max |logit|.
-5. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
+5. train   -- the port's training entry point,
+              ``repro_torch.launch.train.main``, on full-width, full-depth
+              gemma-2b (fp32 master weights, bf16 compute, per-layer remat,
+              8 xent chunks, AdamW) for 3 steps of 2 x 512 tokens, with a
+              final checkpoint of params and moments: every loss finite,
+              only kernel routes for attention, attention_bwd, matmul and
+              matmul_bwd, and exactly the launches the config implies
+              (B6 2 x 18, B7 18, B1 4 x 134 per step, the recompute
+              included).
+   A profiled extra step gives device time by kernel and the idle
+   share (``torch.profiler``; reported as not measured if it sees no
+   device time).
+6. train parity -- one loss and backward of full-width gemma-2b in fp32,
+              through the kernels and through the plain versions on the
+              card: loss within 1e-5 relative, every gradient leaf within
+              1e-3 of that leaf's max |grad|.
+7. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
               ``{"ok": true, "device": {...}}``.
+
+Phase 2 also holds the flash forward (B6) and its fused backward (B7)
+at the training shape (B=2, H=8, S=512, hd=256; causal, and a window of
+128) against their plain versions, runs B7 twice and requires identical
+bits, times ``scaled_dot_product_attention`` and its backward beside
+them (never called by the port), and checks the matmul autograd
+backward (both fp32 gradient GEMMs through B1) at the down-projection's
+training shape.
 
 fp32 comparisons run with TF32 off (``torch.backends.cuda.matmul.
 allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` are set False).  Any
@@ -42,6 +66,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -70,6 +95,8 @@ REPLACES = {
     "quantized_matmul": "src/repro/kernels/matmul/matmul.py:75",
     "decode_attention_int8": "src/repro/kernels/attention/decode.py:62",
     "prefill_attention_int8": "src/repro/kernels/attention/prefill.py:63",
+    "flash_attention": "src/repro/kernels/attention/flash.py:89",
+    "flash_attention_bwd": "src/repro/kernels/attention/backward.py:134",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -80,10 +107,18 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/decode_attention.cu",
     "prefill_attention_int8":
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 # the case of each kernel that the summary line reports (bf16)
+TRAIN_SHAPE = dict(b=2, h=8, s=512, hd=256)
+TRAIN_CASE = "B=2 H=8 S=512 hd=256 causal window=0"
 SUMMARY_CASE = {"matmul": "M=4 K=2048 N=16384",
-                "quantized_matmul": "M=4 K=2048 N=16384"}
+                "quantized_matmul": "M=4 K=2048 N=16384",
+                "flash_attention": TRAIN_CASE,
+                "flash_attention_bwd": TRAIN_CASE}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 512
 WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 
 
@@ -337,6 +372,126 @@ def check_prefill(torch, dtype_name: str):
     return rows
 
 
+def _live_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention of length s
+    scores."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(s))
+
+
+def check_flash(torch, dtype_name: str):
+    """B6 and B7 at the training shape against their plain versions; B7
+    twice on the same inputs must give the same bits.  Library: one
+    ``scaled_dot_product_attention(is_causal=True)`` call and its
+    backward, timed beside the causal case only (it has no window)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_cuda,
+                                               flash_attention_plain)
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, s, hd = (TRAIN_SHAPE[k] for k in ("b", "h", "s", "hd"))
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    do = torch.randn(b, h, s, hd, generator=gen, device="cuda")
+    size, n = q.element_size(), q.numel()
+    rows = []
+    for window in (0, 128):
+        case = f"B={b} H={h} S={s} hd={hd} causal window={window}"
+        kw = dict(causal=True, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+        err = max(compare(torch, "flash_attention " + case, o, o_p,
+                          dtype_name),
+                  compare(torch, "flash_attention lse " + case, lse, lse_p,
+                          dtype_name))
+        pairs = b * h * _live_pairs(s, window)
+        lib_fwd = lib_bwd = None
+        if window == 0:
+            lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            do_lib = do.to(dtype)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do_lib, retain_graph=True))
+            del qg, kg, vg, out
+        rows.append(row(
+            "flash_attention", case, dtype_name, err,
+            time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw)),
+            time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw)),
+            bound(3 * n * size + n * 4 + b * h * s * 4,
+                  4.0 * hd * pairs, dtype_name), lib_fwd))
+
+        got = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {case}: two runs "
+                                 f"on the same inputs differ")
+        want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
+        err = max(compare(torch, f"flash_attention_bwd {name} {case}",
+                          g, w_, dtype_name)
+                  for name, g, w_ in zip(("dq", "dk", "dv"), got, want))
+        del got, again, want
+        # bytes: q, k, v in; o, dO fp32 and lse in; dq, dk, dv fp32 out.
+        # operations: the five products of one pass (S and dP recomputed
+        # once, dQ, dK, dV), 2 hd each per live pair
+        rows.append(row(
+            "flash_attention_bwd", case, dtype_name, err,
+            time_ms(torch, lambda: flash_attention_bwd_cuda(
+                q, k, v, o_p, lse_p, do, **kw)),
+            time_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, o_p, lse_p, do, **kw)),
+            bound(3 * n * size + 2 * n * 4 + b * h * s * 4 + 3 * n * 4,
+                  10.0 * hd * pairs, dtype_name), lib_bwd,
+            deterministic=True))
+        del o, lse, o_p, lse_p
+    return rows
+
+
+def check_matmul_backward(torch, dtype_name: str):
+    """The matmul autograd backward at the down-projection's training
+    shape (x (1024, 16384) @ w (16384, 2048)): both fp32 gradient GEMMs
+    through B1 against the plain route on the same inputs."""
+    from repro_torch.kernels import dispatch
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m, k, n = TRAIN_BATCH * TRAIN_SEQ, 16384, 2048
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(dtype)
+    g = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+
+    xg, wg = x.requires_grad_(True), w.requires_grad_(True)
+    out = dispatch.matmul(xg, wg)
+
+    def grads():
+        return torch.autograd.grad(out, (xg, wg), g, retain_graph=True)
+
+    def plain_grads():
+        # the backward routes when it runs: the same graph, plain GEMMs
+        with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+            return grads()
+
+    got, want = grads(), plain_grads()
+    case = f"backward M={m} K={k} N={n} (dx = g @ w.T, dw = x.T @ g, fp32)"
+    err = max(compare(torch, f"matmul {name} {case}", a, b_, dtype_name)
+              for name, a, b_ in zip(("dx", "dw"), got, want))
+    xf, wf, gf = x.detach().float(), w.detach().float(), g.float()
+    size = x.element_size()
+    r = row("matmul_bwd", case, dtype_name, err,
+            time_ms(torch, grads, 3), time_ms(torch, plain_grads, 3),
+            bound(size * (2 * m * k + 2 * k * n + m * n), 4.0 * m * n * k,
+                  "float32"),
+            time_ms(torch, lambda: (gf @ wf.T, xf.T @ gf), 3))
+    del out, got, want
+    x.requires_grad_(False)
+    w.requires_grad_(False)
+    return [r]
+
+
 # ------------------------------------------------------------ phase 3
 FLOAT_PATH = ("matmul", "decode_attention", "prefill_attention")
 INT8_PATH = ("matmul", "quantized_matmul", "decode_attention_int8",
@@ -485,6 +640,189 @@ def model_phase(torch, int8: bool):
     del params, kernel, plain
 
 
+# ------------------------------------------------------------ phase 5
+TRAIN_KERNELS = ("matmul", "flash_attention", "flash_attention_bwd")
+TRAIN_OPS = ("attention", "attention_bwd", "matmul", "matmul_bwd")
+
+
+def expected_train_launches():
+    """Launches per kernel that ``TRAIN_STEPS`` steps of full-width
+    gemma-2b imply: every layer's forward and its remat recompute run B6
+    and the 7 GEMMs, each of the 8 xent chunks (also recomputed) one head
+    GEMM, every GEMM backward two B1 launches, every layer's backward one
+    B7 call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import ExecOptions
+    n_layers = get_arch("gemma-2b").n_layers
+    chunks = min(ExecOptions().xent_chunks, TRAIN_SEQ)
+    gemms = 7 * n_layers + chunks
+    return {"matmul": TRAIN_STEPS * (2 * gemms + 2 * gemms),
+            "flash_attention": TRAIN_STEPS * 2 * n_layers,
+            "flash_attention_bwd": TRAIN_STEPS * n_layers}
+
+
+def train_phase(torch):
+    """``launch.train.main`` at full width and depth; the checkpoint
+    directory lives in the checkout's (git-ignored) build/ and is removed
+    afterwards."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    report = {}
+    try:
+        losses = train.main(
+            ["--arch", "gemma-2b", "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+             "--ckpt-dir", str(ckpt_dir)], report=report)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    routes = {f"{op}/{route}": n for (op, route), n in report[
+        "routes"].items()}
+    emit({"phase": "train", "arch": "gemma-2b", "steps": TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+          "step_seconds": report["step_seconds"],
+          "tok_s_per_step": [tokens / t for t in report["step_seconds"]],
+          "seconds": report["seconds"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "checkpoint_bytes": report["checkpoint_bytes"],
+          "checkpoint_seconds": report["checkpoint_seconds"],
+          "routes": routes, "launches": launches})
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: losses {losses}")
+    off = {k: n for k, n in report["routes"].items()
+           if k[0] in TRAIN_OPS and k[1] != "kernel"}
+    missing = [op for op in TRAIN_OPS
+               if report["routes"].get((op, "kernel"), 0) == 0]
+    if off or missing:
+        raise AssertionError(f"train: routes {routes}")
+    want = expected_train_launches()
+    got = {op: n for op, n in launches.items() if n or op in want}
+    if got != want:
+        raise AssertionError(f"train: launches {got}, expected {want}")
+    return launches
+
+
+KERNEL_GROUPS = (("matmul_kernel", "B1 matmul"),
+                 ("flash_fwd_kernel", "B6 flash forward"),
+                 ("flash_dq_kernel", "B7 dQ sweep"),
+                 ("flash_dkv_kernel", "B7 dK/dV sweep"))
+
+
+def train_profile(torch):
+    """Where one full-width train step's device time goes, by kernel,
+    from ``torch.profiler`` over one step after a warm-up step (the same
+    step function, config and batch as the train phase, without the
+    supervisor and checkpoint).  If the profiler sees no device time,
+    says so instead of failing: it is a breakdown, not a check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import (TrainStepConfig, init_train_state,
+                                         make_train_step)
+    cfg = get_arch("gemma-2b")
+    model = Model(cfg, device="cuda")
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                         total_steps=TRAIN_STEPS))
+    step_fn = make_train_step(model, ts)
+    params, opt = init_train_state(model, ts, seed=0)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(0).items()}
+    params, opt, metrics = step_fn(params, opt, batch)
+    float(metrics["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        float(metrics["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, other = {}, []
+    for evt in prof.key_averages():
+        # device-side events only: a CPU op's self device time repeats
+        # the kernels it launched
+        ms = evt.self_device_time_total / 1e3
+        if evt.device_type != torch.autograd.DeviceType.CUDA or ms <= 0:
+            continue
+        group = next((g for key, g in KERNEL_GROUPS if key in evt.key),
+                     None)
+        if group is None:
+            other.append((ms, evt.count, evt.key[:90]))
+            group = "other (PyTorch ops)"
+        groups[group] = groups.get(group, 0.0) + ms
+    busy = sum(groups.values())
+    emit({"phase": "train_profile", "profiled_step_wall_ms": wall_ms,
+          "device_ms": groups if busy else "not measured",
+          "device_busy_ms": busy if busy else None,
+          "idle_share": 1 - busy / wall_ms if busy else None,
+          "top_other": [{"ms": ms, "calls": n, "kernel": name}
+                        for ms, n, name in sorted(other, reverse=True)[:8]]})
+    del params, opt, metrics
+
+
+# ------------------------------------------------------------ phase 6
+def train_parity_phase(torch):
+    """One fp32 loss and backward of full-width gemma-2b, kernels against
+    the plain versions on the card (TF32 is off)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    cfg = get_arch("gemma-2b")
+    model = Model(cfg, dt=f32, device="cuda")
+    params = model.init(seed=2)
+    flat, rebuild = tree.flatten(params)
+    for t in flat:
+        t.requires_grad_(True)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=7))
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(0).items()}
+
+    def run():
+        loss, _ = model.loss_fn(rebuild(flat), batch)
+        grads = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), grads
+
+    loss_k, grads_k = run()
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        loss_p, grads_p = run()
+    torch.cuda.synchronize()
+    names = [f"leaf {i} {tuple(t.shape)}" for i, t in enumerate(flat)]
+    worst = (0.0, "", 0.0)
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        scale = gp.abs().max().item()
+        err = (gk - gp).abs().max().item()
+        ratio = err / scale if scale > 0 else err
+        if ratio >= worst[0]:
+            worst = (ratio, name, scale)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "train_parity", "arch": "gemma-2b", "dtype": "float32",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_kernel": loss_k,
+          "loss_plain": loss_p, "loss_rel_err": rel,
+          "worst_leaf": worst[1], "worst_leaf_err_over_max_grad": worst[0],
+          "worst_leaf_max_grad": worst[2], "leaves": len(flat)})
+    if not rel <= 1e-5:
+        raise AssertionError(f"train parity: loss {loss_k} vs {loss_p}")
+    if not worst[0] <= 1e-3:
+        raise AssertionError(f"train parity: {worst[1]} off by "
+                             f"{worst[0]:.3e} of its max |grad|")
+    del params, flat, grads_k, grads_p
+
+
 # ------------------------------------------------------------ main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -522,6 +860,8 @@ def main(argv=None) -> int:
         rows += check_quantized_matmul(torch, dtype_name, rows)
         rows += check_decode(torch, dtype_name)
         rows += check_prefill(torch, dtype_name)
+        rows += check_flash(torch, dtype_name)
+        rows += check_matmul_backward(torch, dtype_name)
     torch.cuda.empty_cache()
 
     launches = serve_phase(torch)
@@ -529,10 +869,18 @@ def main(argv=None) -> int:
     for int8 in (False, True):
         model_phase(torch, int8)
         torch.cuda.empty_cache()
+    for op, n in train_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
+    torch.cuda.empty_cache()
+    train_profile(torch)
+    torch.cuda.empty_cache()
+    train_parity_phase(torch)
+    torch.cuda.empty_cache()
 
     # the summary line: per kernel, the times of its first bf16 case at
     # the serving shapes (the GEMMs: the decode MLP up-projection, M=4
-    # K=2048 N=16384) and the largest error over all its cases
+    # K=2048 N=16384; B6/B7: the causal training case) and the largest
+    # error over all its cases; launches sum the serve and train runs
     kernels = []
     for name in SOURCES:
         mine = [r for r in rows if r["kernel"] == name]

@@ -1,0 +1,100 @@
+"""The fused recompute backward of flash attention: the CUDA kernels'
+wrapper and its plain PyTorch version.
+
+Replaces ``repro/kernels/attention/backward.py::flash_attention_bwd_pallas``
+(``_dq_kernel`` and ``_dkv_kernel``); the kernels are
+``kernels/csrc/flash_attention_bwd.cu``.  The forward saved only the
+per-row logsumexp; both versions recompute P from (q, k, lse) and fold the
+softmax-gradient correction dS = P (dP - delta), with
+``delta = rowsum(dO O)`` computed here in PyTorch, as the JAX function
+does outside its kernels.
+
+Layout: q, k, v (B, H, S, hd) bf16 or fp32 (one type); o, do (B, H, S,
+hd) fp32; lse (B, H, S) fp32.  Returns dq, dk, dv (B, H, S, hd) fp32;
+callers cast back to the primal dtypes.  GQA: k and v arrive expanded to
+H heads, and the reduction of dk/dv over a kv head's query heads happens
+outside, in autograd's backward of that expansion.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from .. import cuda
+from .flash import check_bhsd, masked_scores
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    return (o.float() * do.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int = 0) -> Grads:
+    """Dense recompute, as ``backward.py:_p_and_ds`` over one tile the
+    size of the sequence: P = exp(scores - lse) under the mask, dS rounded
+    to q/k's type before the products with K and Q, P to dO's type."""
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    scores = masked_scores(q, k, causal, window)
+    p = torch.where(scores > -1e30, torch.exp(scores - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - _delta(o, do)[..., None])
+    ds_r = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_r, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_r, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(),
+                      do.float())
+    return dq, dk, dv
+
+
+def _smem_bytes(hd: int) -> int:
+    """Shared memory of the larger (dK/dV) kernel of
+    csrc/flash_attention_bwd.cu."""
+    return 4 * (2 * 32 * (hd + 1) + 4 * 32 * hd + 2 * 32 * 32 + 2 * 32)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0) -> Grads:
+    """Launch ``repro_flash_attention_bwd`` (the dQ sweep, then the dK/dV
+    sweep): q, k, v contiguous (B, H, S, hd) of one type, o and do fp32
+    of that shape, lse (B, H, S) fp32, all on one CUDA device.  Counts
+    one launch per call.  Returns new fp32 (dq, dk, dv); raises on
+    anything the kernels do not take."""
+    name = "flash_attention_bwd"
+    cuda.require_cuda(name, q, k, v, o, lse, do)
+    check_bhsd(name, q, k, v)
+    b, h, s, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
+        raise ValueError(f"{name}: o/do must be {tuple(q.shape)} and lse "
+                         f"{(b, h, s)}, got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    if any(t.dtype != torch.float32 for t in (o, lse, do)):
+        raise TypeError(f"{name}: o, lse and do must be float32")
+    if window < 0:
+        raise ValueError(f"{name}: window {window} < 0")
+    if _smem_bytes(hd) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: head width {hd} needs {_smem_bytes(hd)} "
+                         f"bytes of shared memory")
+    delta = _delta(o, do)
+    dq, dk, dv = (torch.empty((b, h, s, hd), dtype=torch.float32,
+                              device=q.device) for _ in range(3))
+    rc = cuda.library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
+        *cuda.c_ints(name, b * h, s, hd, int(causal), window),
+        cuda.dtype_code(q), cuda.stream_of(q))
+    cuda.check(rc, name)
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

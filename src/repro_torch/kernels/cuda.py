@@ -40,6 +40,8 @@ SIGNATURES = {
     "repro_decode_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
     "repro_prefill_attention": [_P] * 6 + [_I] * 10 + [_P],
     "repro_prefill_attention_int8": [_P] * 8 + [_I] * 10 + [_P],
+    "repro_flash_attention": [_P] * 5 + [_I] * 6 + [_P],
+    "repro_flash_attention_bwd": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -7,6 +7,12 @@ the hand-written CUDA kernel (whose wrapper raises on what it does not
 take; there is no fallback).  Each call ticks an ``(op, route)`` counter,
 route "kernel" or "plain", so a run can show which path it took;
 ``stats_scope`` isolates the counters for a probe.
+
+``matmul`` and ``attention`` are ``torch.autograd.Function``s: their
+backwards route by the device of the incoming gradient in the same way
+(``matmul_bwd``: both gradient GEMMs through B1 in fp32;
+``attention_bwd``: the fused recompute backward), so the CPU tests walk
+the control flow and counters the card does.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
-                        decode_attention_plain, prefill_attention_cuda,
+                        decode_attention_plain, flash_attention_bwd_cuda,
+                        flash_attention_bwd_plain, flash_attention_cuda,
+                        flash_attention_plain, prefill_attention_cuda,
                         prefill_attention_int8_cuda, prefill_attention_plain)
 from .matmul import (matmul_cuda, matmul_plain, quantized_matmul_cuda,
                      quantized_matmul_plain)
@@ -32,7 +40,9 @@ KERNELS = {"matmul": matmul_cuda,
            "decode_attention": decode_attention_cuda,
            "decode_attention_int8": decode_attention_int8_cuda,
            "prefill_attention": prefill_attention_cuda,
-           "prefill_attention_int8": prefill_attention_int8_cuda}
+           "prefill_attention_int8": prefill_attention_int8_cuda,
+           "flash_attention": flash_attention_cuda,
+           "flash_attention_bwd": flash_attention_bwd_cuda}
 
 
 def reset_stats() -> None:
@@ -70,15 +80,89 @@ def _on_card(op: str, t: torch.Tensor) -> bool:
     return kernel
 
 
+def _grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One fp32 gradient GEMM, routed and counted as ``matmul_bwd``."""
+    if _on_card("matmul_bwd", a):
+        return matmul_cuda(a, b)
+    return matmul_plain(a, b)
+
+
+class _Matmul(torch.autograd.Function):
+    """a (M, K) @ b (K, N) with the JAX op's custom VJP
+    (``repro/kernels/matmul/ops.py::_matmul_vjp_bwd``): both gradient
+    GEMMs run in fp32 through the device's route, dx = g @ b.T (b.T read
+    through its strides) and db = a.T @ g (a.T made contiguous, as B1's
+    A operand must be), each cast back to its primal dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a = a.contiguous()
+        ctx.save_for_backward(a, b)
+        return matmul_cuda(a, b) if _on_card("matmul", a) \
+            else matmul_plain(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float().contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _grad_gemm(g, b.float().T).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _grad_gemm(a.float().T.contiguous(), g).to(b.dtype)
+        return da, db
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Contract the last axis of ``x`` with the first axis of ``w``.
 
     x: (..., K); w: (K, N1[, N2, ...]).  Returns x.shape[:-1] + w.shape[1:]
-    in the promoted input dtype."""
+    in the promoted input dtype; differentiable in both."""
     k = x.shape[-1]
-    a, b = x.reshape(-1, k), w.reshape(k, -1)
-    out = matmul_cuda(a, b) if _on_card("matmul", x) else matmul_plain(a, b)
+    out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1))
     return out.reshape(x.shape[:-1] + w.shape[1:])
+
+
+class _Attention(torch.autograd.Function):
+    """Flash attention with the JAX op's custom VJP
+    (``repro/kernels/attention/ops.py::_attention_vjp_fwd`` / ``_bwd``):
+    the forward keeps (q, k, v, o, lse) in (B, H, S, hd) layout, the
+    backward recomputes P tiles from lse in the fused backward on the
+    fp32 cotangent and casts the gradients to the primal dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, out_dtype):
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        fn = flash_attention_cuda if _on_card("attention", q) \
+            else flash_attention_plain
+        o, lse = fn(qt, kt, vt, causal=causal, window=window,
+                    return_lse=True)
+        ctx.save_for_backward(qt, kt, vt, o, lse)
+        ctx.mask = (causal, window)
+        return o.transpose(1, 2).to(out_dtype,
+                                    memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        qt, kt, vt, o, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        gt = g.transpose(1, 2).float().contiguous()
+        fn = flash_attention_bwd_cuda if _on_card("attention_bwd", g) \
+            else flash_attention_bwd_plain
+        grads = fn(qt, kt, vt, o, lse, gt, causal=causal, window=window)
+        dq, dk, dv = (d.transpose(1, 2).to(t.dtype)
+                      for d, t in zip(grads, (qt, kt, vt)))
+        return dq, dk, dv, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Self-attention over model-layout tensors: q, k, v (B, S, H, hd),
+    k and v already GQA-expanded to H heads.  Returns (B, S, H, hd) in
+    ``out_dtype`` (default q's dtype); differentiable in q, k and v."""
+    return _Attention.apply(q, k, v, bool(causal), int(window),
+                            q.dtype if out_dtype is None else out_dtype)
 
 
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,

@@ -1,0 +1,146 @@
+"""End-to-end training entry point: the port of ``repro/launch/train.py``.
+
+Trains any attention + MLP arch, at its published size on the card or at
+its smoke size on the CPU, with the training stack of this package:
+AdamW (optionally int8 moments, gradient compression), the deterministic
+synthetic data stream, atomic checkpoints, supervised restart and the
+straggler watch.  Every attention forward runs the flash kernel and every
+attention backward the fused recompute backward; every projection and
+the head run the matmul kernel forward and backward.  Routing is by
+device (``--device``, default ``cuda``): there is no ``--dispatch`` mode,
+no mesh and no tuned-plan preload.
+
+Examples:
+  python -m repro_torch.launch.train --arch gemma-2b --steps 3 --batch 2 \\
+      --seq 512 --ckpt-dir /tmp/ck                 # full width, on the card
+  python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 3 \\
+      --batch 2 --seq 32 --device cpu --ckpt-dir /tmp/ck
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint.checkpoint import CheckpointManager
+from ..configs import get_arch
+from ..core import tree
+from ..core.device import resolve_device
+from ..core.memory import DtypePolicy
+from ..data.pipeline import DataConfig, SyntheticLM
+from ..kernels import dispatch
+from ..models.transformer import ExecOptions, Model
+from ..optim.adamw import AdamWConfig
+from ..optim.compress import CompressorConfig
+from ..runtime.fault_tolerance import FailureInjector, Supervisor
+from ..train.steps import TrainStepConfig, init_train_state, make_train_step
+
+
+def main(argv=None, report: Optional[Dict] = None) -> List[float]:
+    """Run the CLI; returns the per-step losses.  A ``report`` dict, when
+    given, receives the per-step seconds, the dispatch routes and the last
+    checkpoint's bytes and seconds."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--int8-moments", action="store_true")
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_torch_ckpt")
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--inject-failures", default="",
+                    help="comma-separated steps to fail at (tests restore)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--d-model", type=int, default=0,
+                    help="override width (with --smoke)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+        if args.d_model:
+            cfg = dataclasses.replace(
+                cfg, d_model=args.d_model, d_ff=4 * args.d_model)
+
+    opts = ExecOptions(block_q=min(512, args.seq),
+                       block_kv=min(512, args.seq), remat=True)
+    model = Model(cfg, dt=DtypePolicy(), device=device, opts=opts)
+    ts_cfg = TrainStepConfig(
+        opt=AdamWConfig(lr=args.lr, int8_moments=args.int8_moments,
+                        warmup_steps=max(10, args.steps // 20),
+                        total_steps=args.steps),
+        microbatches=args.microbatches,
+        compress=CompressorConfig() if args.compress_grads else None)
+    step_fn_raw = make_train_step(model, ts_cfg)
+    params, opt = init_train_state(model, ts_cfg, seed=0)
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    print(f"device: {device}  arch: {cfg.name} ({n_params / 1e6:.1f}M "
+          f"params)")
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=args.seq, global_batch=args.batch,
+                                  input_mode=cfg.input_mode,
+                                  d_model=cfg.d_model))
+    ckpt = CheckpointManager(args.ckpt_dir, keep=3, async_save=False)
+    injector = FailureInjector(
+        [int(s) for s in args.inject_failures.split(",") if s]) \
+        if args.inject_failures else None
+    sup = Supervisor(ckpt, save_every=args.save_every, injector=injector)
+
+    losses: List[float] = []
+    step_seconds: List[float] = []
+    started = {}
+
+    def one_step(state, step):
+        params, opt = state
+        started[step] = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(step).items()}
+        params, opt, metrics = step_fn_raw(params, opt, batch)
+        return (params, opt), metrics
+
+    def on_metrics(step, metrics):
+        # reading the loss waits for every kernel the step enqueued
+        loss = float(metrics["loss"])
+        step_seconds.append(time.perf_counter() - started[step])
+        losses.append(loss)
+        if step % args.log_every == 0:
+            print(f"step {step:5d}  loss {loss:.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.3f}  "
+                  f"lr {float(metrics['lr']):.2e}")
+
+    dispatch.reset_stats()
+    t0 = time.time()
+    (params, opt), final = sup.run((params, opt), one_step, args.steps,
+                                   on_metrics=on_metrics)
+    dt = time.time() - t0
+    tok_s = args.steps * args.batch * args.seq / dt
+    print(f"done: {final} steps in {dt:.1f}s ({tok_s:,.0f} tok/s); "
+          f"loss {losses[0]:.3f} -> {np.mean(losses[-5:]):.3f}; "
+          f"restarts={sup.restarts} stragglers={len(sup.stragglers.flags)}")
+    routes = dispatch.stats()
+    print("[dispatch] routes: "
+          + (", ".join(f"{op}/{r}={n}" for (op, r), n in sorted(
+              routes.items())) or "none"))
+    if report is not None:
+        report.update(step_seconds=step_seconds, seconds=dt, routes=routes,
+                      restarts=sup.restarts,
+                      checkpoint_bytes=ckpt.last_bytes,
+                      checkpoint_seconds=ckpt.last_seconds)
+    return losses
+
+
+if __name__ == "__main__":
+    main()

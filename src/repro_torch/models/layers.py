@@ -1,5 +1,5 @@
-"""Core layers of the paged serving path: norms, rotary embeddings, paged
-attention, MLPs -- the port of ``repro/models/layers.py``.
+"""Core layers: norms, rotary embeddings, dense and paged attention,
+MLPs, losses -- the port of ``repro/models/layers.py``.
 
 Every matmul and attention contraction routes through
 ``kernels.dispatch``, which picks the CUDA kernel for CUDA tensors and the
@@ -14,6 +14,7 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core import quant
 from ..core.memory import DtypePolicy
@@ -195,6 +196,44 @@ def _out_proj(p: Params, s: AttnSpec, out: torch.Tensor,
                    s.weights_dtype)
 
 
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: (B, S, Hkv, hd) -> (B, S, H, hd) by group broadcast; autograd
+    sums the gradients of a kv head's query heads back through it."""
+    b, sq, hkv, hd = k.shape
+    g = n_heads // hkv
+    if g == 1:
+        return k
+    return k[:, :, :, None, :].expand(b, sq, hkv, g, hd) \
+        .reshape(b, sq, n_heads, hd)
+
+
+def attention_blockwise(p: Params, s: AttnSpec, x: torch.Tensor,
+                        positions: torch.Tensor, dt: DtypePolicy, *,
+                        block_q: int = 512, block_kv: int = 512
+                        ) -> torch.Tensor:
+    """Causal (sliding-window when ``s.window``) self-attention of a whole
+    sequence through ``dispatch.attention``: the flash kernel and its
+    fused backward on the card, the dense plain versions on the CPU.
+    x: (B, S, d); positions (B, S).  The kernels keep their own tile
+    geometry, so ``block_q`` / ``block_kv`` (the JAX reference lowering's
+    tiles) do not change the result.  Returns (B, S, d)."""
+    del block_q, block_kv
+    q, k, v = _qkv(p, s, x, positions, dt)
+    out = dispatch.attention(q, _expand_kv(k, s.n_heads),
+                             _expand_kv(v, s.n_heads), causal=True,
+                             window=s.window, out_dtype=dt.compute)
+    return _out_proj(p, s, out, dt)
+
+
+def attention_naive(p: Params, s: AttnSpec, x: torch.Tensor,
+                    positions: torch.Tensor, dt: DtypePolicy
+                    ) -> torch.Tensor:
+    """The JAX package's T0/T1 lowering, which materializes (S, S).  The
+    port routes by device alone, so this is ``attention_blockwise``:
+    the plain version on the CPU is the dense one."""
+    return attention_blockwise(p, s, x, positions, dt)
+
+
 def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                            lengths: torch.Tensor, table: torch.Tensor,
                            k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -326,3 +365,49 @@ def quantize_layer_weights(p: Params, cdt: torch.dtype,
                    if name in OUT_DIMS else w for name, w in sub.items()}
         out[key] = sub
     return out
+
+
+# --------------------------------------------------------------------------
+# cross entropy
+# --------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy.  logits (..., V); labels (...) int."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    label_logit = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    return (lse - label_logit).mean()
+
+
+def _xent_chunk(x_c: torch.Tensor, head: torch.Tensor,
+                l_c: torch.Tensor) -> torch.Tensor:
+    logits = dispatch.matmul(x_c, head).float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    label_logit = torch.gather(shifted, -1, l_c.long()[..., None])[..., 0]
+    return (lse - label_logit).sum()
+
+
+def chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                 *, n_chunks: int, remat: bool = True) -> torch.Tensor:
+    """Head matmul + cross entropy, tiled over the sequence (§3.4): only
+    one (B, S/n_chunks, V) logits tile is alive at a time, and with
+    ``remat`` each tile is recomputed in the backward
+    (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint(chunk)``).
+    x: (B, S, d) post-final-norm; head (d, V).  Returns the mean."""
+    b, sq, _ = x.shape
+    while n_chunks > 1 and sq % n_chunks != 0:
+        n_chunks //= 2
+    c = sq // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        x_c, l_c = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if remat:
+            total = total + torch.utils.checkpoint.checkpoint(
+                _xent_chunk, x_c, head, l_c, use_reentrant=False)
+        else:
+            total = total + _xent_chunk(x_c, head, l_c)
+    return total / (b * sq)

@@ -1,11 +1,15 @@
-"""The paged-serving decoder LM -- the port of ``repro/models/transformer.py``
-for attention + MLP stacks.
+"""The decoder LM -- the port of ``repro/models/transformer.py`` for
+attention + MLP stacks: paged serving forwards, and the training loss.
 
 Layer stacking keeps the JAX package's layout (paper §2.5 loop
 flattening): ``prefix`` layers, ``n_periods`` repetitions of the layer
 *pattern* stored with a leading period axis, and a ``tail``.  JAX scans
-over the period axis; here a Python loop walks it, and each layer sees
-views of the stacked params and pools, so pool writes land in place.
+over the period axis; here a Python loop walks it.  Serving gives each
+layer views of the stacked params and pools, so pool writes land in
+place; training takes the period slices with one ``unbind(0)`` per
+forward, whose backward stacks each leaf's gradient once (indexing the
+stack per layer would build a zero tensor of the whole stack for every
+slice's gradient).
 
 Params are a nested dict with the JAX tree's keys and nesting
 (``embed``, ``final_norm/scale``, ``prefix``/``stack``/``tail`` lists of
@@ -15,9 +19,10 @@ JAX tree one to one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig, LayerKind
 from ..core.device import DeviceLike, resolve_device
@@ -26,6 +31,21 @@ from ..core.quant import kv_dtype_of
 from ..kernels import dispatch
 from . import layers
 from .layers import Params
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecOptions:
+    """How the training forward runs (the JAX ``ExecOptions`` fields that
+    a single device uses)."""
+    block_q: int = 512
+    block_kv: int = 512
+    remat: bool = True
+    # "full" recomputes every layer in the backward (JAX's
+    # nothing_saveable); "dots" (save matmul outputs) is not ported yet
+    remat_policy: str = "full"
+    attn_impl: str = "blockwise"   # blockwise | naive
+    # sequence tiles for the head matmul + xent (§3.4)
+    xent_chunks: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +159,35 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
                                 cfg.weights_dtype)
 
 
+def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
+                x: torch.Tensor, positions: torch.Tensor, dt: DtypePolicy,
+                opts: ExecOptions) -> torch.Tensor:
+    """One layer of the training / dense forward over whole sequences:
+    x (B, S, d) -> (B, S, d)."""
+    spec = _attn_spec(cfg, kind[0])
+    h = layers.rmsnorm(p["ln1"], x)
+    if opts.attn_impl == "naive":
+        h = layers.attention_naive(p["attn"], spec, h, positions, dt)
+    else:
+        h = layers.attention_blockwise(p["attn"], spec, h, positions, dt,
+                                       block_q=opts.block_q,
+                                       block_kv=opts.block_kv)
+    x = x + h
+    h = layers.rmsnorm(p["ln2"], x)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                                cfg.weights_dtype)
+
+
+def _unbind(tree) -> List[Any]:
+    """The period slices of a stacked subtree, one ``unbind(0)`` per
+    leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _index(tree, i: int):
     """Period ``i`` of a stacked subtree, as views."""
     if isinstance(tree, dict):
@@ -151,13 +200,15 @@ def _index(tree, i: int):
 # --------------------------------------------------------------------------
 
 class Model:
-    """Paged serving forwards of one arch, on one device.
+    """Paged serving forwards and the training loss of one arch, on one
+    device.
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
 
     def __init__(self, cfg: ArchConfig, dt: DtypePolicy = BF16_POLICY,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 opts: ExecOptions = ExecOptions()):
         _require_paged(cfg)
         if cfg.input_mode != "tokens":
             raise ValueError(f"arch {cfg.name} takes {cfg.input_mode}; the "
@@ -167,8 +218,13 @@ class Model:
                              "supported (float '' or 'int8')")
         self.cfg = cfg
         self.dt = dt
+        if opts.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy {opts.remat_policy!r}")
+        if opts.attn_impl not in ("blockwise", "naive"):
+            raise ValueError(f"attn_impl {opts.attn_impl!r}")
         self.device = resolve_device(device)
         self.layout = make_layout(cfg)
+        self.opts = opts
 
     # ------------------------------ init ------------------------------
     def init(self, seed: int) -> Params:
@@ -233,6 +289,78 @@ class Model:
                 yield (_index(params["stack"][j], i), kind,
                        _index(cache["stack"][j], i))
         yield from zip(params["tail"], lay.tail, cache["tail"])
+
+    # ------------------------------ training / dense forward ---------
+    def _positions(self, b: int, s: int) -> torch.Tensor:
+        return torch.arange(s, dtype=torch.int32,
+                            device=self.device)[None, :].expand(b, s)
+
+    def _run_stack(self, params: Params, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        """Every layer in order; with ``opts.remat`` each layer is
+        recomputed in the backward (``torch.utils.checkpoint``, as the
+        JAX package's per-layer ``jax.checkpoint``)."""
+        cfg, dt, opts, lay = self.cfg, self.dt, self.opts, self.layout
+        if opts.remat and opts.remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy='dots' (save the matmul outputs) is not "
+                "ported yet; use 'full'")
+
+        def one(p, kind, x):
+            if opts.remat:
+                return torch.utils.checkpoint.checkpoint(
+                    layer_apply, p, cfg, kind, x, positions, dt, opts,
+                    use_reentrant=False)
+            return layer_apply(p, cfg, kind, x, positions, dt, opts)
+
+        for p, kind in zip(params["prefix"], lay.prefix):
+            x = one(p, kind, x)
+        if lay.n_periods:
+            periods = [_unbind(sub) for sub in params["stack"]]
+            for i in range(lay.n_periods):
+                for j, kind in enumerate(lay.period):
+                    x = one(periods[j][i], kind, x)
+        for p, kind in zip(params["tail"], lay.tail):
+            x = one(p, kind, x)
+        return x
+
+    def _head(self, params: Params) -> torch.Tensor:
+        head = params["embed"].T if self.cfg.tie_embeddings \
+            else params["head"]
+        return head.to(self.dt.compute)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy of ``batch`` ("tokens" and
+        "labels", (B, S) int).  Returns (loss, {"loss", "xent", "aux"});
+        aux is 0 (no MoE layers in this port yet)."""
+        x = self._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        x = self._run_stack(params, x, self._positions(b, s))
+        x = layers.rmsnorm(params["final_norm"], x)
+        xent = layers.chunked_xent(x, self._head(params), batch["labels"],
+                                   n_chunks=min(self.opts.xent_chunks, s))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        loss = xent + aux
+        return loss, {"loss": loss, "xent": xent, "aux": aux}
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """Full logits (B, S, V) of ``batch["tokens"]`` (small-scale eval
+        and tests)."""
+        x = self._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        x = self._run_stack(params, x, self._positions(b, s))
+        return self._logits(params, x)
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """Run the stack over the prompt and return only the last
+        position's logits (B, V)."""
+        x = self._embed(params, batch["tokens"])
+        b, s = x.shape[:2]
+        x = self._run_stack(params, x, self._positions(b, s))
+        return self._logits(params, x[:, s - 1:])[:, 0]
 
     # ------------------------------ paged serving ---------------------
     def init_paged_cache(self, slots: int, max_len: int, page_size: int,

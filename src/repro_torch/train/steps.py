@@ -1,0 +1,88 @@
+"""The training step: gradients of the loss, optional microbatch
+accumulation and gradient compression, and the clipped AdamW update --
+the port of ``repro/train/steps.py`` for one device.
+
+JAX fuses the step into one jit; here it is eager.  Gradients come from
+``torch.autograd.grad`` over the param leaves, and the update writes the
+params and fp32 moments in place (``optim/adamw.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..core import tree
+from ..models.transformer import Model
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..optim.compress import (CompressorConfig, compress_gradients,
+                              init_residual)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    opt: AdamWConfig = AdamWConfig()
+    microbatches: int = 1
+    compress: Optional[CompressorConfig] = None
+
+
+def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig()
+                    ) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics).  With compression on, opt_state is (AdamWState, residual).
+    """
+
+    def grads_of(flat, rebuild, batch):
+        loss, metrics = model.loss_fn(rebuild(flat), batch)
+        grads = torch.autograd.grad(loss, flat)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            list(grads)
+
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        residual = None
+        if cfg.compress is not None:
+            opt_state, residual = opt_state
+        flat, rebuild = tree.flatten(params)
+        for p in flat:
+            p.requires_grad_(True)
+        mb = cfg.microbatches
+        if mb > 1:
+            # accumulate in the gradient's own dtype, as the JAX step
+            g_acc = [torch.zeros_like(p, requires_grad=False) for p in flat]
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=flat[0].device)
+            for i in range(mb):
+                part = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
+                        for k, v in batch.items()}
+                loss, metrics, g = grads_of(flat, rebuild, part)
+                g_acc = [a + b for a, b in zip(g_acc, g)]
+                loss_sum = loss_sum + loss
+            grads = [g / mb for g in g_acc]
+            metrics["loss"] = loss_sum / mb
+        else:
+            _, metrics, grads = grads_of(flat, rebuild, batch)
+        for p in flat:
+            p.requires_grad_(False)
+        grads = rebuild(grads)
+        if cfg.compress is not None:
+            grads, residual = compress_gradients(grads, residual,
+                                                 cfg.compress)
+        new_params, new_opt, opt_metrics = adamw_update(
+            grads, opt_state, params, cfg.opt)
+        metrics = {**metrics, **opt_metrics}
+        if cfg.compress is not None:
+            new_opt = (new_opt, residual)
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def init_train_state(model: Model, cfg: TrainStepConfig, seed: int = 0
+                     ) -> Tuple[Any, Any]:
+    """Seeded params (``Model.init``) and a fresh optimizer state."""
+    params = model.init(seed)
+    opt = adamw_init(params, cfg.opt)
+    if cfg.compress is not None:
+        opt = (opt, init_residual(params))
+    return params, opt

@@ -10,7 +10,9 @@ machine that has only PyTorch:
 Small shapes cover what the full-width chip_smoke.py does not: ragged
 GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots, for
 the float kernels and for the int8 ones (the int8-weight GEMM and the
-int8 branches of the attention kernels).  fp32 runs with TF32 off;
+int8 branches of the attention kernels), and the flash forward and its
+fused backward at ragged sequence lengths, windows and head widths up to
+gemma's 256, with their autograd routes.  fp32 runs with TF32 off;
 tolerances are those of tests/test_paged_decode.py (the int8 kernels
 compute in fp32, so a bf16 q costs only its own rounding).
 """
@@ -207,7 +209,8 @@ def test_int8_wrappers_count_launches_and_reject_bad_inputs(card):
     assert {k: after[k] - before[k] for k in after} == {
         "matmul": 0, "decode_attention": 0, "prefill_attention": 0,
         "decode_attention_int8": 1, "prefill_attention_int8": 1,
-        "quantized_matmul": 1}
+        "quantized_matmul": 1, "flash_attention": 0,
+        "flash_attention_bwd": 0}
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_int8_cuda(q, kq, vq, table, lengths, ks.cpu(), vs)
     with pytest.raises(TypeError):             # float pools with scales
@@ -273,3 +276,116 @@ def test_paged_model_kernels_match_plain(card, layout, int8):
     with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
         plain = run()
     torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ B6 / B7
+def _bhsd(card, dtype, seed, b=2, h=3, s=37, hd=40):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen, device=card)
+               .to(dtype) for _ in range(3))
+    do = torch.randn(b, h, s, hd, generator=gen, device=card)
+    return q, k, v, do
+
+
+FLASH_MASKS = [(True, 0), (True, 7), (False, 0), (False, 9)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("s,hd", [(37, 40), (64, 256), (1, 16)])
+def test_flash_kernels_match_plain(card, dtype, causal, window, s, hd):
+    """Forward (o, lse) and backward (dq, dk, dv) at a ragged length, a
+    full tile multiple at gemma's head width, and a single row."""
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_cuda,
+                                               flash_attention_plain)
+    q, k, v, do = _bhsd(card, dtype, s * hd + window, s=s, hd=hd)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    o_p, lse_p = flash_attention_plain(q, k, v, causal=causal,
+                                       window=window, return_lse=True)
+    assert o.dtype == lse.dtype == torch.float32
+    _close(o, o_p, dtype)
+    _close(lse, lse_p, torch.float32)
+    got = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, causal=causal,
+                                   window=window)
+    want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=causal,
+                                     window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w, dtype)
+
+
+def test_flash_backward_is_deterministic(card):
+    """No atomics: two runs of the backward give the same bits."""
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_cuda)
+    q, k, v, do = _bhsd(card, torch.bfloat16, 5, s=96, hd=256)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_wrappers_count_launches_and_reject_bad_inputs(card):
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_cuda)
+    q, k, v, do = _bhsd(card, torch.float32, 6)
+    before = (flash_attention_cuda.launches,
+              flash_attention_bwd_cuda.launches)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.cpu(), k, v)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q[..., :8].contiguous(), k, v)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(q, k, v, o, lse, do.bfloat16())
+    with pytest.raises(ValueError):
+        flash_attention_cuda(torch.zeros(1, 1, 4, 512, device=card),
+                             torch.zeros(1, 1, 4, 512, device=card),
+                             torch.zeros(1, 1, 4, 512, device=card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dispatch_gradients_on_card_match_the_cpu_route(card, dtype):
+    """``dispatch.matmul`` and ``dispatch.attention`` forward and backward
+    through the kernels against the same calls on CPU copies (the plain
+    route), at a GQA-expanded, windowed geometry."""
+    from repro_torch.models.layers import _expand_kv
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    b, s, h, hkv, hd, d = 2, 40, 4, 2, 32, 48
+    x = torch.randn(b, s, d, generator=gen)
+    w = torch.randn(d, h, hd, generator=gen) / d ** 0.5
+    kv = torch.randn(b, s, hkv, hd, generator=gen)
+    cot = torch.randn(b, s, h * hd, generator=gen)
+
+    def run(device):
+        leaves = [t.to(device=device, dtype=dtype).requires_grad_(True)
+                  for t in (x, w, kv)]
+        x_, w_, kv_ = leaves
+        q = dispatch.matmul(x_, w_)
+        kk = _expand_kv(kv_, h)
+        out = dispatch.attention(q, kk, kk * 0.5, causal=True, window=9,
+                                 out_dtype=torch.float32)
+        loss = (out.reshape(b, s, h * hd) * cot.to(device)).sum()
+        with dispatch.stats_scope() as stats:
+            grads = torch.autograd.grad(loss, leaves)
+            routes = stats()
+        return [out] + list(grads), routes
+
+    got, routes = run(card)
+    assert routes == {("attention_bwd", "kernel"): 1,
+                      ("matmul_bwd", "kernel"): 2}, routes
+    want, _ = run("cpu")
+    for g_, w_ in zip(got, want):
+        _close(g_.float().cpu(), w_.float(), dtype)

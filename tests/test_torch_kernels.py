@@ -287,10 +287,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         prefill_attention_int8_cuda(q[:, None], pools8, pools8, table, ones,
                                     scales, scales)
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_cuda)
+    bhsd = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(bhsd, bhsd, bhsd)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(bhsd, bhsd, bhsd, bhsd, bhsd[..., 0], bhsd)
     assert dispatch.launch_counts() == before
     assert set(before) == {"matmul", "quantized_matmul", "decode_attention",
                            "decode_attention_int8", "prefill_attention",
-                           "prefill_attention_int8"}
+                           "prefill_attention_int8", "flash_attention",
+                           "flash_attention_bwd"}
 
 
 def test_dispatch_attention_routes_by_device():

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models.transformer import Model
 
 torch.set_num_threads(1)
@@ -51,6 +51,16 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "gemma-2b", "--smoke", "--requests", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_train_cli_raises_without_a_card(no_card, tmp_path):
+    argv = ["--arch", "gemma-2b", "--smoke", "--steps", "1", "--batch", "2",
+            "--seq", "8", "--ckpt-dir", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    assert not (tmp_path / "ck").exists()
+    losses = train.main(argv + ["--device", "cpu"])
+    assert len(losses) == 1
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
