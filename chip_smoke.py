@@ -44,8 +44,23 @@ Phases, one output line or more each:
               through the kernels and through the plain versions on the
               card: loss within 1e-5 relative, every gradient leaf within
               1e-3 of that leaf's max |grad|.
-7. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
+7. library -- the kernel library's public ops
+              (``repro_torch.kernels.{wkv,stencil,nbody,histogram}``) on
+              CUDA tensors at phase 2b's sizes: only kernel routes, one
+              launch per call (the stencil one per sweep), outputs equal
+              to the plain versions within phase 2b's tolerances.
+8. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
               ``{"ok": true, "device": {...}}``.
+
+Phase 2b holds the kernel library's kernels against their plain versions
+on the card: WKV (B8) at rwkv6-7b's time-mix width (B=4, S=4096, H=64,
+hd=64, chunk 64) in bf16 and fp32 with init-like and strong decays, max
+|err| within 1e-4 of max |out|; the Jacobi stencil (B9) on 8192 x 8192
+fp32 (1 and 32 sweeps) and 8191 x 8193, bit for bit, beside one
+``F.conv2d`` with the cross kernel; N-body (B10) at N = 16128 and 65536,
+within 1e-4 of max |a|; the histogram (B11) of 2^26 int32 values,
+uniform and all in one bin, and a small case with values out of range,
+exact, beside ``torch.bincount``.
 
 Phase 2 also holds the flash forward (B6) and its fused backward (B7)
 at the training shape (B=2, H=8, S=512, hd=256; causal, and a window of
@@ -97,6 +112,10 @@ REPLACES = {
     "prefill_attention_int8": "src/repro/kernels/attention/prefill.py:63",
     "flash_attention": "src/repro/kernels/attention/flash.py:89",
     "flash_attention_bwd": "src/repro/kernels/attention/backward.py:134",
+    "wkv": "src/repro/kernels/wkv/wkv.py:102",
+    "stencil": "src/repro/kernels/stencil/stencil.py:51",
+    "nbody": "src/repro/kernels/nbody/nbody.py:53",
+    "histogram": "src/repro/kernels/histogram/histogram.py:45",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -110,14 +129,35 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "wkv": "src/repro_torch/kernels/csrc/wkv.cu",
+    "stencil": "src/repro_torch/kernels/csrc/stencil.cu",
+    "nbody": "src/repro_torch/kernels/csrc/nbody.cu",
+    "histogram": "src/repro_torch/kernels/csrc/histogram.cu",
 }
-# the case of each kernel that the summary line reports (bf16)
+# the kernel library's sizes: WKV at rwkv6-7b's time-mix width
+# (configs/archs.py:113, chunk 64), the 8192 x 8192 grid and the N = 16128
+# bodies benchmarks/run.py models, N = 65536, and 2^26 histogram values
+WKV_SHAPE = dict(b=4, s=4096, h=64, hd=64)
+WKV_CHUNK, WKV_SUBCHUNK = 64, 16
+STENCIL_CASES = ((8192, 8192, 1), (8192, 8192, 32), (8191, 8193, 1))
+NBODY_SIZES = (16128, 65536)
+HIST_N, HIST_BINS = 1 << 26, 256
+LIB_TOL = 1e-4            # WKV and N-body: max |err| / max |plain output|
+# the case of each kernel that the summary line reports (bf16 unless
+# SUMMARY_DTYPE names another type)
 TRAIN_SHAPE = dict(b=2, h=8, s=512, hd=256)
 TRAIN_CASE = "B=2 H=8 S=512 hd=256 causal window=0"
+WKV_CASE = "B=4 S=4096 H=64 hd=64 chunk=64 decay=init"
 SUMMARY_CASE = {"matmul": "M=4 K=2048 N=16384",
                 "quantized_matmul": "M=4 K=2048 N=16384",
                 "flash_attention": TRAIN_CASE,
-                "flash_attention_bwd": TRAIN_CASE}
+                "flash_attention_bwd": TRAIN_CASE,
+                "wkv": WKV_CASE,
+                "stencil": "8192x8192 steps=1",
+                "nbody": "N=65536",
+                "histogram": "N=2^26 bins=256 uniform"}
+SUMMARY_DTYPE = {"stencil": "float32", "nbody": "float32",
+                 "histogram": "int32"}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 512
 WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 
@@ -492,6 +532,269 @@ def check_matmul_backward(torch, dtype_name: str):
     return [r]
 
 
+# ------------------------------------------------------------ phase 2b
+# The kernel library (B8-B11).  Each input maker is seeded, so the
+# library phase rebuilds the same inputs.
+def rel_check(torch, name: str, got, want) -> tuple:
+    """(max |got - want|, that over max |want|); raises above LIB_TOL or
+    on a non-finite output."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    if not rel <= LIB_TOL:
+        raise AssertionError(f"{name}: max |err| {err:.3e} is {rel:.3e} of "
+                             f"max |out|, over {LIB_TOL}")
+    return err, rel
+
+
+def equal_check(torch, name: str, got, want) -> float:
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel and plain version differ")
+    return 0.0
+
+
+def wkv_inputs(torch, dtype_name: str, strong: bool):
+    """rwkv6-7b time-mix inputs: r, k, v in ``dtype_name``; log-decays
+    -exp(-6 + noise) as the decay LoRA gives at init (w0 = -6,
+    repro/models/rwkv.py:68), or with ``strong`` in [-50, -20] on a grid
+    of 1/4 (exact cumsums in fp32, so the comparison is not fp32's
+    conditioning at |cum| ~ 3000); u and the rest N(0, 1)."""
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(7 + strong)
+    shape = tuple(WKV_SHAPE[x] for x in ("b", "s", "h", "hd"))
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if strong:
+        lw = -torch.randint(80, 201, shape, generator=gen,
+                            device="cuda").float() / 4
+    else:
+        lw = -torch.exp(-6 + 0.5 * torch.randn(shape, generator=gen,
+                                               device="cuda"))
+    u = torch.randn(shape[2:], generator=gen, device="cuda")
+    return r, k, v, lw, u
+
+
+def wkv_ops(b: int, s: int, h: int, hd: int, c: int, sc: int) -> float:
+    """Operations the chunked WKV needs, in the TPU kernel's sub-chunked
+    form (repro/kernels/wkv/wkv.py:57-86) with sub-chunks of ``sc``.  Per
+    chunk: the inclusive cumsum (c hd); the inter-chunk product with its
+    row scaling (2 c hd^2 + 2 c hd); the state update, each key row
+    scaled by one exponential, the state by another (2 c hd^2 + 3 c hd +
+    2 hd^2 + hd); the bonus and its product with v (5 c hd).  Intra-chunk:
+    the rows of every sub-chunk after the first scaled once (3 hd each);
+    per off-diagonal sub-block, its key columns scaled (3 sc hd) and
+    2 operations per (i, j, channel); per diagonal sub-block, the direct
+    form at 5 operations per (i, j < i, channel); then the (c, c) @
+    (c, hd) product over j < i and its add into the output (c^2 hd)."""
+    n_sc = c // sc
+    off_blocks = n_sc * (n_sc - 1) // 2
+    intra = (3 * (c - sc) * hd
+             + off_blocks * (3 * sc * hd + 2 * sc * sc * hd)
+             + n_sc * 5 * hd * sc * (sc - 1) // 2
+             + c * c * hd)
+    per_chunk = (4 * c * hd * hd + 2 * hd * hd + hd + 11 * c * hd + intra)
+    return float(b * h * (s // c) * per_chunk)
+
+
+def check_wkv(torch):
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    from repro_torch.models.rwkv import chunk_len
+    b, s, h, hd = (WKV_SHAPE[x] for x in ("b", "s", "h", "hd"))
+    c = chunk_len(s, WKV_CHUNK)
+    sc = chunk_len(c, WKV_SUBCHUNK)
+    rows = []
+    for dtype_name, strong in (("bfloat16", False), ("float32", False),
+                               ("float32", True)):
+        r, k, v, lw, u = wkv_inputs(torch, dtype_name, strong)
+        case = WKV_CASE.replace("init", "strong") if strong else WKV_CASE
+        err, rel = rel_check(torch, "wkv " + case,
+                             wkv_cuda(r, k, v, lw, u, chunk=c),
+                             wkv_plain(r, k, v, lw, u, chunk=c))
+        n = r.numel()
+        bnd = bound(3 * n * r.element_size() + 4 * n + 4 * h * hd + 4 * n,
+                    wkv_ops(b, s, h, hd, c, sc), dtype_name)
+        rows.append(row(
+            "wkv", case, dtype_name, err,
+            time_ms(torch, lambda: wkv_cuda(r, k, v, lw, u, chunk=c), 5),
+            time_ms(torch, lambda: wkv_plain(r, k, v, lw, u, chunk=c), 2),
+            bnd, None, rel_err=rel))
+        del r, k, v, lw, u
+    return rows
+
+
+def stencil_input(torch, rows_: int, cols: int):
+    gen = torch.Generator(device="cuda").manual_seed(rows_ + cols)
+    return torch.randn(rows_, cols, generator=gen, device="cuda")
+
+
+def check_stencil(torch):
+    """B9 bit for bit against its plain version in fp32.  Library: one
+    ``F.conv2d`` with the 3 x 3 cross kernel over the grid (the interior
+    of one sweep), beside the one-sweep cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.stencil import jacobi4_cuda, jacobi4_plain
+    cross = torch.tensor([[0., .25, 0.], [.25, 0., .25], [0., .25, 0.]],
+                         device="cuda").reshape(1, 1, 3, 3)
+    out = []
+    for rows_, cols, steps in STENCIL_CASES:
+        x = stencil_input(torch, rows_, cols)
+        case = f"{rows_}x{cols} steps={steps}"
+        err = equal_check(torch, "stencil " + case,
+                          jacobi4_cuda(x, steps=steps),
+                          jacobi4_plain(x, steps=steps))
+        library = None
+        if steps == 1:
+            x4 = x.reshape(1, 1, rows_, cols)
+            library = time_ms(torch, lambda: F.conv2d(x4, cross))
+        # the function reads the grid once and writes it once, however
+        # many sweeps it makes; 4 operations per interior cell and sweep
+        bnd = bound(2 * x.numel() * 4,
+                    4.0 * steps * max(rows_ - 2, 0) * max(cols - 2, 0),
+                    "float32")
+        out.append(row(
+            "stencil", case, "float32", err,
+            time_ms(torch, lambda: jacobi4_cuda(x, steps=steps)),
+            time_ms(torch, lambda: jacobi4_plain(x, steps=steps), 3),
+            bnd, library, bit_equal=True))
+        del x
+    return out
+
+
+def nbody_inputs(torch, n: int):
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    pos = torch.randn(3, n, generator=gen, device="cuda")
+    mass = torch.rand(n, generator=gen, device="cuda") + 0.1
+    return pos, mass
+
+
+def check_nbody(torch):
+    from repro_torch.kernels.nbody import nbody_accel_cuda, nbody_accel_plain
+    out = []
+    for n in NBODY_SIZES:
+        pos, mass = nbody_inputs(torch, n)
+        err, rel = rel_check(torch, f"nbody N={n}",
+                             nbody_accel_cuda(pos, mass),
+                             nbody_accel_plain(pos, mass))
+        # 19 operations per pair, an FMA counted as 2 (nbody.cu's header)
+        out.append(row(
+            "nbody", f"N={n}", "float32", err,
+            time_ms(torch, lambda: nbody_accel_cuda(pos, mass), 5),
+            time_ms(torch, lambda: nbody_accel_plain(pos, mass), 2),
+            bound(28.0 * n, 19.0 * n * n, "float32"), None, rel_err=rel))
+        del pos, mass
+    return out
+
+
+def histogram_inputs(torch, kind: str):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    if kind == "uniform":
+        vals = torch.randint(0, HIST_BINS, (HIST_N,), generator=gen,
+                             device="cuda")
+    elif kind == "one bin":          # every update hits one shared address
+        vals = torch.full((HIST_N,), 7, device="cuda")
+    else:                            # out of range both ways: dropped
+        vals = torch.tensor([0, 1, 255, 256, 300, -1, -5, 3] * 4,
+                            device="cuda")
+    return vals.to(torch.int32)
+
+
+HIST_CASES = {"uniform": f"N=2^26 bins={HIST_BINS} uniform",
+              "one bin": f"N=2^26 bins={HIST_BINS} one bin",
+              "out of range": "N=32 bins=256 out of range"}
+
+
+def check_histogram(torch):
+    """Exact counts.  Library: ``torch.bincount(values, minlength=256)``
+    where every value is in range."""
+    from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
+    out = []
+    for kind, case in HIST_CASES.items():
+        vals = histogram_inputs(torch, kind)
+        got = histogram_cuda(vals, HIST_BINS)
+        err = equal_check(torch, "histogram " + case, got,
+                          histogram_plain(vals, HIST_BINS))
+        if kind == "out of range" and int(got.sum()) != 16:
+            raise AssertionError(f"histogram {case}: counted {got.sum()}")
+        library = None
+        if kind != "out of range":
+            library = time_ms(torch, lambda: torch.bincount(
+                vals, minlength=HIST_BINS))
+        out.append(row(
+            "histogram", case, "int32", err,
+            time_ms(torch, lambda: histogram_cuda(vals, HIST_BINS)),
+            time_ms(torch, lambda: histogram_plain(vals, HIST_BINS)),
+            # one compare-and-add per value, at the scalar rate
+            bound(4.0 * vals.numel() + 4 * HIST_BINS, float(vals.numel()),
+                  "float32"), library, exact=True))
+        del vals
+    return out
+
+
+# ------------------------------------------------------------ library
+LIBRARY_KERNELS = ("wkv", "stencil", "nbody", "histogram")
+
+
+def library_phase(torch):
+    """The four public ops of the kernel library on CUDA tensors at the
+    phase-2b sizes, with every launch count set to 0 just before and read
+    just after: only kernel routes, exactly one launch per call (the
+    stencil one per sweep).  The outputs are then held to the plain
+    versions, after the counts are read."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.histogram import histogram, histogram_plain
+    from repro_torch.kernels.nbody import nbody_accel, nbody_accel_plain
+    from repro_torch.kernels.stencil import jacobi4, jacobi4_plain
+    from repro_torch.kernels.wkv import wkv, wkv_plain
+    w_args = wkv_inputs(torch, "bfloat16", False)
+    grids = [(stencil_input(torch, r_, c_), steps)
+             for r_, c_, steps in STENCIL_CASES]
+    bodies = [nbody_inputs(torch, n) for n in NBODY_SIZES]
+    hists = [histogram_inputs(torch, kind) for kind in HIST_CASES]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dispatch.reset_launch_counts()
+    with dispatch.stats_scope() as stats:
+        w_out = wkv(*w_args, chunk=WKV_CHUNK, subchunk=WKV_SUBCHUNK)
+        s_out = [jacobi4(x, steps=steps) for x, steps in grids]
+        n_out = [nbody_accel(pos, mass) for pos, mass in bodies]
+        h_out = [histogram(vals, HIST_BINS) for vals in hists]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        routes = stats()
+    want_routes = {("wkv", "kernel"): 1, ("stencil", "kernel"): len(grids),
+                   ("nbody", "kernel"): len(bodies),
+                   ("histogram", "kernel"): len(hists)}
+    want = {op: 0 for op in launches}
+    want.update(wkv=1, stencil=sum(steps for _, steps in grids),
+                nbody=len(bodies), histogram=len(hists))
+    emit({"phase": "library", "seconds": seconds,
+          "routes": {f"{op}/{route}": n for (op, route), n in routes.items()},
+          "launches": {op: launches[op] for op in LIBRARY_KERNELS}})
+    if routes != want_routes:
+        raise AssertionError(f"library: routes {routes}, expected "
+                             f"{want_routes}")
+    if launches != want:
+        raise AssertionError(f"library: launches {launches}, expected "
+                             f"{want}")
+    rel_check(torch, "library wkv", w_out,
+              wkv_plain(*w_args, chunk=WKV_CHUNK))
+    for (x, steps), got in zip(grids, s_out):
+        equal_check(torch, "library stencil", got,
+                    jacobi4_plain(x, steps=steps))
+    for (pos, mass), got in zip(bodies, n_out):
+        rel_check(torch, "library nbody", got, nbody_accel_plain(pos, mass))
+    for vals, got in zip(hists, h_out):
+        equal_check(torch, "library histogram", got,
+                    histogram_plain(vals, HIST_BINS))
+    emit({"phase": "library", "outputs_match_plain": True})
+    return {op: launches[op] for op in LIBRARY_KERNELS}
+
+
 # ------------------------------------------------------------ phase 3
 FLOAT_PATH = ("matmul", "decode_attention", "prefill_attention")
 INT8_PATH = ("matmul", "quantized_matmul", "decode_attention_int8",
@@ -863,6 +1166,9 @@ def main(argv=None) -> int:
         rows += check_flash(torch, dtype_name)
         rows += check_matmul_backward(torch, dtype_name)
     torch.cuda.empty_cache()
+    for check in (check_wkv, check_stencil, check_nbody, check_histogram):
+        rows += check(torch)
+        torch.cuda.empty_cache()
 
     launches = serve_phase(torch)
     torch.cuda.empty_cache()
@@ -876,15 +1182,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_parity_phase(torch)
     torch.cuda.empty_cache()
+    launches.update(library_phase(torch))
+    torch.cuda.empty_cache()
 
     # the summary line: per kernel, the times of its first bf16 case at
     # the serving shapes (the GEMMs: the decode MLP up-projection, M=4
-    # K=2048 N=16384; B6/B7: the causal training case) and the largest
-    # error over all its cases; launches sum the serve and train runs
+    # K=2048 N=16384; B6/B7: the causal training case; B8-B11: the case
+    # SUMMARY_CASE names, in SUMMARY_DTYPE) and the largest error over
+    # all its cases; launches sum the serve and train runs (B8-B11: the
+    # library phase)
     kernels = []
     for name in SOURCES:
         mine = [r for r in rows if r["kernel"] == name]
-        rep = [r for r in mine if r["dtype"] == "bfloat16"
+        rep = [r for r in mine
+               if r["dtype"] == SUMMARY_DTYPE.get(name, "bfloat16")
                and r["case"] == SUMMARY_CASE.get(name, r["case"])][0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

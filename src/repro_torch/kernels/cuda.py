@@ -31,7 +31,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # dynamic shared memory a block may opt into on Hopper
 MAX_SMEM_BYTES = 232448
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points: pointers and the stream as c_void_p, sizes as c_int
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P] + [_I] * 7 + [_P],
@@ -42,6 +42,11 @@ SIGNATURES = {
     "repro_prefill_attention_int8": [_P] * 8 + [_I] * 10 + [_P],
     "repro_flash_attention": [_P] * 5 + [_I] * 6 + [_P],
     "repro_flash_attention_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    "repro_wkv": [_P] * 6 + [_I] * 6 + [_P],
+    "repro_jacobi4": [_P] * 2 + [_I] * 3 + [_P],
+    "repro_nbody": [_P] * 3 + [_I, _F, _P],
+    # int32 values: no float dtype code
+    "repro_histogram": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,6 @@
 """Kernel dispatch: the one entry point the model uses for its hot
-contractions.
+contractions, and the routing rule and counters that the kernel
+library's public ops (``kernels.{wkv,stencil,nbody,histogram}``) share.
 
 The route is chosen by the device of the tensors and by nothing else: a
 CPU tensor takes the kernel's plain PyTorch version, a CUDA tensor takes
@@ -27,8 +28,12 @@ from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
                         flash_attention_bwd_plain, flash_attention_cuda,
                         flash_attention_plain, prefill_attention_cuda,
                         prefill_attention_int8_cuda, prefill_attention_plain)
+from .histogram.histogram import histogram_cuda
 from .matmul import (matmul_cuda, matmul_plain, quantized_matmul_cuda,
                      quantized_matmul_plain)
+from .nbody.nbody import nbody_accel_cuda
+from .stencil.stencil import jacobi4_cuda
+from .wkv.wkv import wkv_cuda
 
 _stats: Counter = Counter()
 
@@ -42,7 +47,11 @@ KERNELS = {"matmul": matmul_cuda,
            "prefill_attention": prefill_attention_cuda,
            "prefill_attention_int8": prefill_attention_int8_cuda,
            "flash_attention": flash_attention_cuda,
-           "flash_attention_bwd": flash_attention_bwd_cuda}
+           "flash_attention_bwd": flash_attention_bwd_cuda,
+           "wkv": wkv_cuda,
+           "stencil": jacobi4_cuda,
+           "nbody": nbody_accel_cuda,
+           "histogram": histogram_cuda}
 
 
 def reset_stats() -> None:

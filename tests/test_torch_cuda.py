@@ -12,7 +12,9 @@ GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots, for
 the float kernels and for the int8 ones (the int8-weight GEMM and the
 int8 branches of the attention kernels), and the flash forward and its
 fused backward at ragged sequence lengths, windows and head widths up to
-gemma's 256, with their autograd routes.  fp32 runs with TF32 off;
+gemma's 256, with their autograd routes; and the kernel library's WKV,
+Jacobi stencil, N-body and histogram at ragged chunks, grids, particle
+counts and bin counts.  fp32 runs with TF32 off;
 tolerances are those of tests/test_paged_decode.py (the int8 kernels
 compute in fp32, so a bf16 q costs only its own rounding).
 """
@@ -210,7 +212,8 @@ def test_int8_wrappers_count_launches_and_reject_bad_inputs(card):
         "matmul": 0, "decode_attention": 0, "prefill_attention": 0,
         "decode_attention_int8": 1, "prefill_attention_int8": 1,
         "quantized_matmul": 1, "flash_attention": 0,
-        "flash_attention_bwd": 0}
+        "flash_attention_bwd": 0, "wkv": 0, "stencil": 0, "nbody": 0,
+        "histogram": 0}
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_int8_cuda(q, kq, vq, table, lengths, ks.cpu(), vs)
     with pytest.raises(TypeError):             # float pools with scales
@@ -389,3 +392,148 @@ def test_dispatch_gradients_on_card_match_the_cpu_route(card, dtype):
     want, _ = run("cpu")
     for g_, w_ in zip(got, want):
         _close(g_.float().cpu(), w_.float(), dtype)
+
+
+# ------------------------------------------------------------ B8-B11
+def _rel_err(got, want):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _wkv_inputs(card, dtype, b, s, h, hd, seed, strong=False):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r, k, v = (torch.randn(b, s, h, hd, generator=gen, device=card)
+               .to(dtype) for _ in range(3))
+    if strong:      # [-50, -20] on a grid of 1/4: exact fp32 cumsums
+        lw = -torch.randint(80, 201, (b, s, h, hd), generator=gen,
+                            device=card).float() / 4
+    else:
+        lw = -torch.exp(torch.randn(b, s, h, hd, generator=gen, device=card)
+                        - 2)
+    u = torch.randn(h, hd, generator=gen, device=card)
+    return r, k, v, lw, u
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 64, 3, 16), 32), ((1, 48, 2, 32), 32), ((1, 128, 2, 64), 64),
+    ((2, 17, 1, 8), 64), ((1, 12, 1, 64), 128)])
+def test_wkv_kernel_matches_plain(card, dtype, shape, chunk):
+    """Ragged chunk lengths (48 -> 16, 17 -> 17, 12 -> 12), head widths
+    8..64, error within 1e-4 of max |o| (both compute in fp32)."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    args = _wkv_inputs(card, dtype, *shape, seed=sum(shape) + chunk)
+    got = wkv_cuda(*args, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert _rel_err(got, wkv_plain(*args, chunk=chunk)) <= 1e-4
+
+
+def test_wkv_kernel_strong_decay(card):
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    args = _wkv_inputs(card, torch.float32, 2, 128, 2, 64, seed=3,
+                       strong=True)
+    assert _rel_err(wkv_cuda(*args), wkv_plain(*args)) <= 1e-4
+
+
+def test_wkv_wrapper_rejects_bad_inputs(card):
+    from repro_torch.kernels.wkv import wkv_cuda
+    r, k, v, lw, u = _wkv_inputs(card, torch.float32, 1, 8, 1, 16, seed=0)
+    with pytest.raises(TypeError):
+        wkv_cuda(r, k.bfloat16(), v, lw, u)
+    with pytest.raises(TypeError):
+        wkv_cuda(r, k, v, lw.bfloat16(), u)
+    with pytest.raises(ValueError):
+        wkv_cuda(r, k, v, lw, u[:, :8])
+    wide = torch.zeros(1, 8, 1, 128, device=card)
+    with pytest.raises(ValueError, match="head width"):
+        wkv_cuda(wide, wide, wide, wide, torch.zeros(1, 128, device=card))
+    with pytest.raises(ValueError, match="shared memory"):
+        wkv_cuda(*(torch.zeros(1, 256, 1, 64, device=card),) * 4,
+                 torch.zeros(1, 64, device=card), chunk=256)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (2, 5), (3, 3), (33, 65),
+                                   (130, 67), (64, 128)])
+@pytest.mark.parametrize("steps", [0, 1, 2, 3])
+def test_stencil_kernel_equals_plain(card, dtype, shape, steps):
+    """Both add in fp32 in one order and round once: equal bits."""
+    from repro_torch.kernels.stencil import jacobi4_cuda, jacobi4_plain
+    gen = torch.Generator(device=card).manual_seed(shape[0] + steps)
+    x = torch.randn(*shape, generator=gen, device=card).to(dtype)
+    before = jacobi4_cuda.launches
+    got = jacobi4_cuda(x, steps=steps)
+    assert jacobi4_cuda.launches == before + steps
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got,
+                                              jacobi4_plain(x, steps=steps))
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 1000])
+def test_nbody_kernel_matches_plain(card, n):
+    from repro_torch.kernels.nbody import nbody_accel_cuda, nbody_accel_plain
+    gen = torch.Generator(device=card).manual_seed(n)
+    pos = torch.randn(3, n, generator=gen, device=card)
+    mass = torch.rand(n, generator=gen, device=card) + 0.1
+    for eps in (1e-3, 0.5):
+        got = nbody_accel_cuda(pos, mass, eps=eps)
+        want = nbody_accel_plain(pos, mass, eps=eps)
+        if n == 1:                           # only the self-interaction
+            assert torch.equal(got, torch.zeros_like(got))
+        else:
+            assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("n,n_bins,kind", [
+    (100_000, 256, "uniform"), (100_000, 256, "one bin"),
+    (13, 8, "out of range"), (70_001, 50_000, "uniform"), (1, 1, "uniform")])
+def test_histogram_kernel_equals_plain(card, n, n_bins, kind):
+    """Exact counts, any N, bins past 48 KB of shared memory, and values
+    outside [0, n_bins) dropped."""
+    from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
+    gen = torch.Generator(device=card).manual_seed(n)
+    if kind == "uniform":
+        vals = torch.randint(0, n_bins, (n,), generator=gen, device=card)
+    elif kind == "one bin":
+        vals = torch.full((n,), 7, device=card)
+    else:
+        vals = torch.randint(-5, 2 * n_bins, (n,), generator=gen, device=card)
+    vals = vals.to(torch.int32)
+    got = histogram_cuda(vals, n_bins)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, histogram_plain(vals, n_bins))
+
+
+def test_histogram_wrapper_rejects_bad_inputs(card):
+    from repro_torch.kernels.histogram import histogram_cuda
+    vals = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        histogram_cuda(vals.long())
+    with pytest.raises(ValueError, match="shared memory"):
+        histogram_cuda(vals, 100_000)
+    with pytest.raises(ValueError):
+        histogram_cuda(vals, 0)
+
+
+def test_library_ops_route_to_the_kernels(card):
+    """The public ops on CUDA tensors: kernel routes only, one launch per
+    call (the stencil one per sweep)."""
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.nbody import nbody_accel
+    from repro_torch.kernels.stencil import jacobi4
+    from repro_torch.kernels.wkv import wkv
+    args = _wkv_inputs(card, torch.bfloat16, 1, 32, 2, 16, seed=1)
+    before = dispatch.launch_counts()
+    with dispatch.stats_scope() as stats:
+        wkv(*args, chunk=16, subchunk=4)
+        jacobi4(torch.ones(9, 9, device=card), steps=3)
+        nbody_accel(torch.ones(3, 5, device=card), torch.ones(5, device=card))
+        histogram(torch.zeros(5, dtype=torch.int32, device=card), 4)
+        assert stats() == {("wkv", "kernel"): 1, ("stencil", "kernel"): 1,
+                           ("nbody", "kernel"): 1, ("histogram", "kernel"): 1}
+    after = dispatch.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"wkv": 1, "stencil": 3, "nbody": 1, "histogram": 1}

@@ -294,11 +294,25 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_cuda(bhsd, bhsd, bhsd)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd_cuda(bhsd, bhsd, bhsd, bhsd, bhsd[..., 0], bhsd)
+    from repro_torch.kernels.histogram import histogram_cuda
+    from repro_torch.kernels.nbody import nbody_accel_cuda
+    from repro_torch.kernels.stencil import jacobi4_cuda
+    from repro_torch.kernels.wkv import wkv_cuda
+    bshd = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_cuda(bshd, bshd, bshd, bshd, torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        jacobi4_cuda(torch.zeros(4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        nbody_accel_cuda(torch.zeros(3, 6), torch.zeros(6))
+    with pytest.raises(ValueError, match="CUDA"):
+        histogram_cuda(torch.zeros(6, dtype=torch.int32))
     assert dispatch.launch_counts() == before
     assert set(before) == {"matmul", "quantized_matmul", "decode_attention",
                            "decode_attention_int8", "prefill_attention",
                            "prefill_attention_int8", "flash_attention",
-                           "flash_attention_bwd"}
+                           "flash_attention_bwd", "wkv", "stencil", "nbody",
+                           "histogram"}
 
 
 def test_dispatch_attention_routes_by_device():
