@@ -13,7 +13,10 @@ Phases, one output line or more each:
               fp32 (rtol = atol = 5e-2 and 2e-4; the int8 kernels compute
               in fp32 and are held at 2e-4 with either input type);
               kernel, plain and library times from CUDA events, and the
-              bound the card's peak rates set for the same work.
+              bound the card's peak rates set for the same work.  B1 also
+              runs at the training shapes (M=1024, the M=128 head chunk,
+              the fp32 head dx), and its M=4 cases are timed again with B
+              cold in L2 (``ms_cold``, ``library_ms_cold``).
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
               with the static and once with the continuous schedule, with
@@ -39,7 +42,9 @@ Phases, one output line or more each:
               included).
    A profiled extra step gives device time by kernel and the idle
    share (``torch.profiler``; reported as not measured if it sees no
-   device time).
+   device time).  Phase 3 is followed by a serve profile: the
+   continuous float run again under the profiler, device time by kernel
+   group and the idle share over its decode steps.
 6. train parity -- one loss and backward of full-width gemma-2b in fp32,
               through the kernels and through the plain versions on the
               card: loss within 1e-5 relative, every gradient leaf within
@@ -79,6 +84,7 @@ any result.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import math
 import shutil
@@ -211,35 +217,76 @@ def row(name, case, dtype, err, ms, plain_ms, bnd, library_ms=None,
 
 
 # ------------------------------------------------------------ phase 2
+# B1's cases: the four weight shapes at decode (M=4), prefill (M=256) and
+# training (M=1024, 2 x 512 tokens); the tied head at decode, prefill and
+# one of training's 8 cross-entropy chunks (M=128); in fp32 also the head's
+# dx = g @ embed, the GEMM with the fewest output tiles per K
+MATMUL_CASES = ([(m, k, n, False) for m in (4, 256, 1024)
+                 for k, n in WEIGHT_SHAPES]
+                + [(m, 2048, 256000, True) for m in (4, 256, 128)])
+MATMUL_F32_CASES = [(128, 256000, 2048, False)]
+L2_BYTES = 50e6
+
+
+def time_cold_ms(torch, fn, operands, reps: int) -> float:
+    """``time_ms`` with each call on the next of ``operands`` in turn, so
+    that every call finds its operand evicted from L2 by the others."""
+    it = iter(range(1 << 30))
+
+    def call():
+        fn(operands[next(it) % len(operands)])
+    for _ in operands:
+        call()
+    return time_ms(torch, call, reps)
+
+
 def check_matmul(torch, dtype_name: str):
+    """B1 against its plain version at every case, and at M=4 also timed
+    with B cold: rotating through copies of B that together exceed the
+    50 MB L2 three times, as a decode step finds its weights."""
     from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for m in (4, 256):
-        for k, n, tied in ((2048, 2048, False), (2048, 256, False),
-                           (2048, 16384, False), (16384, 2048, False),
-                           (2048, 256000, True)):
-            a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-            if tied:       # the logits head: embed (V, d) read as embed.T
-                b = torch.randn(n, k, generator=gen, device="cuda") \
-                    .to(dtype).T
-            else:
-                b = (torch.randn(k, n, generator=gen, device="cuda")
-                     / math.sqrt(k)).to(dtype)
-            case = f"M={m} K={k} N={n}" + (" tied-transposed" if tied
-                                            else "")
-            err = compare(torch, "matmul " + case, matmul_cuda(a, b),
-                          matmul_plain(a, b), dtype_name)
-            size = a.element_size()
-            bnd = bound((m * k + k * n + m * n) * size, 2.0 * m * n * k,
-                        dtype_name)
-            rows.append(row(
-                "matmul", case, dtype_name, err,
-                time_ms(torch, lambda: matmul_cuda(a, b)),
-                time_ms(torch, lambda: matmul_plain(a, b)), bnd,
-                time_ms(torch, lambda: torch.matmul(a, b))))
-            del a, b
+    cases = MATMUL_CASES + (MATMUL_F32_CASES if dtype_name == "float32"
+                            else [])
+    for m, k, n, tied in cases:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        if tied:       # the logits head: embed (V, d) read as embed.T
+            b = torch.randn(n, k, generator=gen, device="cuda") \
+                .to(dtype).T
+        else:
+            b = (torch.randn(k, n, generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dtype)
+        case = f"M={m} K={k} N={n}" + (" tied-transposed" if tied else "")
+        if (m, k, n) == MATMUL_F32_CASES[0][:3]:
+            case += " head dx"
+        err = compare(torch, "matmul " + case, matmul_cuda(a, b),
+                      matmul_plain(a, b), dtype_name)
+        size = a.element_size()
+        bnd = bound((m * k + k * n + m * n) * size, 2.0 * m * n * k,
+                    dtype_name)
+        extra = {}
+        if m == 4:
+            nbytes = k * n * size
+            copies = [b] + [b.clone(memory_format=torch.preserve_format)
+                            for _ in range(max(1, math.ceil(
+                                3 * L2_BYTES / nbytes)) - 1)]
+            reps = max(10, len(copies))
+            extra = dict(
+                ms_cold=time_cold_ms(torch, lambda bb: matmul_cuda(a, bb),
+                                     copies, reps),
+                library_ms_cold=time_cold_ms(
+                    torch, lambda bb: torch.matmul(a, bb), copies, reps),
+                cold_copies=len(copies))
+            del copies
+        rows.append(row(
+            "matmul", case, dtype_name, err,
+            time_ms(torch, lambda: matmul_cuda(a, b)),
+            time_ms(torch, lambda: matmul_plain(a, b)), bnd,
+            time_ms(torch, lambda: torch.matmul(a, b)), **extra))
+        del a, b
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1011,10 +1058,22 @@ def train_phase(torch):
     return launches
 
 
-KERNEL_GROUPS = (("matmul_kernel", "B1 matmul"),
+# kernel name substrings and their groups, first match wins (B5's tile
+# kernel is "matmul_kernel", which no B1 kernel name contains)
+KERNEL_GROUPS = (("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
+                 ("matmul_f32_simt_kernel", "B1 matmul fp32 (SIMT)"),
+                 ("matmul_splitk_reduce_kernel", "B1 split-K sum"),
+                 ("matmul_kernel", "B5 int8 matmul"),
                  ("flash_fwd_kernel", "B6 flash forward"),
                  ("flash_dq_kernel", "B7 dQ sweep"),
-                 ("flash_dkv_kernel", "B7 dK/dV sweep"))
+                 ("flash_dkv_kernel", "B7 dK/dV sweep"),
+                 ("decode_kernel", "B2/B4a decode attention"),
+                 ("prefill_kernel", "B3/B4b prefill attention"))
+OTHER_GROUP = "other (PyTorch ops)"
+
+
+def kernel_group(name: str) -> str:
+    return next((g for key, g in KERNEL_GROUPS if key in name), OTHER_GROUP)
 
 
 def train_profile(torch):
@@ -1056,11 +1115,9 @@ def train_profile(torch):
         ms = evt.self_device_time_total / 1e3
         if evt.device_type != torch.autograd.DeviceType.CUDA or ms <= 0:
             continue
-        group = next((g for key, g in KERNEL_GROUPS if key in evt.key),
-                     None)
-        if group is None:
+        group = kernel_group(evt.key)
+        if group == OTHER_GROUP:
             other.append((ms, evt.count, evt.key[:90]))
-            group = "other (PyTorch ops)"
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
     emit({"phase": "train_profile", "profiled_step_wall_ms": wall_ms,
@@ -1070,6 +1127,68 @@ def train_profile(torch):
           "top_other": [{"ms": ms, "calls": n, "kernel": name}
                         for ms, n, name in sorted(other, reverse=True)[:8]]})
     del params, opt, metrics
+
+
+DECODE_RANGE = "chip_smoke.decode_step"
+
+
+def serve_profile(torch):
+    """Where the decode steps of the continuous float serve run spend the
+    card's time: phase 3's continuous float run again under
+    ``torch.profiler``, with each ``StepExecutor.decode`` call (host work,
+    launches and the argmax read) marked as a range.  Device time by
+    kernel group sums the kernels that start inside those ranges; the
+    idle share is the part of the ranges with no kernel running.  If the
+    profiler sees no device time, says so instead of failing."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import engine, serve
+    decode = engine.StepExecutor.decode
+
+    def marked(self, *args, **kwargs):
+        with record_function(DECODE_RANGE):
+            return decode(self, *args, **kwargs)
+
+    with mock.patch.object(engine.StepExecutor, "decode", marked):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rep = serve.main(SERVE_ARGS + ["--schedule", "continuous",
+                                           "--clock", "tick"])
+            torch.cuda.synchronize()
+    events = prof.events()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    # the marked ranges on the host; the profiler also mirrors each range
+    # onto the device's timeline as an annotation, which is no kernel
+    windows = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.name == DECODE_RANGE and e.device_type != cuda_t)
+    starts = [w[0] for w in windows]
+    groups, other = {}, {}
+    for e in events:
+        if e.device_type != cuda_t or e.name == DECODE_RANGE:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i < 0 or e.time_range.start > windows[i][1]:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        group = kernel_group(e.name)
+        groups[group] = groups.get(group, 0.0) + ms
+        if group == OTHER_GROUP:
+            other[e.name[:90]] = other.get(e.name[:90], 0.0) + ms
+    window_ms = sum(end - start for start, end in windows) / 1e3
+    busy = sum(groups.values())
+    steps = len(windows)
+    emit({"phase": "serve_profile", "run": "float continuous",
+          "decode_steps": steps, "decode_window_ms": window_ms,
+          "window_ms_per_step": window_ms / steps if steps else None,
+          "phases": rep["phases"],
+          "device_ms_per_step": ({g: ms / steps for g, ms in groups.items()}
+                                 if busy and steps else "not measured"),
+          "device_busy_ms": busy if busy else None,
+          "device_busy_ms_per_step": busy / steps if busy and steps else None,
+          "idle_share": 1 - busy / window_ms if busy and window_ms else None,
+          "new_tokens": rep["new_tokens"],
+          "top_other": [{"ms": ms, "kernel": name} for name, ms in sorted(
+              other.items(), key=lambda kv: -kv[1])[:8]]})
 
 
 # ------------------------------------------------------------ phase 6
@@ -1149,7 +1268,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     cuda.library()
     emit({"phase": "build", "seconds": time.time() - t0,
-          "library": str(cuda.library_path().relative_to(ROOT))})
+          "library": str(cuda.library_path().relative_to(ROOT)),
+          "ptxas_matmul": cuda.ptxas_report("matmul")})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1171,6 +1291,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     launches = serve_phase(torch)
+    torch.cuda.empty_cache()
+    serve_profile(torch)
     torch.cuda.empty_cache()
     for int8 in (False, True):
         model_phase(torch, int8)

@@ -1,5 +1,5 @@
-// The tiled fp32-accumulating GEMM shared by B1 (matmul.cu) and B5
-// (quantized_matmul.cu).
+// The tiled fp32-accumulating GEMM of B5 (quantized_matmul.cu), the int8-
+// weight GEMM.  (B1 used it until its Hopper redesign in matmul.cu.)
 //
 // 64x64 output tiles, 16-deep K steps staged through shared memory as
 // fp32, 256 threads each owning a 4x4 micro-tile of fp32 FMA accumulators.

@@ -9,13 +9,13 @@
 // feeds 8 operations: the GEMM is bound by reading B_q once, which int8
 // halves against bf16 (2048x16384 = 32 MiB -> 10 us at 3.35 TB/s).
 //
-// What this design does about it.  It is B1's kernel (matmul_tile.cuh)
-// with B staged from int8: each int8 weight is widened to fp32 as it is
+// What this design does about it.  It is the tiled kernel of
+// matmul_tile.cuh (B1's first design) with B staged from int8: each int8 weight is widened to fp32 as it is
 // written to shared memory, so no float copy of B is made in device
 // memory, and the column scale multiplies the fp32 sum once at the flush,
 // as the TPU kernel does.  One tile shape and one K order per output keep
-// a row's rounding independent of M.  Like B1 at M=4, it is bound by the
-// latency of its K steps rather than by bytes; it does not yet use the
+// a row's rounding independent of M.  At M=4 it is bound by the latency
+// of its K steps rather than by bytes; it does not yet use the
 // tensor cores (int8 wgmma needs an int8 A) or TMA.
 #include "matmul_tile.cuh"
 

@@ -2,7 +2,10 @@
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one nvcc
 process per source, all started together) and linked into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library is
+library with a plain C interface, linked against the driver library
+(``-lcuda``, for B1's TMA descriptors) and loaded with ``ctypes``.  ptxas's
+report of each kernel's registers, shared memory and spills is kept beside
+it (``ptxas_report``).  The library is
 built at first use into ``build/repro_torch/<hash>/`` at the root of the
 checkout, where ``<hash>`` covers the sources and the flags, so an edited
 source rebuilds and an unchanged one loads in milliseconds.  Nothing here
@@ -25,7 +28,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# B1's TMA descriptors come from the driver API (cuTensorMapEncodeTiled):
+# link libcuda, through the toolkit's stub at build time
+LINK_LIBS = ("-lcuda",)
+# ptxas's report (registers, shared memory, spills per kernel), kept
+# beside the library
+PTXAS_LOG = "ptxas.log"
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # dynamic shared memory a block may opt into on Hopper
@@ -34,7 +43,7 @@ MAX_SMEM_BYTES = 232448
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points: pointers and the stream as c_void_p, sizes as c_int
 SIGNATURES = {
-    "repro_matmul": [_P, _P, _P] + [_I] * 7 + [_P],
+    "repro_matmul": [_P] * 4 + [_I] * 9 + [_P],
     "repro_quantized_matmul": [_P] * 4 + [_I] * 5 + [_P],
     "repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
     "repro_decode_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
@@ -62,7 +71,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for src in sorted(CSRC.iterdir()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -85,22 +94,41 @@ def build() -> Path:
                 [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((cu, obj, proc))
-        failed = []
+        failed, logs = [], []
         for cu, _, proc in jobs:
             out, _ = proc.communicate()
+            logs.append(f"--- {cu.name}\n{out}")
             if proc.returncode:
-                failed.append(f"--- {cu.name}\n{out}")
+                failed.append(logs[-1])
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        (so.parent / PTXAS_LOG).write_text("\n".join(logs))
         tmp_so = Path(tmp) / so.name
+        stubs = Path(nvcc).resolve().parent.parent / "lib64" / "stubs"
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *[str(o) for _, o, _ in jobs],
-             "-o", str(tmp_so)],
+             f"-L{stubs}", *LINK_LIBS, "-o", str(tmp_so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         os.replace(tmp_so, so)       # atomic: a concurrent loader never
     return so                        # sees a half-written library
+
+
+def ptxas_report(kernel_substring: str) -> list:
+    """ptxas's lines (registers, shared memory, spills) for the kernels
+    whose mangled names contain ``kernel_substring``, from the last build
+    of the current sources."""
+    log = library_path().parent / PTXAS_LOG
+    if not log.exists():
+        return []
+    lines, keep = log.read_text().splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel_substring in line:
+            keep.append(line.split("'")[1] if "'" in line else line)
+            keep += [ln.strip() for ln in lines[i + 1:i + 4]
+                     if "ptxas info" in ln or "bytes stack frame" in ln]
+    return keep
 
 
 def library() -> ctypes.CDLL:

@@ -20,16 +20,45 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(out_dtype)
 
 
-def _check_rows(name: str, m: int) -> None:
-    if -(-m // 64) > 65535:                    # the grid's row-tile axis
-        raise ValueError(f"{name}: M={m} exceeds 65535 row tiles of 64")
+# B1's tiles (csrc/matmul.cu): 128 x 128 outputs; a split's K slices come
+# in units of TILE_K (bf16: the kernel's 64-deep K step; fp32: 32, which
+# both of its K steps, 32 and 16, divide)
+TILE_M, TILE_N = 128, 128
+TILE_K = {torch.bfloat16: 64, torch.float32: 32}
+# the card's SMs, a fixed number so that the plan never depends on the
+# device; the most blocks that share an output tile; the least K a slice
+# takes (measured on the card: shorter slices cost prefill and training
+# more in partial products than they save at decode)
+SMS, MAX_SPLIT = 132, 8
+MIN_SLICE = 4096
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch ``repro_matmul``: a (M, K) contiguous, b (K, N) at any
-    strides (the tied head passes ``embed.T``), both bf16 or both fp32, on
-    one CUDA device.  Returns a new (M, N) tensor of a's dtype."""
-    cuda.require_cuda("matmul", a, b, contiguous=False)
+def _check_rows(name: str, m: int, tile_m: int) -> None:
+    if -(-m // tile_m) > 65535:                # the grid's row-tile axis
+        raise ValueError(f"{name}: M={m} exceeds 65535 row tiles of "
+                         f"{tile_m}")
+
+
+def split_plan(k: int, n: int, dtype: torch.dtype) -> tuple:
+    """(split, slice_steps): how many blocks of B1 share an output tile,
+    each taking ``slice_steps`` units of ``TILE_K`` of K (rank r the units
+    [r * slice_steps, (r + 1) * slice_steps)), their fp32 partial products
+    summed in rank order by a second pass.  A function of (K, N, dtype)
+    only, never of M, so a row's bits do not depend on how many rows share
+    the call: split K while the N tiles alone leave SMs idle, each slice at
+    least ``MIN_SLICE`` deep and no slice empty."""
+    steps = -(-k // TILE_K[dtype])
+    tiles_n = -(-n // TILE_N)
+    split = max(1, min(MAX_SPLIT, SMS // tiles_n, k // MIN_SLICE, steps))
+    per = -(-steps // split)
+    if per:
+        split = -(-steps // per)      # drop slices the rounding left empty
+    return split, per
+
+
+def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+    """What ``repro_matmul`` takes: a (M, K) contiguous @ b (K, N) at two
+    strides of which one is 1, of one dtype."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: want (M, K) @ (K, N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -38,16 +67,34 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         f"{b.dtype})")
     if not a.is_contiguous():
         raise ValueError("matmul: A must be contiguous")
+    if 1 not in b.stride():
+        raise ValueError(f"matmul: B needs a unit stride along K or N, got "
+                         f"strides {b.stride()}")
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``repro_matmul``: a (M, K) contiguous, b (K, N) at two
+    strides of which one is 1 (weights are N-contiguous, the tied head
+    passes the K-contiguous ``embed.T``), both bf16 or both fp32, on one
+    CUDA device.  Returns a new (M, N) tensor of a's dtype."""
+    cuda.require_cuda("matmul", a, b, contiguous=False)
+    check_operands(a, b)
     m, k = a.shape
     n = b.shape[1]
+    code = cuda.dtype_code(a)
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return c
-    _check_rows("matmul", m)
+    _check_rows("matmul", m, TILE_M)
+    split, per = split_plan(k, n, a.dtype)
+    # the split's partial products, summed in rank order by a second pass
+    scratch = (torch.empty((split, m, n), dtype=torch.float32,
+                           device=a.device) if split > 1 else None)
     rc = cuda.library().repro_matmul(
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        *cuda.c_ints("matmul", m, n, k, k, b.stride(0), b.stride(1)),
-        cuda.dtype_code(a), cuda.stream_of(a))
+        None if scratch is None else scratch.data_ptr(),
+        *cuda.c_ints("matmul", m, n, k, k, b.stride(0), b.stride(1), split,
+                     per), code, cuda.stream_of(a))
     cuda.check(rc, "matmul")
     matmul_cuda.launches += 1
     return c
@@ -87,7 +134,7 @@ def quantized_matmul_cuda(a: torch.Tensor, b_q: torch.Tensor,
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return c
-    _check_rows("quantized_matmul", m)
+    _check_rows("quantized_matmul", m, 64)
     rc = cuda.library().repro_quantized_matmul(
         a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
         *cuda.c_ints("quantized_matmul", m, n, k, k),

@@ -80,6 +80,76 @@ def test_matmul_transposed_b_and_row_independence(card, dtype):
     assert torch.equal(matmul_cuda(a[:3].contiguous(), embed.T), full[:3])
 
 
+def _gemma_operands(card, dtype, gen, m, k, n, tied):
+    a = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    if tied:       # the logits head: embed (V, d) read as embed.T
+        return a, torch.randn(n, k, generator=gen, device=card).to(dtype).T
+    return a, (torch.randn(k, n, generator=gen, device=card)
+               / math.sqrt(k)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,tied", [(16384, 2048, False),
+                                      (2048, 20000, True)],
+                         ids=["down-proj", "tied-head"])
+def test_matmul_rows_independent_of_m_at_gemma_shapes(card, dtype, k, n,
+                                                      tied):
+    """Rows 0-3 of a decode-sized call equal, bit for bit, the same rows of
+    prefill- and training-sized calls (the down-projection's K is split
+    across a cluster; the head at a reduced vocab reads embed.T), and a
+    rerun gives the same bits."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    a, b = _gemma_operands(card, dtype, gen, 1024, k, n, tied)
+    full = matmul_cuda(a, b)
+    _close(full, matmul_plain(a, b), dtype)
+    assert torch.equal(matmul_cuda(a, b), full)
+    mid = matmul_cuda(a[:256].contiguous(), b)
+    assert torch.equal(mid, full[:256])
+    assert torch.equal(matmul_cuda(a[:4].contiguous(), b), full[:4])
+
+
+def _misaligned(t):
+    """A copy of t whose storage starts one element past a 16-byte
+    boundary, so no TMA or 16-byte copy can read it."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tied", [False, True], ids=["mn-major", "k-major"])
+def test_matmul_misaligned_strides_give_the_aligned_bits(card, dtype, tied):
+    """The masked path (strides or base pointers that are not 16-byte
+    multiples) fills the tiles the aligned path fills and gives its bits."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    m, k, n = 70, 4096, 520
+    a, b = _gemma_operands(card, dtype, gen, m, k, n, tied)
+    b = b.contiguous() if not tied else b
+    want = matmul_cuda(a, b)
+    _close(want, matmul_plain(a, b), dtype)
+    # B with a row stride one element past the aligned one
+    if tied:
+        wide = torch.zeros(n, k + 1, dtype=dtype, device=card)
+        wide[:, :k] = b.T
+        b_odd = wide[:, :k].T
+    else:
+        wide = torch.zeros(k, n + 1, dtype=dtype, device=card)
+        wide[:, :n] = b
+        b_odd = wide[:, :n]
+    assert torch.equal(matmul_cuda(a, b_odd), want)
+    assert torch.equal(matmul_cuda(_misaligned(a), b), want)
+
+
+def test_matmul_rejects_b_without_unit_stride(card):
+    a = torch.ones(4, 8, device=card)
+    b = torch.ones(16, 12, device=card)[::2, ::2]       # strides (24, 2)
+    before = matmul_cuda.launches
+    with pytest.raises(ValueError, match="unit stride"):
+        matmul_cuda(a, b)
+    assert matmul_cuda.launches == before
+
+
 def _int8_weight(card, gen, k, n):
     w = torch.randn(k, n, generator=gen, device=card) / math.sqrt(k)
     return quant.quantize_channelwise(w)

@@ -83,6 +83,77 @@ def test_dispatch_matmul_routes_cpu_tensors_to_plain():
     _close(out, want)
 
 
+# the (K, N) pairs of gemma-2b's GEMMs: the serving and forward weights,
+# the tied head, and the gradient GEMMs' (K, N) in training
+GEMMA_KN = [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048),
+            (2048, 256000), (256000, 2048), (1024, 2048), (1024, 256),
+            (1024, 16384), (256, 2048), (128, 256000), (37, 67), (1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", GEMMA_KN)
+def test_split_plan_partitions_k_in_one_cluster(dtype, k, n):
+    """The K slices of B1's split tile K exactly, in order, none empty,
+    with at most 8 blocks on one output tile, each slice a whole number of
+    K units but the last."""
+    from repro_torch.kernels.matmul import matmul as mm
+    split, per = mm.split_plan(k, n, dtype)
+    assert 1 <= split <= mm.MAX_SPLIT == 8
+    unit = per * mm.TILE_K[dtype]          # rank r's K range, as csrc reads it
+    slices = [(min(k, r * unit), min(k, (r + 1) * unit))
+              for r in range(split)]
+    assert len(slices) == split
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (lo, hi), (nxt, _) in zip(slices, slices[1:]):
+        assert hi == nxt and hi - lo == per * mm.TILE_K[dtype]
+    assert all(hi > lo for lo, hi in slices) or k == 0
+    if split > 1:        # split only while N's tiles leave SMs idle
+        assert split * -(-n // mm.TILE_N) <= mm.SMS
+        assert all(hi - lo >= mm.MIN_SLICE or hi == k for lo, hi in slices)
+
+
+def test_split_plan_depends_on_k_n_and_dtype_only():
+    """The plan takes no M (so a row's K order cannot depend on how many
+    rows share the call) and splits where gemma's grids are small."""
+    import inspect
+
+    from repro_torch.kernels.matmul import matmul as mm
+    assert list(inspect.signature(mm.split_plan).parameters) == [
+        "k", "n", "dtype"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert mm.split_plan(16384, 2048, bf16) == (4, 64)     # decode wd
+    assert mm.split_plan(2048, 16384, bf16) == (1, 32)     # wg / wu
+    assert mm.split_plan(2048, 256000, bf16) == (1, 32)    # tied head
+    assert mm.split_plan(256000, 2048, f32) == (8, 1000)   # head dx
+    assert mm.split_plan(1024, 2048, f32) == (1, 32)       # dw, M=16384
+    assert mm.split_plan(0, 5, f32) == (1, 0)
+
+
+def test_matmul_operand_checks():
+    from repro_torch.kernels.matmul import matmul as mm
+    a = torch.zeros(4, 8)
+    mm.check_operands(a, torch.zeros(8, 3))
+    mm.check_operands(a, torch.zeros(3, 8).T)              # K-contiguous
+    with pytest.raises(ValueError, match="unit stride"):
+        mm.check_operands(a, torch.zeros(16, 6)[::2, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.check_operands(torch.zeros(8, 4).T, torch.zeros(8, 3))
+    with pytest.raises(ValueError, match="want"):
+        mm.check_operands(a, torch.zeros(7, 3))
+    with pytest.raises(TypeError):
+        mm.check_operands(a, torch.zeros(8, 3, dtype=torch.bfloat16))
+
+
+def test_row_tile_limits():
+    """B1's grid holds 65535 row tiles of 128, B5's of 64."""
+    from repro_torch.kernels.matmul import matmul as mm
+    mm._check_rows("matmul", 65535 * 128, mm.TILE_M)
+    with pytest.raises(ValueError, match="row tiles of 128"):
+        mm._check_rows("matmul", 65535 * 128 + 1, mm.TILE_M)
+    with pytest.raises(ValueError, match="row tiles of 64"):
+        mm._check_rows("quantized_matmul", 65535 * 64 + 1, 64)
+
+
 # ------------------------------------------------------ quantized matmul
 def _int8_weight(rng, k, n):
     w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
