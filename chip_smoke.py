@@ -39,10 +39,11 @@ Phases, one output line or more each:
               only kernel routes for attention, attention_bwd, matmul and
               matmul_bwd, and exactly the launches the config implies
               (B6 2 x 18, B7 18, B1 4 x 134 per step, the recompute
-              included).
+              included), every B6 and B7 call on the wgmma route.
    A profiled extra step gives device time by kernel and the idle
    share (``torch.profiler``; reported as not measured if it sees no
-   device time).  Phase 3 is followed by a serve profile: the
+   device time, and failing if it sees device time but none in the
+   wgmma B6/B7 kernels).  Phase 3 is followed by a serve profile: the
    continuous float run again under the profiler, device time by kernel
    group and the idle share over its decode steps.
 6. train parity -- one loss and backward of full-width gemma-2b in fp32,
@@ -59,19 +60,26 @@ Phases, one output line or more each:
 
 Phase 2b holds the kernel library's kernels against their plain versions
 on the card: WKV (B8) at rwkv6-7b's time-mix width (B=4, S=4096, H=64,
-hd=64, chunk 64) in bf16 and fp32 with init-like and strong decays, max
-|err| within 1e-4 of max |out|; the Jacobi stencil (B9) on 8192 x 8192
+hd=64, chunk 64) in bf16 and fp32 with init-like and strong decays, and
+at the same width in heads of 128 (H=32, hd=128) in bf16, max |err|
+within 1e-4 of max |out|; the Jacobi stencil (B9) on 8192 x 8192
 fp32 (1 and 32 sweeps) and 8191 x 8193, bit for bit, beside one
 ``F.conv2d`` with the cross kernel; N-body (B10) at N = 16128 and 65536,
 within 1e-4 of max |a|; the histogram (B11) of 2^26 int32 values,
-uniform and all in one bin, and a small case with values out of range,
-exact, beside ``torch.bincount``.
+uniform and all in one bin over 256 bins and uniform over 2^20 bins
+(windows of bins), and a small case with values out of range, exact,
+beside ``torch.bincount``.
 
 Phase 2 also holds the flash forward (B6) and its fused backward (B7)
 at the training shape (B=2, H=8, S=512, hd=256; causal, and a window of
-128) against their plain versions, runs B7 twice and requires identical
-bits, times ``scaled_dot_product_attention`` and its backward beside
-them (never called by the port), and checks the matmul autograd
+128), and in bf16 also at hd=128 (H=16; causal, and a window of 128) and
+hd=64 (H=32, causal), against their plain versions, each on the route
+(dtype, hd) names (bf16 at these widths: wgmma; fp32: simt); runs B7
+twice and requires identical bits, times ``scaled_dot_product_attention``
+and its backward beside the causal cases (never called by the port),
+each also by its kernels' device time under the profiler (``device_ms``,
+``library_device_ms``: a call this short is paced by the host), and
+checks the matmul autograd
 backward (both fp32 gradient GEMMs through B1) at the down-projection's
 training shape.
 
@@ -144,10 +152,14 @@ SOURCES = {
 # (configs/archs.py:113, chunk 64), the 8192 x 8192 grid and the N = 16128
 # bodies benchmarks/run.py models, N = 65536, and 2^26 histogram values
 WKV_SHAPE = dict(b=4, s=4096, h=64, hd=64)
+# the same model width in heads of 128: two value-column blocks and two
+# key-side pieces a head
+WKV_WIDE_SHAPE = dict(b=4, s=4096, h=32, hd=128)
 WKV_CHUNK, WKV_SUBCHUNK = 64, 16
 STENCIL_CASES = ((8192, 8192, 1), (8192, 8192, 32), (8191, 8193, 1))
 NBODY_SIZES = (16128, 65536)
 HIST_N, HIST_BINS = 1 << 26, 256
+HIST_WIDE_BINS = 1 << 20     # past one block's shared memory: 19 windows
 LIB_TOL = 1e-4            # WKV and N-body: max |err| / max |plain output|
 # the case of each kernel that the summary line reports (bf16 unless
 # SUMMARY_DTYPE names another type)
@@ -185,6 +197,23 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 10):
+    """Mean device milliseconds of the kernels ``fn`` launches, per call,
+    over ``reps`` calls under ``torch.profiler`` (after one warm-up call):
+    the card's own time where a short kernel's CUDA-event time is paced by
+    the host's launches.  None if the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps if total else None
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -465,29 +494,56 @@ def _live_pairs(s: int, window: int) -> int:
     return sum(min(i + 1, window) if window else i + 1 for i in range(s))
 
 
+# B6/B7 cases beyond the training shape, bf16 only: the wgmma route's other
+# head widths at gemma-2b's model width (H x hd = 2048), causal (SDPA
+# timed beside) and one windowed
+FLASH_BF16_CASES = ((256, 0), (256, 128), (128, 0), (64, 0), (128, 128))
+# B7 on the wgmma route splits the fp32 dO into bf16 halves, hi + lo
+# (~2^-16 relative).  Each gradient's ||got - plain|| / ||plain|| is held
+# to a limit well above the kernel's readings and well below those of a
+# build that loses one lo product (both in PERF.md §6)
+BWD_SPLIT_LIMIT = {"dq": 6e-4, "dk": 6e-4, "dv": 1e-4}
+FLASH_F32_CASES = ((256, 0), (256, 128))
+
+
 def check_flash(torch, dtype_name: str):
-    """B6 and B7 at the training shape against their plain versions; B7
-    twice on the same inputs must give the same bits.  Library: one
-    ``scaled_dot_product_attention(is_causal=True)`` call and its
-    backward, timed beside the causal case only (it has no window)."""
+    """B6 and B7 at the training shape (and, in bf16, at hd 128 and 64)
+    against their plain versions; B7 twice on the same inputs must give
+    the same bits.  Library: one ``scaled_dot_product_attention(
+    is_causal=True)`` call and its backward, timed beside the causal
+    cases only (it has no window).  Each row names the route
+    ``flash_route`` chose and holds the route counts to it."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
                                                flash_attention_bwd_plain,
                                                flash_attention_cuda,
                                                flash_attention_plain)
+    from repro_torch.kernels.attention.flash import flash_route
     dtype = getattr(torch, dtype_name)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    b, h, s, hd = (TRAIN_SHAPE[k] for k in ("b", "h", "s", "hd"))
-    q, k, v = (torch.randn(b, h, s, hd, generator=gen, device="cuda")
-               .to(dtype) for _ in range(3))
-    do = torch.randn(b, h, s, hd, generator=gen, device="cuda")
-    size, n = q.element_size(), q.numel()
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    width = TRAIN_SHAPE["h"] * TRAIN_SHAPE["hd"]
     rows = []
-    for window in (0, 128):
+    cases = FLASH_BF16_CASES if dtype_name == "bfloat16" else FLASH_F32_CASES
+    for hd, window in cases:
+        h = width // hd
+        gen = torch.Generator(device="cuda").manual_seed(5 + hd)
+        q, k, v = (torch.randn(b, h, s, hd, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        do = torch.randn(b, h, s, hd, generator=gen, device="cuda")
+        size, n = q.element_size(), q.numel()
+        route = flash_route(dtype, hd)
         case = f"B={b} H={h} S={s} hd={hd} causal window={window}"
         kw = dict(causal=True, window=window)
+        dispatch.reset_launch_counts()
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        counts = dispatch.route_counts()
+        if (counts[f"flash_attention/{route}"],
+                counts[f"flash_attention_bwd/{route}"]) != (1, 1):
+            raise AssertionError(f"flash {case} {dtype_name}: routes "
+                                 f"{counts}, expected {route}")
         o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
         err = max(compare(torch, "flash_attention " + case, o, o_p,
                           dtype_name),
@@ -495,22 +551,33 @@ def check_flash(torch, dtype_name: str):
                           dtype_name))
         pairs = b * h * _live_pairs(s, window)
         lib_fwd = lib_bwd = None
+        dev = {}   # device-only times (the event times may be host-paced)
         if window == 0:
-            lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True))
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            lib_fwd = time_ms(torch, sdpa)
+            dev["library_device_ms"] = device_ms(torch, sdpa)
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
             out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
             do_lib = do.to(dtype)
-            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-                out, (qg, kg, vg), do_lib, retain_graph=True))
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (qg, kg, vg), do_lib,
+                                           retain_graph=True)
+            lib_bwd = time_ms(torch, sdpa_bwd)
+            dev["library_bwd_device_ms"] = device_ms(torch, sdpa_bwd)
             del qg, kg, vg, out
+        def fwd():
+            return flash_attention_cuda(q, k, v, **kw)
         rows.append(row(
-            "flash_attention", case, dtype_name, err,
-            time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw)),
+            "flash_attention", case, dtype_name, err, time_ms(torch, fwd),
             time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw)),
             bound(3 * n * size + n * 4 + b * h * s * 4,
-                  4.0 * hd * pairs, dtype_name), lib_fwd))
+                  4.0 * hd * pairs, dtype_name), lib_fwd, route=route,
+            device_ms=device_ms(torch, fwd),
+            library_device_ms=dev.get("library_device_ms")))
 
+        # the backward on the plain forward's o and lse
         got = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
         again = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
         torch.cuda.synchronize()
@@ -521,20 +588,30 @@ def check_flash(torch, dtype_name: str):
         err = max(compare(torch, f"flash_attention_bwd {name} {case}",
                           g, w_, dtype_name)
                   for name, g, w_ in zip(("dq", "dk", "dv"), got, want))
+        split = {}
+        if route == "wgmma":
+            split = {name: ((g - w_).norm() / w_.norm()).item()
+                     for name, g, w_ in zip(("dq", "dk", "dv"), got, want)}
+            if not all(split[n] <= BWD_SPLIT_LIMIT[n] for n in split):
+                raise AssertionError(
+                    f"flash_attention_bwd {case}: ||err|| / ||plain|| "
+                    f"{split} over {BWD_SPLIT_LIMIT} (a lo half lost?)")
         del got, again, want
         # bytes: q, k, v in; o, dO fp32 and lse in; dq, dk, dv fp32 out.
         # operations: the five products of one pass (S and dP recomputed
         # once, dQ, dK, dV), 2 hd each per live pair
+        def bwd():
+            return flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
         rows.append(row(
-            "flash_attention_bwd", case, dtype_name, err,
-            time_ms(torch, lambda: flash_attention_bwd_cuda(
-                q, k, v, o_p, lse_p, do, **kw)),
+            "flash_attention_bwd", case, dtype_name, err, time_ms(torch, bwd),
             time_ms(torch, lambda: flash_attention_bwd_plain(
                 q, k, v, o_p, lse_p, do, **kw)),
             bound(3 * n * size + 2 * n * 4 + b * h * s * 4 + 3 * n * 4,
                   10.0 * hd * pairs, dtype_name), lib_bwd,
-            deterministic=True))
-        del o, lse, o_p, lse_p
+            deterministic=True, route=route, device_ms=device_ms(torch, bwd),
+            library_device_ms=dev.get("library_bwd_device_ms"),
+            norm_rel_err=split or None))
+        del q, k, v, do, o, lse, o_p, lse_p
     return rows
 
 
@@ -603,7 +680,7 @@ def equal_check(torch, name: str, got, want) -> float:
     return 0.0
 
 
-def wkv_inputs(torch, dtype_name: str, strong: bool):
+def wkv_inputs(torch, dtype_name: str, strong: bool, shape=None):
     """rwkv6-7b time-mix inputs: r, k, v in ``dtype_name``; log-decays
     -exp(-6 + noise) as the decay LoRA gives at init (w0 = -6,
     repro/models/rwkv.py:68), or with ``strong`` in [-50, -20] on a grid
@@ -611,7 +688,7 @@ def wkv_inputs(torch, dtype_name: str, strong: bool):
     conditioning at |cum| ~ 3000); u and the rest N(0, 1)."""
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(7 + strong)
-    shape = tuple(WKV_SHAPE[x] for x in ("b", "s", "h", "hd"))
+    shape = tuple((shape or WKV_SHAPE)[x] for x in ("b", "s", "h", "hd"))
     r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     if strong:
@@ -649,14 +726,16 @@ def wkv_ops(b: int, s: int, h: int, hd: int, c: int, sc: int) -> float:
 def check_wkv(torch):
     from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
     from repro_torch.models.rwkv import chunk_len
-    b, s, h, hd = (WKV_SHAPE[x] for x in ("b", "s", "h", "hd"))
-    c = chunk_len(s, WKV_CHUNK)
-    sc = chunk_len(c, WKV_SUBCHUNK)
     rows = []
-    for dtype_name, strong in (("bfloat16", False), ("float32", False),
-                               ("float32", True)):
-        r, k, v, lw, u = wkv_inputs(torch, dtype_name, strong)
-        case = WKV_CASE.replace("init", "strong") if strong else WKV_CASE
+    for dtype_name, strong, shape in (
+            ("bfloat16", False, WKV_SHAPE), ("float32", False, WKV_SHAPE),
+            ("float32", True, WKV_SHAPE), ("bfloat16", False, WKV_WIDE_SHAPE)):
+        b, s, h, hd = (shape[x] for x in ("b", "s", "h", "hd"))
+        c = chunk_len(s, WKV_CHUNK)
+        sc = chunk_len(c, WKV_SUBCHUNK)
+        r, k, v, lw, u = wkv_inputs(torch, dtype_name, strong, shape)
+        case = (f"B={b} S={s} H={h} hd={hd} chunk={c} "
+                f"decay={'strong' if strong else 'init'}")
         err, rel = rel_check(torch, "wkv " + case,
                              wkv_cuda(r, k, v, lw, u, chunk=c),
                              wkv_plain(r, k, v, lw, u, chunk=c))
@@ -738,9 +817,9 @@ def check_nbody(torch):
 
 def histogram_inputs(torch, kind: str):
     gen = torch.Generator(device="cuda").manual_seed(11)
-    if kind == "uniform":
-        vals = torch.randint(0, HIST_BINS, (HIST_N,), generator=gen,
-                             device="cuda")
+    if kind.startswith("uniform"):
+        vals = torch.randint(0, HIST_CASES[kind][1], (HIST_N,),
+                             generator=gen, device="cuda")
     elif kind == "one bin":          # every update hits one shared address
         vals = torch.full((HIST_N,), 7, device="cuda")
     else:                            # out of range both ways: dropped
@@ -749,33 +828,35 @@ def histogram_inputs(torch, kind: str):
     return vals.to(torch.int32)
 
 
-HIST_CASES = {"uniform": f"N=2^26 bins={HIST_BINS} uniform",
-              "one bin": f"N=2^26 bins={HIST_BINS} one bin",
-              "out of range": "N=32 bins=256 out of range"}
+# kind: (case, n_bins)
+HIST_CASES = {"uniform": (f"N=2^26 bins={HIST_BINS} uniform", HIST_BINS),
+              "one bin": (f"N=2^26 bins={HIST_BINS} one bin", HIST_BINS),
+              "out of range": ("N=32 bins=256 out of range", HIST_BINS),
+              "uniform wide": ("N=2^26 bins=2^20 uniform", HIST_WIDE_BINS)}
 
 
 def check_histogram(torch):
-    """Exact counts.  Library: ``torch.bincount(values, minlength=256)``
+    """Exact counts.  Library: ``torch.bincount(values, minlength=bins)``
     where every value is in range."""
     from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
     out = []
-    for kind, case in HIST_CASES.items():
+    for kind, (case, bins) in HIST_CASES.items():
         vals = histogram_inputs(torch, kind)
-        got = histogram_cuda(vals, HIST_BINS)
+        got = histogram_cuda(vals, bins)
         err = equal_check(torch, "histogram " + case, got,
-                          histogram_plain(vals, HIST_BINS))
+                          histogram_plain(vals, bins))
         if kind == "out of range" and int(got.sum()) != 16:
             raise AssertionError(f"histogram {case}: counted {got.sum()}")
         library = None
         if kind != "out of range":
             library = time_ms(torch, lambda: torch.bincount(
-                vals, minlength=HIST_BINS))
+                vals, minlength=bins))
         out.append(row(
             "histogram", case, "int32", err,
-            time_ms(torch, lambda: histogram_cuda(vals, HIST_BINS)),
-            time_ms(torch, lambda: histogram_plain(vals, HIST_BINS)),
+            time_ms(torch, lambda: histogram_cuda(vals, bins)),
+            time_ms(torch, lambda: histogram_plain(vals, bins)),
             # one compare-and-add per value, at the scalar rate
-            bound(4.0 * vals.numel() + 4 * HIST_BINS, float(vals.numel()),
+            bound(4.0 * vals.numel() + 4 * bins, float(vals.numel()),
                   "float32"), library, exact=True))
         del vals
     return out
@@ -800,7 +881,8 @@ def library_phase(torch):
     grids = [(stencil_input(torch, r_, c_), steps)
              for r_, c_, steps in STENCIL_CASES]
     bodies = [nbody_inputs(torch, n) for n in NBODY_SIZES]
-    hists = [histogram_inputs(torch, kind) for kind in HIST_CASES]
+    hists = [(histogram_inputs(torch, kind), bins)
+             for kind, (_, bins) in HIST_CASES.items()]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dispatch.reset_launch_counts()
@@ -808,7 +890,7 @@ def library_phase(torch):
         w_out = wkv(*w_args, chunk=WKV_CHUNK, subchunk=WKV_SUBCHUNK)
         s_out = [jacobi4(x, steps=steps) for x, steps in grids]
         n_out = [nbody_accel(pos, mass) for pos, mass in bodies]
-        h_out = [histogram(vals, HIST_BINS) for vals in hists]
+        h_out = [histogram(vals, bins) for vals, bins in hists]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dispatch.launch_counts()
@@ -835,9 +917,9 @@ def library_phase(torch):
                     jacobi4_plain(x, steps=steps))
     for (pos, mass), got in zip(bodies, n_out):
         rel_check(torch, "library nbody", got, nbody_accel_plain(pos, mass))
-    for vals, got in zip(hists, h_out):
+    for (vals, bins), got in zip(hists, h_out):
         equal_check(torch, "library histogram", got,
-                    histogram_plain(vals, HIST_BINS))
+                    histogram_plain(vals, bins))
     emit({"phase": "library", "outputs_match_plain": True})
     return {op: launches[op] for op in LIBRARY_KERNELS}
 
@@ -1029,6 +1111,7 @@ def train_phase(torch):
              "--ckpt-dir", str(ckpt_dir)], report=report)
         torch.cuda.synchronize()
         launches = dispatch.launch_counts()
+        flash_routes = dispatch.route_counts()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1042,7 +1125,8 @@ def train_phase(torch):
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "checkpoint_bytes": report["checkpoint_bytes"],
           "checkpoint_seconds": report["checkpoint_seconds"],
-          "routes": routes, "launches": launches})
+          "routes": routes, "launches": launches,
+          "flash_routes": flash_routes})
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"train: losses {losses}")
     off = {k: n for k, n in report["routes"].items()
@@ -1055,6 +1139,13 @@ def train_phase(torch):
     got = {op: n for op, n in launches.items() if n or op in want}
     if got != want:
         raise AssertionError(f"train: launches {got}, expected {want}")
+    # bf16 compute at gemma-2b's hd = 256: every flash call on wgmma
+    want_routes = {f"{op}/{route}": want[op] if route == "wgmma" else 0
+                   for op in ("flash_attention", "flash_attention_bwd")
+                   for route in ("wgmma", "simt")}
+    if flash_routes != want_routes:
+        raise AssertionError(f"train: flash routes {flash_routes}, "
+                             f"expected {want_routes}")
     return launches
 
 
@@ -1064,12 +1155,20 @@ KERNEL_GROUPS = (("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
                  ("matmul_f32_simt_kernel", "B1 matmul fp32 (SIMT)"),
                  ("matmul_splitk_reduce_kernel", "B1 split-K sum"),
                  ("matmul_kernel", "B5 int8 matmul"),
-                 ("flash_fwd_kernel", "B6 flash forward"),
-                 ("flash_dq_kernel", "B7 dQ sweep"),
-                 ("flash_dkv_kernel", "B7 dK/dV sweep"),
+                 ("flash_fwd_wgmma_kernel", "B6 flash forward bf16 (wgmma)"),
+                 ("flash_fwd_kernel", "B6 flash forward (SIMT)"),
+                 ("flash_bwd_split_kernel", "B7 dO split bf16 (wgmma route)"),
+                 ("flash_dq_wgmma_kernel", "B7 dQ sweep bf16 (wgmma)"),
+                 ("flash_dkv_wgmma_kernel", "B7 dK/dV sweep bf16 (wgmma)"),
+                 ("flash_dq_kernel", "B7 dQ sweep (SIMT)"),
+                 ("flash_dkv_kernel", "B7 dK/dV sweep (SIMT)"),
                  ("decode_kernel", "B2/B4a decode attention"),
                  ("prefill_kernel", "B3/B4b prefill attention"))
 OTHER_GROUP = "other (PyTorch ops)"
+# what the bf16 train step's attention must run on (gemma-2b: hd = 256)
+TRAIN_WGMMA_GROUPS = ("B6 flash forward bf16 (wgmma)",
+                      "B7 dQ sweep bf16 (wgmma)",
+                      "B7 dK/dV sweep bf16 (wgmma)")
 
 
 def kernel_group(name: str) -> str:
@@ -1120,12 +1219,15 @@ def train_profile(torch):
             other.append((ms, evt.count, evt.key[:90]))
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
+    missing = [g for g in TRAIN_WGMMA_GROUPS if busy and not groups.get(g)]
     emit({"phase": "train_profile", "profiled_step_wall_ms": wall_ms,
           "device_ms": groups if busy else "not measured",
           "device_busy_ms": busy if busy else None,
           "idle_share": 1 - busy / wall_ms if busy else None,
           "top_other": [{"ms": ms, "calls": n, "kernel": name}
                         for ms, n, name in sorted(other, reverse=True)[:8]]})
+    if missing:
+        raise AssertionError(f"train profile: no device time in {missing}")
     del params, opt, metrics
 
 
@@ -1269,7 +1371,8 @@ def main(argv=None) -> int:
     cuda.library()
     emit({"phase": "build", "seconds": time.time() - t0,
           "library": str(cuda.library_path().relative_to(ROOT)),
-          "ptxas_matmul": cuda.ptxas_report("matmul")})
+          "ptxas_matmul": cuda.ptxas_report("matmul"),
+          "ptxas_flash": cuda.ptxas_report("flash")})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 
 from .. import cuda
-from .flash import check_bhsd, masked_scores
+from .flash import check_aligned16, check_bhsd, check_route, masked_scores
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -53,21 +53,17 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-def _smem_bytes(hd: int) -> int:
-    """Shared memory of the larger (dK/dV) kernel of
-    csrc/flash_attention_bwd.cu."""
-    return 4 * (2 * 32 * (hd + 1) + 4 * 32 * hd + 2 * 32 * 32 + 2 * 32)
-
-
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
                              causal: bool = True, window: int = 0) -> Grads:
-    """Launch ``repro_flash_attention_bwd`` (the dQ sweep, then the dK/dV
-    sweep): q, k, v contiguous (B, H, S, hd) of one type, o and do fp32
-    of that shape, lse (B, H, S) fp32, all on one CUDA device.  Counts
-    one launch per call.  Returns new fp32 (dq, dk, dv); raises on
-    anything the kernels do not take."""
+    """Launch ``repro_flash_attention_bwd_wgmma`` (dO's bf16 halves, the
+    dQ sweep, then the dK/dV sweep) or ``repro_flash_attention_bwd`` (the
+    two sweeps), as ``flash.flash_route`` names: q, k, v contiguous
+    (B, H, S, hd) of one type, o and do fp32 of that shape, lse (B, H, S)
+    fp32, all on one CUDA device.  Counts one launch per call, and one on
+    its route in ``flash_attention_bwd_cuda.routes``.  Returns new fp32
+    (dq, dk, dv); raises on anything the kernels do not take."""
     name = "flash_attention_bwd"
     cuda.require_cuda(name, q, k, v, o, lse, do)
     check_bhsd(name, q, k, v)
@@ -80,21 +76,32 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise TypeError(f"{name}: o, lse and do must be float32")
     if window < 0:
         raise ValueError(f"{name}: window {window} < 0")
-    if _smem_bytes(hd) > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: head width {hd} needs {_smem_bytes(hd)} "
-                         f"bytes of shared memory")
+    route = check_route(name, q.dtype, hd, bwd=True)
+    if route == "wgmma":
+        check_aligned16(name, q, k, v, do)
     delta = _delta(o, do)
     dq, dk, dv = (torch.empty((b, h, s, hd), dtype=torch.float32,
                               device=q.device) for _ in range(3))
-    rc = cuda.library().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(),
-        *cuda.c_ints(name, b * h, s, hd, int(causal), window),
-        cuda.dtype_code(q), cuda.stream_of(q))
+    sizes = cuda.c_ints(name, b * h, s, hd, int(causal), window)
+    lib = cuda.library()
+    if route == "wgmma":
+        # dO's bf16 halves (hi, lo), written by the first kernel
+        split = torch.empty((2, b, h, s, hd), dtype=torch.bfloat16,
+                            device=q.device)
+        rc = lib.repro_flash_attention_bwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), split.data_ptr(), *sizes, cuda.stream_of(q))
+    else:
+        rc = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *sizes, cuda.dtype_code(q), cuda.stream_of(q))
     cuda.check(rc, name)
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.routes = {"wgmma": 0, "simt": 0}

@@ -2,7 +2,9 @@
 residual: the CUDA kernel's wrapper and its plain PyTorch version.
 
 Replaces ``repro/kernels/attention/flash.py::flash_attention_pallas``;
-the kernel is ``kernels/csrc/flash_attention.cu``; the plain version is
+the kernels are ``kernels/csrc/flash_attention.cu``, one per route
+(``flash_route``: ``wgmma`` for bf16 at head widths 64, 128 and 256,
+``simt`` otherwise); the plain version is
 the port of ``repro/kernels/attention/ref.py::attention_ref`` and
 ``::attention_lse_ref``.
 
@@ -51,8 +53,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def check_bhsd(name: str, *tensors: torch.Tensor) -> None:
-    """Equal (B, H, S, hd) shapes of one float dtype, and a head width
-    whose tiles fit a block's shared memory."""
+    """Equal (B, H, S, hd) shapes of one float dtype."""
     q = tensors[0]
     if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
         raise ValueError(f"{name}: want equal (B, H, S, hd) shapes, got "
@@ -63,36 +64,82 @@ def check_bhsd(name: str, *tensors: torch.Tensor) -> None:
     cuda.dtype_code(q)
 
 
-def _smem_bytes(hd: int) -> int:
-    """csrc/flash_attention.cu's shared memory per block."""
+# head widths the wgmma kernels are instantiated for (the repo's archs)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """The route of both flash kernels (forward and backward), from the
+    input type and head width alone: ``wgmma`` (tensor cores, TMA) for
+    bf16 at the head widths it is built for, ``simt`` (fp32 FMA units)
+    for fp32 and every other head width."""
+    return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            else "simt")
+
+
+def simt_smem_bytes(hd: int, bwd: bool = False) -> int:
+    """Shared memory per block of the simt route's forward, or with
+    ``bwd`` of its larger (dK/dV) backward kernel; the wrappers raise
+    where it exceeds a block's limit (hd > 445 forward, > 291 backward)."""
+    if bwd:
+        return 4 * (2 * 32 * (hd + 1) + 4 * 32 * hd + 2 * 32 * 32 + 2 * 32)
     return 4 * (2 * 32 * hd + 32 * (hd + 1) + 32 * hd + 32 * 32 + 3 * 32)
+
+
+def check_route(name: str, dtype: torch.dtype, hd: int,
+                bwd: bool = False) -> str:
+    """The route for (dtype, hd); raises where the simt route's tiles do
+    not fit a block's shared memory."""
+    route = flash_route(dtype, hd)
+    if route == "simt" and simt_smem_bytes(hd, bwd) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: head width {hd} needs "
+                         f"{simt_smem_bytes(hd, bwd)} bytes of shared "
+                         f"memory on the simt route")
+    return route
+
+
+def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
+    """The wgmma route's inputs start on 16-byte boundaries (TMA and the
+    16-byte loads read only from such); raises otherwise."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the wgmma route needs inputs whose data "
+                         f"starts on a 16-byte boundary")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
-    """Launch ``repro_flash_attention`` (grid: batch x head, tiles of 32
-    query rows): q, k, v contiguous (B, H, S, hd) of one type on one CUDA
-    device.  Returns new fp32 o (and lse); raises on anything the kernel
-    does not take."""
+    """Launch ``repro_flash_attention_wgmma`` (grid: batch x head, tiles
+    of 64 query rows) or ``repro_flash_attention`` (tiles of 32), as
+    ``flash_route`` names: q, k, v contiguous (B, H, S, hd) of one type on
+    one CUDA device.  Counts one launch per call, and one on its route in
+    ``flash_attention_cuda.routes``.  Returns new fp32 o (and lse); raises
+    on anything the kernels do not take."""
     cuda.require_cuda("flash_attention", q, k, v)
     check_bhsd("flash_attention", q, k, v)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     b, h, s, hd = q.shape
-    if _smem_bytes(hd) > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"flash_attention: head width {hd} needs "
-                         f"{_smem_bytes(hd)} bytes of shared memory")
+    route = check_route("flash_attention", q.dtype, hd)
+    if route == "wgmma":
+        check_aligned16("flash_attention", q, k, v)
     out = torch.empty((b, h, s, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    rc = cuda.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(),
-        *cuda.c_ints("flash_attention", b * h, s, hd, int(causal), window),
-        cuda.dtype_code(q), cuda.stream_of(q))
+    sizes = cuda.c_ints("flash_attention", b * h, s, hd, int(causal), window)
+    lib = cuda.library()
+    if route == "wgmma":
+        rc = lib.repro_flash_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *sizes, cuda.stream_of(q))
+    else:
+        rc = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *sizes, cuda.dtype_code(q), cuda.stream_of(q))
     cuda.check(rc, "flash_attention")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.routes[route] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.routes = {"wgmma": 0, "simt": 0}

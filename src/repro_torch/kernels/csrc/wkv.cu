@@ -20,26 +20,43 @@
 // What this design does about it.  The TPU kernel walks the chunks on a
 // sequential ('arbitrary') grid axis and carries the state in a VMEM
 // scratch.  Blocks on Hopper run in no order, so one block owns one
-// (batch, head) and loops over its chunks inside, with the fp32 state in
-// shared memory the whole time.  Per chunk it stages r, k, v and the
-// cumsum of lw (c x hd fp32 each, rows padded to hd + 1 floats against
-// bank conflicts) and the (c, c) attention matrix: 100 KB at c = hd = 64,
-// so two blocks share an SM and B x H = 256 blocks fill the card in one
-// wave.  Every exponent stays <= 0: the intra-chunk weight is one
-// exponential of (ecum_i - cum_j), clamped at -60 as wkv.py:83 does, and
-// never exp(ecum_i) * exp(-cum_j), whose second factor overflows under
-// strong decay.  The bonus sits on the attention matrix's diagonal.
+// (batch, head, block of at most 64 value columns) and loops over the
+// chunks inside, with its columns of the fp32 state in shared memory the
+// whole time.  Output column d and state column d depend on no other
+// value column, so the column blocks are independent; each recomputes the
+// chunk's (c, c) key-side matrix, which repeats work and changes nothing.
+// The key side (r, k and the cumsum of lw, c x hd each) is staged in
+// pieces of 64 channels: every term sums over channels, so the attention
+// matrix and the inter-chunk output accumulate piece by piece, and a
+// piece's rows of the state are updated once its inter-chunk term is
+// taken.  A chunk longer than 64 rows is walked in pieces of 64 rows, the
+// state carried from one piece to the next as from one chunk to the next
+// (the same sums; the one difference is that the reference clamps a
+// weight below e^-60 to e^-60 within a chunk).  So shared memory is
+// bounded whatever the chunk and head width: at rwkv6-7b's c = hd = 64
+// one piece of 64 rows, 64 channels and 64 columns, 100 KB, two blocks an
+// SM, B x H = 256 blocks in one wave, as before the split.  Tiles are
+// rows padded to width + 1 floats against bank conflicts.  Every exponent
+// stays <= 0: the intra-chunk weight is one exponential of
+// (ecum_i - cum_j), clamped at -60 as wkv.py:83 does, and never
+// exp(ecum_i) * exp(-cum_j), whose second factor overflows under strong
+// decay.  The bonus sits on the attention matrix's diagonal.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int PIECE = 64;  // channels of r, k and lw staged at a time
 
-// floats of shared memory: r, k, v, cum tiles (c x (hd+1)); the attention
-// matrix (c x (c+1)); the state (hd x (hd+1)); u (hd)
-size_t smem_floats(int c, int hd) {
-  const size_t ld = hd + 1;
-  return 4 * c * ld + static_cast<size_t>(c) * (c + 1) + hd * ld + hd;
+// floats of shared memory for pieces of `rows` rows and blocks of `cols`
+// value columns: r, k, cum (rows x (piece+1)); v (rows x (cols+1)); the
+// attention matrix (rows x (rows+1)); the state's columns (hd x
+// (cols+1)); u (hd)
+size_t smem_floats(int rows, int cols, int hd) {
+  const size_t p = hd < PIECE ? hd : PIECE;
+  return 3 * rows * (p + 1) + static_cast<size_t>(rows) * (cols + 1) +
+         static_cast<size_t>(rows) * (rows + 1) +
+         static_cast<size_t>(hd) * (cols + 1) + hd;
 }
 
 template <typename T>
@@ -47,92 +64,115 @@ __global__ void __launch_bounds__(THREADS, 2)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ lw,
            const float* __restrict__ u, float* __restrict__ out, int S,
-           int H, int hd, int c) {
+           int H, int hd, int c, int rows, int cols) {
   extern __shared__ float smem[];
-  const int ld = hd + 1, lda = c + 1;
+  const int P = min(hd, PIECE), ldp = P + 1, ldv = cols + 1;
+  const int lda = rows + 1;
   float* rs = smem;                  // r, then r * exp(ecum)
-  float* ks = rs + c * ld;           // k, then k * exp(total - cum)
-  float* vs = ks + c * ld;
-  float* cum = vs + c * ld;          // lw, then its inclusive cumsum
-  float* att = cum + c * ld;         // (c, c+1), lower triangle
-  float* st = att + c * lda;         // the state, (hd, hd+1)
-  float* us = st + hd * ld;
+  float* ks = rs + rows * ldp;       // k, then k * exp(total - cum)
+  float* cum = ks + rows * ldp;      // lw, then its inclusive cumsum
+  float* vs = cum + rows * ldp;      // this block's value columns
+  float* att = vs + rows * ldv;      // (rows, rows+1), lower triangle
+  float* st = att + rows * lda;      // the state's columns, (hd, cols+1)
+  float* us = st + hd * ldv;
   const int tid = threadIdx.x;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int d0 = blockIdx.y * cols, nv = min(cols, hd - d0);
   const long long step = static_cast<long long>(H) * hd;  // one time step
   const long long base = (static_cast<long long>(b) * S * H + h) * hd;
 
-  for (int e = tid; e < hd * ld; e += THREADS) st[e] = 0.f;
+  for (int e = tid; e < hd * ldv; e += THREADS) st[e] = 0.f;
   for (int d = tid; d < hd; d += THREADS) us[d] = u[h * hd + d];
 
-  for (int s0 = 0; s0 < S; s0 += c) {
-    for (int e = tid; e < c * hd; e += THREADS) {
-      const int i = e / hd, d = e % hd;
-      const long long g = base + (s0 + i) * step + d;
-      rs[i * ld + d] = to_f32(r[g]);
-      ks[i * ld + d] = to_f32(k[g]);
-      vs[i * ld + d] = to_f32(v[g]);
-      cum[i * ld + d] = lw[g];
+  int n = 0;
+  for (int s0 = 0; s0 < S; s0 += n) {
+    n = min(rows, c - s0 % c);       // a row piece never crosses a chunk
+    for (int e = tid; e < n * nv; e += THREADS) {
+      const int i = e / nv, d = e % nv;
+      vs[i * ldv + d] = to_f32(v[base + (s0 + i) * step + d0 + d]);
     }
-    __syncthreads();
-    // inclusive cumsum per channel; the exclusive one is the row above
-    for (int d = tid; d < hd; d += THREADS) {
-      float run = 0.f;
-      for (int i = 0; i < c; ++i) {
-        run += cum[i * ld + d];
-        cum[i * ld + d] = run;
+    for (int x0 = 0; x0 < hd; x0 += P) {
+      const int np = min(P, hd - x0);
+      const bool last = x0 + P >= hd;
+      for (int e = tid; e < n * np; e += THREADS) {
+        const int i = e / np, x = e % np;
+        const long long g = base + (s0 + i) * step + x0 + x;
+        rs[i * ldp + x] = to_f32(r[g]);
+        ks[i * ldp + x] = to_f32(k[g]);
+        cum[i * ldp + x] = lw[g];
       }
-    }
-    __syncthreads();
-    // attention matrix: j < i decayed, j == i the bonus
-    for (int e = tid; e < c * c; e += THREADS) {
-      const int i = e / c, j = e % c;
-      if (j > i) continue;
-      const float* ri = rs + i * ld;
-      const float* kj = ks + j * ld;
-      float a = 0.f;
-      if (j == i) {
-        for (int d = 0; d < hd; ++d) a += ri[d] * (us[d] * kj[d]);
-      } else {
-        const float* ecum_i = cum + (i - 1) * ld;   // i >= 1 here
-        const float* cum_j = cum + j * ld;
-        for (int d = 0; d < hd; ++d)
-          a += ri[d] * kj[d] * expf(fmaxf(ecum_i[d] - cum_j[d], -60.f));
+      __syncthreads();
+      // inclusive cumsum per channel; the exclusive one is the row above
+      for (int x = tid; x < np; x += THREADS) {
+        float run = 0.f;
+        for (int i = 0; i < n; ++i) {
+          run += cum[i * ldp + x];
+          cum[i * ldp + x] = run;
+        }
       }
-      att[i * lda + j] = a;
+      __syncthreads();
+      // attention matrix, summed over the pieces: j < i decayed, j == i
+      // the bonus
+      for (int e = tid; e < n * n; e += THREADS) {
+        const int i = e / n, j = e % n;
+        if (j > i) continue;
+        const float* ri = rs + i * ldp;
+        const float* kj = ks + j * ldp;
+        float a = x0 ? att[i * lda + j] : 0.f;
+        if (j == i) {
+          for (int x = 0; x < np; ++x) a += ri[x] * (us[x0 + x] * kj[x]);
+        } else {
+          const float* ecum_i = cum + (i - 1) * ldp;   // i >= 1 here
+          const float* cum_j = cum + j * ldp;
+          for (int x = 0; x < np; ++x)
+            a += ri[x] * kj[x] * expf(fmaxf(ecum_i[x] - cum_j[x], -60.f));
+        }
+        att[i * lda + j] = a;
+      }
+      __syncthreads();
+      for (int e = tid; e < n * np; e += THREADS) {
+        const int i = e / np, x = e % np;
+        const float total = cum[(n - 1) * ldp + x];
+        const float ecum = i > 0 ? cum[(i - 1) * ldp + x] : 0.f;
+        rs[i * ldp + x] *= expf(ecum);
+        ks[i * ldp + x] *= expf(total - cum[i * ldp + x]);
+      }
+      __syncthreads();
+      // the inter-chunk term of this piece's channels; after the last
+      // piece the intra-chunk term; earlier pieces' sums come back from
+      // out, which only this thread wrote
+      for (int e = tid; e < n * nv; e += THREADS) {
+        const int i = e / nv, d = e % nv;
+        float val = 0.f;
+        for (int x = 0; x < np; ++x)
+          val += rs[i * ldp + x] * st[(x0 + x) * ldv + d];
+        if (last) {
+          float intra = 0.f;
+          for (int j = 0; j <= i; ++j)
+            intra += att[i * lda + j] * vs[j * ldv + d];
+          val += intra;
+        }
+        const long long g = base + (s0 + i) * step + d0 + d;
+        out[g] = x0 ? out[g] + val : val;
+      }
+      __syncthreads();
+      for (int e = tid; e < np * nv; e += THREADS) {
+        const int x = e / nv, d = e % nv;
+        float add = 0.f;
+        for (int j = 0; j < n; ++j) add += ks[j * ldp + x] * vs[j * ldv + d];
+        float* sx = st + (x0 + x) * ldv + d;
+        *sx = expf(cum[(n - 1) * ldp + x]) * *sx + add;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int e = tid; e < c * hd; e += THREADS) {
-      const int i = e / hd, d = e % hd;
-      const float total = cum[(c - 1) * ld + d];
-      const float ecum = i > 0 ? cum[(i - 1) * ld + d] : 0.f;
-      rs[i * ld + d] *= expf(ecum);
-      ks[i * ld + d] *= expf(total - cum[i * ld + d]);
-    }
-    __syncthreads();
-    for (int e = tid; e < c * hd; e += THREADS) {
-      const int i = e / hd, d = e % hd;
-      float inter = 0.f, intra = 0.f;
-      for (int x = 0; x < hd; ++x) inter += rs[i * ld + x] * st[x * ld + d];
-      for (int j = 0; j <= i; ++j) intra += att[i * lda + j] * vs[j * ld + d];
-      out[base + (s0 + i) * step + d] = inter + intra;
-    }
-    __syncthreads();
-    for (int e = tid; e < hd * hd; e += THREADS) {
-      const int x = e / hd, d = e % hd;
-      float add = 0.f;
-      for (int j = 0; j < c; ++j) add += ks[j * ld + x] * vs[j * ld + d];
-      st[x * ld + d] = expf(cum[(c - 1) * ld + x]) * st[x * ld + d] + add;
-    }
-    __syncthreads();
   }
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* lw,
            const void* u, void* out, int B, int S, int H, int hd, int c,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats(c, hd) * sizeof(float);
+           int rows, int cols, cudaStream_t stream) {
+  const size_t smem = smem_floats(rows, cols, hd) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       wkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -141,28 +181,33 @@ int launch(const void* r, const void* k, const void* v, const void* lw,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wkv_kernel<T><<<B * H, THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (hd + cols - 1) / cols);
+  wkv_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(lw),
-      static_cast<const float*>(u), static_cast<float*>(out), S, H, hd, c);
+      static_cast<const float*>(u), static_cast<float*>(out), S, H, hd, c,
+      rows, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // r, k, v (B, S, H, hd) of the float type `dtype`; lw (B, S, H, hd) fp32;
-// u (H, hd) fp32; out (B, S, H, hd) fp32; all contiguous.  c divides S.
-// Returns a cudaError_t.
+// u (H, hd) fp32; out (B, S, H, hd) fp32; all contiguous.  c divides S;
+// row pieces of at most `rows` (<= c) rows, blocks of `cols` value
+// columns (kernels/wkv/wkv.py::wkv_tiles).  Returns a cudaError_t.
 extern "C" int repro_wkv(const void* r, const void* k, const void* v,
                          const void* lw, const void* u, void* out, int B,
-                         int S, int H, int hd, int c, int dtype,
-                         void* stream) {
+                         int S, int H, int hd, int c, int rows, int cols,
+                         int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0 || H == 0 || hd == 0) return 0;
-  if (c <= 0 || S % c) return static_cast<int>(cudaErrorInvalidValue);
+  if (c <= 0 || S % c || rows <= 0 || rows > c || cols <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(r, k, v, lw, u, out, B, S, H, hd, c, s);
+    return launch<__nv_bfloat16>(r, k, v, lw, u, out, B, S, H, hd, c, rows,
+                                 cols, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(r, k, v, lw, u, out, B, S, H, hd, c, s);
+    return launch<float>(r, k, v, lw, u, out, B, S, H, hd, c, rows, cols, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,10 @@ CPU tensor takes the kernel's plain PyTorch version, a CUDA tensor takes
 the hand-written CUDA kernel (whose wrapper raises on what it does not
 take; there is no fallback).  Each call ticks an ``(op, route)`` counter,
 route "kernel" or "plain", so a run can show which path it took;
-``stats_scope`` isolates the counters for a probe.
+``stats_scope`` isolates the counters for a probe.  Every kernel wrapper
+also counts its launches (``launch_counts``); the flash forward and
+backward, which have two CUDA routes (``wgmma`` and ``simt``, chosen by
+dtype and head width), count them by route too (``route_counts``).
 
 ``matmul`` and ``attention`` are ``torch.autograd.Function``s: their
 backwards route by the device of the incoming gradient in the same way
@@ -81,6 +84,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for route in getattr(fn, "routes", ()):
+            fn.routes[route] = 0
+
+
+def route_counts() -> Dict[str, int]:
+    """Launches by route (``op/route``) of the kernels that have more than
+    one (the flash forward and backward: ``wgmma`` and ``simt``)."""
+    return {f"{op}/{route}": n for op, fn in KERNELS.items()
+            for route, n in getattr(fn, "routes", {}).items()}
 
 
 def _on_card(op: str, t: torch.Tensor) -> bool:

@@ -26,28 +26,33 @@ def histogram_plain(values: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
     return torch.bincount(kept, minlength=n_bins).to(torch.int32)
 
 
+def bin_window(n_bins: int) -> int:
+    """Bins per window of csrc/histogram.cu: all of them when they fit one
+    block's shared memory, else as many as fit (one grid row each)."""
+    _check_bins(n_bins)
+    return min(n_bins, cuda.MAX_SMEM_BYTES // 4)
+
+
 def histogram_cuda(values: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
     """Launch ``repro_histogram`` (a private histogram per block in shared
-    memory, added to the output once per bin): values (N,) contiguous
-    int32 on a CUDA device, n_bins x 4 bytes within a block's shared
-    memory.  Returns a new (n_bins,) int32 tensor; raises on anything the
-    kernel does not take."""
+    memory over one window of ``bin_window(n_bins)`` bins, added to the
+    output once per bin): values (N,) contiguous int32 on a CUDA device,
+    any ``n_bins >= 1``.  Returns a new (n_bins,) int32 tensor; raises on
+    anything the kernel does not take."""
     cuda.require_cuda("histogram", values)
     if values.dim() != 1:
         raise ValueError(f"histogram: want values (N,), got "
                          f"{tuple(values.shape)}")
     if values.dtype != torch.int32:
         raise TypeError(f"histogram: want int32 values, got {values.dtype}")
-    _check_bins(n_bins)
-    if 4 * n_bins > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"histogram: {n_bins} bins do not fit a block's "
-                         f"{cuda.MAX_SMEM_BYTES} bytes of shared memory")
+    window = bin_window(n_bins)
     n, bins = cuda.c_ints("histogram", values.shape[0], n_bins)
     out = torch.zeros(bins, dtype=torch.int32, device=values.device)
     if n == 0:
         return out
     rc = cuda.library().repro_histogram(values.data_ptr(), out.data_ptr(),
-                                        n, bins, cuda.stream_of(values))
+                                        n, bins, window,
+                                        cuda.stream_of(values))
     cuda.check(rc, "histogram")
     histogram_cuda.launches += 1
     return out

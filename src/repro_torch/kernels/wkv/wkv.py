@@ -18,7 +18,9 @@ import torch
 from .. import cuda
 from ...models.rwkv import chunk_len, wkv_chunked
 
-MAX_HEAD_DIM = 64
+# csrc/wkv.cu's tile edges: row pieces and value-column blocks of at most
+# 64, key-side channels staged 64 at a time
+TILE = 64
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,18 +29,38 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return wkv_chunked(r, k, v, lw, u, chunk=chunk, intra="direct")[0]
 
 
-def smem_bytes(c: int, hd: int) -> int:
-    """csrc/wkv.cu's shared memory per block."""
-    ld = hd + 1
-    return 4 * (4 * c * ld + c * (c + 1) + hd * ld + hd)
+def smem_bytes(rows: int, cols: int, hd: int) -> int:
+    """csrc/wkv.cu's shared memory per block for row pieces of ``rows``
+    and blocks of ``cols`` value columns."""
+    p = min(hd, TILE)
+    return 4 * (3 * rows * (p + 1) + rows * (cols + 1) + rows * (rows + 1)
+                + hd * (cols + 1) + hd)
+
+
+def wkv_tiles(c: int, hd: int) -> tuple:
+    """(rows, cols) of csrc/wkv.cu's grid for chunk ``c`` and head width
+    ``hd``: row pieces of min(c, 64) rows, and value-column blocks of
+    min(hd, 64) columns, halved while the state's columns (hd x cols)
+    and the tiles do not fit a block's shared memory (from hd = 566 on).
+    Raises only past hd = 13,781, where even one column of the state and
+    the tiles exceed it (the TPU kernel would need an hd^2 state in VMEM
+    of over 600 MB there)."""
+    rows, cols = min(c, TILE), min(hd, TILE)
+    while cols > 1 and smem_bytes(rows, cols, hd) > cuda.MAX_SMEM_BYTES:
+        cols = (cols + 1) // 2
+    if smem_bytes(rows, cols, hd) > cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"wkv: head width {hd} leaves no room for one "
+                         f"column of the state in shared memory")
+    return rows, cols
 
 
 def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lw: torch.Tensor, u: torch.Tensor, *,
              chunk: int = 64) -> torch.Tensor:
-    """Launch ``repro_wkv`` (one block per (batch, head), looping over the
-    chunks with the state in shared memory): inputs contiguous on one CUDA
-    device, hd <= 64.  Returns a new fp32 (B, S, H, hd) tensor; raises on
+    """Launch ``repro_wkv`` (one block per (batch, head, block of value
+    columns), looping over the chunks with its columns of the state in
+    shared memory; tiles from ``wkv_tiles``): inputs contiguous on one
+    CUDA device.  Returns a new fp32 (B, S, H, hd) tensor; raises on
     anything the kernel does not take."""
     cuda.require_cuda("wkv", r, k, v, lw, u)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw)):
@@ -55,21 +77,17 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lw.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError(f"wkv: lw and u must be float32, got {lw.dtype} "
                         f"and {u.dtype}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"wkv: head width {hd} > {MAX_HEAD_DIM}")
     if chunk < 1:
         raise ValueError(f"wkv: chunk {chunk} < 1")
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if out.numel() == 0:
         return out
     c = chunk_len(s, chunk)
-    if smem_bytes(c, hd) > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"wkv: chunk {c} at head width {hd} needs "
-                         f"{smem_bytes(c, hd)} bytes of shared memory")
+    rows, cols = wkv_tiles(c, hd)
     rc = cuda.library().repro_wkv(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
         u.data_ptr(), out.data_ptr(),
-        *cuda.c_ints("wkv", b, s, h, hd, c),
+        *cuda.c_ints("wkv", b, s, h, hd, c, rows, cols),
         cuda.dtype_code(r), cuda.stream_of(r))
     cuda.check(rc, "wkv")
     wkv_cuda.launches += 1

@@ -440,3 +440,90 @@ def test_c_int_arguments_are_range_checked():
     for bad in (-1, 2 ** 31):
         with pytest.raises(ValueError, match="C int"):
             cuda.c_ints("k", bad)
+
+
+# ------------------------------------------------------------ tile plans
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 40, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 512, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 256, "simt")])
+def test_flash_route_follows_dtype_and_head_width(dtype, hd, route):
+    from repro_torch.kernels.attention.flash import flash_route
+    assert flash_route(dtype, hd) == route
+
+
+def test_flash_simt_route_limits_match_shared_memory():
+    """The simt route's tiles fit up to hd 445 (forward) and 291
+    (backward); the wgmma route has no such limit at its widths."""
+    from repro_torch.kernels.attention.flash import (check_route,
+                                                     simt_smem_bytes)
+    assert simt_smem_bytes(445) <= cuda.MAX_SMEM_BYTES < simt_smem_bytes(446)
+    assert (simt_smem_bytes(291, bwd=True) <= cuda.MAX_SMEM_BYTES
+            < simt_smem_bytes(292, bwd=True))
+    assert check_route("f", torch.bfloat16, 256, bwd=True) == "wgmma"
+    assert check_route("f", torch.float32, 256, bwd=True) == "simt"
+    with pytest.raises(ValueError, match="simt"):
+        check_route("f", torch.float32, 300, bwd=True)
+    with pytest.raises(ValueError, match="simt"):
+        check_route("f", torch.bfloat16, 512)
+
+
+def test_flash_alignment_check_refuses_misaligned_data():
+    """The wgmma route's TMA and 16-byte loads read only from 16-byte
+    aligned data: an aligned tensor passes, a view one element past the
+    boundary raises."""
+    from repro_torch.kernels.attention.flash import check_aligned16
+    flat = torch.zeros(1 + 4 * 64, dtype=torch.bfloat16)
+    aligned = torch.zeros(4, 64, dtype=torch.bfloat16)
+    check_aligned16("f", aligned, aligned)
+    odd = flat[1:].view(4, 64)     # PyTorch aligns allocations to 64 bytes
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned16("f", aligned, odd)
+
+
+@pytest.mark.parametrize("c,hd,want", [
+    (64, 64, (64, 64)), (64, 128, (64, 64)), (64, 256, (64, 64)),
+    (256, 64, (64, 64)), (12, 64, (12, 64)), (17, 8, (17, 8)),
+    (64, 565, (64, 64)), (64, 566, (64, 32)), (64, 4096, (64, 4)),
+    (64, 13781, (64, 1))])
+def test_wkv_tiles_fit_shared_memory(c, hd, want):
+    """Row pieces of min(c, 64); value-column blocks of min(hd, 64),
+    halved only where the state's columns do not fit; rwkv6-7b's case
+    (c = hd = 64) keeps the 100 KB block that puts two on an SM."""
+    from repro_torch.kernels.wkv.wkv import smem_bytes, wkv_tiles
+    assert wkv_tiles(c, hd) == want
+    assert smem_bytes(*want, hd) <= cuda.MAX_SMEM_BYTES
+    if c == hd == 64:
+        assert 2 * smem_bytes(*want, hd) <= 228 * 1024 - 2 * 1024
+
+
+def test_wkv_tiles_raise_only_past_one_state_column():
+    from repro_torch.kernels.wkv.wkv import wkv_tiles
+    with pytest.raises(ValueError, match="head width"):
+        wkv_tiles(64, 13782)
+
+
+@pytest.mark.parametrize("n_bins,window,windows", [
+    (1, 1, 1), (256, 256, 1), (58_112, 58_112, 1), (58_113, 58_112, 2),
+    (100_000, 58_112, 2), (1 << 20, 58_112, 19)])
+def test_histogram_bin_windows(n_bins, window, windows):
+    """One window of all the bins while they fit a block's shared memory
+    (the 256-bin case runs as before), else windows of as many as fit."""
+    from repro_torch.kernels.histogram.histogram import bin_window
+    assert bin_window(n_bins) == window
+    assert 4 * window <= cuda.MAX_SMEM_BYTES
+    assert -(-n_bins // window) == windows
+
+
+def test_route_counts_reset_with_the_launch_counts():
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_cuda)
+    flash_attention_cuda.routes["wgmma"] += 2
+    flash_attention_bwd_cuda.routes["simt"] += 1
+    assert dispatch.route_counts()["flash_attention/wgmma"] >= 2
+    dispatch.reset_launch_counts()
+    assert dispatch.route_counts() == {
+        f"{op}/{route}": 0 for op in ("flash_attention", "flash_attention_bwd")
+        for route in ("wgmma", "simt")}

@@ -57,6 +57,7 @@ def _wkv_inputs(seed, b, s, h, hd, decay_shift=-2.0):
     ((1, 48, 3, 32), 32, 16, "float32"),     # S % chunk != 0: c = 16
     ((1, 64, 2, 64), 64, 16, "float32"),     # rwkv6-7b's head width
     ((2, 32, 2, 16), 16, 8, "bfloat16"),
+    ((1, 64, 2, 128), 32, 16, "float32"),    # wider than one column block
 ])
 def test_wkv_matches_jax_op(shape, chunk, sub, dtype):
     r, k, v, lw, u = _wkv_inputs(sum(shape), *shape)
