@@ -16,7 +16,10 @@ Phases, one output line or more each:
               bound the card's peak rates set for the same work.  B1 also
               runs at the training shapes (M=1024, the M=128 head chunk,
               the fp32 head dx), and its M=4 cases are timed again with B
-              cold in L2 (``ms_cold``, ``library_ms_cold``).
+              cold in L2 (``ms_cold``, ``library_ms_cold``).  B5 (the
+              int8-weight GEMM) runs at the four weight shapes, M=4 and
+              256, beside B1 bf16 at the same shape; both carry the
+              profiler's device time (``device_ms``).
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
               with the static and once with the continuous schedule, with
@@ -44,8 +47,9 @@ Phases, one output line or more each:
    share (``torch.profiler``; reported as not measured if it sees no
    device time, and failing if it sees device time but none in the
    wgmma B6/B7 kernels).  Phase 3 is followed by a serve profile: the
-   continuous float run again under the profiler, device time by kernel
-   group and the idle share over its decode steps.
+   continuous float run and the continuous int8 + prefix run again
+   under the profiler, device time by kernel group and the idle share
+   over their decode steps.
 6. train parity -- one loss and backward of full-width gemma-2b in fp32,
               through the kernels and through the plain versions on the
               card: loss within 1e-5 relative, every gradient leaf within
@@ -66,9 +70,9 @@ within 1e-4 of max |out|; the Jacobi stencil (B9) on 8192 x 8192
 fp32 (1 and 32 sweeps) and 8191 x 8193, bit for bit, beside one
 ``F.conv2d`` with the cross kernel; N-body (B10) at N = 16128 and 65536,
 within 1e-4 of max |a|; the histogram (B11) of 2^26 int32 values,
-uniform and all in one bin over 256 bins and uniform over 2^20 bins
-(windows of bins), and a small case with values out of range, exact,
-beside ``torch.bincount``.
+uniform and all in one bin over 256 bins (the shared-memory route) and
+over 2^20 bins (the one-pass route), and a small case with values out of
+range, exact, beside ``torch.bincount``, with the profiler's device time.
 
 Phase 2 also holds the flash forward (B6) and its fused backward (B7)
 at the training shape (B=2, H=8, S=512, hd=256; causal, and a window of
@@ -159,7 +163,7 @@ WKV_CHUNK, WKV_SUBCHUNK = 64, 16
 STENCIL_CASES = ((8192, 8192, 1), (8192, 8192, 32), (8191, 8193, 1))
 NBODY_SIZES = (16128, 65536)
 HIST_N, HIST_BINS = 1 << 26, 256
-HIST_WIDE_BINS = 1 << 20     # past one block's shared memory: 19 windows
+HIST_WIDE_BINS = 1 << 20     # past one block's shared memory: one pass
 LIB_TOL = 1e-4            # WKV and N-body: max |err| / max |plain output|
 # the case of each kernel that the summary line reports (bf16 unless
 # SUMMARY_DTYPE names another type)
@@ -296,13 +300,15 @@ def check_matmul(torch, dtype_name: str):
         bnd = bound((m * k + k * n + m * n) * size, 2.0 * m * n * k,
                     dtype_name)
         extra = {}
+        if m in (4, 256) and not tied:    # beside B5's at the same shape
+            extra["device_ms"] = device_ms(torch, lambda: matmul_cuda(a, b))
         if m == 4:
             nbytes = k * n * size
             copies = [b] + [b.clone(memory_format=torch.preserve_format)
                             for _ in range(max(1, math.ceil(
                                 3 * L2_BYTES / nbytes)) - 1)]
             reps = max(10, len(copies))
-            extra = dict(
+            extra.update(
                 ms_cold=time_cold_ms(torch, lambda bb: matmul_cuda(a, bb),
                                      copies, reps),
                 library_ms_cold=time_cold_ms(
@@ -321,13 +327,16 @@ def check_matmul(torch, dtype_name: str):
 
 def check_quantized_matmul(torch, dtype_name: str, matmul_rows):
     """B5 at the four projection/MLP weight shapes, M = 4 and 256, beside
-    B1's bf16 time at the same shape (from ``matmul_rows``)."""
+    B1's bf16 times at the same shape (from ``matmul_rows``), with its
+    split plan and the profiler's device time (``device_ms``: CUDA events
+    read the host's launch pace below ~0.1 ms)."""
     from repro_torch.core.quant import quantize_channelwise
     from repro_torch.kernels.matmul import (quantized_matmul_cuda,
                                             quantized_matmul_plain)
+    from repro_torch.kernels.matmul.matmul import quantized_split_plan
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    b1 = {r["case"]: r["ms"] for r in matmul_rows
+    b1 = {r["case"]: r for r in matmul_rows
           if r["kernel"] == "matmul" and r["dtype"] == "bfloat16"}
     rows = []
     for m in (4, 256):
@@ -349,7 +358,11 @@ def check_quantized_matmul(torch, dtype_name: str, matmul_rows):
                 time_ms(torch, lambda: quantized_matmul_plain(a, b_q,
                                                               scale)),
                 bound(nbytes, 2.0 * m * n * k, dtype_name), None,
-                b1_bf16_ms=b1[case]))
+                device_ms=device_ms(torch, lambda: quantized_matmul_cuda(
+                    a, b_q, scale)),
+                split=list(quantized_split_plan(k, n, dtype)),
+                b1_bf16_ms=b1[case]["ms"],
+                b1_bf16_device_ms=b1[case]["device_ms"]))
             del a, b_q, scale
     return rows
 
@@ -820,7 +833,7 @@ def histogram_inputs(torch, kind: str):
     if kind.startswith("uniform"):
         vals = torch.randint(0, HIST_CASES[kind][1], (HIST_N,),
                              generator=gen, device="cuda")
-    elif kind == "one bin":          # every update hits one shared address
+    elif kind.startswith("one bin"):  # every update hits one address
         vals = torch.full((HIST_N,), 7, device="cuda")
     else:                            # out of range both ways: dropped
         vals = torch.tensor([0, 1, 255, 256, 300, -1, -5, 3] * 4,
@@ -832,13 +845,17 @@ def histogram_inputs(torch, kind: str):
 HIST_CASES = {"uniform": (f"N=2^26 bins={HIST_BINS} uniform", HIST_BINS),
               "one bin": (f"N=2^26 bins={HIST_BINS} one bin", HIST_BINS),
               "out of range": ("N=32 bins=256 out of range", HIST_BINS),
-              "uniform wide": ("N=2^26 bins=2^20 uniform", HIST_WIDE_BINS)}
+              "uniform wide": ("N=2^26 bins=2^20 uniform", HIST_WIDE_BINS),
+              "one bin wide": ("N=2^26 bins=2^20 one bin", HIST_WIDE_BINS)}
 
 
 def check_histogram(torch):
-    """Exact counts.  Library: ``torch.bincount(values, minlength=bins)``
-    where every value is in range."""
+    """Exact counts, on the route ``histogram_route`` names (2^20 bins:
+    the one-pass route), with the profiler's device time.  Library:
+    ``torch.bincount(values, minlength=bins)`` where every value is in
+    range."""
     from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
+    from repro_torch.kernels.histogram.histogram import histogram_route
     out = []
     for kind, (case, bins) in HIST_CASES.items():
         vals = histogram_inputs(torch, kind)
@@ -857,7 +874,9 @@ def check_histogram(torch):
             time_ms(torch, lambda: histogram_plain(vals, bins)),
             # one compare-and-add per value, at the scalar rate
             bound(4.0 * vals.numel() + 4 * bins, float(vals.numel()),
-                  "float32"), library, exact=True))
+                  "float32"), library, exact=True,
+            route=histogram_route(bins),
+            device_ms=device_ms(torch, lambda: histogram_cuda(vals, bins))))
         del vals
     return out
 
@@ -1149,12 +1168,14 @@ def train_phase(torch):
     return launches
 
 
-# kernel name substrings and their groups, first match wins (B5's tile
-# kernel is "matmul_kernel", which no B1 kernel name contains)
-KERNEL_GROUPS = (("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
+# kernel name substrings and their groups, first match wins (B5's
+# kernels first: none of their names contains a B1 key, nor the reverse)
+KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
+                 ("quantized_f32_kernel", "B5 int8 matmul fp32 (SIMT)"),
+                 ("quantized_splitk_sum_kernel", "B5 split-K sum"),
+                 ("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
                  ("matmul_f32_simt_kernel", "B1 matmul fp32 (SIMT)"),
                  ("matmul_splitk_reduce_kernel", "B1 split-K sum"),
-                 ("matmul_kernel", "B5 int8 matmul"),
                  ("flash_fwd_wgmma_kernel", "B6 flash forward bf16 (wgmma)"),
                  ("flash_fwd_kernel", "B6 flash forward (SIMT)"),
                  ("flash_bwd_split_kernel", "B7 dO split bf16 (wgmma route)"),
@@ -1234,9 +1255,15 @@ def train_profile(torch):
 DECODE_RANGE = "chip_smoke.decode_step"
 
 
-def serve_profile(torch):
-    """Where the decode steps of the continuous float serve run spend the
-    card's time: phase 3's continuous float run again under
+# the serve runs profiled after phase 3: its continuous float and int8 +
+# prefix runs
+PROFILED_SERVE_RUNS = (("float continuous", []),
+                       ("int8+prefix continuous", INT8_ARGS + PREFIX_ARGS))
+
+
+def serve_profile(torch, label: str, extra: list):
+    """Where the decode steps of a continuous serve run spend the card's
+    time: phase 3's continuous run with ``extra`` arguments again under
     ``torch.profiler``, with each ``StepExecutor.decode`` call (host work,
     launches and the argmax read) marked as a range.  Device time by
     kernel group sums the kernels that start inside those ranges; the
@@ -1254,8 +1281,8 @@ def serve_profile(torch):
     with mock.patch.object(engine.StepExecutor, "decode", marked):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            rep = serve.main(SERVE_ARGS + ["--schedule", "continuous",
-                                           "--clock", "tick"])
+            rep = serve.main(SERVE_ARGS + extra + ["--schedule", "continuous",
+                                                   "--clock", "tick"])
             torch.cuda.synchronize()
     events = prof.events()
     cuda_t = torch.autograd.DeviceType.CUDA
@@ -1279,7 +1306,7 @@ def serve_profile(torch):
     window_ms = sum(end - start for start, end in windows) / 1e3
     busy = sum(groups.values())
     steps = len(windows)
-    emit({"phase": "serve_profile", "run": "float continuous",
+    emit({"phase": "serve_profile", "run": label,
           "decode_steps": steps, "decode_window_ms": window_ms,
           "window_ms_per_step": window_ms / steps if steps else None,
           "phases": rep["phases"],
@@ -1395,8 +1422,9 @@ def main(argv=None) -> int:
 
     launches = serve_phase(torch)
     torch.cuda.empty_cache()
-    serve_profile(torch)
-    torch.cuda.empty_cache()
+    for label, extra in PROFILED_SERVE_RUNS:
+        serve_profile(torch, label, extra)
+        torch.cuda.empty_cache()
     for int8 in (False, True):
         model_phase(torch, int8)
         torch.cuda.empty_cache()

@@ -18,7 +18,8 @@
 //   registers.  B is read MN-major (weights, sbn == 1) or K-major (the tied
 //   head's embed.T, sbk == 1) through wgmma's transpose bit, without a
 //   copy.  Rows past M arrive as TMA's zero fill; a warpgroup whose rows
-//   all lie past M skips its products.
+//   all lie past M skips its products.  The tile is matmul_wgmma.cuh's,
+//   which B5 (quantized_matmul.cu) runs with int8 B.
 // - fp32: 128 x 128 tiles through 3 cp.async stages (16-byte copies along
 //   whichever axis of B is contiguous), 256 threads each holding 8 x 8 FMA
 //   accumulators fed by float4 shared-memory reads; K steps of 32 for a
@@ -37,12 +38,15 @@
 // 16-byte multiples) write the same swizzled tiles for the same products.
 #include <algorithm>
 
-#include "matmul_sm90.cuh"
+#include "matmul_wgmma.cuh"
 
 namespace {
 
+using sm90::aligned16;
 using sm90::cp_async16;
 using sm90::cp_async4;
+using sm90::encode_map;
+using sm90::launch;
 
 constexpr int BM = 128, BN = 128;
 // the K unit of a split's slice (kernels/matmul/matmul.py's TILE_K)
@@ -61,48 +65,9 @@ __device__ __forceinline__ void put(TC* __restrict__ c,
 }
 
 // ------------------------------------------------------------------ bf16
-constexpr int BK16 = 64;  // 64 bf16 = one 128-byte swizzled row
-constexpr int STAGES16 = 6;
-constexpr int TILE_A16 = BM * BK16 * 2;  // 16 KiB
-constexpr int TILE_B16 = BK16 * BN * 2;  // 16 KiB
-constexpr int STAGE16 = TILE_A16 + TILE_B16;
-constexpr int RING16 = STAGES16 * STAGE16;
-constexpr int THREADS16 = 384;  // consumer warpgroups 0, 1; producer 2
-constexpr int SMEM16 = 1024 + RING16 + 2 * STAGES16 * 8;
-
-// the masked path's copy of one stage: the bytes TMA would write
-template <bool B_KMAJOR>
-__device__ void fill_stage_masked(uint8_t* sa, uint8_t* sb,
-                                  const __nv_bfloat16* __restrict__ a,
-                                  const __nv_bfloat16* __restrict__ b, int M,
-                                  int N, int K, long long lda, long long sbk,
-                                  long long sbn, int m0, int n0, int k0,
-                                  int tid) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int e = tid; e < BM * BK16; e += 128) {
-    const int r = e / BK16, k = e % BK16;
-    const int gm = m0 + r, gk = k0 + k;
-    const __nv_bfloat16 v = (gm < M && gk < K) ? a[gm * lda + gk] : zero;
-    *reinterpret_cast<__nv_bfloat16*>(sa + sm90::swizzle128(r, 2 * k)) = v;
-  }
-  for (int e = tid; e < BK16 * BN; e += 128) {
-    int k, n;
-    uint32_t off;
-    if (B_KMAJOR) {  // rows of n, 64 k each
-      n = e / BK16;
-      k = e % BK16;
-      off = sm90::swizzle128(n, 2 * k);
-    } else {  // two boxes of 64 n, rows of k
-      k = e / BN;
-      n = e % BN;
-      off = (n / 64) * (BK16 * 128) + sm90::swizzle128(k, 2 * (n % 64));
-    }
-    const int gk = k0 + k, gn = n0 + n;
-    const __nv_bfloat16 v =
-        (gk < K && gn < N) ? b[gk * sbk + gn * sbn] : zero;
-    *reinterpret_cast<__nv_bfloat16*>(sb + off) = v;
-  }
-}
+constexpr int BK16 = wgmma_tile::BK;
+constexpr int THREADS16 = wgmma_tile::threads<__nv_bfloat16>();
+constexpr int SMEM16 = wgmma_tile::smem_bytes<__nv_bfloat16>();
 
 template <bool B_KMAJOR>
 __global__ void __launch_bounds__(THREADS16, 1)
@@ -114,105 +79,12 @@ matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                          float* __restrict__ scratch, int M, int N, int K,
                          long long lda, long long sbk, long long sbn,
                          int split, int slice_steps, int use_tma) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING16);
-  uint64_t* empty = full + STAGES16;
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int rank = blockIdx.z;
-  const int steps = (K + BK16 - 1) / BK16;
-  const int t0 = rank * slice_steps;
-  const int nt = max(0, min(steps, t0 + slice_steps) - t0);
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES16; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    // ---- producer: one thread issues the TMA loads, or the warpgroup
-    // copies the stage itself on the masked path
-    const int ptid = tid - 256;
-    for (int t = 0; t < nt; ++t) {
-      const int s = t % STAGES16;
-      const uint32_t parity = ((t / STAGES16) & 1) ^ 1;
-      uint8_t* sa = smem + s * STAGE16;
-      uint8_t* sb = sa + TILE_A16;
-      const int k0 = (t0 + t) * BK16;
-      if (use_tma) {
-        if (ptid == 0) {
-          sm90::mbar_wait(&empty[s], parity);
-          sm90::mbar_arrive_expect_tx(&full[s], STAGE16);
-          sm90::tma_load_2d(sa, &tm_a, &full[s], k0, m0);
-          if (B_KMAJOR) {
-            sm90::tma_load_2d(sb, &tm_b, &full[s], k0, n0);
-          } else {
-            sm90::tma_load_2d(sb, &tm_b, &full[s], n0, k0);
-            sm90::tma_load_2d(sb + BK16 * 128, &tm_b, &full[s], n0 + 64, k0);
-          }
-        }
-      } else {
-        sm90::mbar_wait(&empty[s], parity);
-        fill_stage_masked<B_KMAJOR>(sa, sb, a, b, M, N, K, lda, sbk, sbn, m0,
-                                    n0, k0, ptid);
-        sm90::fence_proxy_async();
-        sm90::named_sync(1, 128);
-        if (ptid == 0) sm90::mbar_arrive(&full[s]);
-      }
-    }
-    return;
-  }
-
-  // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64)
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  const bool active = m0 + 64 * wg < M;
-  for (int t = 0; t < nt; ++t) {
-    const int s = t % STAGES16;
-    sm90::mbar_wait(&full[s], (t / STAGES16) & 1);
-    if (active) {
-      const uint8_t* sa = smem + s * STAGE16 + wg * 64 * 128;
-      const uint8_t* sb = smem + s * STAGE16 + TILE_A16;
-      sm90::fence_acc(acc);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK16 / 16; ++kk) {
-        const uint64_t da = sm90::wgmma_desc(sa + kk * 32, 16, 1024);
-        if (B_KMAJOR) {
-          sm90::wgmma_m64n128k16<0>(
-              acc, da, sm90::wgmma_desc(sb + kk * 32, 16, 1024));
-        } else {
-          sm90::wgmma_m64n128k16<1>(
-              acc, da,
-              sm90::wgmma_desc(sb + kk * 16 * 128, BK16 * 128, 1024));
-        }
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait_all();
-      sm90::fence_acc(acc);
-    }
-    if (tid % 32 == 0) sm90::mbar_arrive(&empty[s]);
-  }
-  if (!active) return;
-
-  // Fragment of m64nNk16: register i of lane l in warp w holds row
-  // 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2.
-  const int warp = (tid % 128) / 32, lane = tid % 32;
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int gm = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
-    const int gn = n0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-    if (gm < M && gn < N) put(c, scratch, split, rank, M, N, gm, gn, acc[i]);
-  }
+  wgmma_tile::tile<__nv_bfloat16, B_KMAJOR>(
+      tm_a, tm_b, a, b, M, N, K, lda, sbk, sbn, slice_steps, use_tma, BM,
+      [&](int gm, int gn, float v) {
+        put(c, scratch, split, rank, M, N, gm, gn, v);
+      });
 }
 
 // ------------------------------------------------------------------ fp32
@@ -415,38 +287,6 @@ matmul_splitk_reduce_kernel(const float* __restrict__ scratch,
 }
 
 // ------------------------------------------------------------------ host
-// row-major 2-D bf16 tensor map: `inner` contiguous elements per row, `outer`
-// rows `row_bytes` apart, boxes of box_inner x box_outer, 128-byte swizzle,
-// zeros out of bounds
-bool encode_map(CUtensorMap* map, const void* base, uint64_t inner,
-                uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                uint32_t box_outer) {
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p, long long stride_bytes) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride_bytes % 16 == 0;
-}
-
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, int threads, int smem,
-           cudaStream_t stream, Args... args) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // the split's second pass, where it takes one
 template <typename TC>
 int reduce_splits(const float* scratch, TC* c, int M, int N, int split,

@@ -1,5 +1,7 @@
-// Hopper building blocks of B1 (matmul.cu): mbarriers, TMA tile loads,
-// wgmma descriptors and the m64n128k16 bf16 product, and cp.async copies.
+// Hopper building blocks of B1 (matmul.cu) and B5 (quantized_matmul.cu):
+// mbarriers, TMA tile loads, wgmma descriptors and the m64n128k16 bf16
+// product, cp.async copies, and on the host tensor-map encoding and the
+// launch with a dynamic shared-memory opt-in.
 //
 // Shared-memory layout of the bf16 tiles.  Every 16-bit tile is stored as
 // rows of 128 bytes in TMA's 128-byte swizzle: the 16-byte chunk c of row r
@@ -170,6 +172,48 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// -------------------------------------------------------------------- host
+// a row-major 2-D tensor map of `type`: `inner` contiguous elements per
+// row, `outer` rows `row_bytes` apart, boxes of box_inner x box_outer,
+// zeros out of bounds
+inline bool encode_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          CUtensorMapSwizzle swizzle, const void* base,
+                          uint64_t inner, uint64_t outer, uint64_t row_bytes,
+                          uint32_t box_inner, uint32_t box_outer) {
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(
+             map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bf16 tiles' map: 128-byte swizzle
+inline bool encode_map(CUtensorMap* map, const void* base, uint64_t inner,
+                       uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                       uint32_t box_outer) {
+  return encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       CU_TENSOR_MAP_SWIZZLE_128B, base, inner, outer,
+                       row_bytes, box_inner, box_outer);
+}
+
+inline bool aligned16(const void* p, long long stride_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride_bytes % 16 == 0;
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int threads, int smem,
+           cudaStream_t stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sm90

@@ -3,7 +3,7 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one nvcc
 process per source, all started together) and linked into one shared
 library with a plain C interface, linked against the driver library
-(``-lcuda``, for B1's TMA descriptors) and loaded with ``ctypes``.  ptxas's
+(``-lcuda``, for the TMA descriptors) and loaded with ``ctypes``.  ptxas's
 report of each kernel's registers, shared memory and spills is kept beside
 it (``ptxas_report``).  The library is
 built at first use into ``build/repro_torch/<hash>/`` at the root of the
@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# B1's TMA descriptors come from the driver API (cuTensorMapEncodeTiled):
+# B1's and B5's TMA descriptors come from the driver API
+# (cuTensorMapEncodeTiled):
 # link libcuda, through the toolkit's stub at build time
 LINK_LIBS = ("-lcuda",)
 # ptxas's report (registers, shared memory, spills per kernel), kept
@@ -44,7 +45,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points: pointers and the stream as c_void_p, sizes as c_int
 SIGNATURES = {
     "repro_matmul": [_P] * 4 + [_I] * 9 + [_P],
-    "repro_quantized_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    "repro_quantized_matmul": [_P] * 5 + [_I] * 7 + [_P],
     "repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
     "repro_decode_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
     "repro_prefill_attention": [_P] * 6 + [_I] * 10 + [_P],

@@ -27,17 +27,29 @@ def histogram_plain(values: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
 
 
 def bin_window(n_bins: int) -> int:
-    """Bins per window of csrc/histogram.cu: all of them when they fit one
-    block's shared memory, else as many as fit (one grid row each)."""
+    """The bins one block's shared memory holds, at most ``n_bins``: the
+    shared route of csrc/histogram.cu takes ``n_bins`` when they all fit."""
     _check_bins(n_bins)
     return min(n_bins, cuda.MAX_SMEM_BYTES // 4)
 
 
+# csrc/histogram.cu's routes, by their C codes
+ROUTES = {"shared": 0, "global": 1}
+
+
+def histogram_route(n_bins: int) -> str:
+    """The kernel's route, a function of ``n_bins`` alone: ``shared`` (a
+    private histogram per block in shared memory, added to the output once
+    per bin) while every bin fits one block's shared memory, else
+    ``global`` (one pass over the values, one atomic per run of equal
+    values straight into the output, which L2 holds)."""
+    return "shared" if bin_window(n_bins) == n_bins else "global"
+
+
 def histogram_cuda(values: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
-    """Launch ``repro_histogram`` (a private histogram per block in shared
-    memory over one window of ``bin_window(n_bins)`` bins, added to the
-    output once per bin): values (N,) contiguous int32 on a CUDA device,
-    any ``n_bins >= 1``.  Returns a new (n_bins,) int32 tensor; raises on
+    """Launch ``repro_histogram`` on the route ``histogram_route(n_bins)``
+    names: values (N,) contiguous int32 on a CUDA device, any
+    ``n_bins >= 1``.  Returns a new (n_bins,) int32 tensor; raises on
     anything the kernel does not take."""
     cuda.require_cuda("histogram", values)
     if values.dim() != 1:
@@ -45,13 +57,13 @@ def histogram_cuda(values: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
                          f"{tuple(values.shape)}")
     if values.dtype != torch.int32:
         raise TypeError(f"histogram: want int32 values, got {values.dtype}")
-    window = bin_window(n_bins)
+    route = ROUTES[histogram_route(n_bins)]
     n, bins = cuda.c_ints("histogram", values.shape[0], n_bins)
     out = torch.zeros(bins, dtype=torch.int32, device=values.device)
     if n == 0:
         return out
     rc = cuda.library().repro_histogram(values.data_ptr(), out.data_ptr(),
-                                        n, bins, window,
+                                        n, bins, route,
                                         cuda.stream_of(values))
     cuda.check(rc, "histogram")
     histogram_cuda.launches += 1

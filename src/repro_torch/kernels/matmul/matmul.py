@@ -39,6 +39,19 @@ def _check_rows(name: str, m: int, tile_m: int) -> None:
                          f"{tile_m}")
 
 
+def _split(k: int, tile_k: int, tiles_n: int, max_split: int,
+           min_slice: int) -> tuple:
+    """(split, slice_steps) of K in units of ``tile_k``: split while the N
+    tiles alone leave SMs idle, at most ``max_split`` ways, each slice at
+    least ``min_slice`` deep and no slice empty."""
+    steps = -(-k // tile_k)
+    split = max(1, min(max_split, SMS // tiles_n, k // min_slice, steps))
+    per = -(-steps // split)
+    if per:
+        split = -(-steps // per)      # drop slices the rounding left empty
+    return split, per
+
+
 def split_plan(k: int, n: int, dtype: torch.dtype) -> tuple:
     """(split, slice_steps): how many blocks of B1 share an output tile,
     each taking ``slice_steps`` units of ``TILE_K`` of K (rank r the units
@@ -47,13 +60,30 @@ def split_plan(k: int, n: int, dtype: torch.dtype) -> tuple:
     only, never of M, so a row's bits do not depend on how many rows share
     the call: split K while the N tiles alone leave SMs idle, each slice at
     least ``MIN_SLICE`` deep and no slice empty."""
-    steps = -(-k // TILE_K[dtype])
-    tiles_n = -(-n // TILE_N)
-    split = max(1, min(MAX_SPLIT, SMS // tiles_n, k // MIN_SLICE, steps))
-    per = -(-steps // split)
-    if per:
-        split = -(-steps // per)      # drop slices the rounding left empty
-    return split, per
+    return _split(k, TILE_K[dtype], -(-n // TILE_N), MAX_SPLIT, MIN_SLICE)
+
+
+# B5's tiles (csrc/quantized_matmul.cu): bf16 A on B1's tensor-core tile
+# (128 x 128, csrc/matmul_wgmma.cuh), fp32 A on a 64 x 64 FMA tile; both
+# take a split's K slices in units of Q_TILE_K.  B5 reads half B1's bytes
+# per output tile and serves no training GEMM, so it splits further: up
+# to Q_MAX_SPLIT ways, slices down to Q_MIN_SLICE of K.  Measured on the
+# card (PERF.md): shorter slices cost the M=256 calls a second wave of
+# blocks and a larger split sum for less than they save at M=4
+Q_TILE_M = {torch.bfloat16: 128, torch.float32: 64}
+Q_TILE_N = {torch.bfloat16: 128, torch.float32: 64}
+Q_TILE_K = 64
+Q_MAX_SPLIT, Q_MIN_SLICE = 16, 512
+
+
+def quantized_split_plan(k: int, n: int, dtype: torch.dtype) -> tuple:
+    """(split, slice_steps) of B5, as ``split_plan`` is B1's: ``split``
+    blocks share an output tile, rank r taking the units of ``Q_TILE_K``
+    [r * slice_steps, (r + 1) * slice_steps) of K, their fp32 partials
+    summed in rank order and scaled by a second pass.  A function of
+    (K, N, dtype) only, never of M."""
+    return _split(k, Q_TILE_K, -(-n // Q_TILE_N[dtype]), Q_MAX_SPLIT,
+                  Q_MIN_SLICE)
 
 
 def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -116,10 +146,11 @@ def quantized_matmul_plain(a: torch.Tensor, b_q: torch.Tensor,
 def quantized_matmul_cuda(a: torch.Tensor, b_q: torch.Tensor,
                           b_scale: torch.Tensor) -> torch.Tensor:
     """Launch ``repro_quantized_matmul``: a (M, K) bf16 or fp32, b_q
-    (K, N) int8, b_scale (N,) fp32, all contiguous on one CUDA device.
-    The scale multiplies each column's fp32 sum once, at the flush, so the
-    result agrees with the plain version at fp32 tolerance, not bit for
-    bit.  Returns a new (M, N) fp32 tensor."""
+    (K, N) int8, b_scale (N,) fp32, all contiguous on one CUDA device;
+    K split by ``quantized_split_plan``.  The scale multiplies each
+    column's fp32 sum once, at the flush, so the result agrees with the
+    plain version at fp32 tolerance, not bit for bit.  Returns a new
+    (M, N) fp32 tensor, contiguous (the head of its buffer)."""
     cuda.require_cuda("quantized_matmul", a, b_q, b_scale)
     if a.dim() != 2 or b_q.dim() != 2 or a.shape[1] != b_q.shape[0] \
             or b_scale.shape != (b_q.shape[1],):
@@ -131,14 +162,22 @@ def quantized_matmul_cuda(a: torch.Tensor, b_q: torch.Tensor,
                         f"scales, got {b_q.dtype} and {b_scale.dtype}")
     m, k = a.shape
     n = b_q.shape[1]
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    code = cuda.dtype_code(a)
+    split, per = quantized_split_plan(k, n, a.dtype)
+    # one allocation on the host's hot path: the output, then the split's
+    # fp32 partial products (summed in rank order by a second pass), which
+    # the output's storage holds until it is freed
+    buf = torch.empty(((1 + (split > 1) * split) * m, n),
+                      dtype=torch.float32, device=a.device)
+    c = buf[:m]
     if m == 0 or n == 0:
         return c
-    _check_rows("quantized_matmul", m, 64)
+    _check_rows("quantized_matmul", m, Q_TILE_M[a.dtype])
     rc = cuda.library().repro_quantized_matmul(
         a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
-        *cuda.c_ints("quantized_matmul", m, n, k, k),
-        cuda.dtype_code(a), cuda.stream_of(a))
+        buf.data_ptr() + 4 * m * n if split > 1 else None,
+        *cuda.c_ints("quantized_matmul", m, n, k, k, split, per), code,
+        cuda.stream_of(a))
     cuda.check(rc, "quantized_matmul")
     quantized_matmul_cuda.launches += 1
     return c

@@ -182,6 +182,46 @@ def test_quantized_matmul_row_independence(card, dtype):
                        full[64:])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(16384, 2048), (2048, 16384)],
+                         ids=["down-proj", "up-proj"])
+def test_quantized_matmul_rows_independent_of_m_at_split_shapes(card, dtype,
+                                                                k, n):
+    """At gemma's split (K=16384 N=2048) and unsplit widest (K=2048
+    N=16384) shapes, rows 0-2 and 64-69 of a 70-row call equal, bit for
+    bit, the same rows called alone, and a rerun gives the same bits."""
+    from repro_torch.kernels.matmul import matmul as mm
+    gen = torch.Generator(device=card).manual_seed(k + n)
+    q, s = _int8_weight(card, gen, k, n)
+    a = torch.randn(70, k, generator=gen, device=card).to(dtype)
+    full = quantized_matmul_cuda(a, q, s)
+    _close(full, quantized_matmul_plain(a, q, s), torch.float32)
+    assert torch.equal(quantized_matmul_cuda(a, q, s), full)
+    assert torch.equal(quantized_matmul_cuda(a[:3].contiguous(), q, s),
+                       full[:3])
+    assert torch.equal(quantized_matmul_cuda(a[64:].contiguous(), q, s),
+                       full[64:])
+    assert (mm.quantized_split_plan(k, n, dtype)[0] > 1) == (k == 16384)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(70, 200, 130), (5, 1000, 72),
+                                   (33, 4100, 2048), (4, 2052, 300),
+                                   (70, 2048, 256)])
+def test_quantized_matmul_masked_path(card, dtype, m, k, n):
+    """Strides that are not 16-byte multiples (N % 16, K % 8 in bf16) and
+    K that is not a multiple of 64 take the masked copy of the tile (the
+    kernel's own path, split or not): within fp32 tolerance of the plain
+    version, and A starting off a 16-byte boundary gives the bits of the
+    aligned call (at 2048 x 256 a TMA call against the masked copy)."""
+    gen = torch.Generator(device=card).manual_seed(m + k + n)
+    q, s = _int8_weight(card, gen, k, n)
+    a = torch.randn(m, k, generator=gen, device=card).to(dtype)
+    want = quantized_matmul_cuda(a, q, s)
+    _close(want, quantized_matmul_plain(a, q, s), torch.float32)
+    assert torch.equal(quantized_matmul_cuda(_misaligned(a), q, s), want)
+
+
 def _pools(dtype, card, *, slots, h, hkv, hd, page, n_pages, seed=0):
     gen = torch.Generator(device=card).manual_seed(seed)
     pool = 1 + slots * n_pages
@@ -644,7 +684,7 @@ def test_nbody_kernel_matches_plain(card, n):
     (5000, 200_000, "out of range")])
 def test_histogram_kernel_equals_plain(card, n, n_bins, kind):
     """Exact counts, any N, bins past 48 KB of shared memory and past one
-    block's shared memory (windows of bins), and values outside
+    block's shared memory (the one-pass route), and values outside
     [0, n_bins) dropped."""
     from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
     gen = torch.Generator(device=card).manual_seed(n)
@@ -660,6 +700,38 @@ def test_histogram_kernel_equals_plain(card, n, n_bins, kind):
     torch.cuda.synchronize()
     assert got.dtype == torch.int32
     assert torch.equal(got, histogram_plain(vals, n_bins))
+
+
+@pytest.mark.parametrize("n_bins", [100_000, 1 << 20])
+@pytest.mark.parametrize("kind", ["uniform", "one bin", "out of range",
+                                  "runs"])
+def test_histogram_global_route_equals_plain(card, n_bins, kind):
+    """Past one block's shared memory the kernel takes its one-pass route
+    (an atomic per run of equal values into the output): exact counts for
+    uniform values, all in one bin, values out of range both ways, and
+    runs of equal values; N is not a multiple of 4 and the values start
+    off a 16-byte boundary in a second call (the tail loop alone)."""
+    from repro_torch.kernels.histogram import histogram_cuda, histogram_plain
+    from repro_torch.kernels.histogram.histogram import histogram_route
+    assert histogram_route(n_bins) == "global"
+    gen = torch.Generator(device=card).manual_seed(n_bins)
+    n = 1_000_003
+    if kind == "uniform":
+        vals = torch.randint(0, n_bins, (n,), generator=gen, device=card)
+    elif kind == "one bin":
+        vals = torch.full((n,), n_bins - 3, device=card)
+    elif kind == "out of range":
+        vals = torch.randint(-n_bins, 2 * n_bins, (n,), generator=gen,
+                             device=card)
+    else:       # sorted: long runs along each lane's share
+        vals = torch.randint(0, n_bins, (n,), generator=gen,
+                             device=card).sort().values
+    vals = vals.to(torch.int32)
+    want = histogram_plain(vals, n_bins)
+    assert torch.equal(histogram_cuda(vals, n_bins), want)
+    off = torch.empty(n + 1, dtype=torch.int32, device=card)[1:]
+    off.copy_(vals)
+    assert torch.equal(histogram_cuda(off, n_bins), want)
 
 
 def test_histogram_wrapper_rejects_bad_inputs(card):

@@ -129,6 +129,48 @@ def test_split_plan_depends_on_k_n_and_dtype_only():
     assert mm.split_plan(0, 5, f32) == (1, 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", GEMMA_KN)
+def test_quantized_split_plan_partitions_k(dtype, k, n):
+    """B5's K slices tile K exactly, in order, none empty, each a whole
+    number of K units but the last, with at most Q_MAX_SPLIT blocks on one
+    output tile, splitting only while N's tiles leave SMs idle."""
+    from repro_torch.kernels.matmul import matmul as mm
+    split, per = mm.quantized_split_plan(k, n, dtype)
+    assert 1 <= split <= mm.Q_MAX_SPLIT == 16
+    unit = per * mm.Q_TILE_K            # rank r's K range, as csrc reads it
+    slices = [(min(k, r * unit), min(k, (r + 1) * unit))
+              for r in range(split)]
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (lo, hi), (nxt, _) in zip(slices, slices[1:]):
+        assert hi == nxt and hi - lo == unit
+    assert all(hi > lo for lo, hi in slices) or k == 0
+    if split > 1:
+        assert split * -(-n // mm.Q_TILE_N[dtype]) <= mm.SMS
+        assert all(hi - lo >= mm.Q_MIN_SLICE or hi == k for lo, hi in slices)
+
+
+def test_quantized_split_plan_depends_on_k_n_and_dtype_only():
+    """B5's plan takes no M (a row's K order cannot depend on how many rows
+    share the call, so static and continuous serving emit the same
+    streams); pinned at gemma-2b's four serving weight shapes."""
+    import inspect
+
+    from repro_torch.kernels.matmul import matmul as mm
+    assert list(inspect.signature(mm.quantized_split_plan).parameters) == [
+        "k", "n", "dtype"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert mm.quantized_split_plan(2048, 2048, bf16) == (4, 8)     # wq, wo
+    assert mm.quantized_split_plan(2048, 256, bf16) == (4, 8)      # wk, wv
+    assert mm.quantized_split_plan(2048, 16384, bf16) == (1, 32)   # wg, wu
+    assert mm.quantized_split_plan(16384, 2048, bf16) == (8, 32)   # wd
+    assert mm.quantized_split_plan(2048, 2048, f32) == (4, 8)
+    assert mm.quantized_split_plan(2048, 256, f32) == (4, 8)
+    assert mm.quantized_split_plan(2048, 16384, f32) == (1, 32)
+    assert mm.quantized_split_plan(16384, 2048, f32) == (4, 64)
+    assert mm.quantized_split_plan(0, 5, f32) == (1, 0)
+
+
 def test_matmul_operand_checks():
     from repro_torch.kernels.matmul import matmul as mm
     a = torch.zeros(4, 8)
@@ -510,11 +552,49 @@ def test_wkv_tiles_raise_only_past_one_state_column():
     (100_000, 58_112, 2), (1 << 20, 58_112, 19)])
 def test_histogram_bin_windows(n_bins, window, windows):
     """One window of all the bins while they fit a block's shared memory
-    (the 256-bin case runs as before), else windows of as many as fit."""
+    (the shared route takes them), else as many as fit: 2^20 bins span 19
+    such windows, which the one-pass route reads the values once for."""
     from repro_torch.kernels.histogram.histogram import bin_window
     assert bin_window(n_bins) == window
     assert 4 * window <= cuda.MAX_SMEM_BYTES
     assert -(-n_bins // window) == windows
+
+
+@pytest.mark.parametrize("n_bins,route", [
+    (1, "shared"), (256, "shared"), (58_112, "shared"), (58_113, "global"),
+    (100_000, "global"), (1 << 20, "global")])
+def test_histogram_route_follows_n_bins(n_bins, route):
+    """B11's route is a function of n_bins alone, never of the data: the
+    shared-memory histogram while every bin fits one block, else the
+    one-pass route into the output."""
+    import inspect
+
+    from repro_torch.kernels.histogram.histogram import (ROUTES,
+                                                         histogram_route)
+    assert list(inspect.signature(histogram_route).parameters) == ["n_bins"]
+    assert histogram_route(n_bins) == route
+    assert set(ROUTES) == {"shared", "global"}
+    with pytest.raises(ValueError):
+        histogram_route(0)
+
+
+def test_kernel_variant_edits_match_the_sources():
+    """tools/kernel_variants.py builds B5 and B11 variants by exact text
+    edits of the kernel sources; each edit matches the shipped source
+    once, so the measurements PERF.md cites can be made again."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    for name, (source, edits) in variants.VARIANTS.items():
+        assert (cuda.CSRC / source).exists(), name
+        texts = {}
+        for file, old, new in edits:
+            text = texts.get(file, (cuda.CSRC / file).read_text())
+            assert text.count(old) == 1, (name, file)
+            texts[file] = text.replace(old, new)
 
 
 def test_route_counts_reset_with_the_launch_counts():

@@ -1,0 +1,311 @@
+#!/usr/bin/env python3
+"""Variants of the int8-weight GEMM (B5) and the histogram (B11) on one
+NVIDIA GPU: the measurements behind the choices PERF.md records for them.
+
+    python3 tools/kernel_variants.py [--out rows.json]
+
+A variant is the checkout's kernel sources with a few exact text edits
+(``VARIANTS`` below; the script fails if an edit no longer matches),
+built with kernels/cuda.py's nvcc flags into build/variants/<name>/ and
+called through its C entry with ctypes.  One JSON line per measurement:
+
+- hist: 2^26 int32 values into 2^20 bins (the one-pass route), uniform,
+  all in one bin, and sorted (long runs): one atomic per value
+  (``none``), equal values of a warp aggregated by __match_any_sync
+  (``match``), and the shipped kernel, one atomic per run of equal
+  values a lane sees (``run``); beside ``torch.bincount``.
+- b5: the four gemma-2b weight shapes at M = 4 and 256 in bf16: every
+  split of K from 1 to 16 through the shipped library; at the plan's
+  split the shipped kernel against copies without the A-box trim, and
+  without the widening or the products (timing only: their results are
+  wrong); B1 bf16 at the same shape beside.
+- host: microseconds of host time per call of the B1 and B5 wrappers
+  (``matmul_cuda``, ``quantized_matmul_cuda``) at the four shapes at
+  M = 4, the card keeping up (a decode step is paced by the host).
+
+Times are the profiler's device time per call (``device_ms``; CUDA events
+read the host's launch pace below ~0.1 ms) and, for B11, CUDA events too.
+Exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT_DIR = ROOT / "build" / "variants"
+
+# name: (source to build, [(file, old text, new text), ...])
+_WIDEN_STORE = ("""    *reinterpret_cast<uint4*>(sb + (j / 8) * (BK * 128) +
+                              sm90::swizzle128(k, 16 * (j % 8))) =
+        widen8(q[i]);""", """    if (q[i].x == 0x12345678u) sb[k] = 1;  // keeps the loads""")
+_PRODUCTS = ("""    if (active) {
+      const uint8_t* sa = smem + s * R::STAGE + wg * 64 * 128;""",
+             """    if (active && nt < 0) {
+      const uint8_t* sa = smem + s * R::STAGE + wg * 64 * 128;""")
+_RUN = """    if (v == bin) {
+      ++n;
+      return;
+    }
+    flush(out);
+    bin = v;
+    n = 1;"""
+VARIANTS = {
+    "b5_no_abox": ("quantized_matmul.cu", [
+        ("quantized_matmul.cu",
+         "const int a_rows = std::min(BM16, (M + 7) / 8 * 8);",
+         "const int a_rows = BM16;")]),
+    "b5_no_widen": ("quantized_matmul.cu",
+                    [("matmul_wgmma.cuh",) + _WIDEN_STORE]),
+    "b5_no_products": ("quantized_matmul.cu",
+                       [("matmul_wgmma.cuh",) + _PRODUCTS]),
+    "b5_neither": ("quantized_matmul.cu",
+                   [("matmul_wgmma.cuh",) + _WIDEN_STORE,
+                    ("matmul_wgmma.cuh",) + _PRODUCTS]),
+    "hist_none": ("histogram.cu", [
+        ("histogram.cu", _RUN, "    if (v != NO_BIN) red_add(out + v, 1);")]),
+    "hist_match": ("histogram.cu", [
+        ("histogram.cu", _RUN,
+         """    const unsigned peers = __match_any_sync(0xffffffffu, v);
+    if (v != NO_BIN && threadIdx.x % 32 == __ffs(peers) - 1)
+      red_add(out + v, __popc(peers));"""),
+        # every lane of a warp runs the same rounds (the match needs all)
+        ("histogram.cu", """    for (long long i = first; i < n4; i += stride) {
+      const int4 x = v4[i];
+      run.push""", """    for (long long i = first; i - threadIdx.x % 32 < n4; i += stride) {
+      const int4 x = i < n4 ? v4[i] : make_int4(-1, -1, -1, -1);
+      run.push"""),
+        ("histogram.cu", """  for (long long i = done + first; i < n; i += stride)
+    run.push(out, values[i], bins);""",
+         """  for (long long i = done + first; i - threadIdx.x % 32 < n; i += stride)
+    run.push(out, i < n ? values[i] : -1, bins);""")]),
+}
+WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+HIST_N, HIST_BINS = 1 << 26, 1 << 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def build(name: str, cuda) -> Path:
+    """The variant's edited copy of csrc, compiled into its own library."""
+    source, edits = VARIANTS[name]
+    src = OUT_DIR / name / "csrc"
+    shutil.rmtree(src.parent, ignore_errors=True)
+    shutil.copytree(cuda.CSRC, src)
+    for file, old, new in edits:
+        text = (src / file).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: edit of {file} matches "
+                               f"{text.count(old)} times")
+        (src / file).write_text(text.replace(old, new))
+    so = src.parent / "lib.so"
+    nvcc = cuda._nvcc()
+    stubs = Path(nvcc).resolve().parent.parent / "lib64" / "stubs"
+    proc = subprocess.run(
+        [nvcc, *cuda.NVCC_FLAGS, "-shared", str(src / source),
+         f"-L{stubs}", *cuda.LINK_LIBS, "-o", str(so)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    return so
+
+
+def entry(so: Path, name: str, cuda):
+    fn = getattr(ctypes.CDLL(str(so)), name)
+    fn.argtypes = cuda.SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def hist_rows(torch, cuda, libs) -> list:
+    from repro_torch.kernels.histogram.histogram import ROUTES
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    uniform = torch.randint(0, HIST_BINS, (HIST_N,), generator=gen,
+                            device="cuda").to(torch.int32)
+    inputs = {"uniform": uniform,
+              "one bin": torch.full((HIST_N,), 7, dtype=torch.int32,
+                                    device="cuda"),
+              "sorted": uniform.sort().values}
+    rows = []
+    for kind, vals in inputs.items():
+        want = torch.bincount(vals, minlength=HIST_BINS).to(torch.int32)
+        r = {"kernel": "histogram", "case": f"N=2^26 bins=2^20 {kind}",
+             "bincount_ms": event_ms(torch, lambda: torch.bincount(
+                 vals, minlength=HIST_BINS)),
+             "bincount_device_ms": device_ms(torch, lambda: torch.bincount(
+                 vals, minlength=HIST_BINS), 5)}
+        for name, fn in libs.items():
+            out = torch.zeros(HIST_BINS, dtype=torch.int32, device="cuda")
+
+            def call():
+                out.zero_()
+                rc = fn(vals.data_ptr(), out.data_ptr(), HIST_N, HIST_BINS,
+                        ROUTES["global"], cuda.stream_of(vals))
+                if rc:
+                    raise RuntimeError(f"histogram {name}: CUDA error {rc}")
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"histogram {name} {kind}: counts differ")
+            r[name] = {"ms": event_ms(torch, call),
+                       "device_ms": device_ms(torch, call, 5)}
+        emit(r)
+        rows.append(r)
+    return rows
+
+
+def b5_rows(torch, cuda, libs) -> list:
+    from repro_torch.core.quant import quantize_channelwise
+    from repro_torch.kernels.matmul import matmul_cuda, quantized_matmul_plain
+    from repro_torch.kernels.matmul.matmul import (Q_TILE_K,
+                                                   quantized_split_plan)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for m in (4, 256):
+        for k, n in WEIGHT_SHAPES:
+            a = torch.randn(m, k, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+            q, scale = quantize_channelwise(w)
+            b1 = w.to(torch.bfloat16)
+            want = quantized_matmul_plain(a, q, scale)
+            steps = -(-k // Q_TILE_K)
+            plan = quantized_split_plan(k, n, torch.bfloat16)
+            r = {"kernel": "quantized_matmul", "case": f"M={m} K={k} N={n}",
+                 "plan": list(plan), "b1_bf16_device_ms": device_ms(
+                     torch, lambda: matmul_cuda(a, b1)),
+                 "split_device_ms": {}, "variant_device_ms": {}}
+            runs = [("shipped", libs["shipped"], s) for s in (1, 2, 4, 8, 16)]
+            runs += [(name, fn, plan[0]) for name, fn in libs.items()
+                     if name != "shipped"]
+            for name, fn, split in runs:
+                per = -(-steps // split)
+                split = -(-steps // per)
+                c = torch.empty(m, n, device="cuda")
+                part = torch.empty(split, m, n, device="cuda")
+
+                def call():
+                    rc = fn(a.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                            c.data_ptr(), part.data_ptr(), m, n, k, k, split,
+                            per, cuda.dtype_code(a), cuda.stream_of(a))
+                    if rc:
+                        raise RuntimeError(f"B5 {name}: CUDA error {rc}")
+                call()
+                torch.cuda.synchronize()
+                err = ((c - want).abs() / (1 + want.abs())).max().item()
+                if name in ("shipped", "b5_no_abox") and not err <= 2e-4:
+                    raise AssertionError(f"B5 {name} split {split}: {err}")
+                ms = device_ms(torch, call)
+                if name == "shipped":
+                    r["split_device_ms"][split] = ms
+                else:
+                    r["variant_device_ms"][name] = ms
+            emit(r)
+            rows.append(r)
+            del a, w, q, scale, b1, want
+    return rows
+
+
+def host_rows(torch) -> list:
+    import time
+
+    from repro_torch.core.quant import quantize_channelwise
+    from repro_torch.kernels.matmul import matmul_cuda, quantized_matmul_cuda
+
+    def host_us(fn, calls: int = 300) -> float:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return seconds / calls * 1e6
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for k, n in WEIGHT_SHAPES:
+        a = torch.randn(4, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        q, scale = quantize_channelwise(w)
+        b1 = w.to(torch.bfloat16)
+        r = {"kernel": "host", "case": f"M=4 K={k} N={n}",
+             "matmul_us": host_us(lambda: matmul_cuda(a, b1)),
+             "quantized_matmul_us": host_us(
+                 lambda: quantized_matmul_cuda(a, q, scale))}
+        emit(r)
+        rows.append(r)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="", help="also write the rows here")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cuda
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
+        lib = pool.submit(cuda.library)
+        built = dict(zip(VARIANTS, pool.map(lambda v: build(v, cuda),
+                                            VARIANTS)))
+        shipped = lib.result()
+    hist = {"none": entry(built["hist_none"], "repro_histogram", cuda),
+            "match": entry(built["hist_match"], "repro_histogram", cuda),
+            "run": shipped.repro_histogram}
+    b5 = {"shipped": shipped.repro_quantized_matmul}
+    b5.update({name: entry(so, "repro_quantized_matmul", cuda)
+               for name, so in built.items() if name.startswith("b5_")})
+    rows = (hist_rows(torch, cuda, hist) + b5_rows(torch, cuda, b5)
+            + host_rows(torch))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"device": smi, "rows": rows},
+                                             indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
