@@ -19,7 +19,15 @@ Phases, one output line or more each:
               cold in L2 (``ms_cold``, ``library_ms_cold``).  B5 (the
               int8-weight GEMM) runs at the four weight shapes, M=4 and
               256, beside B1 bf16 at the same shape; both carry the
-              profiler's device time (``device_ms``).
+              profiler's device time (``device_ms``).  B2 and B4a
+              (decode attention, float and int8 pools) run at the
+              serving shapes and, in bf16, at gemma-2b's 8192-token
+              context (no window, and a window of 1024) and at
+              codeqwen1.5-7b's 32 kv heads; each row carries its split
+              plan (``split``: keys a split, splits) and ``device_ms``;
+              each slot's max |err| must stay within 1e-2 of its max
+              |output| (``slot_rel_err``), and a rerun and each slot
+              alone must give the batch's bits.
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
               with the static and once with the continuous schedule, with
@@ -111,6 +119,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}
+# decode attention also holds each slot's max |err| to this share of its
+# max |output| (bf16 rounds P to 2^-9 of itself: about 2e-3 of a slot)
+SLOT_REL_LIMIT = 1e-2
 SERVE_ARGS = ["--arch", "gemma-2b", "--slots", "4", "--requests", "6",
               "--prompt-len", "100", "--max-new", "16", "--max-len", "256"]
 INT8_ARGS = ["--kv-dtype", "int8", "--weights-dtype", "int8"]
@@ -237,6 +248,24 @@ def compare(torch, name: str, got, want, dtype: str) -> float:
         raise AssertionError(f"{name}: max |err| {diff.max().item():.3e} "
                              f"over tolerance {tol}")
     return diff.max().item()
+
+
+def slot_rel_err(torch, name: str, got, want) -> float:
+    """Decode attention, slot by slot: max |got - want| over max |want|,
+    the largest over the live slots; raises past ``SLOT_REL_LIMIT``, or
+    unless a slot with no live key is exact zeros.  An output averaged
+    over thousands of keys is ~sqrt(e / keys), near bf16's absolute 5e-2,
+    so this is the check that holds a bf16 row to its size."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    ref = want.float().abs().flatten(1).amax(1)
+    live = ref > 0
+    if not torch.equal(got[~live], want[~live]):
+        raise AssertionError(f"{name}: a slot with no live key is not zero")
+    rel = (err[live] / ref[live]).max().item() if bool(live.any()) else 0.0
+    if rel > SLOT_REL_LIMIT:
+        raise AssertionError(f"{name}: slot max |err| / max |plain| "
+                             f"{rel:.3e} over {SLOT_REL_LIMIT}")
+    return rel
 
 
 def row(name, case, dtype, err, ms, plain_ms, bnd, library_ms=None,
@@ -376,63 +405,95 @@ def paged_inputs(torch, dtype, gen, *, b, h, hkv, hd, page, n_pages):
     return kp.to(dtype), vp.to(dtype), table
 
 
-def check_decode(torch, dtype_name: str):
+# B2/B4a's cases: the serving shapes (gemma-2b's heads, the 256-key table
+# of the serve runs); in bf16 also gemma-2b's published 8192-token context
+# (128 pages of 64 a slot, no window and gemma3-4b's local window of 1024,
+# configs/archs.py:69), float and int8 pools, and codeqwen1.5-7b's heads
+# (32 kv heads of 128, grp 1, configs/archs.py:102) at the same lengths
+DECODE_SERVE = dict(b=4, h=8, hkv=1, hd=256, page=64, n_pages=4,
+                    lens=(0, 65, 117, 256), windows=(0, 100))
+DECODE_LONG = dict(b=4, h=8, hkv=1, hd=256, page=64, n_pages=128,
+                   lens=(8192, 5000, 2049, 1), windows=(0, 1024))
+DECODE_QWEN = dict(b=4, h=32, hkv=32, hd=128, page=64, n_pages=128,
+                   lens=(8192, 5000, 2049, 1), windows=(0,))
+
+
+def decode_rows(torch, dtype_name: str, shape: dict, int8: bool,
+                reps: int):
+    """B2 (float pools) or B4a (int8 pools) at one shape and its windows
+    against the plain version, with the split plan and the profiler's
+    device time; each slot's error is also held to its output's size
+    (``slot_rel_err``), and a rerun and each slot alone must give the
+    batch's bits."""
     from repro_torch.core.quant import quantize_pages
-    from repro_torch.kernels.attention import (decode_attention_cuda,
-                                               decode_attention_int8_cuda,
-                                               decode_attention_plain)
+    from repro_torch.kernels.attention.decode import (
+        decode_attention_cuda, decode_attention_int8_cuda,
+        decode_attention_plain, decode_split_plan)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, h, hkv, hd, page, n_pages = 4, 8, 1, 256, 64, 4
+    b, h, hkv, hd, page, n_pages = (shape[k] for k in (
+        "b", "h", "hkv", "hd", "page", "n_pages"))
     kp, vp, table = paged_inputs(torch, dtype, gen, b=b, h=h, hkv=hkv,
                                  hd=hd, page=page, n_pages=n_pages)
     q = torch.randn(b, h, hd, generator=gen, device="cuda").to(dtype)
-    lens = [0, 65, 117, 256]        # inactive, page +1, ragged, full cache
+    lens = list(shape["lens"])
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scales, name, kernel, tol = (), "decode_attention", \
+        decode_attention_cuda, dtype_name
+    if int8:        # quantized page by page, as the serve runs write them
+        kp, ks = quantize_pages(kp)
+        vp, vs = quantize_pages(vp)
+        scales, name, kernel, tol = (ks, vs), "decode_attention_int8", \
+            decode_attention_int8_cuda, "float32"
+    args = (q, kp, vp, table, lengths, *scales)
+    case = (f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens}")
     rows = []
-    for window in (0, 100):
-        err = compare(torch, f"decode window={window}",
-                      decode_attention_cuda(q, kp, vp, table, lengths,
-                                            window=window),
-                      decode_attention_plain(q, kp, vp, table, lengths,
-                                             window=window), dtype_name)
-        live = sum(min(n, window) if window else n for n in lens)
-        size = q.element_size()
-        nbytes = (q.numel() * size + 2 * live * hkv * hd * size
-                  + table.numel() * 4 + b * 4 + b * h * hd * 4)
-        rows.append(row(
-            "decode_attention",
-            f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens} "
-            f"window={window}", dtype_name, err,
-            time_ms(torch, lambda: decode_attention_cuda(
-                q, kp, vp, table, lengths, window=window), 50),
-            time_ms(torch, lambda: decode_attention_plain(
-                q, kp, vp, table, lengths, window=window), 50),
-            bound(nbytes, 4.0 * h * hd * live, dtype_name)))
-    # the int8 branch on the same inputs, quantized page by page
-    kq, ks = quantize_pages(kp)
-    vq, vs = quantize_pages(vp)
-    for window in (0, 100):
-        args = (q, kq, vq, table, lengths, ks, vs)
-        err = compare(torch, f"decode int8 window={window}",
-                      decode_attention_int8_cuda(*args, window=window),
-                      decode_attention_plain(*args, window=window),
-                      "float32")
+    for window in shape["windows"]:
+        def call():
+            return kernel(*args, window=window)
+        out = call()
+        want = decode_attention_plain(*args, window=window)
+        err = compare(torch, f"{name} {case} window={window}", out, want,
+                      tol)
+        rel = slot_rel_err(torch, f"{name} {case} window={window}", out,
+                           want)
+        alone = [kernel(q[i:i + 1], kp, vp, table[i:i + 1],
+                        lengths[i:i + 1], *scales, window=window)
+                 for i in range(b)]
+        if not torch.equal(call(), out) or not all(
+                torch.equal(one, out[i:i + 1]) for i, one in enumerate(alone)):
+            raise AssertionError(f"{name} {case} window={window}: a rerun "
+                                 f"or a slot alone changed bits")
         live = sum(min(n, window) if window else n for n in lens)
         pages = sum(-(-n // page) - ((max(0, n - window) // page) if window
                                      else 0) for n in lens)
-        nbytes = (q.numel() * q.element_size() + 2 * live * hkv * hd
-                  + 2 * pages * hkv * 4 + table.numel() * 4 + b * 4
-                  + b * h * hd * 4)
+        elem = 1 if int8 else q.element_size()
+        nbytes = (q.numel() * q.element_size() + 2 * live * hkv * hd * elem
+                  + (2 * pages * hkv * 4 if int8 else 0)
+                  + table.numel() * 4 + b * 4 + b * h * hd * 4)
         rows.append(row(
-            "decode_attention_int8",
-            f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens} "
-            f"window={window} int8 pools", dtype_name, err,
-            time_ms(torch, lambda: decode_attention_int8_cuda(
-                *args, window=window), 50),
+            name, f"{case} window={window}" + (" int8 pools" if int8
+                                               else ""),
+            dtype_name, err, time_ms(torch, call, reps),
             time_ms(torch, lambda: decode_attention_plain(
-                *args, window=window), 50),
-            bound(nbytes, 4.0 * h * hd * live, dtype_name)))
+                *args, window=window), reps),
+            bound(nbytes, 4.0 * h * hd * live, dtype_name),
+            device_ms=device_ms(torch, call, 20),
+            split=list(decode_split_plan(n_pages, page, hkv)),
+            slot_rel_err=rel))
+    del kp, vp, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_decode(torch, dtype_name: str):
+    rows = []
+    for int8 in (False, True):
+        rows += decode_rows(torch, dtype_name, DECODE_SERVE, int8, 50)
+    if dtype_name == "bfloat16":
+        for int8 in (False, True):
+            rows += decode_rows(torch, dtype_name, DECODE_LONG, int8, 20)
+        rows += decode_rows(torch, dtype_name, DECODE_QWEN, False, 20)
     return rows
 
 
@@ -1183,7 +1244,8 @@ KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("flash_dkv_wgmma_kernel", "B7 dK/dV sweep bf16 (wgmma)"),
                  ("flash_dq_kernel", "B7 dQ sweep (SIMT)"),
                  ("flash_dkv_kernel", "B7 dK/dV sweep (SIMT)"),
-                 ("decode_kernel", "B2/B4a decode attention"),
+                 ("decode_split_kernel", "B2/B4a decode attention"),
+                 ("decode_combine_kernel", "B2/B4a decode attention"),
                  ("prefill_kernel", "B3/B4b prefill attention"))
 OTHER_GROUP = "other (PyTorch ops)"
 # what the bf16 train step's attention must run on (gemma-2b: hd = 256)

@@ -12,8 +12,11 @@ reads kv head h // grp; k_pages / v_pages (P, page, Hkv, hd); table
 
 int8 pools (the quantized branch of the TPU kernel) come with k_scale /
 v_scale (P, Hkv) f32, one scale per (page, kv head): the plain version
-dequantizes at gather time, the kernel as it loads each tile
-(``decode_attention_int8_cuda``); q stays float.
+dequantizes at gather time, the kernel folds them into each key's score
+and P (``decode_attention_int8_cuda``); q stays float.
+
+The kernel splits each slot's key range across blocks by
+``decode_split_plan`` and merges the splits in rank order.
 """
 from __future__ import annotations
 
@@ -110,37 +113,70 @@ def _check_paged(name: str, q, k_pages, v_pages, table, lengths,
                          f"must match q's batch")
 
 
+# the split plan (csrc/decode_attention.cu): about SPLITS blocks a slot
+# (splits x kv heads), each split a whole number of pages and
+# MIN_SPLIT_KEYS to MAX_SPLIT_KEYS keys.  Measured on the card (PERF.md):
+# gemma-2b's one kv head runs best at 64 keys on the 256-key serving table
+# and 128 at 8192; 8 and 16 kv heads at 8192 keys at 1024, 32 at 512-1024.
+SPLITS, MIN_SPLIT_KEYS, MAX_SPLIT_KEYS = 64, 64, 1024
+# the kernel keeps a row's columns in registers, at most 32 a lane
+MAX_HEAD_DIM = 1024
+
+
+def decode_split_plan(n_pages: int, page: int, hkv: int) -> tuple:
+    """(split_keys, splits): block r of a slot and kv head takes the table's
+    key positions [r * split_keys, (r + 1) * split_keys), and the splits
+    cover the table's n_pages * page keys.  A function of the table's and
+    the pools' shapes only, never of the batch or the lengths, so a slot's
+    bits do not depend on which slots share its call."""
+    if page <= 0:
+        return 0, 1
+    keys = n_pages * page
+    want = min(MAX_SPLIT_KEYS,
+               max(MIN_SPLIT_KEYS, -(-keys * max(1, hkv) // SPLITS)))
+    per = max(1, -(-want // page))         # pages a split
+    return per * page, max(1, -(-n_pages // per))
+
+
 def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
             window: int) -> torch.Tensor:
     """Launch ``repro_decode_attention`` (float pools) or its int8 entry
-    (one block per slot and kv head) and count it on ``wrapper``."""
+    (the split kernel, then the rank-order combine) and count the call on
+    ``wrapper``."""
     name = "decode_attention" if k_scale is None else "decode_attention_int8"
     _check_paged(name, q, k_pages, v_pages, table, lengths, 1, k_scale,
                  v_scale)
     b, h, hd = q.shape
     _, page, hkv, _ = k_pages.shape
-    grp = h // hkv
-    smem = 4 * (2 * grp * hd + 32 * (2 * hd + 1) + 32 * grp + 3 * grp)
-    if smem > cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: group {grp} x head width {hd} needs "
-                         f"{smem} bytes of shared memory")
-    out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
-    if b == 0:
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head width {hd} is past the kernel's "
+                         f"{MAX_HEAD_DIM} (32 columns a lane)")
+    n_pages = table.shape[1]
+    split_keys, splits = decode_split_plan(n_pages, page, hkv)
+    # one allocation on the host's hot path: the output, then the splits'
+    # fp32 partials (acc, then m and l), merged by the combine kernel
+    n_out = b * h * hd
+    n_part = b * h * splits * (hd + 2)
+    buf = torch.empty(n_out + n_part, dtype=torch.float32, device=q.device)
+    out = buf[:n_out].view(b, h, hd)
+    if n_out == 0:
         return out
     lib = cuda.library()
-    sizes = cuda.c_ints(name, b, h, hkv, hd, page, table.shape[1],
-                        k_pages.shape[0], max(0, int(window)))
+    scratch = buf.data_ptr() + 4 * n_out
+    sizes = cuda.c_ints(name, b, h, hkv, hd, page, n_pages,
+                        k_pages.shape[0], max(0, int(window)), split_keys,
+                        splits)
     if k_scale is None:
         rc = lib.repro_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            table.data_ptr(), lengths.data_ptr(), out.data_ptr(), *sizes,
-            cuda.dtype_code(q), cuda.stream_of(q))
+            table.data_ptr(), lengths.data_ptr(), out.data_ptr(), scratch,
+            *sizes, cuda.dtype_code(q), cuda.stream_of(q))
     else:
         rc = lib.repro_decode_attention_int8(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), *sizes, cuda.dtype_code(q),
-            cuda.stream_of(q))
+            lengths.data_ptr(), out.data_ptr(), scratch, *sizes,
+            cuda.dtype_code(q), cuda.stream_of(q))
     cuda.check(rc, name)
     wrapper.launches += 1
     return out

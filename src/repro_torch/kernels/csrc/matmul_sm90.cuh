@@ -1,7 +1,7 @@
 // Hopper building blocks of B1 (matmul.cu) and B5 (quantized_matmul.cu):
 // mbarriers, TMA tile loads, wgmma descriptors and the m64n128k16 bf16
-// product, cp.async copies, and on the host tensor-map encoding and the
-// launch with a dynamic shared-memory opt-in.
+// product, cp.async copies (also decode_attention.cu's), and on the host
+// tensor-map encoding and the launch with a dynamic shared-memory opt-in.
 //
 // Shared-memory layout of the bf16 tiles.  Every 16-bit tile is stored as
 // rows of 128 bytes in TMA's 128-byte swizzle: the 16-byte chunk c of row r
@@ -164,6 +164,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 8 bytes (src 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -31,6 +31,7 @@ from repro_torch.kernels.attention import (decode_attention_cuda,
                                            prefill_attention_cuda,
                                            prefill_attention_int8_cuda,
                                            prefill_attention_plain)
+from repro_torch.kernels.attention.decode import decode_split_plan
 from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
                                         quantized_matmul_cuda,
                                         quantized_matmul_plain)
@@ -300,6 +301,127 @@ def test_prefill_int8_kernel_matches_plain(card, dtype, grp, window):
                                       window=window)
     _close(out, prefill_attention_plain(q, kq, vq, table, starts, ks, vs,
                                         window=window), torch.float32)
+
+
+def _gemma_decode(card, dtype, int8, *, seed=3, n_pages=10):
+    """gemma-2b's decode heads (grp 8 over one kv head, hd 256, page 64)
+    over 6 slots whose lengths cross the split plan's boundaries: 0, 1,
+    exactly one split, one key past it, a ragged length, the full table.
+    Returns the call's arguments, the wrapper and the tolerance's dtype."""
+    hkv, grp, hd, page = 1, 8, 256, 64
+    gen, kp, vp, table = _pools(torch.float32 if int8 else dtype, card,
+                                slots=6, h=grp * hkv, hkv=hkv, hd=hd,
+                                page=page, n_pages=n_pages, seed=seed)
+    q = torch.randn(6, grp * hkv, hd, generator=gen, device=card).to(dtype)
+    keys, splits = decode_split_plan(n_pages, page, hkv)
+    assert splits > 3
+    lengths = torch.tensor([0, 1, keys, keys + 1, 2 * keys + 37,
+                            n_pages * page], dtype=torch.int32, device=card)
+    if int8:
+        kq, vq, ks, vs = _int8(kp, vp)
+        return (q, kq, vq, table, lengths, ks, vs), \
+            decode_attention_int8_cuda, torch.float32
+    return (q, kp, vp, table, lengths), decode_attention_cuda, dtype
+
+
+def _slots_close(got, want, limit=1e-2):
+    """Each slot's max |got - want| within ``limit`` of its max |want|:
+    an output averaged over hundreds of keys is a few hundredths, where
+    bf16's absolute 5e-2 would pass a dropped split."""
+    err = (got - want).abs().flatten(1).amax(1)
+    ref = want.abs().flatten(1).amax(1)
+    live = ref > 0
+    assert torch.equal(got[~live], want[~live])
+    assert bool((err[live] <= limit * ref[live]).all()), \
+        (err[live] / ref[live]).max().item()
+
+
+def _slot(args, i):
+    """The inputs of slot(s) ``i`` alone: q, table and lengths rows; the
+    pools and scales as they are."""
+    q, kp, vp, table, lengths, *scales = args
+    return (q[i].contiguous(), kp, vp, table[i].contiguous(),
+            lengths[i].contiguous(), *scales)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("window", [0, 200])
+def test_decode_split_kernel_matches_plain_at_full_width(card, dtype, int8,
+                                                         window):
+    args, kernel, tol = _gemma_decode(card, dtype, int8)
+    out = kernel(*args, window=window)
+    want = decode_attention_plain(*args, window=window)
+    _close(out, want, tol)
+    _slots_close(out, want)
+    assert torch.count_nonzero(out[0]) == 0          # lengths == 0 -> 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_decode_split_kernel_is_batch_invariant_and_deterministic(
+        card, dtype, int8):
+    """A slot's output equals, bit for bit, its row in a batch with other
+    slots at other lengths, in any order; a rerun gives the same bits; a
+    call counts one launch whatever kernels it runs."""
+    args, kernel, _ = _gemma_decode(card, dtype, int8)
+    for window in (0, 200):
+        before = kernel.launches
+        out = kernel(*args, window=window)
+        assert kernel.launches == before + 1
+        assert torch.equal(kernel(*args, window=window), out)
+        for i in range(6):
+            assert torch.equal(kernel(*_slot(args, slice(i, i + 1)),
+                                      window=window), out[i:i + 1])
+        order = torch.tensor([5, 2, 0, 4, 1, 3], device=card)
+        assert torch.equal(kernel(*_slot(args, order), window=window),
+                           out[order])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("hd,grp,misaligned", [
+    (36, 3, False), (32, 4, True), (512, 2, False), (880, 1, False),
+    (640, 3, False)])
+def test_decode_kernel_takes_odd_rows_and_wide_heads(card, dtype, int8, hd,
+                                                     grp, misaligned):
+    """Rows that are not whole 16-byte pieces (hd 36, or pools one element
+    off a 16-byte boundary) load element by element; heads up to the old
+    kernel's widest take more columns a lane, and more than one group of
+    query heads a block (grp 3 at hd 640)."""
+    hkv, page, n_pages = 2, 4, 40
+    gen, kp, vp, table = _pools(torch.float32 if int8 else dtype, card,
+                                slots=3, h=grp * hkv, hkv=hkv, hd=hd,
+                                page=page, n_pages=n_pages)
+    q = torch.randn(3, grp * hkv, hd, generator=gen, device=card).to(dtype)
+    lengths = torch.tensor([0, 131, 160], dtype=torch.int32, device=card)
+    if int8:
+        kq, vq, ks, vs = _int8(kp, vp)
+        if misaligned:
+            kq, vq = _misaligned(kq), _misaligned(vq)
+        args, kernel, tol = (q, kq, vq, table, lengths, ks, vs), \
+            decode_attention_int8_cuda, torch.float32
+    else:
+        if misaligned:
+            kp, vp = _misaligned(kp), _misaligned(vp)
+        args, kernel, tol = (q, kp, vp, table, lengths), \
+            decode_attention_cuda, dtype
+    for window in (0, 50):
+        _close(kernel(*args, window=window),
+               decode_attention_plain(*args, window=window), tol)
+
+
+def test_decode_kernel_refuses_heads_past_its_registers(card):
+    """A row of more than 1024 columns does not fit 32 a lane: the wrapper
+    raises before anything launches."""
+    gen, kp, vp, table = _pools(torch.float32, card, slots=1, h=1, hkv=1,
+                                hd=1032, page=4, n_pages=2)
+    q = torch.randn(1, 1, 1032, generator=gen, device=card)
+    lengths = torch.tensor([5], dtype=torch.int32, device=card)
+    before = decode_attention_cuda.launches
+    with pytest.raises(ValueError, match="head width"):
+        decode_attention_cuda(q, kp, vp, table, lengths)
+    assert decode_attention_cuda.launches == before
 
 
 def test_int8_wrappers_count_launches_and_reject_bad_inputs(card):

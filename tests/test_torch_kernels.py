@@ -171,6 +171,80 @@ def test_quantized_split_plan_depends_on_k_n_and_dtype_only():
     assert mm.quantized_split_plan(0, 5, f32) == (1, 0)
 
 
+# the (n_pages, page) of decode attention's tables: the serve runs' 256-key
+# table, gemma-2b's 8192-token context, the card tests' small pools, and
+# ragged, long, tiny and empty tables
+DECODE_TABLES = [(4, 64), (128, 64), (9, 4), (10, 64), (40, 4), (1000, 16),
+                 (5, 300), (3, 1), (0, 64), (1, 64), (2048, 4)]
+
+
+@pytest.mark.parametrize("hkv", [1, 4, 32])
+@pytest.mark.parametrize("n_pages,page", DECODE_TABLES)
+def test_decode_split_plan_covers_the_table_in_whole_pages(hkv, n_pages,
+                                                           page):
+    """B2/B4a's splits tile the table's keys in order, each a whole number
+    of pages, none of them empty, and the last one reaching the end, with
+    few kv heads (gemma-2b's 1, gemma3-4b's 4) and many (codeqwen1.5-7b's
+    32)."""
+    from repro_torch.kernels.attention import decode as dec
+    keys, splits = dec.decode_split_plan(n_pages, page, hkv)
+    assert splits >= 1 and keys > 0 and keys % page == 0
+    # whole pages, at most one page past the longest split wanted
+    assert keys - page < dec.MAX_SPLIT_KEYS
+    total = n_pages * page
+    spans = [(r * keys, min(total, (r + 1) * keys)) for r in range(splits)]
+    assert spans[-1][1] == total
+    assert all(lo < hi for lo, hi in spans) or total == 0
+    for (_, hi), (lo, _) in zip(spans, spans[1:]):
+        assert hi == lo
+
+
+def test_decode_split_plan_depends_on_shapes_only():
+    """The plan takes the table's and the pools' shapes and nothing of the
+    batch or the lengths; pinned at the serving table, gemma-2b's long
+    context, and deepseek-67b's 8 and codeqwen1.5-7b's 32 kv heads there
+    (the values PERF.md measured); 8 kv heads on the serving table."""
+    import inspect
+
+    from repro_torch.kernels.attention import decode as dec
+    assert list(inspect.signature(dec.decode_split_plan).parameters) == [
+        "n_pages", "page", "hkv"]
+    assert dec.decode_split_plan(4, 64, 1) == (64, 4)
+    assert dec.decode_split_plan(128, 64, 1) == (128, 64)
+    assert dec.decode_split_plan(128, 64, 8) == (1024, 8)
+    assert dec.decode_split_plan(128, 64, 32) == (1024, 8)
+    assert dec.decode_split_plan(4, 64, 8) == (64, 4)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_decode_split_plan_is_one_for_static_and_continuous_serving(
+        monkeypatch, int8):
+    """The serve run's tables are (slots, max_len / page) under either
+    schedule, so every decode call of both runs takes one plan and a slot's
+    bits cannot depend on which slots share its batch."""
+    from repro_torch.kernels.attention import decode as dec
+    from repro_torch.launch import serve
+    plain, plans = dispatch.decode_attention_plain, set()
+
+    def recording(q, k_pages, v_pages, table, lengths, *scales, window=0):
+        plans.add(dec.decode_split_plan(table.shape[1], k_pages.shape[1],
+                                        k_pages.shape[2]))
+        return plain(q, k_pages, v_pages, table, lengths, *scales,
+                     window=window)
+
+    monkeypatch.setattr(dispatch, "decode_attention_plain", recording)
+    extra = ["--kv-dtype", "int8", "--weights-dtype", "int8"] if int8 else []
+    seen = {}
+    for schedule in ("static", "continuous"):
+        plans.clear()
+        serve.main(["--arch", "gemma-2b", "--smoke", "--slots", "2",
+                    "--requests", "3", "--prompt-len", "6", "--max-new", "3",
+                    "--max-len", "160", "--page-size", "4", "--schedule",
+                    schedule, "--clock", "tick", "--device", "cpu", *extra])
+        seen[schedule] = set(plans)
+    assert seen["static"] == seen["continuous"] == {(64, 3)}
+
+
 def test_matmul_operand_checks():
     from repro_torch.kernels.matmul import matmul as mm
     a = torch.zeros(4, 8)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Variants of the int8-weight GEMM (B5) and the histogram (B11) on one
-NVIDIA GPU: the measurements behind the choices PERF.md records for them.
+"""Variants of the int8-weight GEMM (B5), the histogram (B11) and the paged
+decode attention (B2/B4a) on one NVIDIA GPU: the measurements behind the
+choices PERF.md records for them.
 
-    python3 tools/kernel_variants.py [--out rows.json]
+    python3 tools/kernel_variants.py [--out rows.json] [--baseline DIR]
 
 A variant is the checkout's kernel sources with a few exact text edits
 (``VARIANTS`` below; the script fails if an edit no longer matches),
@@ -22,6 +23,18 @@ called through its C entry with ctypes.  One JSON line per measurement:
 - host: microseconds of host time per call of the B1 and B5 wrappers
   (``matmul_cuda``, ``quantized_matmul_cuda``) at the four shapes at
   M = 4, the card keeping up (a decode step is paced by the host).
+- decode: B2 (bf16 pools) and B4a (int8 pools, bf16 q) at chip_smoke.py's
+  rows (gemma-2b's heads on the 256-key serving table and at 8192 keys,
+  codeqwen1.5-7b's heads at 8192 keys): every split size of
+  ``DECODE_SPLITS`` through the shipped library, and at the plan's split
+  copies with 4 warps a block (``decode_nw4``) and 2 keys a warp step
+  (``decode_u2``); with ``--baseline DIR`` (a checkout of an earlier
+  commit) also that commit's decode kernel, one block per slot and kv
+  head, through its own C entries.  Also at 8 and 16 kv heads
+  (deepseek-67b's and qwen2-moe-a2.7b's), and, per row, whether two
+  faulty copies (``decode_mutant_*``) pass the absolute check (bf16
+  5e-2, int8 pools 2e-4) and their slot-relative error (chip_smoke's
+  limit: 1e-2).
 
 Times are the profiler's device time per call (``device_ms``; CUDA events
 read the host's launch pace below ~0.1 ms) and, for B11, CUDA events too.
@@ -87,7 +100,39 @@ VARIANTS = {
          """  for (long long i = done + first; i - threadIdx.x % 32 < n; i += stride)
     run.push(out, i < n ? values[i] : -1, bins);""")]),
 }
+VARIANTS.update({
+    "decode_nw4": ("decode_attention.cu", [
+        ("decode_attention.cu", "constexpr int NW = 8;",
+         "constexpr int NW = 4;")]),
+    "decode_u2": ("decode_attention.cu", [
+        ("decode_attention.cu",
+         "return run<TQ, TKV, VEC, 8, 8, 4>(a, stream);",
+         "return run<TQ, TKV, VEC, 8, 8, 2>(a, stream);")]),
+    # faults the decode rows' checks must catch (never timed): split 1 of
+    # every slot dropped, and the two halves of each bf16 pair swapped
+    "decode_mutant_drop_split": ("decode_attention.cu", [
+        ("decode_attention.cu", "  if (kb >= ke) {",
+         "  if (kb >= ke || r == 1) {")]),
+    "decode_mutant_bf16_halves": ("decode_attention.cu", [
+        ("decode_attention.cu",
+         """      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);""",
+         """      f[2 * i + 1] = __uint_as_float(w[i] << 16);
+      f[2 * i] = __uint_as_float(w[i] & 0xffff0000u);""")]),
+})
 WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+# (label, heads, kv heads, head width, pages of 64 a slot, lengths)
+DECODE_CASES = (("serve", 8, 1, 256, 4, (0, 65, 117, 256)),
+                ("long", 8, 1, 256, 128, (8192, 5000, 2049, 1)),
+                ("qwen", 32, 32, 128, 128, (8192, 5000, 2049, 1)),
+                ("kv8", 64, 8, 128, 128, (8192, 5000, 2049, 1)),
+                ("kv16", 16, 16, 128, 128, (8192, 5000, 2049, 1)))
+DECODE_SPLITS = (64, 128, 256, 512, 1024, 2048)
+# the C entries of the decode kernel before it split the key range
+_P, _I = ctypes.c_void_p, ctypes.c_int
+BASELINE_SIGNATURES = {"repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
+                       "repro_decode_attention_int8":
+                           [_P] * 8 + [_I] * 9 + [_P]}
 HIST_N, HIST_BINS = 1 << 26, 1 << 20
 
 
@@ -124,6 +169,25 @@ def entry(so: Path, name: str, cuda):
     fn.argtypes = cuda.SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def build_baseline(checkout: Path, cuda) -> ctypes.CDLL:
+    """The decode kernel of an earlier commit's checkout, with its own C
+    entries (no scratch, no split plan)."""
+    src = checkout / "src" / "repro_torch" / "kernels" / "csrc"
+    so = OUT_DIR / "decode_baseline" / "lib.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [cuda._nvcc(), *cuda.NVCC_FLAGS, "-shared",
+         str(src / "decode_attention.cu"), "-o", str(so)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the baseline:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in BASELINE_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -240,6 +304,92 @@ def b5_rows(torch, cuda, libs) -> list:
     return rows
 
 
+def decode_rows(torch, cuda, libs, baseline) -> list:
+    from repro_torch.core.quant import quantize_pages
+    from repro_torch.kernels.attention.decode import (decode_attention_plain,
+                                                      decode_split_plan)
+    page, rows = 64, []
+    for label, h, hkv, hd, n_pages, lens in DECODE_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        pool = 1 + len(lens) * n_pages
+        kp, vp = (torch.randn(pool, page, hkv, hd, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        table = (torch.randperm(pool - 1, generator=gen, device="cuda") + 1)[
+            :len(lens) * n_pages].reshape(len(lens), n_pages).to(torch.int32)
+        q = torch.randn(len(lens), h, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for int8 in (False, True):
+            scales = ()
+            if int8:
+                kq, ks = quantize_pages(kp)
+                vq, vs = quantize_pages(vp)
+                pools, scales = (kq, vq), (ks, vs)
+            else:
+                pools = (kp, vp)
+            want = decode_attention_plain(q, *pools, table, lengths, *scales)
+            plan = decode_split_plan(n_pages, page, hkv)
+            name = "repro_decode_attention" + ("_int8" if int8 else "")
+            r = {"kernel": "decode_attention" + ("_int8" if int8 else ""),
+                 "case": f"{label} B={len(lens)} H={h} Hkv={hkv} hd={hd} "
+                         f"lengths={list(lens)}", "plan": list(plan),
+                 "split_device_ms": {}, "variant_device_ms": {},
+                 "mutants": {}}
+            runs = [("shipped", libs["shipped"], s) for s in DECODE_SPLITS]
+            runs += [(n, lib, plan[0]) for n, lib in libs.items()
+                     if n != "shipped"]
+            for variant, lib, keys in runs:
+                splits = -(-n_pages * page // keys)
+                out = torch.empty(len(lens), h, hd, device="cuda")
+                part = torch.empty(len(lens) * h * splits * (hd + 2),
+                                   device="cuda")
+
+                def call():
+                    ptrs = [t.data_ptr() for t in (q, *pools, *scales,
+                                                   table, lengths, out)]
+                    rc = getattr(lib, name)(
+                        *ptrs, part.data_ptr(), len(lens), h, hkv, hd, page,
+                        n_pages, pool, 0, keys, splits, cuda.dtype_code(q),
+                        cuda.stream_of(q))
+                    if rc:
+                        raise RuntimeError(f"{variant}: CUDA error {rc}")
+                call()
+                torch.cuda.synchronize()
+                tol = 2e-4 if int8 else 5e-2
+                abs_ok = bool(((out - want).abs()
+                               <= tol * (1 + want.abs())).all())
+                err = (out - want).abs().flatten(1).amax(1)
+                ref = want.abs().flatten(1).amax(1)
+                rel = (err[ref > 0] / ref[ref > 0]).max().item()
+                if "mutant" in variant:
+                    r["mutants"][variant] = {"abs_check": abs_ok,
+                                             "slot_rel_err": rel}
+                    continue
+                if not abs_ok or rel > 1e-2:
+                    raise AssertionError(f"decode {variant} S={keys}")
+                ms = device_ms(torch, call)
+                if variant == "shipped":
+                    r["split_device_ms"][keys] = ms
+                else:
+                    r["variant_device_ms"][variant] = ms
+            if baseline is not None:
+                out = torch.empty(len(lens), h, hd, device="cuda")
+                ptrs = [t.data_ptr() for t in (q, *pools, *scales, table,
+                                               lengths, out)]
+                old = lambda: getattr(baseline, name)(  # noqa: E731
+                    *ptrs, len(lens), h, hkv, hd, page, n_pages, pool, 0,
+                    cuda.dtype_code(q), cuda.stream_of(q))
+                if old():
+                    raise RuntimeError("decode baseline: CUDA error")
+                r["baseline_device_ms"] = device_ms(torch, old, 5)
+            emit(r)
+            rows.append(r)
+        del kp, vp
+        torch.cuda.empty_cache()
+    return rows
+
+
 def host_rows(torch) -> list:
     import time
 
@@ -276,6 +426,9 @@ def host_rows(torch) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="also write the rows here")
+    ap.add_argument("--baseline", default="",
+                    help="a checkout of an earlier commit whose decode "
+                         "kernel to time beside the variants")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -298,8 +451,18 @@ def main(argv=None) -> int:
     b5 = {"shipped": shipped.repro_quantized_matmul}
     b5.update({name: entry(so, "repro_quantized_matmul", cuda)
                for name, so in built.items() if name.startswith("b5_")})
+    decode = {"shipped": shipped}
+    for name, so in built.items():
+        if name.startswith("decode_"):
+            decode[name] = ctypes.CDLL(str(so))
+            for fn in ("repro_decode_attention",
+                       "repro_decode_attention_int8"):
+                getattr(decode[name], fn).argtypes = cuda.SIGNATURES[fn]
+                getattr(decode[name], fn).restype = ctypes.c_int
+    baseline = (build_baseline(Path(args.baseline), cuda) if args.baseline
+                else None)
     rows = (hist_rows(torch, cuda, hist) + b5_rows(torch, cuda, b5)
-            + host_rows(torch))
+            + decode_rows(torch, cuda, decode, baseline) + host_rows(torch))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"device": smi, "rows": rows},
