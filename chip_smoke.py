@@ -27,14 +27,23 @@ Phases, one output line or more each:
               plan (``split``: keys a split, splits) and ``device_ms``;
               each slot's max |err| must stay within 1e-2 of its max
               |output| (``slot_rel_err``), and a rerun and each slot
-              alone must give the batch's bits.
+              alone must give the batch's bits.  B3 and B4b (prefill
+              attention, float and int8 pools) run at the serving row
+              (B=2, C=64, starts 0/64) and, in bf16, at chunks of
+              gemma-2b's 8192-token context (starts 8128/4992/1984/0,
+              no window and 1024, float and int8 pools) and at
+              codeqwen1.5-7b's heads; each row carries its route
+              (``prefill_route``), split plan and ``device_ms`` and is
+              held to the same slot-relative limit, rerun and
+              slot-alone bits.
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
               with the static and once with the continuous schedule, with
               float KV and weights and again with int8 KV pages, int8
               weights and the prefix cache: each pair must emit identical
-              token streams, every kernel of its path must launch, and no
-              call may take the plain route.  A fully-covered static run
+              token streams, every kernel of its path must launch, no
+              call may take the plain route, and every B3/B4b call must
+              take the wgmma route.  A fully-covered static run
               (every prompt one cached page) must copy-on-write and emit
               the streams of the same run without sharing.
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
@@ -57,7 +66,7 @@ Phases, one output line or more each:
    wgmma B6/B7 kernels).  Phase 3 is followed by a serve profile: the
    continuous float run and the continuous int8 + prefix run again
    under the profiler, device time by kernel group and the idle share
-   over their decode steps.
+   over their decode steps and, apart, over their prefill calls.
 6. train parity -- one loss and backward of full-width gemma-2b in fp32,
               through the kernels and through the plain versions on the
               card: loss within 1e-5 relative, every gradient leaf within
@@ -497,68 +506,104 @@ def check_decode(torch, dtype_name: str):
     return rows
 
 
-def check_prefill(torch, dtype_name: str):
+# B3/B4b's cases: the serving row (gemma-2b's heads, a first chunk and one
+# with a page of history on the 256-key table); in bf16 also chunks at
+# gemma-2b's published 8192-token context (128 pages of 64 a slot,
+# page-aligned starts, no window and gemma3-4b's local window of 1024,
+# configs/archs.py:69), float and int8 pools, and codeqwen1.5-7b's heads
+# (32 kv heads of 128, grp 1, configs/archs.py:102) at the same starts
+PREFILL_SERVE = dict(b=2, c=64, h=8, hkv=1, hd=256, page=64, n_pages=4,
+                     starts=(0, 64), windows=(0, 100))
+PREFILL_LONG = dict(b=4, c=64, h=8, hkv=1, hd=256, page=64, n_pages=128,
+                    starts=(8128, 4992, 1984, 0), windows=(0, 1024))
+PREFILL_QWEN = dict(b=4, c=64, h=32, hkv=32, hd=128, page=64, n_pages=128,
+                    starts=(8128, 4992, 1984, 0), windows=(0,))
+
+
+def prefill_rows(torch, dtype_name: str, shape: dict, int8: bool,
+                 reps: int):
+    """B3 (float pools) or B4b (int8 pools) at one shape and its windows
+    against the plain version, with the route, the split plan and the
+    profiler's device time; each slot's error is also held to its output's
+    size (``slot_rel_err``), and a rerun and each slot alone must give the
+    batch's bits."""
     from repro_torch.core.quant import quantize_pages
-    from repro_torch.kernels.attention import (prefill_attention_cuda,
-                                               prefill_attention_int8_cuda,
-                                               prefill_attention_plain)
+    from repro_torch.kernels.attention.prefill import (
+        prefill_attention_cuda, prefill_attention_int8_cuda,
+        prefill_attention_plain, prefill_route, prefill_split_plan)
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    b, c, h, hkv, hd, page, n_pages = 2, 64, 8, 1, 256, 64, 4
+    b, c, h, hkv, hd, page, n_pages = (shape[k] for k in (
+        "b", "c", "h", "hkv", "hd", "page", "n_pages"))
     kp, vp, table = paged_inputs(torch, dtype, gen, b=b, h=h, hkv=hkv,
                                  hd=hd, page=page, n_pages=n_pages)
     q = torch.randn(b, c, h, hd, generator=gen, device="cuda").to(dtype)
-    st = [0, 64]                    # a first chunk and one with history
+    st = list(shape["starts"])
     starts = torch.tensor(st, dtype=torch.int32, device="cuda")
+    scales, name, kernel, tol = (), "prefill_attention", \
+        prefill_attention_cuda, dtype_name
+    if int8:        # quantized page by page, as the serve runs write them
+        kp, ks = quantize_pages(kp)
+        vp, vs = quantize_pages(vp)
+        scales, name, kernel, tol = (ks, vs), "prefill_attention_int8", \
+            prefill_attention_int8_cuda, "float32"
+    args = (q, kp, vp, table, starts, *scales)
+    route = prefill_route(dtype, hd, h // hkv)
+    split = (list(prefill_split_plan(n_pages, page, hkv, h // hkv, c, hd))
+             if route == "wgmma" else [n_pages * page, 1])
+    case = f"B={b} C={c} H={h} Hkv={hkv} hd={hd} page={page} starts={st}"
     rows = []
-    for window in (0, 100):
-        err = compare(torch, f"prefill window={window}",
-                      prefill_attention_cuda(q, kp, vp, table, starts,
-                                             window=window),
-                      prefill_attention_plain(q, kp, vp, table, starts,
-                                              window=window), dtype_name)
-        # keys each query row sees, and the K/V rows each slot reads
-        seen = sum(min(s + i + 1, window) if window else s + i + 1
-                   for s in st for i in range(c))
-        kv_rows = sum(s + c - (max(0, s - window + 1) if window else 0)
-                      for s in st)
-        size = q.element_size()
-        nbytes = (q.numel() * size + 2 * kv_rows * hkv * hd * size
-                  + table.numel() * 4 + b * 4 + q.numel() * 4)
-        rows.append(row(
-            "prefill_attention",
-            f"B={b} C={c} H={h} Hkv={hkv} hd={hd} page={page} starts={st} "
-            f"window={window}", dtype_name, err,
-            time_ms(torch, lambda: prefill_attention_cuda(
-                q, kp, vp, table, starts, window=window), 20),
-            time_ms(torch, lambda: prefill_attention_plain(
-                q, kp, vp, table, starts, window=window), 20),
-            bound(nbytes, 4.0 * hd * h * seen, dtype_name)))
-    kq, ks = quantize_pages(kp)
-    vq, vs = quantize_pages(vp)
-    for window in (0, 100):
-        args = (q, kq, vq, table, starts, ks, vs)
-        err = compare(torch, f"prefill int8 window={window}",
-                      prefill_attention_int8_cuda(*args, window=window),
-                      prefill_attention_plain(*args, window=window),
-                      "float32")
+    for window in shape["windows"]:
+        label = f"{name} {case} window={window}"
+
+        def call():
+            return kernel(*args, window=window)
+        before = kernel.routes[route]
+        out = call()
+        if kernel.routes[route] != before + 1:
+            raise AssertionError(f"{label}: not on the {route} route")
+        want = prefill_attention_plain(*args, window=window)
+        err = compare(torch, label, out, want, tol)
+        rel = slot_rel_err(torch, label, out, want)
+        alone = [kernel(q[i:i + 1], kp, vp, table[i:i + 1], starts[i:i + 1],
+                        *scales, window=window) for i in range(b)]
+        if not torch.equal(call(), out) or not all(
+                torch.equal(one, out[i:i + 1]) for i, one in enumerate(alone)):
+            raise AssertionError(f"{label}: a rerun or a slot alone changed "
+                                 f"bits")
+        # keys each query row sees, and the K/V rows and pages each slot
+        # reads
         seen = sum(min(s + i + 1, window) if window else s + i + 1
                    for s in st for i in range(c))
         lo = [max(0, s - window + 1) if window else 0 for s in st]
-        kv_rows = sum(s + c - l for s, l in zip(st, lo))
-        pages = sum(-(-(s + c) // page) - l // page for s, l in zip(st, lo))
-        nbytes = (q.numel() * q.element_size() + 2 * kv_rows * hkv * hd
-                  + 2 * pages * hkv * 4 + table.numel() * 4 + b * 4
-                  + q.numel() * 4)
+        kv_rows = sum(s + c - k for s, k in zip(st, lo))
+        pages = sum(-(-(s + c) // page) - k // page for s, k in zip(st, lo))
+        elem = 1 if int8 else q.element_size()
+        nbytes = (q.numel() * q.element_size() + 2 * kv_rows * hkv * hd * elem
+                  + (2 * pages * hkv * 4 if int8 else 0)
+                  + table.numel() * 4 + b * 4 + q.numel() * 4)
         rows.append(row(
-            "prefill_attention_int8",
-            f"B={b} C={c} H={h} Hkv={hkv} hd={hd} page={page} starts={st} "
-            f"window={window} int8 pools", dtype_name, err,
-            time_ms(torch, lambda: prefill_attention_int8_cuda(
-                *args, window=window), 20),
+            name, f"{case} window={window}" + (" int8 pools" if int8
+                                               else ""),
+            dtype_name, err, time_ms(torch, call, reps),
             time_ms(torch, lambda: prefill_attention_plain(
-                *args, window=window), 20),
-            bound(nbytes, 4.0 * hd * h * seen, dtype_name)))
+                *args, window=window), reps),
+            bound(nbytes, 4.0 * hd * h * seen, dtype_name),
+            device_ms=device_ms(torch, call, 20), route=route, split=split,
+            slot_rel_err=rel))
+    del kp, vp, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_prefill(torch, dtype_name: str):
+    rows = []
+    for int8 in (False, True):
+        rows += prefill_rows(torch, dtype_name, PREFILL_SERVE, int8, 20)
+    if dtype_name == "bfloat16":
+        for int8 in (False, True):
+            rows += prefill_rows(torch, dtype_name, PREFILL_LONG, int8, 10)
+        rows += prefill_rows(torch, dtype_name, PREFILL_QWEN, False, 10)
     return rows
 
 
@@ -1020,6 +1065,8 @@ def serve_run(torch, label, argv, path):
     rep = serve.main(argv)
     torch.cuda.synchronize()
     launches = dispatch.launch_counts()
+    prefill_routes = {k: n for k, n in dispatch.route_counts().items()
+                      if k.startswith("prefill_attention")}
     streams = {r.rid: list(r.out) for r in rep["done"]}
     emit({"phase": "serve", "run": label,
           "requests": len(rep["done"]), "new_tokens": rep["new_tokens"],
@@ -1029,7 +1076,8 @@ def serve_run(torch, label, argv, path):
           "max_resident_kv_bytes": rep["max_resident_kv_bytes"],
           "routes": {f"{op}/{route}": n
                      for (op, route), n in rep["routes"].items()},
-          "launches": launches, "streams": streams})
+          "launches": launches, "prefill_routes": prefill_routes,
+          "streams": streams})
     plain = {k: n for k, n in rep["routes"].items() if k[1] == "plain"}
     if plain:
         raise AssertionError(f"{label}: plain routes on the card: {plain}")
@@ -1037,6 +1085,13 @@ def serve_run(torch, label, argv, path):
     if wrong:
         raise AssertionError(f"{label}: launches off the expected path "
                              f"{path}: {launches}")
+    # bf16 at gemma-2b's heads: every prefill call on the wgmma route
+    want = {f"{op}/{route}": launches[op] if route == "wgmma" else 0
+            for op in ("prefill_attention", "prefill_attention_int8")
+            for route in ("wgmma", "simt")}
+    if prefill_routes != want:
+        raise AssertionError(f"{label}: prefill routes {prefill_routes}, "
+                             f"expected {want}")
     return rep, streams, launches
 
 
@@ -1191,7 +1246,8 @@ def train_phase(torch):
              "--ckpt-dir", str(ckpt_dir)], report=report)
         torch.cuda.synchronize()
         launches = dispatch.launch_counts()
-        flash_routes = dispatch.route_counts()
+        flash_routes = {k: n for k, n in dispatch.route_counts().items()
+                        if k.startswith("flash_attention")}
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1246,7 +1302,9 @@ KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("flash_dkv_kernel", "B7 dK/dV sweep (SIMT)"),
                  ("decode_split_kernel", "B2/B4a decode attention"),
                  ("decode_combine_kernel", "B2/B4a decode attention"),
-                 ("prefill_kernel", "B3/B4b prefill attention"))
+                 ("prefill_wgmma_kernel", "B3/B4b prefill attention"),
+                 ("prefill_combine_kernel", "B3/B4b prefill attention"),
+                 ("prefill_simt_kernel", "B3/B4b prefill attention"))
 OTHER_GROUP = "other (PyTorch ops)"
 # what the bf16 train step's attention must run on (gemma-2b: hd = 256)
 TRAIN_WGMMA_GROUPS = ("B6 flash forward bf16 (wgmma)",
@@ -1315,6 +1373,7 @@ def train_profile(torch):
 
 
 DECODE_RANGE = "chip_smoke.decode_step"
+PREFILL_RANGE = "chip_smoke.prefill_call"
 
 
 # the serve runs profiled after phase 3: its continuous float and int8 +
@@ -1323,39 +1382,18 @@ PROFILED_SERVE_RUNS = (("float continuous", []),
                        ("int8+prefix continuous", INT8_ARGS + PREFIX_ARGS))
 
 
-def serve_profile(torch, label: str, extra: list):
-    """Where the decode steps of a continuous serve run spend the card's
-    time: phase 3's continuous run with ``extra`` arguments again under
-    ``torch.profiler``, with each ``StepExecutor.decode`` call (host work,
-    launches and the argmax read) marked as a range.  Device time by
-    kernel group sums the kernels that start inside those ranges; the
-    idle share is the part of the ranges with no kernel running.  If the
-    profiler sees no device time, says so instead of failing."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.launch import engine, serve
-    decode = engine.StepExecutor.decode
-
-    def marked(self, *args, **kwargs):
-        with record_function(DECODE_RANGE):
-            return decode(self, *args, **kwargs)
-
-    with mock.patch.object(engine.StepExecutor, "decode", marked):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            rep = serve.main(SERVE_ARGS + extra + ["--schedule", "continuous",
-                                                   "--clock", "tick"])
-            torch.cuda.synchronize()
-    events = prof.events()
+def range_breakdown(torch, events, name: str):
+    """Device time by kernel group of the kernels that start inside the
+    host ranges ``name`` marks: (ranges, their ms, ms by group, ms by
+    kernel of the other group).  The profiler also mirrors each range onto
+    the device's timeline as an annotation, which is no kernel."""
     cuda_t = torch.autograd.DeviceType.CUDA
-    # the marked ranges on the host; the profiler also mirrors each range
-    # onto the device's timeline as an annotation, which is no kernel
     windows = sorted((e.time_range.start, e.time_range.end) for e in events
-                     if e.name == DECODE_RANGE and e.device_type != cuda_t)
+                     if e.name == name and e.device_type != cuda_t)
     starts = [w[0] for w in windows]
     groups, other = {}, {}
     for e in events:
-        if e.device_type != cuda_t or e.name == DECODE_RANGE:
+        if e.device_type != cuda_t or e.name.startswith("chip_smoke."):
             continue
         i = bisect.bisect_right(starts, e.time_range.start) - 1
         if i < 0 or e.time_range.start > windows[i][1]:
@@ -1366,20 +1404,58 @@ def serve_profile(torch, label: str, extra: list):
         if group == OTHER_GROUP:
             other[e.name[:90]] = other.get(e.name[:90], 0.0) + ms
     window_ms = sum(end - start for start, end in windows) / 1e3
-    busy = sum(groups.values())
-    steps = len(windows)
-    emit({"phase": "serve_profile", "run": label,
-          "decode_steps": steps, "decode_window_ms": window_ms,
-          "window_ms_per_step": window_ms / steps if steps else None,
-          "phases": rep["phases"],
-          "device_ms_per_step": ({g: ms / steps for g, ms in groups.items()}
-                                 if busy and steps else "not measured"),
-          "device_busy_ms": busy if busy else None,
-          "device_busy_ms_per_step": busy / steps if busy and steps else None,
-          "idle_share": 1 - busy / window_ms if busy and window_ms else None,
-          "new_tokens": rep["new_tokens"],
-          "top_other": [{"ms": ms, "kernel": name} for name, ms in sorted(
-              other.items(), key=lambda kv: -kv[1])[:8]]})
+    return len(windows), window_ms, groups, other
+
+
+def serve_profile(torch, label: str, extra: list):
+    """Where the decode steps and the prefill calls of a continuous serve
+    run spend the card's time: phase 3's continuous run with ``extra``
+    arguments again under ``torch.profiler``, with each
+    ``StepExecutor.decode`` and each ``StepExecutor.prefill`` call (host
+    work, launches and the argmax read) marked as a range.  Device time by
+    kernel group sums the kernels that start inside those ranges; the idle
+    share is the part of the ranges with no kernel running.  If the
+    profiler sees no device time, says so instead of failing."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import engine, serve
+
+    def marked(method, name):
+        def run(self, *args, **kwargs):
+            with record_function(name):
+                return method(self, *args, **kwargs)
+        return run
+
+    ex = engine.StepExecutor
+    with mock.patch.object(ex, "decode", marked(ex.decode, DECODE_RANGE)), \
+            mock.patch.object(ex, "prefill",
+                              marked(ex.prefill, PREFILL_RANGE)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rep = serve.main(SERVE_ARGS + extra + ["--schedule", "continuous",
+                                                   "--clock", "tick"])
+            torch.cuda.synchronize()
+    events = prof.events()
+    line = {"phase": "serve_profile", "run": label, "phases": rep["phases"],
+            "new_tokens": rep["new_tokens"]}
+    for key, name in (("decode", DECODE_RANGE), ("prefill", PREFILL_RANGE)):
+        n, window_ms, groups, other = range_breakdown(torch, events, name)
+        busy = sum(groups.values())
+        unit = "step" if key == "decode" else "call"
+        line.update({
+            f"{key}_{unit}s": n, f"{key}_window_ms": window_ms,
+            f"{key}_window_ms_per_{unit}": window_ms / n if n else None,
+            f"{key}_device_ms_per_{unit}": (
+                {g: ms / n for g, ms in groups.items()} if busy and n
+                else "not measured"),
+            f"{key}_device_busy_ms": busy if busy else None,
+            f"{key}_device_busy_ms_per_{unit}": busy / n if busy and n
+            else None,
+            f"{key}_idle_share": 1 - busy / window_ms if busy and window_ms
+            else None,
+            f"{key}_top_other": [{"ms": ms, "kernel": k} for k, ms in sorted(
+                other.items(), key=lambda kv: -kv[1])[:8]]})
+    emit(line)
 
 
 # ------------------------------------------------------------ phase 6

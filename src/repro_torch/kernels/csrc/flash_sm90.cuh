@@ -1,5 +1,6 @@
 // Hopper building blocks of the bf16 flash attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu), beside B1's in
+// (flash_attention.cu, flash_attention_bwd.cu) and of the paged prefill
+// kernel's wgmma route (prefill_attention.cu), beside B1's in
 // matmul_sm90.cuh (mbarriers, TMA, descriptors, fences).
 //
 // Tiles.  q, k, v (and the backward's bf16 halves of dO) are read as 3-D
@@ -40,6 +41,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 4-D tile at element coordinates (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

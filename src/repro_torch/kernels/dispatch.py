@@ -9,8 +9,10 @@ take; there is no fallback).  Each call ticks an ``(op, route)`` counter,
 route "kernel" or "plain", so a run can show which path it took;
 ``stats_scope`` isolates the counters for a probe.  Every kernel wrapper
 also counts its launches (``launch_counts``); the flash forward and
-backward, which have two CUDA routes (``wgmma`` and ``simt``, chosen by
-dtype and head width), count them by route too (``route_counts``).
+backward and the paged prefill (float and int8 pools), which have two
+CUDA routes (``wgmma`` and ``simt``, chosen by dtype and head width, and
+for the prefill the GQA group), count them by route too
+(``route_counts``).
 
 ``matmul`` and ``attention`` are ``torch.autograd.Function``s: their
 backwards route by the device of the incoming gradient in the same way
@@ -90,7 +92,8 @@ def reset_launch_counts() -> None:
 
 def route_counts() -> Dict[str, int]:
     """Launches by route (``op/route``) of the kernels that have more than
-    one (the flash forward and backward: ``wgmma`` and ``simt``)."""
+    one (the flash forward and backward and the paged prefill: ``wgmma``
+    and ``simt``)."""
     return {f"{op}/{route}": n for op, fn in KERNELS.items()
             for route, n in getattr(fn, "routes", {}).items()}
 

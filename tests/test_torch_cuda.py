@@ -10,7 +10,9 @@ machine that has only PyTorch:
 Small shapes cover what the full-width chip_smoke.py does not: ragged
 GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots, for
 the float kernels and for the int8 ones (the int8-weight GEMM and the
-int8 branches of the attention kernels), and the flash forward and its
+int8 branches of the attention kernels); the paged prefill's wgmma route
+at full width over page sizes and split boundaries, with batch
+invariance and route counts; the flash forward and its
 fused backward at ragged sequence lengths, windows and head widths up to
 gemma's 256, with their autograd routes; and the kernel library's WKV,
 Jacobi stencil, N-body and histogram at ragged chunks, grids, particle
@@ -301,6 +303,116 @@ def test_prefill_int8_kernel_matches_plain(card, dtype, grp, window):
                                       window=window)
     _close(out, prefill_attention_plain(q, kq, vq, table, starts, ks, vs,
                                         window=window), torch.float32)
+
+
+# wgmma-route prefill shapes (hd, grp, hkv, page, n_pages): gemma-2b's heads
+# (grp 8 over one kv head, hd 256, page 64), codeqwen1.5-7b-like grp 1 at
+# hd 128 over 4 kv heads, hd 64 with pages of 16 (four boxes a 64-key
+# tile), pages of 4 (copied, not boxes: not a multiple of 8) and of 128
+# (two tiles a page); each table long enough for several splits
+PREFILL_WGMMA_SHAPES = [(256, 8, 1, 64, 40), (128, 1, 4, 64, 40),
+                        (64, 4, 2, 16, 160), (64, 8, 1, 4, 600),
+                        (128, 2, 2, 128, 20)]
+
+
+def _wgmma_prefill(card, int8, shape, *, c=64, seed=4):
+    """bf16 prefill on the wgmma route over 5 slots whose starts cross the
+    split plan's boundaries: 0, one split, one page past it, a ragged start
+    just before it, and the table's last chunk.  Returns the call's
+    arguments, the wrapper and the tolerance's dtype."""
+    from repro_torch.kernels.attention.prefill import (prefill_route,
+                                                       prefill_split_plan)
+    hd, grp, hkv, page, n_pages = shape
+    assert prefill_route(torch.bfloat16, hd, grp) == "wgmma"
+    gen, kp, vp, table = _pools(torch.float32 if int8 else torch.bfloat16,
+                                card, slots=5, h=grp * hkv, hkv=hkv, hd=hd,
+                                page=page, n_pages=n_pages, seed=seed)
+    q = torch.randn(5, c, grp * hkv, hd, generator=gen,
+                    device=card).to(torch.bfloat16)
+    keys, splits = prefill_split_plan(n_pages, page, hkv, grp, c, hd)
+    assert splits > 1
+    starts = torch.tensor([0, keys, keys + page, keys - 37,
+                           n_pages * page - c], dtype=torch.int32,
+                          device=card)
+    if int8:
+        kq, vq, ks, vs = _int8(kp, vp)
+        return (q, kq, vq, table, starts, ks, vs), \
+            prefill_attention_int8_cuda, torch.float32
+    return (q, kp, vp, table, starts), prefill_attention_cuda, torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", PREFILL_WGMMA_SHAPES,
+                         ids=lambda s: "hd{}-grp{}-hkv{}-page{}".format(*s))
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("window", [0, 200])
+def test_prefill_wgmma_route_matches_plain(card, shape, int8, window):
+    """The wgmma route (float pools: P rounded to bf16; int8 pools: P as
+    bf16 hi + lo) against the plain version, absolutely and slot by slot
+    (each slot's max |err| within 1e-2 of its max |output|); the call
+    counts one launch, on the wgmma route."""
+    args, kernel, tol = _wgmma_prefill(card, int8, shape)
+    before = dict(kernel.routes)
+    out = kernel(*args, window=window)
+    want = prefill_attention_plain(*args, window=window)
+    _close(out, want, tol)
+    _slots_close(out, want)
+    assert kernel.routes == {"wgmma": before["wgmma"] + 1,
+                             "simt": before["simt"]}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_prefill_wgmma_route_is_batch_invariant_and_deterministic(card,
+                                                                  int8):
+    """At gemma-2b's heads: a slot's output equals, bit for bit, its row in
+    the batch, alone and in another order; a rerun gives the same bits."""
+    args, kernel, _ = _wgmma_prefill(card, int8, PREFILL_WGMMA_SHAPES[0])
+    for window in (0, 200):
+        out = kernel(*args, window=window)
+        assert torch.equal(kernel(*args, window=window), out)
+        for i in range(5):
+            assert torch.equal(kernel(*_slot(args, slice(i, i + 1)),
+                                      window=window), out[i:i + 1])
+        order = torch.tensor([4, 2, 0, 3, 1], device=card)
+        assert torch.equal(kernel(*_slot(args, order), window=window),
+                           out[order])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_prefill_small_shapes_take_the_simt_route(card, int8):
+    """The small-shape tests' heads (hd 32) and fp32 q take the simt route;
+    bf16 at gemma's heads the wgmma route; one launch a call either way."""
+    kernel = prefill_attention_int8_cuda if int8 else prefill_attention_cuda
+    for dtype, hd, route in ((torch.bfloat16, 32, "simt"),
+                             (torch.float32, 256, "simt"),
+                             (torch.bfloat16, 256, "wgmma")):
+        gen, kp, vp, table = _pools(torch.float32 if int8 else dtype, card,
+                                    slots=2, h=8, hkv=1, hd=hd, page=8,
+                                    n_pages=6)
+        q = torch.randn(2, 8, 8, hd, generator=gen, device=card).to(dtype)
+        starts = torch.tensor([0, 40], dtype=torch.int32, device=card)
+        args = (q, kp, vp, table, starts)
+        tol = dtype
+        if int8:
+            kq, vq, ks, vs = _int8(kp, vp)
+            args, tol = (q, kq, vq, table, starts, ks, vs), torch.float32
+        dispatch.reset_launch_counts()
+        out = kernel(*args)
+        _close(out, prefill_attention_plain(*args), tol)
+        assert kernel.launches == 1
+        assert kernel.routes == {route: 1,
+                                 "simt" if route == "wgmma" else "wgmma": 0}
+
+
+def test_prefill_wgmma_route_rejects_misaligned_inputs(card):
+    """q or a pool whose data does not start on a 16-byte boundary (what
+    TMA reads) raises on the wgmma route before any launch."""
+    args, kernel, _ = _wgmma_prefill(card, False, PREFILL_WGMMA_SHAPES[0])
+    q, kp, vp, table, starts = args
+    before = kernel.launches
+    for bad in ((_misaligned(q), kp, vp), (q, _misaligned(kp), vp)):
+        with pytest.raises(ValueError, match="16-byte"):
+            kernel(*bad, table, starts)
+    assert kernel.launches == before
 
 
 def _gemma_decode(card, dtype, int8, *, seed=3, n_pages=10):
@@ -596,7 +708,10 @@ def test_flash_calls_take_the_route_of_dtype_and_head_width(card, dtype, hd,
     assert dispatch.route_counts() == {
         f"flash_attention/{route}": 1, f"flash_attention/{other}": 0,
         f"flash_attention_bwd/{route}": 1,
-        f"flash_attention_bwd/{other}": 0}
+        f"flash_attention_bwd/{other}": 0,
+        **{f"{op}/{r}": 0 for op in ("prefill_attention",
+                                     "prefill_attention_int8")
+           for r in ("wgmma", "simt")}}
     assert dispatch.launch_counts()["flash_attention"] == 1
     assert dispatch.launch_counts()["flash_attention_bwd"] == 1
 

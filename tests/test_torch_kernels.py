@@ -8,6 +8,7 @@ kernels themselves run only on the card (tests/test_torch_cuda.py); here
 the wrappers must refuse CPU tensors and dispatch must route CPU tensors
 to the plain versions.
 """
+import math
 import shutil
 
 import numpy as np
@@ -243,6 +244,93 @@ def test_decode_split_plan_is_one_for_static_and_continuous_serving(
                     schedule, "--clock", "tick", "--device", "cpu", *extra])
         seen[schedule] = set(plans)
     assert seen["static"] == seen["continuous"] == {(64, 3)}
+
+
+@pytest.mark.parametrize("n_pages,page,hkv,grp,c,hd", [
+    (4, 64, 1, 8, 64, 256), (128, 64, 1, 8, 64, 256),
+    (128, 64, 32, 1, 64, 128), (160, 16, 2, 4, 64, 64),
+    (600, 4, 1, 8, 64, 64), (20, 128, 2, 2, 64, 128), (7, 100, 2, 4, 16, 128),
+    (1, 8, 1, 1, 8, 256), (0, 64, 1, 8, 64, 256), (3000, 3, 4, 16, 32, 128),
+    (300000, 1, 1, 1, 64, 256), (5000, 2, 1, 2, 16, 64)])
+def test_prefill_split_plan_covers_the_table_in_whole_pages(
+        n_pages, page, hkv, grp, c, hd):
+    """B3/B4b's splits on the wgmma route tile the table's keys in order,
+    each a whole number of pages and of 64-key tiles, none of them empty,
+    and the last one reaching the end."""
+    from repro_torch.kernels.attention import prefill as pre
+    keys, splits = pre.prefill_split_plan(n_pages, page, hkv, grp, c, hd)
+    assert splits >= 1 and keys > 0 and keys % page == 0 and keys % 64 == 0
+    # whole pages and tiles, at most one unit past the longest split
+    # wanted, and a page list that fits beside the tiles
+    assert keys - math.lcm(page, 64) < pre.MAX_SPLIT_KEYS
+    assert keys - math.lcm(page, 64) < pre.MAX_SPLIT_PAGES * page
+    total = n_pages * page
+    spans = [(r * keys, min(total, (r + 1) * keys)) for r in range(splits)]
+    assert spans[-1][1] == total or (total == 0 and splits == 1)
+    assert all(lo < hi for lo, hi in spans) or total == 0
+    for (_, hi), (lo, _) in zip(spans, spans[1:]):
+        assert hi == lo
+
+
+def test_prefill_split_plan_depends_on_shapes_only():
+    """The plan takes the table's, the pools' and the chunk's shapes and
+    nothing of the batch or the starts; pinned at the serving table (one
+    split), gemma-2b's 8192-token context and codeqwen1.5-7b's 32 kv heads
+    there (the values PERF.md measured)."""
+    import inspect
+
+    from repro_torch.kernels.attention import prefill as pre
+    assert list(inspect.signature(pre.prefill_split_plan).parameters) == [
+        "n_pages", "page", "hkv", "grp", "c", "hd"]
+    assert pre.prefill_split_plan(4, 64, 1, 8, 64, 256) == (512, 1)
+    assert pre.prefill_split_plan(128, 64, 1, 8, 64, 256) == (512, 16)
+    assert pre.prefill_split_plan(128, 64, 32, 1, 64, 128) == (4096, 2)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_prefill_split_plan_is_one_for_static_and_continuous_serving(
+        monkeypatch, int8):
+    """The serve run's prefill calls take (B, page) chunks over (B,
+    max_len / page) tables under either schedule (B = 1 static, up to the
+    slots continuous), so every prefill call of both runs takes one plan
+    and a slot's bits cannot depend on which slots share its call."""
+    from repro_torch.kernels.attention import prefill as pre
+    from repro_torch.launch import serve
+    plain, plans, batches = dispatch.prefill_attention_plain, set(), set()
+
+    def recording(q, k_pages, v_pages, table, starts, *scales, window=0):
+        b, c, h, hd = q.shape
+        hkv = k_pages.shape[2]
+        plans.add(pre.prefill_split_plan(table.shape[1], k_pages.shape[1],
+                                         hkv, h // hkv, c, hd))
+        batches.add(b)
+        return plain(q, k_pages, v_pages, table, starts, *scales,
+                     window=window)
+
+    monkeypatch.setattr(dispatch, "prefill_attention_plain", recording)
+    extra = ["--kv-dtype", "int8", "--weights-dtype", "int8"] if int8 else []
+    seen = {}
+    for schedule in ("static", "continuous"):
+        plans.clear()
+        serve.main(["--arch", "gemma-2b", "--smoke", "--slots", "2",
+                    "--requests", "3", "--prompt-len", "6", "--max-new", "3",
+                    "--max-len", "160", "--page-size", "4", "--schedule",
+                    schedule, "--clock", "tick", "--device", "cpu", *extra])
+        seen[schedule] = set(plans)
+    assert len(seen["static"]) == 1 and seen["static"] == seen["continuous"]
+    assert batches == {1, 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256, 512])
+@pytest.mark.parametrize("grp", [1, 2, 3, 4, 8, 16, 64, 128])
+def test_prefill_route_is_wgmma_exactly_for_bf16_tiles(dtype, hd, grp):
+    """The wgmma route takes bf16 q at the head widths it is built for
+    (64, 128, 256) where 64-row tiles hold whole tokens (grp divides 64);
+    everything else runs on the simt route."""
+    from repro_torch.kernels.attention.prefill import prefill_route
+    want = dtype == torch.bfloat16 and hd in (64, 128, 256) and 64 % grp == 0
+    assert prefill_route(dtype, hd, grp) == ("wgmma" if want else "simt")
 
 
 def test_matmul_operand_checks():
@@ -679,5 +767,7 @@ def test_route_counts_reset_with_the_launch_counts():
     assert dispatch.route_counts()["flash_attention/wgmma"] >= 2
     dispatch.reset_launch_counts()
     assert dispatch.route_counts() == {
-        f"{op}/{route}": 0 for op in ("flash_attention", "flash_attention_bwd")
+        f"{op}/{route}": 0 for op in ("prefill_attention",
+                                      "prefill_attention_int8",
+                                      "flash_attention", "flash_attention_bwd")
         for route in ("wgmma", "simt")}

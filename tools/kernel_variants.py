@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Variants of the int8-weight GEMM (B5), the histogram (B11) and the paged
-decode attention (B2/B4a) on one NVIDIA GPU: the measurements behind the
-choices PERF.md records for them.
+decode (B2/B4a) and prefill (B3/B4b) attention on one NVIDIA GPU: the
+measurements behind the choices PERF.md records for them.
 
     python3 tools/kernel_variants.py [--out rows.json] [--baseline DIR]
 
@@ -36,8 +36,22 @@ called through its C entry with ctypes.  One JSON line per measurement:
   5e-2, int8 pools 2e-4) and their slot-relative error (chip_smoke's
   limit: 1e-2).
 
+- prefill: B3 (bf16 pools) and B4b (int8 pools, bf16 q) on the wgmma
+  route at chip_smoke.py's rows (the serving row, chunks of gemma-2b's
+  8192-token context with and without a window of 1024, codeqwen1.5-7b's
+  heads): every split size of ``PREFILL_SPLITS`` through the shipped
+  library; at the plan's split a copy with one warpgroup a block
+  (``prefill_wgs1``) and copies without the products and softmax,
+  without the K/V loads, and without the exponentials
+  (``prefill_strip_*``, timing
+  only); with ``--baseline DIR`` also that commit's prefill kernel
+  through its own C entries; and whether a copy that drops the lo half
+  of P (``prefill_mutant_no_lo``, int8 pools: P as bf16 alone) passes the
+  absolute check and its slot-relative error.
+
 Times are the profiler's device time per call (``device_ms``; CUDA events
 read the host's launch pace below ~0.1 ms) and, for B11, CUDA events too.
+``--only`` runs some of the sections (hist, b5, decode, host, prefill).
 Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -120,6 +134,34 @@ VARIANTS.update({
          """      f[2 * i + 1] = __uint_as_float(w[i] << 16);
       f[2 * i] = __uint_as_float(w[i] & 0xffff0000u);""")]),
 })
+VARIANTS.update({
+    # int8 pools with P as one bf16 (never timed): the error hi + lo avoids
+    "prefill_mutant_no_lo": ("prefill_attention.cu", [
+        ("prefill_attention.cu",
+         "            sm90::wgmma_rs<HD>(o, alo[kk], "
+         "sm90::desc_mnmajor(vt, WK, kk));\n", "")]),
+    # timing only (their results are wrong): the K/V ring without the
+    # products and softmax, the products and softmax on whatever the
+    # tiles hold without their loads, and the softmax without its
+    # exponentials
+    "prefill_strip_products": ("prefill_attention.cu", [
+        ("prefill_attention.cu",
+         "const bool active = nw > 0 && key0 < kwe && key0 + WK > kw;",
+         "const bool active = nt < 0;")]),
+    "prefill_strip_loads": ("prefill_attention.cu", [
+        ("prefill_attention.cu",
+         "      sm90::mbar_arrive_expect_tx(&full[s], L::STAGE);\n"
+         "      for (int j = 0; j < WK / a.box; ++j) {",
+         "      sm90::mbar_arrive(&full[s]);\n"
+         "      for (int j = 0; j < 0; ++j) {")]),
+    "prefill_wgs1": ("prefill_attention.cu", [
+        ("prefill_attention.cu", "constexpr int WGS = 2;",
+         "constexpr int WGS = 1;")]),
+    "prefill_strip_exp": ("prefill_attention.cu", [
+        ("prefill_attention.cu",
+         "? fast_exp2(sc[i] - ((i & 2) ? mn1 : mn0))",
+         "? sc[i] - ((i & 2) ? mn1 : mn0)")]),
+})
 WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 # (label, heads, kv heads, head width, pages of 64 a slot, lengths)
 DECODE_CASES = (("serve", 8, 1, 256, 4, (0, 65, 117, 256)),
@@ -128,11 +170,22 @@ DECODE_CASES = (("serve", 8, 1, 256, 4, (0, 65, 117, 256)),
                 ("kv8", 64, 8, 128, 128, (8192, 5000, 2049, 1)),
                 ("kv16", 16, 16, 128, 128, (8192, 5000, 2049, 1)))
 DECODE_SPLITS = (64, 128, 256, 512, 1024, 2048)
-# the C entries of the decode kernel before it split the key range
+# (label, batch, heads, kv heads, head width, pages of 64 a slot, starts,
+# windows): chip_smoke.py's prefill rows
+PREFILL_CASES = (("serve", 8, 1, 256, 4, (0, 64), (0,)),
+                 ("long", 8, 1, 256, 128, (8128, 4992, 1984, 0), (0, 1024)),
+                 ("qwen", 32, 32, 128, 128, (8128, 4992, 1984, 0), (0,)))
+PREFILL_SPLITS = (256, 512, 1024, 2048, 4096, 8192)
+# the C entries of the decode and prefill kernels of an earlier commit
+# (before they split the key range)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 BASELINE_SIGNATURES = {"repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
                        "repro_decode_attention_int8":
-                           [_P] * 8 + [_I] * 9 + [_P]}
+                           [_P] * 8 + [_I] * 9 + [_P],
+                       "repro_prefill_attention": [_P] * 6 + [_I] * 10 + [_P],
+                       "repro_prefill_attention_int8":
+                           [_P] * 8 + [_I] * 10 + [_P]}
+SECTIONS = ("hist", "b5", "decode", "host", "prefill")
 HIST_N, HIST_BINS = 1 << 26, 1 << 20
 
 
@@ -172,14 +225,16 @@ def entry(so: Path, name: str, cuda):
 
 
 def build_baseline(checkout: Path, cuda) -> ctypes.CDLL:
-    """The decode kernel of an earlier commit's checkout, with its own C
+    """The decode and prefill kernels of an earlier commit's checkout (one
+    block per slot and kv head, or per 32-row tile), with their own C
     entries (no scratch, no split plan)."""
     src = checkout / "src" / "repro_torch" / "kernels" / "csrc"
-    so = OUT_DIR / "decode_baseline" / "lib.so"
+    so = OUT_DIR / "baseline" / "lib.so"
     so.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [cuda._nvcc(), *cuda.NVCC_FLAGS, "-shared",
-         str(src / "decode_attention.cu"), "-o", str(so)],
+         str(src / "decode_attention.cu"), str(src / "prefill_attention.cu"),
+         "-o", str(so)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for the baseline:\n{proc.stdout}")
@@ -390,6 +445,105 @@ def decode_rows(torch, cuda, libs, baseline) -> list:
     return rows
 
 
+def prefill_rows(torch, cuda, libs, baseline) -> list:
+    from repro_torch.core.quant import quantize_pages
+    from repro_torch.kernels.attention.prefill import (
+        ROUTES, prefill_attention_plain, prefill_split_plan)
+    page, c, rows = 64, 64, []
+    for label, h, hkv, hd, n_pages, st, windows in PREFILL_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        b, pool = len(st), 1 + len(st) * n_pages
+        kp, vp = (torch.randn(pool, page, hkv, hd, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        table = (torch.randperm(pool - 1, generator=gen, device="cuda") + 1)[
+            :b * n_pages].reshape(b, n_pages).to(torch.int32)
+        q = torch.randn(b, c, h, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        starts = torch.tensor(st, dtype=torch.int32, device="cuda")
+        plan = prefill_split_plan(n_pages, page, hkv, h // hkv, c, hd)
+        for int8 in (False, True):
+            scales = ()
+            if int8:
+                kq, ks = quantize_pages(kp)
+                vq, vs = quantize_pages(vp)
+                pools, scales = (kq, vq), (ks, vs)
+            else:
+                pools = (kp, vp)
+            name = "repro_prefill_attention" + ("_int8" if int8 else "")
+            for window in windows:
+                want = prefill_attention_plain(q, *pools, table, starts,
+                                               *scales, window=window)
+                r = {"kernel": "prefill_attention" + ("_int8" if int8
+                                                      else ""),
+                     "case": f"{label} B={b} C={c} H={h} Hkv={hkv} hd={hd} "
+                             f"starts={list(st)} window={window}",
+                     "plan": list(plan), "split_device_ms": {},
+                     "variant_device_ms": {}, "strip_device_ms": {},
+                     "mutants": {}}
+                runs = [("shipped", libs["shipped"], k)
+                        for k in PREFILL_SPLITS if k <= n_pages * page]
+                # the lo half exists for int8 pools only
+                runs += [(n, lib, plan[0]) for n, lib in libs.items()
+                         if n != "shipped" and (int8 or "mutant" not in n)]
+                for variant, lib, keys in runs:
+                    splits = -(-n_pages * page // keys)
+                    buf = torch.empty(q.numel() + b * c * h * splits
+                                      * (hd + 2), device="cuda")
+                    out = buf[:q.numel()].view(q.shape)
+
+                    def call():
+                        ptrs = [t.data_ptr() for t in (q, *pools, *scales,
+                                                       table, starts, out)]
+                        rc = getattr(lib, name)(
+                            *ptrs, buf.data_ptr() + 4 * q.numel(), b, c, h,
+                            hkv, hd, page, n_pages, pool, window, keys,
+                            splits, ROUTES["wgmma"], cuda.dtype_code(q),
+                            cuda.stream_of(q))
+                        if rc:
+                            raise RuntimeError(f"{variant}: CUDA error {rc}")
+                    call()
+                    torch.cuda.synchronize()
+                    tol = 2e-4 if int8 else 5e-2
+                    abs_ok = bool(((out - want).abs()
+                                   <= tol * (1 + want.abs())).all())
+                    err = (out - want).abs().flatten(1).amax(1)
+                    rel = (err / want.abs().flatten(1).amax(1)).max().item()
+                    if "mutant" in variant:
+                        r["mutants"][variant] = {
+                            "abs_check": abs_ok, "slot_rel_err": rel,
+                            "max_abs_err": (out - want).abs().max().item()}
+                        continue
+                    if "strip" in variant:
+                        r["strip_device_ms"][variant] = device_ms(torch, call)
+                        continue
+                    if not abs_ok or rel > 1e-2:
+                        raise AssertionError(f"prefill {variant} S={keys}")
+                    if variant != "shipped":
+                        r["variant_device_ms"][variant] = device_ms(torch,
+                                                                    call)
+                        continue
+                    if keys == plan[0]:
+                        r["max_abs_err"], r["slot_rel_err"] = \
+                            (out - want).abs().max().item(), rel
+                    r["split_device_ms"][keys] = device_ms(torch, call)
+                if baseline is not None:
+                    out = torch.empty(q.shape, device="cuda")
+                    ptrs = [t.data_ptr() for t in (q, *pools, *scales, table,
+                                                   starts, out)]
+                    old = lambda: getattr(baseline, name)(  # noqa: E731
+                        *ptrs, b, c, h, hkv, hd, page, n_pages, pool, window,
+                        cuda.dtype_code(q), cuda.stream_of(q))
+                    if old():
+                        raise RuntimeError("prefill baseline: CUDA error")
+                    r["baseline_device_ms"] = device_ms(torch, old, 3)
+                emit(r)
+                rows.append(r)
+        del kp, vp
+        torch.cuda.empty_cache()
+    return rows
+
+
 def host_rows(torch) -> list:
     import time
 
@@ -428,8 +582,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the rows here")
     ap.add_argument("--baseline", default="",
                     help="a checkout of an earlier commit whose decode "
-                         "kernel to time beside the variants")
+                         "and prefill kernels to time beside the variants")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections to run, of "
+                         f"{','.join(SECTIONS)}")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"--only: unknown sections {only - set(SECTIONS)}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -440,29 +600,45 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    # the variants of the sections that run (b5_*, hist_*, decode_*, ...)
+    wanted = [v for v in VARIANTS if v.split("_")[0] in only]
     with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
         lib = pool.submit(cuda.library)
-        built = dict(zip(VARIANTS, pool.map(lambda v: build(v, cuda),
-                                            VARIANTS)))
+        built = dict(zip(wanted, pool.map(lambda v: build(v, cuda), wanted)))
         shipped = lib.result()
-    hist = {"none": entry(built["hist_none"], "repro_histogram", cuda),
-            "match": entry(built["hist_match"], "repro_histogram", cuda),
-            "run": shipped.repro_histogram}
-    b5 = {"shipped": shipped.repro_quantized_matmul}
-    b5.update({name: entry(so, "repro_quantized_matmul", cuda)
-               for name, so in built.items() if name.startswith("b5_")})
-    decode = {"shipped": shipped}
-    for name, so in built.items():
-        if name.startswith("decode_"):
-            decode[name] = ctypes.CDLL(str(so))
-            for fn in ("repro_decode_attention",
-                       "repro_decode_attention_int8"):
-                getattr(decode[name], fn).argtypes = cuda.SIGNATURES[fn]
-                getattr(decode[name], fn).restype = ctypes.c_int
+    def libs(prefix, fns):
+        out = {"shipped": shipped}
+        for name, so in built.items():
+            if name.startswith(prefix):
+                out[name] = ctypes.CDLL(str(so))
+                for fn in fns:
+                    getattr(out[name], fn).argtypes = cuda.SIGNATURES[fn]
+                    getattr(out[name], fn).restype = ctypes.c_int
+        return out
+
     baseline = (build_baseline(Path(args.baseline), cuda) if args.baseline
                 else None)
-    rows = (hist_rows(torch, cuda, hist) + b5_rows(torch, cuda, b5)
-            + decode_rows(torch, cuda, decode, baseline) + host_rows(torch))
+    rows = []
+    if "hist" in only:
+        rows += hist_rows(torch, cuda, {
+            "none": entry(built["hist_none"], "repro_histogram", cuda),
+            "match": entry(built["hist_match"], "repro_histogram", cuda),
+            "run": shipped.repro_histogram})
+    if "b5" in only:
+        b5 = {"shipped": shipped.repro_quantized_matmul}
+        b5.update({name: entry(so, "repro_quantized_matmul", cuda)
+                   for name, so in built.items() if name.startswith("b5_")})
+        rows += b5_rows(torch, cuda, b5)
+    if "decode" in only:
+        rows += decode_rows(torch, cuda, libs(
+            "decode_", ("repro_decode_attention",
+                        "repro_decode_attention_int8")), baseline)
+    if "host" in only:
+        rows += host_rows(torch)
+    if "prefill" in only:
+        rows += prefill_rows(torch, cuda, libs(
+            "prefill_", ("repro_prefill_attention",
+                         "repro_prefill_attention_int8")), baseline)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"device": smi, "rows": rows},
