@@ -74,19 +74,30 @@ Phases, one output line or more each:
 7. library -- the kernel library's public ops
               (``repro_torch.kernels.{wkv,stencil,nbody,histogram}``) on
               CUDA tensors at phase 2b's sizes: only kernel routes, one
-              launch per call (the stencil one per sweep), outputs equal
-              to the plain versions within phase 2b's tolerances.
+              launch per call (the stencil one per sweep; B10 counts its
+              split sum in the call's one), WKV once on each route (bf16
+              rwkv6-7b on mma, fp32 at hd 128 on simt), outputs equal to
+              the plain versions within phase 2b's tolerances.
 8. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
               ``{"ok": true, "device": {...}}``.
 
 Phase 2b holds the kernel library's kernels against their plain versions
 on the card: WKV (B8) at rwkv6-7b's time-mix width (B=4, S=4096, H=64,
-hd=64, chunk 64) in bf16 and fp32 with init-like and strong decays, and
-at the same width in heads of 128 (H=32, hd=128) in bf16, max |err|
-within 1e-4 of max |out|; the Jacobi stencil (B9) on 8192 x 8192
-fp32 (1 and 32 sweeps) and 8191 x 8193, bit for bit, beside one
+hd=64, chunk 64, sub-chunks of 16) in bf16 and fp32 with init-like and
+strong decays, and at the same width in heads of 128 (H=32, hd=128) in
+bf16 and fp32, max |err| within 1e-4 of max |out|, each row on the route
+``wkv_route`` names (mma, but simt for fp32 at hd 128) with its plan
+(sub-chunk and piece, or the simt tiles), a rerun bit-equal, and a bound
+from bytes and the function's operations at the peak of the row's type;
+mma rows also print what that route issues (bf16 hi + lo products at
+the bf16 peak, its FP32 work) apart from the bound; the Jacobi stencil
+(B9) on 8192 x 8192 fp32 (1 and 32 sweeps) and 8191 x 8193, bit for bit, beside one
 ``F.conv2d`` with the cross kernel; N-body (B10) at N = 16128 and 65536,
-within 1e-4 of max |a|; the histogram (B11) of 2^26 int32 values,
+within 1e-4 of max |a|, its split plan, a rerun bit-equal, and beside the
+19-operation bound an issue bound of 12 FP32-pipe instructions a pair
+at the card's maximum SM clock (printed with the clock sampled after the
+timing); B8-B10 also with the profiler's device time (``device_ms``);
+the histogram (B11) of 2^26 int32 values,
 uniform and all in one bin over 256 bins (the shared-memory route) and
 over 2^20 bins (the one-pass route), and a small case with values out of
 range, exact, beside ``torch.bincount``, with the profiler's device time.
@@ -127,6 +138,8 @@ ROOT = Path(__file__).resolve().parent
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+# FP32 lanes of an SM (issue bound of the N-body kernel)
+FP32_LANES = 128
 TOL = {"bfloat16": 5e-2, "float32": 2e-4}
 # decode attention also holds each slot's max |err| to this share of its
 # max |output| (bf16 rounds P to 2^-9 of itself: about 2e-3 of a slot)
@@ -842,31 +855,91 @@ def wkv_ops(b: int, s: int, h: int, hd: int, c: int, sc: int) -> float:
     return float(b * h * (s // c) * per_chunk)
 
 
+def wkv_mma_issued(b: int, s: int, h: int, hd: int, c: int, sc: int,
+                   dtype_name: str) -> tuple:
+    """(tensor-core flops, FP32-pipe operations) that the mma route
+    (csrc/wkv.cu) issues, for diagnosis only (never the row's bound, which
+    counts the function's own work, ``wkv_ops``): m16n8k16 products of
+    4096 flops, three per split product and two where v is bf16 (exact),
+    over the off-diagonal tiles, the inter-chunk term, the state update
+    and the blocks of A on or below the diagonal; on the FP32 pipe at
+    least 5 operations per (i, j < i, channel) of the diagonal
+    sub-blocks, 3 per element for the bonus and 6 for the scaled tiles.
+    Follows the kernel's loop nest: update it with the kernel."""
+    from repro_torch.kernels.wkv.wkv import wkv_piece
+    p = wkv_piece(c, sc)
+    mt, v_terms = hd // 16, (2 if dtype_name == "bfloat16" else 3)
+    off = sum(min(p // 8, (mi * 16 + 15) // sc * sc // 8)
+              for mi in range(p // 16)) * (hd // 16) * 3
+    inter = mt * (hd // 16) * (p // 8) * 3
+    state = mt * (hd // 8) * (p // 16) * v_terms
+    intra = mt * v_terms * sum(
+        1 for s_ in range(p // 16) for it in range(p // 8)
+        if it * 8 // sc >= s_ * 16 // sc)
+    pieces = b * h * (s // p)
+    fp32 = (p // sc) * sc * (sc - 1) // 2 * hd * 5 + 9 * p * hd
+    return 4096.0 * (off + inter + state + intra) * pieces, fp32 * pieces
+
+
+# phase 2b's WKV rows: (dtype, strong decays, shape, the route
+# ``wkv_route`` gives it); fp32 at hd 128 holds the simt kernel at full
+# width
+WKV_ROWS = (("bfloat16", False, WKV_SHAPE, "mma"),
+            ("float32", False, WKV_SHAPE, "mma"),
+            ("float32", True, WKV_SHAPE, "mma"),
+            ("bfloat16", False, WKV_WIDE_SHAPE, "mma"),
+            ("float32", False, WKV_WIDE_SHAPE, "simt"))
+
+
 def check_wkv(torch):
     from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    from repro_torch.kernels.wkv.wkv import (subchunk_len, wkv_piece,
+                                             wkv_route, wkv_tiles)
     from repro_torch.models.rwkv import chunk_len
     rows = []
-    for dtype_name, strong, shape in (
-            ("bfloat16", False, WKV_SHAPE), ("float32", False, WKV_SHAPE),
-            ("float32", True, WKV_SHAPE), ("bfloat16", False, WKV_WIDE_SHAPE)):
+    for dtype_name, strong, shape, want_route in WKV_ROWS:
         b, s, h, hd = (shape[x] for x in ("b", "s", "h", "hd"))
         c = chunk_len(s, WKV_CHUNK)
-        sc = chunk_len(c, WKV_SUBCHUNK)
+        sc = subchunk_len(c, WKV_SUBCHUNK)
         r, k, v, lw, u = wkv_inputs(torch, dtype_name, strong, shape)
         case = (f"B={b} S={s} H={h} hd={hd} chunk={c} "
                 f"decay={'strong' if strong else 'init'}")
-        err, rel = rel_check(torch, "wkv " + case,
-                             wkv_cuda(r, k, v, lw, u, chunk=c),
+        route = wkv_route(c, sc, hd, r.dtype)
+        if route != want_route:
+            raise AssertionError(f"wkv {case}: route {route}, not "
+                                 f"{want_route}")
+
+        def call():
+            return wkv_cuda(r, k, v, lw, u, chunk=c, subchunk=WKV_SUBCHUNK)
+        before = dict(wkv_cuda.routes)
+        got = call()
+        if wkv_cuda.routes[route] != before[route] + 1:
+            raise AssertionError(f"wkv {case}: not on the {route} route")
+        err, rel = rel_check(torch, "wkv " + case, got,
                              wkv_plain(r, k, v, lw, u, chunk=c))
+        if not torch.equal(got, call()):
+            raise AssertionError(f"wkv {case}: a rerun changed the bits")
         n = r.numel()
-        bnd = bound(3 * n * r.element_size() + 4 * n + 4 * h * hd + 4 * n,
-                    wkv_ops(b, s, h, hd, c, sc), dtype_name)
+        nbytes = 3 * n * r.element_size() + 4 * n + 4 * h * hd + 4 * n
+        if route == "mma":
+            plan = {"subchunk": sc, "piece": wkv_piece(c, sc)}
+            tc, fp32 = wkv_mma_issued(b, s, h, hd, c, sc, dtype_name)
+            issued = {"issued_tensor_flops": tc, "issued_fp32_ops": fp32,
+                      "issued_ms": max(tc / PEAK_OPS_S["bfloat16"],
+                                       fp32 / PEAK_OPS_S["float32"]) * 1e3}
+        else:
+            plan = dict(zip(("rows", "cols"), wkv_tiles(c, hd)))
+            issued = {}
         rows.append(row(
-            "wkv", case, dtype_name, err,
-            time_ms(torch, lambda: wkv_cuda(r, k, v, lw, u, chunk=c), 5),
+            "wkv", case, dtype_name, err, time_ms(torch, call, 5),
             time_ms(torch, lambda: wkv_plain(r, k, v, lw, u, chunk=c), 2),
-            bnd, None, rel_err=rel))
-        del r, k, v, lw, u
+            bound(nbytes, wkv_ops(b, s, h, hd, c, sc), dtype_name), None,
+            rel_err=rel, route=route, plan=plan, rerun_bit_equal=True,
+            device_ms=device_ms(torch, call, 5),
+            bound_peaks=f"bytes at 3.35 TB/s; the function's operations "
+            f"(wkv_ops) at the {dtype_name} peak, "
+            f"{PEAK_OPS_S[dtype_name] / 1e12:g} TFLOP/s", **issued))
+        del r, k, v, lw, u, got
     return rows
 
 
@@ -904,7 +977,9 @@ def check_stencil(torch):
             "stencil", case, "float32", err,
             time_ms(torch, lambda: jacobi4_cuda(x, steps=steps)),
             time_ms(torch, lambda: jacobi4_plain(x, steps=steps), 3),
-            bnd, library, bit_equal=True))
+            bnd, library, bit_equal=True,
+            device_ms=device_ms(torch, lambda: jacobi4_cuda(x, steps=steps),
+                                5)))
         del x
     return out
 
@@ -916,21 +991,45 @@ def nbody_inputs(torch, n: int):
     return pos, mass
 
 
+def sm_clocks_mhz() -> tuple:
+    """The SM clock now and its maximum, MHz (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0]
+    now, most = (float(x) for x in out.split(","))
+    return now, most
+
+
 def check_nbody(torch):
     from repro_torch.kernels.nbody import nbody_accel_cuda, nbody_accel_plain
+    from repro_torch.kernels.nbody.nbody import (TARGETS_PER_THREAD,
+                                                 nbody_split_plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
     for n in NBODY_SIZES:
         pos, mass = nbody_inputs(torch, n)
-        err, rel = rel_check(torch, f"nbody N={n}",
-                             nbody_accel_cuda(pos, mass),
+        got = nbody_accel_cuda(pos, mass)
+        err, rel = rel_check(torch, f"nbody N={n}", got,
                              nbody_accel_plain(pos, mass))
-        # 19 operations per pair, an FMA counted as 2 (nbody.cu's header)
+        if not torch.equal(got, nbody_accel_cuda(pos, mass)):
+            raise AssertionError(f"nbody N={n}: a rerun changed the bits")
+        ms = time_ms(torch, lambda: nbody_accel_cuda(pos, mass), 5)
+        dev = device_ms(torch, lambda: nbody_accel_cuda(pos, mass), 5)
+        clock, clock_max = sm_clocks_mhz()
+        # 19 operations per pair, an FMA counted as 2 (nbody.cu's header);
+        # and 12 FP32-pipe instructions a pair on 128 lanes an SM
         out.append(row(
-            "nbody", f"N={n}", "float32", err,
-            time_ms(torch, lambda: nbody_accel_cuda(pos, mass), 5),
+            "nbody", f"N={n}", "float32", err, ms,
             time_ms(torch, lambda: nbody_accel_plain(pos, mass), 2),
-            bound(28.0 * n, 19.0 * n * n, "float32"), None, rel_err=rel))
-        del pos, mass
+            bound(28.0 * n, 19.0 * n * n, "float32"), None, rel_err=rel,
+            rerun_bit_equal=True, device_ms=dev,
+            split=list(nbody_split_plan(n)),
+            targets_per_thread=TARGETS_PER_THREAD,
+            issue_bound_ms=12.0 * n * n / (sms * FP32_LANES
+                                           * clock_max * 1e6) * 1e3,
+            sm_clock_mhz=clock, sm_clock_max_mhz=clock_max))
+        del pos, mass, got
     return out
 
 
@@ -1002,7 +1101,9 @@ def library_phase(torch):
     from repro_torch.kernels.nbody import nbody_accel, nbody_accel_plain
     from repro_torch.kernels.stencil import jacobi4, jacobi4_plain
     from repro_torch.kernels.wkv import wkv, wkv_plain
-    w_args = wkv_inputs(torch, "bfloat16", False)
+    # rwkv6-7b in bf16 (the mma route) and in fp32 at hd 128 (simt)
+    w_args = [wkv_inputs(torch, "bfloat16", False),
+              wkv_inputs(torch, "float32", False, WKV_WIDE_SHAPE)]
     grids = [(stencil_input(torch, r_, c_), steps)
              for r_, c_, steps in STENCIL_CASES]
     bodies = [nbody_inputs(torch, n) for n in NBODY_SIZES]
@@ -1012,7 +1113,8 @@ def library_phase(torch):
     t0 = time.perf_counter()
     dispatch.reset_launch_counts()
     with dispatch.stats_scope() as stats:
-        w_out = wkv(*w_args, chunk=WKV_CHUNK, subchunk=WKV_SUBCHUNK)
+        w_out = [wkv(*args, chunk=WKV_CHUNK, subchunk=WKV_SUBCHUNK)
+                 for args in w_args]
         s_out = [jacobi4(x, steps=steps) for x, steps in grids]
         n_out = [nbody_accel(pos, mass) for pos, mass in bodies]
         h_out = [histogram(vals, bins) for vals, bins in hists]
@@ -1020,23 +1122,32 @@ def library_phase(torch):
         seconds = time.perf_counter() - t0
         launches = dispatch.launch_counts()
         routes = stats()
-    want_routes = {("wkv", "kernel"): 1, ("stencil", "kernel"): len(grids),
+    want_routes = {("wkv", "kernel"): len(w_args),
+                   ("stencil", "kernel"): len(grids),
                    ("nbody", "kernel"): len(bodies),
                    ("histogram", "kernel"): len(hists)}
     want = {op: 0 for op in launches}
-    want.update(wkv=1, stencil=sum(steps for _, steps in grids),
+    want.update(wkv=len(w_args),
+                stencil=sum(steps for _, steps in grids),
                 nbody=len(bodies), histogram=len(hists))
     emit({"phase": "library", "seconds": seconds,
           "routes": {f"{op}/{route}": n for (op, route), n in routes.items()},
-          "launches": {op: launches[op] for op in LIBRARY_KERNELS}})
+          "launches": {op: launches[op] for op in LIBRARY_KERNELS},
+          "kernel_routes": {k: n for k, n in dispatch.route_counts().items()
+                            if k.startswith("wkv/")}})
     if routes != want_routes:
         raise AssertionError(f"library: routes {routes}, expected "
                              f"{want_routes}")
     if launches != want:
         raise AssertionError(f"library: launches {launches}, expected "
                              f"{want}")
-    rel_check(torch, "library wkv", w_out,
-              wkv_plain(*w_args, chunk=WKV_CHUNK))
+    wkv_routes = {k: n for k, n in dispatch.route_counts().items()
+                  if k.startswith("wkv/")}
+    if wkv_routes != {"wkv/mma": 1, "wkv/simt": 1}:
+        raise AssertionError(f"library: wkv routes {wkv_routes}")
+    for args, got in zip(w_args, w_out):
+        rel_check(torch, "library wkv", got,
+                  wkv_plain(*args, chunk=WKV_CHUNK))
     for (x, steps), got in zip(grids, s_out):
         equal_check(torch, "library stencil", got,
                     jacobi4_plain(x, steps=steps))

@@ -11,11 +11,15 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     """RWKV6 WKV recurrence (``repro/kernels/wkv/ops.py``), routed by the
     device of ``r``.  r, k, v (B, S, H, hd) fp32 or bf16; lw (B, S, H, hd)
     log-decays (<= 0, cast to fp32); u (H, hd) bonus (cast to fp32).
-    Returns (B, S, H, hd) fp32.  ``subchunk`` is checked and otherwise has
-    no effect: it tiles the TPU kernel's intra-chunk term without changing
-    the result, and both routes here compute that term in the direct form
-    until B8 is redesigned around the sub-chunked one."""
+    Returns (B, S, H, hd) fp32.  ``subchunk`` sets the sub-chunks of the
+    TPU kernel's intra-chunk form (``subchunk_len``), which the card's mma
+    route computes; it changes which intra-chunk weights are clamped at
+    e^-60 (those of one sub-chunk) and nothing else above that.  The plain
+    version (the direct form, every intra-chunk weight clamped) and the
+    simt route do not read it."""
     if subchunk < 1:
         raise ValueError(f"wkv: subchunk {subchunk} < 1")
-    fn = wkv_cuda if dispatch._on_card("wkv", r) else wkv_plain
-    return fn(r, k, v, lw.float(), u.float(), chunk=chunk)
+    if dispatch._on_card("wkv", r):
+        return wkv_cuda(r, k, v, lw.float(), u.float(), chunk=chunk,
+                        subchunk=subchunk)
+    return wkv_plain(r, k, v, lw.float(), u.float(), chunk=chunk)

@@ -2,14 +2,18 @@
 version.
 
 Replaces ``repro/kernels/wkv/wkv.py::wkv_pallas``; the kernel is
-``kernels/csrc/wkv.cu``; the plain version is ``models/rwkv.py``'s
+``kernels/csrc/wkv.cu``, one per route (``wkv_route``: ``mma``, the TPU
+kernel's sub-chunked form on the tensor cores, at head widths 64 and 128
+with sub-chunks of 8 to 64 rows; ``simt``, the direct form on the FMA
+units, for every other shape); the plain version is ``models/rwkv.py``'s
 ``wkv_chunked`` in its direct form, the oracle
 ``repro/kernels/wkv/ref.py`` names.
 
 Layout, as the JAX op's (``repro/kernels/wkv/ops.py``): r, k, v
 (B, S, H, hd) fp32 or bf16, one type for all three; lw (B, S, H, hd) fp32
 log-decays (<= 0); u (H, hd) fp32.  Returns o (B, S, H, hd) fp32.  The
-chunk length is ``models.rwkv.chunk_len(S, chunk)``.
+chunk length is ``models.rwkv.chunk_len(S, chunk)``, the sub-chunk length
+``subchunk_len(c, subchunk)``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,12 @@ from ...models.rwkv import chunk_len, wkv_chunked
 # csrc/wkv.cu's tile edges: row pieces and value-column blocks of at most
 # 64, key-side channels staged 64 at a time
 TILE = 64
+ROUTES = ("mma", "simt")
+# the mma route's head widths (16-column tiles of the state over 8 warps,
+# pairs of 8-column tiles a warp) and piece lengths (rows walked at a
+# time, whole sub-chunks)
+MMA_HEAD_DIMS = (64, 128)
+MMA_PIECES = (64, 32, 16)
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,13 +64,49 @@ def wkv_tiles(c: int, hd: int) -> tuple:
     return rows, cols
 
 
+def subchunk_len(c: int, subchunk: int) -> int:
+    """The sub-chunk length of a chunk of ``c`` rows:
+    ``min(subchunk, c)``, halved until it divides ``c``, as
+    ``repro/kernels/wkv/wkv.py:106-111`` resolves it."""
+    if subchunk < 1:
+        raise ValueError(f"wkv: subchunk {subchunk} < 1")
+    sc = min(subchunk, c)
+    while sc > 1 and c % sc:
+        sc //= 2
+    return sc
+
+
+def wkv_piece(c: int, sc: int) -> int:
+    """Rows the mma route walks at a time: the largest of 64, 32 and 16
+    that divides the chunk and is a whole number of sub-chunks; 0 if
+    none is."""
+    return next((p for p in MMA_PIECES if c % p == 0 and p % sc == 0), 0)
+
+
+def wkv_route(c: int, sc: int, hd: int, dtype: torch.dtype) -> str:
+    """``mma`` where the tensor-core kernel takes the shape: hd 64 or 128,
+    sub-chunks a multiple of 8 rows inside a piece of 64, 32 or 16
+    rows (``wkv_piece``), fp32 or bf16 inputs but not fp32 at hd 128,
+    whose block does not fit shared memory (csrc/wkv.cu builds no such
+    kernel); ``simt`` otherwise.  By shape alone, never by data."""
+    if (hd in MMA_HEAD_DIMS and sc % 8 == 0 and wkv_piece(c, sc)
+            and dtype in cuda.DTYPE_CODES
+            and not (hd == 128 and dtype == torch.float32)):
+        return "mma"
+    return "simt"
+
+
 def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             lw: torch.Tensor, u: torch.Tensor, *,
-             chunk: int = 64) -> torch.Tensor:
-    """Launch ``repro_wkv`` (one block per (batch, head, block of value
-    columns), looping over the chunks with its columns of the state in
-    shared memory; tiles from ``wkv_tiles``): inputs contiguous on one
-    CUDA device.  Returns a new fp32 (B, S, H, hd) tensor; raises on
+             lw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+             subchunk: int = 16) -> torch.Tensor:
+    """Launch the route ``wkv_route`` names: ``repro_wkv_mma`` (one block
+    of 8 warps per (batch, head), the sub-chunked form on the tensor
+    cores, the state in registers) or ``repro_wkv`` (one block per
+    (batch, head, block of value columns), the direct form with its
+    columns of the state in shared memory; tiles from ``wkv_tiles``):
+    inputs contiguous on one CUDA device, 16-byte aligned on the mma
+    route.  Counts the launch in ``.launches`` and on its route in
+    ``.routes``.  Returns a new fp32 (B, S, H, hd) tensor; raises on
     anything the kernel does not take."""
     cuda.require_cuda("wkv", r, k, v, lw, u)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw)):
@@ -83,15 +129,26 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     c = chunk_len(s, chunk)
-    rows, cols = wkv_tiles(c, hd)
-    rc = cuda.library().repro_wkv(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-        u.data_ptr(), out.data_ptr(),
-        *cuda.c_ints("wkv", b, s, h, hd, c, rows, cols),
-        cuda.dtype_code(r), cuda.stream_of(r))
+    sc = subchunk_len(c, subchunk)
+    route = wkv_route(c, sc, hd, r.dtype)
+    ptrs = [t.data_ptr() for t in (r, k, v, lw, u, out)]
+    if route == "mma":
+        if any(p % 16 for p in ptrs):
+            raise ValueError("wkv: the mma route needs 16-byte aligned "
+                             "inputs (cp.async copies)")
+        rc = cuda.library().repro_wkv_mma(
+            *ptrs, *cuda.c_ints("wkv", b, s, h, hd, sc, wkv_piece(c, sc)),
+            cuda.dtype_code(r), cuda.stream_of(r))
+    else:
+        rows, cols = wkv_tiles(c, hd)
+        rc = cuda.library().repro_wkv(
+            *ptrs, *cuda.c_ints("wkv", b, s, h, hd, c, rows, cols),
+            cuda.dtype_code(r), cuda.stream_of(r))
     cuda.check(rc, "wkv")
     wkv_cuda.launches += 1
+    wkv_cuda.routes[route] += 1
     return out
 
 
 wkv_cuda.launches = 0
+wkv_cuda.routes = {route: 0 for route in ROUTES}

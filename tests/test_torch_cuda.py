@@ -711,7 +711,8 @@ def test_flash_calls_take_the_route_of_dtype_and_head_width(card, dtype, hd,
         f"flash_attention_bwd/{other}": 0,
         **{f"{op}/{r}": 0 for op in ("prefill_attention",
                                      "prefill_attention_int8")
-           for r in ("wgmma", "simt")}}
+           for r in ("wgmma", "simt")},
+        "wkv/mma": 0, "wkv/simt": 0}
     assert dispatch.launch_counts()["flash_attention"] == 1
     assert dispatch.launch_counts()["flash_attention_bwd"] == 1
 
@@ -856,10 +857,11 @@ def test_wkv_kernel_takes_wide_heads_and_long_chunks(card, dtype, shape,
 @pytest.mark.parametrize("shape,chunk", [((2, 128, 2, 64), 64),
                                          ((1, 512, 2, 64), 256)])
 def test_wkv_kernel_strong_decay(card, shape, chunk):
-    """Decays in [-50, -20]; a chunk of 256 rows goes in row pieces of 64,
-    the state carried between them, so weights across pieces are not
-    clamped at e^-60 as the plain version's are: the gap stays within
-    1e-4 of max |o|."""
+    """Decays in [-50, -20]; the mma route clamps at e^-60 only inside
+    its sub-chunks (the TPU kernel's form) and a chunk of 256 rows goes
+    in pieces of 64, the state carried between them, so weights across
+    sub-chunks are not clamped as the plain version's are: the gap stays
+    within 1e-4 of max |o|."""
     from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
     args = _wkv_inputs(card, torch.float32, *shape, seed=3, strong=True)
     assert _rel_err(wkv_cuda(*args, chunk=chunk),
@@ -882,6 +884,43 @@ def test_wkv_wrapper_rejects_bad_inputs(card):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [16, 64, 100, 128, 256])
+def test_wkv_routes_match_plain_over_chunks_and_subchunks(card, dtype, hd):
+    """Chunks of 16 to 256 rows and sub-chunks of 8, 16 and 32 at head
+    widths on both routes (``wkv_route``: the mma route at hd 64 and 128,
+    but not fp32 at 128): within 1e-4 of max |o|, a rerun bit-equal, the
+    launch counted on its route; also under strong decay."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    from repro_torch.kernels.wkv.wkv import subchunk_len, wkv_route
+    for chunk in (16, 32, 64, 128, 256):
+        for subchunk in (8, 16, 32):
+            for strong in (False, True):
+                args = _wkv_inputs(card, dtype, 1, 512, 2, hd,
+                                   seed=hd + chunk + subchunk, strong=strong)
+                route = wkv_route(chunk, subchunk_len(chunk, subchunk), hd,
+                                  dtype)
+                assert route == ("mma" if hd in (64, 128) and not (
+                    hd == 128 and dtype == torch.float32) else "simt")
+                before = dict(wkv_cuda.routes)
+                got = wkv_cuda(*args, chunk=chunk, subchunk=subchunk)
+                assert wkv_cuda.routes[route] == before[route] + 1
+                err = _rel_err(got, wkv_plain(*args, chunk=chunk))
+                assert err <= 1e-4, (chunk, subchunk, strong, err)
+                assert torch.equal(got, wkv_cuda(*args, chunk=chunk,
+                                                 subchunk=subchunk))
+
+
+def test_wkv_mma_route_rejects_misaligned_inputs(card):
+    from repro_torch.kernels.wkv import wkv_cuda
+    r, k, v, lw, u = _wkv_inputs(card, torch.bfloat16, 1, 64, 1, 64, seed=1)
+    flat = torch.zeros(1 + r.numel(), dtype=r.dtype, device=card)
+    odd = flat[1:].view(r.shape)
+    odd.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_cuda(odd, k, v, lw, u)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1), (1, 7), (2, 5), (3, 3), (33, 65),
                                    (130, 67), (64, 128)])
 @pytest.mark.parametrize("steps", [0, 1, 2, 3])
@@ -896,6 +935,24 @@ def test_stencil_kernel_equals_plain(card, dtype, shape, steps):
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got,
                                               jacobi4_plain(x, steps=steps))
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 16128, 65537])
+def test_nbody_split_kernel_matches_plain_and_reruns_bit_equal(card, n):
+    """The split source range (``nbody_split_plan``: 21 splits at 16128,
+    33 at 65537) and a single split, within 1e-4 of max |a|; a rerun gives
+    the same bits (partials summed in rank order, no atomics) and counts
+    one launch."""
+    from repro_torch.kernels.nbody import nbody_accel_cuda, nbody_accel_plain
+    gen = torch.Generator(device=card).manual_seed(n)
+    pos = torch.randn(3, n, generator=gen, device=card)
+    mass = torch.rand(n, generator=gen, device=card) + 0.1
+    before = nbody_accel_cuda.launches
+    got = nbody_accel_cuda(pos, mass)
+    assert nbody_accel_cuda.launches == before + 1
+    assert torch.equal(got, nbody_accel_cuda(pos, mass))
+    if n > 1:
+        assert _rel_err(got, nbody_accel_plain(pos, mass)) <= 1e-4
 
 
 @pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 1000])

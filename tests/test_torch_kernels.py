@@ -709,6 +709,80 @@ def test_wkv_tiles_raise_only_past_one_state_column():
         wkv_tiles(64, 13782)
 
 
+@pytest.mark.parametrize("s", [12, 64, 96, 300, 4096])
+def test_wkv_subchunk_and_route_follow_wkv_pallas(monkeypatch, s):
+    """Over chunks and sub-chunks, the chunk and sub-chunk lengths the
+    port resolves are the ones ``wkv_pallas`` builds its kernel with
+    (repro/kernels/wkv/wkv.py:106-111, read off its kernel's arguments
+    with ``pallas_call`` stubbed), and the mma route takes a shape only
+    where its pieces are whole sub-chunks of 8-row multiples that divide
+    the chunk."""
+    import importlib
+    from repro_torch.kernels.wkv.wkv import (MMA_HEAD_DIMS, subchunk_len,
+                                             wkv_piece, wkv_route)
+    from repro_torch.models.rwkv import chunk_len
+    # the module; the package's attribute of that name is the op
+    jax_wkv = importlib.import_module("repro.kernels.wkv.wkv")
+    seen = {}
+
+    def pallas_call(kernel, **_):
+        seen.update(kernel.keywords)
+        return lambda *args: None
+    monkeypatch.setattr(jax_wkv.pl, "pallas_call", pallas_call)
+    x = np.zeros((1, s, 64), np.float32)
+    for chunk in (1, 16, 32, 64, 100, 128, 150, 256):
+        for subchunk in (1, 3, 8, 16, 32, 64):
+            jax_wkv.wkv_pallas(x, x, x, x, x[:, :1], chunk=chunk,
+                               subchunk=subchunk)
+            c = chunk_len(s, chunk)
+            assert (seen["c"], seen["sc"]) == (c, subchunk_len(c, subchunk))
+            sc = seen["sc"]
+            piece = wkv_piece(c, sc)
+            if piece:
+                assert c % piece == 0 and piece % sc == 0
+            for hd in (16, 32, 64, 100, 128, 256):
+                for dtype in (torch.float32, torch.bfloat16):
+                    route = wkv_route(c, sc, hd, dtype)
+                    assert route == ("mma" if (
+                        hd in MMA_HEAD_DIMS and sc % 8 == 0 and piece
+                        and not (hd == 128 and dtype == torch.float32))
+                        else "simt"), (c, sc, hd, dtype)
+
+
+def test_wkv_rejects_subchunk_below_one_on_either_route():
+    from repro_torch.kernels.wkv import wkv
+    from repro_torch.kernels.wkv.wkv import subchunk_len
+    bshd = torch.zeros(1, 4, 2, 8)
+    with dispatch.stats_scope() as stats:
+        with pytest.raises(ValueError, match="subchunk"):
+            wkv(bshd, bshd, bshd, bshd, torch.zeros(2, 8), subchunk=0)
+        assert stats() == {}
+    with pytest.raises(ValueError, match="subchunk"):
+        subchunk_len(64, 0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 1000, 16128, 65536,
+                               65537, 1 << 20])
+def test_nbody_split_plan_covers_every_source_once(n):
+    """Split s takes sources [s * per, min(N, (s + 1) * per)): every
+    source in exactly one split, whole tiles a split, the plan a function
+    of N alone, and N = 16128 spread over at least 4 blocks an SM's worth
+    of splits."""
+    from repro_torch.kernels.nbody.nbody import (SOURCE_TILE,
+                                                 TARGETS_PER_BLOCK,
+                                                 nbody_split_plan)
+    splits, per = nbody_split_plan(n)
+    assert (splits, per) == nbody_split_plan(n)
+    assert per % SOURCE_TILE == 0 and splits >= 1
+    seen = np.zeros(n, np.int64)
+    for s_ in range(splits):
+        seen[s_ * per:min(n, (s_ + 1) * per)] += 1
+    assert (seen == 1).all()
+    assert (splits - 1) * per < n <= splits * per
+    if n == 16128:                    # at least 4 blocks an SM of 132
+        assert -(-n // TARGETS_PER_BLOCK) * splits >= 4 * 132
+
+
 @pytest.mark.parametrize("n_bins,window,windows", [
     (1, 1, 1), (256, 256, 1), (58_112, 58_112, 1), (58_113, 58_112, 2),
     (100_000, 58_112, 2), (1 << 20, 58_112, 19)])
@@ -767,7 +841,9 @@ def test_route_counts_reset_with_the_launch_counts():
     assert dispatch.route_counts()["flash_attention/wgmma"] >= 2
     dispatch.reset_launch_counts()
     assert dispatch.route_counts() == {
-        f"{op}/{route}": 0 for op in ("prefill_attention",
-                                      "prefill_attention_int8",
-                                      "flash_attention", "flash_attention_bwd")
-        for route in ("wgmma", "simt")}
+        **{f"{op}/{route}": 0 for op in ("prefill_attention",
+                                         "prefill_attention_int8",
+                                         "flash_attention",
+                                         "flash_attention_bwd")
+           for route in ("wgmma", "simt")},
+        "wkv/mma": 0, "wkv/simt": 0}

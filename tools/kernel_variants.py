@@ -49,10 +49,32 @@ called through its C entry with ctypes.  One JSON line per measurement:
   of P (``prefill_mutant_no_lo``, int8 pools: P as bf16 alone) passes the
   absolute check and its slot-relative error.
 
+- wkv: B8 at chip_smoke.py's rows (rwkv6-7b's time-mix width B=4 S=4096
+  H=64 hd=64 chunk 64 in bf16 and fp32, fp32 under strong decay, and
+  heads of 128 in bf16): the shipped mma route at sub-chunks of 8, 16 and
+  32; the simt route at the same shape (``simt``: the kernel without the
+  tensor cores); copies with ``expf`` for ``ex2.approx``
+  (``wkv_expf``) and without the products' lo terms
+  (``wkv_mutant_no_lo``: its max |err| / max |out| against
+  chip_smoke's LIB_TOL of 1e-4); copies without a phase
+  (``wkv_strip_*``: the diagonal sub-blocks, the scaled tiles, the
+  off-diagonal products, the chunk products, the next piece's loads;
+  timing only); with ``--baseline DIR`` that commit's ``repro_wkv``.
+- nbody: B10 at N = 16128 and 65536: every split count of
+  ``NBODY_SPLITS`` at 2 targets a thread (shipped) and at 1 and 4
+  (``nbody_t1``, ``nbody_t4``), the SM clock beside; with ``--baseline``
+  that commit's ``repro_nbody``.
+- sass: opcode counts (HMMA, MUFU.EX2, MUFU.RSQ, FFMA, ...) of the WKV and
+  N-body kernels in the shipped library's SASS (``cuobjdump -sass``) and,
+  with ``--baseline``, in that commit's.
+
 Times are the profiler's device time per call (``device_ms``; CUDA events
 read the host's launch pace below ~0.1 ms) and, for B11, CUDA events too.
-``--only`` runs some of the sections (hist, b5, decode, host, prefill).
-Exits non-zero without a CUDA device.
+``--only`` runs some of the sections (hist, b5, decode, host, prefill,
+wkv, nbody, sass).  ``--baseline`` with the decode and prefill sections
+takes a commit whose decode and prefill C entries have no split
+arguments; with wkv, nbody and sass any earlier commit.  Exits non-zero
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -162,6 +184,34 @@ VARIANTS.update({
          "? fast_exp2(sc[i] - ((i & 2) ? mn1 : mn0))",
          "? sc[i] - ((i & 2) ? mn1 : mn0)")]),
 })
+VARIANTS.update({
+    "wkv_expf": ("wkv.cu", [
+        ("wkv.cu", "return ex2(x * LOG2E); }", "return expf(x); }")]),
+    # drops lo*hi and hi*lo: bf16 hi*hi products only (never timed)
+    "wkv_mutant_no_lo": ("wkv.cu", [
+        ("wkv.cu", "  if (!A_EXACT) mma(c, a[0].lo, a[1].lo, a[2].lo, a[3].lo, "
+         "b[0].hi, b[1].hi);\n  mma(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, "
+         "b[0].lo, b[1].lo);\n", "")]),
+    # timing only (their results are wrong)
+    "wkv_strip_diag": ("wkv.cu", [
+        ("wkv.cu", "for (int e = tid; e < nsc * tri; e += THREADS) {",
+         "for (int e = tid; e < 0; e += THREADS) {")]),
+    "wkv_strip_scale": ("wkv.cu", [
+        ("wkv.cu", "x = (e % (HD / 4)) * 4, a = i >> lsc;",
+         "x = (e % (HD / 4)) * 4, a = i >> lsc;\n        if (e >= 0) continue;")]),
+    "wkv_strip_offdiag": ("wkv.cu", [
+        ("wkv.cu", "for (int mi = 0; mi < P / 16; ++mi) {",
+         "for (int mi = 0; mi < 0; ++mi) {")]),
+    "wkv_strip_chunk": ("wkv.cu", [
+        ("wkv.cu", "const int nit = P / 8;", "const int nit = 0;"),
+        ("wkv.cu", "if (s >= P / 16) break;", "if (s >= 0) break;")]),
+    "wkv_strip_loads": ("wkv.cu", [
+        ("wkv.cu", "if (s0 + P < S) issue(s0 + P, vb ^ 1);", "")]),
+    "nbody_t1": ("nbody.cu", [
+        ("nbody.cu", "constexpr int TPT = 2;", "constexpr int TPT = 1;")]),
+    "nbody_t4": ("nbody.cu", [
+        ("nbody.cu", "constexpr int TPT = 2;", "constexpr int TPT = 4;")]),
+})
 WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 # (label, heads, kv heads, head width, pages of 64 a slot, lengths)
 DECODE_CASES = (("serve", 8, 1, 256, 4, (0, 65, 117, 256)),
@@ -185,7 +235,27 @@ BASELINE_SIGNATURES = {"repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
                        "repro_prefill_attention": [_P] * 6 + [_I] * 10 + [_P],
                        "repro_prefill_attention_int8":
                            [_P] * 8 + [_I] * 10 + [_P]}
-SECTIONS = ("hist", "b5", "decode", "host", "prefill")
+BASELINE_SIGNATURES.update({"repro_wkv": [_P] * 6 + [_I] * 8 + [_P],
+                            "repro_nbody": [_P] * 3 + [_I, ctypes.c_float,
+                                                       _P]})
+# the sources of each section's baseline kernels
+BASELINE_SOURCES = {"decode": ("decode_attention.cu",),
+                    "prefill": ("prefill_attention.cu",),
+                    "wkv": ("wkv.cu",), "nbody": ("nbody.cu",),
+                    "sass": ("wkv.cu", "nbody.cu")}
+# (label, dtype, strong decay, B, S, H, hd): chip_smoke.py's WKV rows
+WKV_CASES = (("init", "bfloat16", False, 4, 4096, 64, 64),
+             ("init", "float32", False, 4, 4096, 64, 64),
+             ("strong", "float32", True, 4, 4096, 64, 64),
+             ("init", "bfloat16", False, 4, 4096, 32, 128))
+WKV_SUBCHUNKS = (8, 16, 32)
+LIB_TOL = 1e-4
+NBODY_SIZES = (16128, 65536)
+NBODY_SPLITS = (1, 2, 4, 8, 16, 21, 32, 64)
+SASS_OPS = ("HMMA", "MUFU.EX2", "MUFU.RSQ", "FFMA", "FMUL", "FADD",
+            "FMNMX", "FSETP", "CALL", "BRA", "LDS", "LDGSTS")
+SECTIONS = ("hist", "b5", "decode", "host", "prefill", "wkv", "nbody",
+            "sass")
 HIST_N, HIST_BINS = 1 << 26, 1 << 20
 
 
@@ -224,24 +294,29 @@ def entry(so: Path, name: str, cuda):
     return fn
 
 
-def build_baseline(checkout: Path, cuda) -> ctypes.CDLL:
-    """The decode and prefill kernels of an earlier commit's checkout (one
-    block per slot and kv head, or per 32-row tile), with their own C
-    entries (no scratch, no split plan)."""
+def build_baseline(checkout: Path, cuda, sources) -> Path:
+    """The kernels of ``sources`` from an earlier commit's checkout, with
+    their own C entries (``BASELINE_SIGNATURES``), in one library."""
     src = checkout / "src" / "repro_torch" / "kernels" / "csrc"
     so = OUT_DIR / "baseline" / "lib.so"
     so.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda._nvcc()
+    stubs = Path(nvcc).resolve().parent.parent / "lib64" / "stubs"
     proc = subprocess.run(
-        [cuda._nvcc(), *cuda.NVCC_FLAGS, "-shared",
-         str(src / "decode_attention.cu"), str(src / "prefill_attention.cu"),
-         "-o", str(so)],
+        [nvcc, *cuda.NVCC_FLAGS, "-shared", *[str(src / f) for f in sources],
+         f"-L{stubs}", *cuda.LINK_LIBS, "-o", str(so)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for the baseline:\n{proc.stdout}")
+    return so
+
+
+def load_baseline(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     for name, argtypes in BASELINE_SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -544,6 +619,171 @@ def prefill_rows(torch, cuda, libs, baseline) -> list:
     return rows
 
 
+def wkv_rows(torch, cuda, built, baseline) -> list:
+    """B8's routes, sub-chunks and variants at chip_smoke.py's rows."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+    from repro_torch.kernels.wkv.wkv import (subchunk_len, wkv_piece,
+                                             wkv_route, wkv_tiles)
+    rows = []
+    for label, dtype_name, strong, b, s, h, hd in WKV_CASES:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(7 + strong)
+        shape = (b, s, h, hd)
+        r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        if strong:
+            lw = -torch.randint(80, 201, shape, generator=gen,
+                                device="cuda").float() / 4
+        else:
+            lw = -torch.exp(-6 + 0.5 * torch.randn(shape, generator=gen,
+                                                   device="cuda"))
+        u = torch.randn(h, hd, generator=gen, device="cuda")
+        want = wkv_plain(r, k, v, lw, u, chunk=64)
+        scale = want.abs().max().item()
+        out = torch.empty(shape, device="cuda")
+        ptrs = [x.data_ptr() for x in (r, k, v, lw, u, out)]
+        row = {"kernel": "wkv", "case": f"B={b} S={s} H={h} hd={hd} "
+               f"chunk=64 decay={label}", "dtype": dtype_name,
+               "route": wkv_route(64, 16, hd, dtype), "subchunk_ms": {},
+               "subchunk_rel_err": {}, "variant_device_ms": {},
+               "strip_device_ms": {}, "mutants": {}}
+
+        def rel(got):
+            torch.cuda.synchronize()
+            return (got - want).abs().max().item() / scale
+        for sub in WKV_SUBCHUNKS:
+            call = lambda: wkv_cuda(r, k, v, lw, u, chunk=64,  # noqa: E731
+                                    subchunk=sub)
+            row["subchunk_rel_err"][sub] = rel(call())
+            row["subchunk_ms"][sub] = device_ms(torch, call, 5)
+        rows_, cols = wkv_tiles(64, hd)
+        simt = lambda lib=None: (lib or cuda.library()).repro_wkv(  # noqa
+            *ptrs, b, s, h, hd, 64, rows_, cols, cuda.dtype_code(r),
+            cuda.stream_of(r))
+        if simt():
+            raise RuntimeError("wkv simt: CUDA error")
+        row["simt_rel_err"] = rel(out)
+        row["simt_device_ms"] = device_ms(torch, simt, 3)
+        sc = subchunk_len(64, 16)
+        for name, so in built.items():
+            fn = entry(so, "repro_wkv_mma", cuda)
+            call = lambda: fn(*ptrs, b, s, h, hd, sc,  # noqa: E731
+                              wkv_piece(64, sc), cuda.dtype_code(r),
+                              cuda.stream_of(r))
+            if row["route"] != "mma":
+                continue
+            if call():
+                raise RuntimeError(f"{name}: CUDA error")
+            if "mutant" in name:
+                err = rel(out)
+                row["mutants"][name] = {"rel_err": err,
+                                        "caught_by_lib_tol": err > LIB_TOL}
+            elif "strip" in name:
+                row["strip_device_ms"][name] = device_ms(torch, call, 5)
+            else:
+                row["variant_device_ms"][name] = device_ms(torch, call, 5)
+                row[name + "_rel_err"] = rel(out)
+        if baseline is not None:
+            old = lambda: baseline.repro_wkv(  # noqa: E731
+                *ptrs, b, s, h, hd, 64, rows_, cols, cuda.dtype_code(r),
+                cuda.stream_of(r))
+            if old():
+                raise RuntimeError("wkv baseline: CUDA error")
+            row["baseline_rel_err"] = rel(out)
+            row["baseline_device_ms"] = device_ms(torch, old, 3)
+        emit(row)
+        rows.append(row)
+        del r, k, v, lw, u, want, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sm_clock() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def nbody_rows(torch, cuda, built, baseline) -> list:
+    """B10 at every split count and 1, 2 or 4 targets a thread."""
+    from repro_torch.kernels.nbody import nbody_accel_plain
+    from repro_torch.kernels.nbody.nbody import (SOFTENING, SOURCE_TILE,
+                                                 nbody_split_plan)
+    rows = []
+    libs = {"shipped": cuda.library().repro_nbody}
+    libs.update({name: entry(so, "repro_nbody", cuda)
+                 for name, so in built.items()})
+    for n in NBODY_SIZES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        pos = torch.randn(3, n, generator=gen, device="cuda")
+        mass = torch.rand(n, generator=gen, device="cuda") + 0.1
+        want = nbody_accel_plain(pos, mass)
+        scale = want.abs().max().item()
+        row = {"kernel": "nbody", "case": f"N={n}",
+               "plan": list(nbody_split_plan(n)), "device_ms": {}}
+        out = torch.empty(3, n, device="cuda")
+        tiles = -(-n // SOURCE_TILE)
+        for name, fn in libs.items():
+            row["device_ms"][name] = {}
+            for splits in NBODY_SPLITS:
+                per = -(-tiles // splits) * SOURCE_TILE
+                splits = -(-n // per)
+                part = torch.empty(splits, 3, n, device="cuda")
+                call = lambda: fn(  # noqa: E731
+                    pos.data_ptr(), mass.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), n, splits, per, SOFTENING ** 2,
+                    cuda.stream_of(pos))
+                if call():
+                    raise RuntimeError(f"nbody {name}: CUDA error")
+                torch.cuda.synchronize()
+                err = (out - want).abs().max().item() / scale
+                if not err <= LIB_TOL:
+                    raise AssertionError(f"nbody {name} split {splits}")
+                row["device_ms"][name][splits] = device_ms(torch, call, 5)
+        if baseline is not None:
+            old = lambda: baseline.repro_nbody(  # noqa: E731
+                pos.data_ptr(), mass.data_ptr(), out.data_ptr(), n,
+                SOFTENING ** 2, cuda.stream_of(pos))
+            if old():
+                raise RuntimeError("nbody baseline: CUDA error")
+            row["baseline_device_ms"] = device_ms(torch, old, 5)
+        row["sm_clock_mhz"] = sm_clock()
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def sass_rows(cuda, libraries: dict) -> list:
+    """Opcode counts of the WKV and N-body kernels in each library."""
+    tool = Path(cuda._nvcc()).resolve().parent / "cuobjdump"
+    rows = []
+    for label, so in libraries.items():
+        text = subprocess.run([str(tool), "-sass", str(so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, name = {}, None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                if "wkv" not in name and "nbody" not in name:
+                    name = None
+                else:
+                    counts[name] = {op: 0 for op in SASS_OPS}
+            elif name and "*/" in line and line.strip().startswith("/*"):
+                words = line.split("*/", 1)[1].split()
+                if words and words[0].startswith("@"):   # a predicate
+                    words = words[1:]
+                op = words[0].rstrip(";") if words else ""
+                for want in SASS_OPS:
+                    if op == want or op.startswith(want + "."):
+                        counts[name][want] += 1
+        row = {"kernel": "sass", "library": label, "functions": counts}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def host_rows(torch) -> list:
     import time
 
@@ -616,8 +856,12 @@ def main(argv=None) -> int:
                     getattr(out[name], fn).restype = ctypes.c_int
         return out
 
-    baseline = (build_baseline(Path(args.baseline), cuda) if args.baseline
-                else None)
+    baseline_so = baseline = None
+    if args.baseline:
+        sources = sorted({f for sec in only for f in
+                          BASELINE_SOURCES.get(sec, ())})
+        baseline_so = build_baseline(Path(args.baseline), cuda, sources)
+        baseline = load_baseline(baseline_so)
     rows = []
     if "hist" in only:
         rows += hist_rows(torch, cuda, {
@@ -639,6 +883,18 @@ def main(argv=None) -> int:
         rows += prefill_rows(torch, cuda, libs(
             "prefill_", ("repro_prefill_attention",
                          "repro_prefill_attention_int8")), baseline)
+    if "wkv" in only:
+        rows += wkv_rows(torch, cuda, {n: so for n, so in built.items()
+                                       if n.startswith("wkv_")}, baseline)
+    if "nbody" in only:
+        rows += nbody_rows(torch, cuda, {n: so for n, so in built.items()
+                                         if n.startswith("nbody_")},
+                           baseline)
+    if "sass" in only:
+        libraries = {"shipped": cuda.library_path()}
+        if baseline_so is not None:
+            libraries["baseline"] = baseline_so
+        rows += sass_rows(cuda, libraries)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"device": smi, "rows": rows},
