@@ -23,7 +23,9 @@ Phases, one output line or more each:
               (decode attention, float and int8 pools) run at the
               serving shapes and, in bf16, at gemma-2b's 8192-token
               context (no window, and a window of 1024) and at
-              codeqwen1.5-7b's 32 kv heads; each row carries its split
+              codeqwen1.5-7b's 32 kv heads, and B2 over the dense
+              serving path's cache viewed as pages at gemma3-4b's heads
+              (caps 1024 and 2048); each row carries its split
               plan (``split``: keys a split, splits) and ``device_ms``;
               each slot's max |err| must stay within 1e-2 of its max
               |output| (``slot_rel_err``), and a rerun and each slot
@@ -32,7 +34,10 @@ Phases, one output line or more each:
               (B=2, C=64, starts 0/64) and, in bf16, at chunks of
               gemma-2b's 8192-token context (starts 8128/4992/1984/0,
               no window and 1024, float and int8 pools) and at
-              codeqwen1.5-7b's heads; each row carries its route
+              codeqwen1.5-7b's heads, and, in bf16, at the verify
+              window of phase 3c (B=4, C=4, starts 17/62/0/130: mid-page
+              and across a page edge, float and int8 pools, the wgmma
+              route required); each row carries its route
               (``prefill_route``), split plan and ``device_ms`` and is
               held to the same slot-relative limit, rerun and
               slot-alone bits.
@@ -46,11 +51,29 @@ Phases, one output line or more each:
               take the wgmma route.  A fully-covered static run
               (every prompt one cached page) must copy-on-write and emit
               the streams of the same run without sharing.
+3b. dense serve -- ``serve.main`` with ``--cache dense`` (the CLI's
+              default layout) on phase 3's traffic, float and int8
+              weights: prompts teacher-forced through decode at one shared
+              position, every attention layer on B2 over its cache viewed
+              as pages; launches exactly B1 and B2 (and B5), no plain
+              route, every request served; decode ms per step.
+3c. speculative serve -- ``--cache paged --speculate ngram`` and
+              ``--speculate model`` (the target's leading 9 layers),
+              ``--draft-tokens 3``, static and continuous, and int8 +
+              prefix with the n-gram drafter: streams equal phase 3's
+              non-speculative streams, every verify window on B3/B4b's
+              wgmma route, B6 (wgmma) launched by the model drafter
+              alone, no plain route; accept rate, tokens and verify ms
+              per verify step.
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
               full-width model in fp32, once through the kernels and once
               through the plain versions, both on the card, with float and
               with int8 KV pages and weights: logits within 1e-3 of
-              max |logit|.
+              max |logit|.  4b: gemma3-4b at its published width in
+              fp32 on the dense cache (2 slots, max_len 2048), every
+              buffer filled with seeded values, 4 decode steps from
+              position 1500 (the local layers' buffers wrapped), kernels
+              against plain versions: logits within 1e-3 of max |logit|.
 5. train   -- the port's training entry point,
               ``repro_torch.launch.train.main``, on full-width, full-depth
               gemma-2b (fp32 master weights, bf16 compute, per-layer remat,
@@ -77,7 +100,11 @@ Phases, one output line or more each:
               launch per call (the stencil one per sweep; B10 counts its
               split sum in the call's one), WKV once on each route (bf16
               rwkv6-7b on mma, fp32 at hd 128 on simt), outputs equal to
-              the plain versions within phase 2b's tolerances.
+              the plain versions within phase 2b's tolerances.  Then
+              the same ops on a transposed or strided view, an
+              odd-offset view and int64 histogram values past 2^32: the
+              kernel routes, and the plain route's answers (exact for the
+              stencil and histogram, LIB_TOL for WKV and N-body).
 8. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -106,7 +133,10 @@ Phase 2 also holds the flash forward (B6) and its fused backward (B7)
 at the training shape (B=2, H=8, S=512, hd=256; causal, and a window of
 128), and in bf16 also at hd=128 (H=16; causal, and a window of 128) and
 hd=64 (H=32, causal), against their plain versions, each on the route
-(dtype, hd) names (bf16 at these widths: wgmma; fp32: simt); runs B7
+(dtype, hd) names (bf16 at these widths: wgmma; fp32: simt), and B6
+alone at the model drafter's forward of phase 3c (bf16, B=4, H=8,
+S=259 = max_len 256 + 3 drafts, a tail of 3 past the last 64-row tile,
+causal; the wgmma route required); runs B7
 twice and requires identical bits, times ``scaled_dot_product_attention``
 and its backward beside the causal cases (never called by the port),
 each also by its kernels' device time under the profiler (``device_ms``,
@@ -144,15 +174,24 @@ TOL = {"bfloat16": 5e-2, "float32": 2e-4}
 # decode attention also holds each slot's max |err| to this share of its
 # max |output| (bf16 rounds P to 2^-9 of itself: about 2e-3 of a slot)
 SLOT_REL_LIMIT = 1e-2
-SERVE_ARGS = ["--arch", "gemma-2b", "--slots", "4", "--requests", "6",
-              "--prompt-len", "100", "--max-new", "16", "--max-len", "256"]
+SERVE_ARGS = ["--arch", "gemma-2b", "--cache", "paged", "--slots", "4",
+              "--requests", "6", "--prompt-len", "100", "--max-new", "16",
+              "--max-len", "256"]
+# the dense cache (the serve CLI's default layout) on the same traffic
+DENSE_ARGS = ["--arch", "gemma-2b", "--cache", "dense", "--slots", "4",
+              "--requests", "6", "--prompt-len", "100", "--max-new", "16",
+              "--max-len", "256"]
+# speculative decoding: 3 draft tokens a window (W = 4); the model
+# drafter is the target's leading 9 of 18 layers (the default half)
+SPEC_ARGS = ["--draft-tokens", "3"]
 INT8_ARGS = ["--kv-dtype", "int8", "--weights-dtype", "int8"]
 PREFIX_ARGS = ["--prefix-cache", "--shared-prefix-len", "64",
                "--shared-frac", "1.0"]
 # every prompt is the same single page: all but the first request are
 # fully covered by the prefix cache
-COVERED_ARGS = ["--arch", "gemma-2b", "--slots", "4", "--requests", "3",
-                "--prompt-len", "64", "--shared-prefix-len", "64",
+COVERED_ARGS = ["--arch", "gemma-2b", "--cache", "paged", "--slots", "4",
+                "--requests", "3", "--prompt-len", "64",
+                "--shared-prefix-len", "64",
                 "--shared-frac", "1.0", "--max-new", "4", "--max-len", "256"]
 REPLACES = {
     "matmul": "src/repro/kernels/matmul/matmul.py:109",
@@ -438,6 +477,14 @@ DECODE_LONG = dict(b=4, h=8, hkv=1, hd=256, page=64, n_pages=128,
                    lens=(8192, 5000, 2049, 1), windows=(0, 1024))
 DECODE_QWEN = dict(b=4, h=32, hkv=32, hd=128, page=64, n_pages=128,
                    lens=(8192, 5000, 2049, 1), windows=(0,))
+# the dense serving path's call (layers.attention_decode): gemma3-4b's heads
+# (8 over 4 kv heads of 256, configs/archs.py:65) over 2 slots' dense
+# caches viewed as pages, each slot's own run of pages its table, at
+# position 1500: the local layers' 1024-entry buffer wrapped (every entry
+# live), the global layers' 2048-entry buffer holding 1501 keys
+DECODE_DENSE = [dict(b=2, h=8, hkv=4, hd=256, page=64, n_pages=cap // 64,
+                     lens=(min(1501, cap),) * 2, windows=(0,), dense=True)
+                for cap in (1024, 2048)]
 
 
 def decode_rows(torch, dtype_name: str, shape: dict, int8: bool,
@@ -455,8 +502,15 @@ def decode_rows(torch, dtype_name: str, shape: dict, int8: bool,
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, hkv, hd, page, n_pages = (shape[k] for k in (
         "b", "h", "hkv", "hd", "page", "n_pages"))
-    kp, vp, table = paged_inputs(torch, dtype, gen, b=b, h=h, hkv=hkv,
-                                 hd=hd, page=page, n_pages=n_pages)
+    if shape.get("dense"):
+        # (B, cap, Hkv, hd) caches viewed as (B * cap / page) pages
+        kp, vp = (torch.randn(b * n_pages, page, hkv, hd, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        table = torch.arange(b * n_pages, dtype=torch.int32,
+                             device="cuda").view(b, n_pages)
+    else:
+        kp, vp, table = paged_inputs(torch, dtype, gen, b=b, h=h, hkv=hkv,
+                                     hd=hd, page=page, n_pages=n_pages)
     q = torch.randn(b, h, hd, generator=gen, device="cuda").to(dtype)
     lens = list(shape["lens"])
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -468,7 +522,9 @@ def decode_rows(torch, dtype_name: str, shape: dict, int8: bool,
         scales, name, kernel, tol = (ks, vs), "decode_attention_int8", \
             decode_attention_int8_cuda, "float32"
     args = (q, kp, vp, table, lengths, *scales)
-    case = (f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens}")
+    case = (f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens}"
+            + (f" dense cache={n_pages * page}" if shape.get("dense")
+               else ""))
     rows = []
     for window in shape["windows"]:
         def call():
@@ -516,6 +572,8 @@ def check_decode(torch, dtype_name: str):
         for int8 in (False, True):
             rows += decode_rows(torch, dtype_name, DECODE_LONG, int8, 20)
         rows += decode_rows(torch, dtype_name, DECODE_QWEN, False, 20)
+    for shape in DECODE_DENSE:
+        rows += decode_rows(torch, dtype_name, shape, False, 20)
     return rows
 
 
@@ -531,6 +589,12 @@ PREFILL_LONG = dict(b=4, c=64, h=8, hkv=1, hd=256, page=64, n_pages=128,
                     starts=(8128, 4992, 1984, 0), windows=(0, 1024))
 PREFILL_QWEN = dict(b=4, c=64, h=32, hkv=32, hd=128, page=64, n_pages=128,
                     starts=(8128, 4992, 1984, 0), windows=(0,))
+# the speculative serve runs' verify window (layers.attention_verify_paged
+# at --draft-tokens 3: C = 4 rows from each slot's length, on the 256-key
+# table): starts mid-page, a window that crosses a page edge (62 + 4) and
+# a slot at 0; gemma-2b has no window.  The serve runs take the wgmma route
+PREFILL_VERIFY = dict(b=4, c=4, h=8, hkv=1, hd=256, page=64, n_pages=4,
+                      starts=(17, 62, 0, 130), windows=(0,), route="wgmma")
 
 
 def prefill_rows(torch, dtype_name: str, shape: dict, int8: bool,
@@ -562,6 +626,9 @@ def prefill_rows(torch, dtype_name: str, shape: dict, int8: bool,
             prefill_attention_int8_cuda, "float32"
     args = (q, kp, vp, table, starts, *scales)
     route = prefill_route(dtype, hd, h // hkv)
+    if shape.get("route", route) != route:
+        raise AssertionError(f"prefill {shape}: route {route}, the serve "
+                             f"path's is {shape['route']}")
     split = (list(prefill_split_plan(n_pages, page, hkv, h // hkv, c, hd))
              if route == "wgmma" else [n_pages * page, 1])
     case = f"B={b} C={c} H={h} Hkv={hkv} hd={hd} page={page} starts={st}"
@@ -617,6 +684,8 @@ def check_prefill(torch, dtype_name: str):
         for int8 in (False, True):
             rows += prefill_rows(torch, dtype_name, PREFILL_LONG, int8, 10)
         rows += prefill_rows(torch, dtype_name, PREFILL_QWEN, False, 10)
+        for int8 in (False, True):
+            rows += prefill_rows(torch, dtype_name, PREFILL_VERIFY, int8, 20)
     return rows
 
 
@@ -636,6 +705,10 @@ FLASH_BF16_CASES = ((256, 0), (256, 128), (128, 0), (64, 0), (128, 128))
 # build that loses one lo product (both in PERF.md §6)
 BWD_SPLIT_LIMIT = {"dq": 6e-4, "dk": 6e-4, "dv": 1e-4}
 FLASH_F32_CASES = ((256, 0), (256, 128))
+# the model drafter's forward in the speculative serve runs (Model.forward
+# on gemma-2b's heads, the K/V heads expanded): 4 slots of max_len 256 + 3
+# drafts, a sequence that ends 3 rows into its last 64-row tile
+FLASH_DRAFTER = dict(b=4, h=8, s=259, hd=256)
 
 
 def check_flash(torch, dtype_name: str):
@@ -744,7 +817,53 @@ def check_flash(torch, dtype_name: str):
             library_device_ms=dev.get("library_bwd_device_ms"),
             norm_rel_err=split or None))
         del q, k, v, do, o, lse, o_p, lse_p
+    if dtype_name == "bfloat16":
+        rows.append(flash_drafter_row(torch))
     return rows
+
+
+def flash_drafter_row(torch):
+    """B6 alone (the drafter runs no backward) at ``FLASH_DRAFTER`` in
+    bf16, causal, on the wgmma route, against its plain version, beside
+    one ``scaled_dot_product_attention(is_causal=True)`` call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import (flash_attention_cuda,
+                                               flash_attention_plain)
+    from repro_torch.kernels.attention.flash import flash_route
+    b, h, s, hd = (FLASH_DRAFTER[k] for k in ("b", "h", "s", "hd"))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    case = f"B={b} H={h} S={s} hd={hd} causal window=0 drafter"
+    route = flash_route(torch.bfloat16, hd)
+    dispatch.reset_launch_counts()
+    o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    if (route, dispatch.route_counts()["flash_attention/wgmma"]) != (
+            "wgmma", 1):
+        raise AssertionError(f"flash {case}: route {route}, "
+                             f"{dispatch.route_counts()}; expected wgmma")
+    o_p, lse_p = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    err = max(compare(torch, "flash_attention " + case, o, o_p, "bfloat16"),
+              compare(torch, "flash_attention lse " + case, lse, lse_p,
+                      "bfloat16"))
+
+    def fwd():
+        return flash_attention_cuda(q, k, v, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    n = q.numel()
+    r = row("flash_attention", case, "bfloat16", err, time_ms(torch, fwd),
+            time_ms(torch, lambda: flash_attention_plain(q, k, v,
+                                                         causal=True)),
+            bound(3 * n * q.element_size() + n * 4 + b * h * s * 4,
+                  4.0 * hd * b * h * _live_pairs(s, 0), "bfloat16"),
+            time_ms(torch, sdpa), route=route, device_ms=device_ms(torch, fwd),
+            library_device_ms=device_ms(torch, sdpa))
+    del q, k, v, o, lse, o_p, lse_p
+    return r
 
 
 def check_matmul_backward(torch, dtype_name: str):
@@ -1160,6 +1279,72 @@ def library_phase(torch):
     return {op: launches[op] for op in LIBRARY_KERNELS}
 
 
+def library_inputs_phase(torch):
+    """The public ops on what their plain routes take and the kernels do
+    not read as they are: a transposed or strided view, a contiguous view
+    at an odd offset (off a 16-byte boundary), and int64 histogram values
+    past 2^32 (which a bare int32 cast would wrap into range).  Every call
+    on its kernel route; results equal the plain route's exactly (B9,
+    B11) or within LIB_TOL of max |plain output| (B8, B10)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.histogram import histogram, histogram_plain
+    from repro_torch.kernels.nbody import nbody_accel, nbody_accel_plain
+    from repro_torch.kernels.stencil import jacobi4, jacobi4_plain
+    from repro_torch.kernels.wkv import wkv, wkv_plain
+    t0 = time.time()
+
+    def odd(t):
+        """A contiguous copy of t one element past a 16-byte boundary."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def transposed(t, dims):
+        """t's values as a view with the strides of a transpose."""
+        return t.transpose(*dims).contiguous().transpose(*dims)
+
+    r, k, v, lw, u = wkv_inputs(torch, "bfloat16", False)
+    w_args = (transposed(r, (1, 2)), odd(k), odd(v), transposed(lw, (0, 1)),
+              u)
+    grid = stencil_input(torch, 8192, 8192)
+    grids = (grid.T, grid[1:-1, 3:-2], odd(grid))
+    pos, mass = nbody_inputs(torch, NBODY_SIZES[0])
+    bodies = ((pos.T.contiguous().T, mass), (odd(pos), odd(mass)),
+              (transposed(pos, (0, 1)), torch.stack([mass, mass], 1)[:, 0]))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    vals = torch.randint(-5, HIST_BINS + 5, (HIST_N,), generator=gen,
+                         device="cuda")
+    vals[::7] += 1 << 32          # an int32 cast would wrap these back
+    vals[1::11] = (1 << 33) + 3
+    hists = (vals, vals[::3], odd(vals[::2].to(torch.int32)))
+    with dispatch.stats_scope() as stats:
+        w_out = wkv(*w_args, chunk=WKV_CHUNK, subchunk=WKV_SUBCHUNK)
+        s_out = [jacobi4(x) for x in grids]
+        n_out = [nbody_accel(p, m) for p, m in bodies]
+        h_out = [histogram(x, HIST_BINS) for x in hists]
+        torch.cuda.synchronize()
+        routes = stats()
+    if any(route == "plain" for _, route in routes):
+        raise AssertionError(f"library inputs: plain routes {routes}")
+    errs = {"wkv": rel_check(torch, "library inputs wkv", w_out,
+                             wkv_plain(*w_args, chunk=WKV_CHUNK))[1]}
+    for x, got in zip(grids, s_out):
+        equal_check(torch, "library inputs stencil", got, jacobi4_plain(x))
+    errs["nbody"] = max(rel_check(torch, "library inputs nbody", got,
+                                  nbody_accel_plain(p, m))[1]
+                        for (p, m), got in zip(bodies, n_out))
+    for x, got in zip(hists, h_out):
+        equal_check(torch, "library inputs histogram", got,
+                    histogram_plain(x, HIST_BINS))
+    if h_out[0].sum().item() != int(((vals >= 0) & (vals < HIST_BINS)).sum()):
+        raise AssertionError("library inputs: out-of-range int64 counted")
+    emit({"phase": "library_inputs", "routes": {
+        f"{op}/{route}": n for (op, route), n in routes.items()},
+        "rel_err": errs, "stencil_histogram_exact": True,
+        "seconds": time.time() - t0})
+
+
 # ------------------------------------------------------------ phase 3
 FLOAT_PATH = ("matmul", "decode_attention", "prefill_attention")
 INT8_PATH = ("matmul", "quantized_matmul", "decode_attention_int8",
@@ -1169,25 +1354,27 @@ INT8_PATH = ("matmul", "quantized_matmul", "decode_attention_int8",
 def serve_run(torch, label, argv, path):
     """One ``serve.main`` run with every launch count set to 0 just before
     it and read just after; raises on a plain route, on a kernel of
-    ``path`` that never launched, or on one off the path that did."""
+    ``path`` that never launched, on one off the path that did, or on a
+    prefill (verify included) or flash call off the wgmma route."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve
     dispatch.reset_launch_counts()
     rep = serve.main(argv)
     torch.cuda.synchronize()
     launches = dispatch.launch_counts()
-    prefill_routes = {k: n for k, n in dispatch.route_counts().items()
-                      if k.startswith("prefill_attention")}
+    attn_routes = {k: n for k, n in dispatch.route_counts().items()
+                   if k.startswith(("prefill_attention", "flash_attention/"))}
     streams = {r.rid: list(r.out) for r in rep["done"]}
     emit({"phase": "serve", "run": label,
           "requests": len(rep["done"]), "new_tokens": rep["new_tokens"],
           "tok_s": rep["tok_s"], "seconds": rep["seconds"],
           "ttft_p50": rep["ttft_p50"], "ttft_p99": rep["ttft_p99"],
           "phases": rep["phases"], "prefix": rep["prefix"],
+          "dense": rep["dense"], "spec": rep["spec"],
           "max_resident_kv_bytes": rep["max_resident_kv_bytes"],
           "routes": {f"{op}/{route}": n
                      for (op, route), n in rep["routes"].items()},
-          "launches": launches, "prefill_routes": prefill_routes,
+          "launches": launches, "attention_routes": attn_routes,
           "streams": streams})
     plain = {k: n for k, n in rep["routes"].items() if k[1] == "plain"}
     if plain:
@@ -1196,12 +1383,14 @@ def serve_run(torch, label, argv, path):
     if wrong:
         raise AssertionError(f"{label}: launches off the expected path "
                              f"{path}: {launches}")
-    # bf16 at gemma-2b's heads: every prefill call on the wgmma route
+    # bf16 at gemma-2b's heads: every prefill call (verify windows
+    # included) and every flash call (the model drafter) on wgmma
     want = {f"{op}/{route}": launches[op] if route == "wgmma" else 0
-            for op in ("prefill_attention", "prefill_attention_int8")
+            for op in ("prefill_attention", "prefill_attention_int8",
+                       "flash_attention")
             for route in ("wgmma", "simt")}
-    if prefill_routes != want:
-        raise AssertionError(f"{label}: prefill routes {prefill_routes}, "
+    if attn_routes != want:
+        raise AssertionError(f"{label}: attention routes {attn_routes}, "
                              f"expected {want}")
     return rep, streams, launches
 
@@ -1214,6 +1403,7 @@ def serve_phase(torch):
             launches[op] = launches.get(op, 0) + n
 
     kv_bytes = {}
+    base_streams = {}
     for name, extra, path in (("float", [], FLOAT_PATH),
                               ("int8+prefix", INT8_ARGS + PREFIX_ARGS,
                                INT8_PATH)):
@@ -1237,6 +1427,7 @@ def serve_phase(torch):
             raise AssertionError(f"{name}: static and continuous streams "
                                  f"differ:\n{streams['static']}\n"
                                  f"{streams['continuous']}")
+        base_streams[name] = streams["static"]
         emit({"phase": "serve", "run": name, "identical_streams": True})
     emit({"phase": "serve", "max_resident_kv_bytes": kv_bytes})
 
@@ -1258,6 +1449,104 @@ def serve_phase(torch):
     emit({"phase": "serve", "run": "int8 fully-covered",
           "cow_copies": rep["prefix"]["cow_copies"],
           "streams_equal_unshared": True})
+    return launches, base_streams
+
+
+# ------------------------------------------------------------ phase 3b
+DENSE_PATHS = {"float": ("matmul", "decode_attention"),
+               "int8 weights": ("matmul", "quantized_matmul",
+                                "decode_attention")}
+
+
+def dense_serve_phase(torch):
+    """The dense cache through ``serve.main``, float and int8 weights:
+    prompts teacher-forced through the decode step at one shared
+    position, every attention layer on B2 over its cache viewed as pages.
+    Every request served in full; launches exactly B1 and B2 (and B5)."""
+    t0 = time.time()
+    launches = {}
+    for name, extra in (("float", []),
+                        ("int8 weights", ["--weights-dtype", "int8"])):
+        rep, streams, counts = serve_run(torch, f"dense {name}",
+                                         DENSE_ARGS + extra,
+                                         DENSE_PATHS[name])
+        for op, n in counts.items():
+            launches[op] = launches.get(op, 0) + n
+        if len(rep["done"]) != 6 or any(len(r.out) != 16
+                                        for r in rep["done"]) \
+                or rep["dense"]["truncated"] or rep["dense"]["rejected"]:
+            raise AssertionError(f"dense {name}: not every request served "
+                                 f"in full: {rep['dense']}")
+        ph = rep["phases"]
+        emit({"phase": "dense_serve", "run": name,
+              "decode_steps": ph["decode_steps"],
+              "decode_ms_per_step": 1e3 * ph["decode_seconds"]
+              / ph["decode_steps"],
+              "new_tokens": rep["new_tokens"], "tok_s": rep["tok_s"],
+              "decode_attention_launches": counts["decode_attention"],
+              "streams": streams})
+    emit({"phase": "dense_serve", "seconds": time.time() - t0})
+    return launches
+
+
+# ------------------------------------------------------------ phase 3c
+SPEC_RUNS = (  # (label, base run, extra arguments, schedule)
+    ("ngram static", "float", ["--speculate", "ngram"], "static"),
+    ("ngram continuous", "float", ["--speculate", "ngram"], "continuous"),
+    ("model static", "float", ["--speculate", "model"], "static"),
+    ("model continuous", "float", ["--speculate", "model"], "continuous"),
+    ("int8+prefix ngram static", "int8+prefix",
+     INT8_ARGS + PREFIX_ARGS + ["--speculate", "ngram"], "static"))
+
+
+def spec_path(base: str, extra: list, schedule: str) -> tuple:
+    """The kernels a speculative run launches: the GEMMs and the prefill
+    kernel of its pools (prompts, then every verify window); B6 for the
+    model drafter's forwards; B2 only in the continuous engine's warm-up
+    decode."""
+    path = (("matmul", "quantized_matmul", "prefill_attention_int8")
+            if base == "int8+prefix" else ("matmul", "prefill_attention"))
+    if "model" in extra:
+        path += ("flash_attention",)
+    if schedule == "continuous":
+        path += ("decode_attention_int8" if base == "int8+prefix"
+                 else "decode_attention",)
+    return path
+
+
+def spec_serve_phase(torch, base_streams):
+    """Speculative decoding through ``serve.main`` on the paged cache: the
+    n-gram and the model drafter (static and continuous), and int8 +
+    prefix with the n-gram drafter.  Each run's streams must equal the
+    non-speculative run's of phase 3; every verify call on B3/B4b's wgmma
+    route; B6 launched by the model drafter alone."""
+    t0 = time.time()
+    launches = {}
+    for label, base, extra, schedule in SPEC_RUNS:
+        argv = SERVE_ARGS + extra + SPEC_ARGS + ["--schedule", schedule]
+        if schedule == "continuous":
+            argv += ["--clock", "tick"]
+        rep, streams, counts = serve_run(torch, f"spec {label}", argv,
+                                         spec_path(base, extra, schedule))
+        for op, n in counts.items():
+            launches[op] = launches.get(op, 0) + n
+        if streams != base_streams[base]:
+            raise AssertionError(f"spec {label}: streams differ from the "
+                                 f"non-speculative run:\n{streams}\n"
+                                 f"{base_streams[base]}")
+        sp = rep["spec"]
+        emit({"phase": "spec_serve", "run": label,
+              "verify_steps": sp["verify_steps"], "drafted": sp["drafted"],
+              "accepted": sp["accepted"], "accept_rate": sp["accept_rate"],
+              "tokens_per_step": sp["tokens_per_step"],
+              "verify_ms_per_step": 1e3 * sp["verify_seconds"]
+              / sp["verify_steps"],
+              "draft_ms_per_step": 1e3 * sp["draft_seconds"]
+              / sp["verify_steps"],
+              "new_tokens": rep["new_tokens"], "tok_s": rep["tok_s"],
+              "flash_launches": counts["flash_attention"],
+              "streams_equal_non_speculative": True})
+    emit({"phase": "spec_serve", "seconds": time.time() - t0})
     return launches
 
 
@@ -1316,6 +1605,81 @@ def model_phase(torch, int8: bool):
         raise AssertionError(f"full-width logits: max |err| {err:.3e} > "
                              f"1e-3 x {scale:.3e}")
     del params, kernel, plain
+
+
+# ------------------------------------------------------------ phase 4b
+DENSE_MODEL = dict(arch="gemma3-4b", slots=2, max_len=2048, pos=1500,
+                   steps=4)
+
+
+def dense_model_phase(torch):
+    """gemma3-4b at its published width (34 layers, d 2560, 8 heads over 4
+    kv heads of 256, window 1024) in fp32 on the dense cache: every buffer
+    filled with seeded values, then 4 decode steps from position 1500, so
+    the local layers' 1024-entry buffers have wrapped; through the
+    kernels and through the plain versions on the card, logits within
+    1e-3 of max |logit|.  The kernel run must launch B2 once a layer a
+    step and take no plain route."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    t0 = time.time()
+    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    cfg = get_arch(DENSE_MODEL["arch"])
+    model = Model(cfg, dt=f32, device="cuda")
+    params = model.init(seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, max_len, pos0, steps = (DENSE_MODEL[k] for k in (
+        "slots", "max_len", "pos", "steps"))
+    filled = model.init_cache(b, max_len)
+    for group in filled.values():
+        for layer in group:
+            for leaf in layer.values():
+                leaf.normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=gen,
+                         device="cuda").to(torch.int32)
+
+    def run():
+        cache = {g: [{k: t.clone() for k, t in layer.items()}
+                     for layer in group] for g, group in filled.items()}
+        return torch.stack([model.decode_step(params, cache, toks[i],
+                                              pos=pos0 + i)
+                            for i in range(steps)])
+
+    dispatch.reset_launch_counts()
+    with dispatch.stats_scope() as stats:
+        kernel = run()
+        torch.cuda.synchronize()
+        routes = stats()
+    launches = dispatch.launch_counts()
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        plain = run()
+    torch.cuda.synchronize()
+    scale = plain.abs().max().item()
+    err = (kernel - plain).abs().max().item()
+    caps = sorted({layer["k"].shape[-3] for group in filled.values()
+                   for layer in group})
+    emit({"phase": "dense_model", "arch": cfg.name, "dtype": "float32",
+          "slots": b, "max_len": max_len, "positions": [pos0, pos0 + steps],
+          "caches": caps, "max_abs_err": err, "max_abs_logit": scale,
+          "rel_err": err / scale, "logit_std": plain.std().item(),
+          "decode_attention_launches": launches["decode_attention"],
+          "seconds": time.time() - t0})
+    if not bool(torch.isfinite(kernel).all()) \
+            or kernel.shape != (steps, b, cfg.vocab_size):
+        raise AssertionError(f"dense model: logits {tuple(kernel.shape)}, "
+                             f"finite {bool(torch.isfinite(kernel).all())}")
+    if any(route == "plain" for _, route in routes):
+        raise AssertionError(f"dense model: plain routes {routes}")
+    if launches["decode_attention"] != steps * cfg.n_layers:
+        raise AssertionError(f"dense model: B2 launched "
+                             f"{launches['decode_attention']} times, not "
+                             f"{steps * cfg.n_layers}")
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"dense model logits: max |err| {err:.3e} > "
+                             f"1e-3 x {scale:.3e}")
+    del params, filled, kernel, plain
 
 
 # ------------------------------------------------------------ phase 5
@@ -1669,14 +2033,21 @@ def main(argv=None) -> int:
         rows += check(torch)
         torch.cuda.empty_cache()
 
-    launches = serve_phase(torch)
+    launches, base_streams = serve_phase(torch)
     torch.cuda.empty_cache()
+    for phase_launches in (dense_serve_phase(torch),
+                           spec_serve_phase(torch, base_streams)):
+        for op, n in phase_launches.items():
+            launches[op] = launches.get(op, 0) + n
+        torch.cuda.empty_cache()
     for label, extra in PROFILED_SERVE_RUNS:
         serve_profile(torch, label, extra)
         torch.cuda.empty_cache()
     for int8 in (False, True):
         model_phase(torch, int8)
         torch.cuda.empty_cache()
+    dense_model_phase(torch)
+    torch.cuda.empty_cache()
     for op, n in train_phase(torch).items():
         launches[op] = launches.get(op, 0) + n
     torch.cuda.empty_cache()
@@ -1685,6 +2056,8 @@ def main(argv=None) -> int:
     train_parity_phase(torch)
     torch.cuda.empty_cache()
     launches.update(library_phase(torch))
+    torch.cuda.empty_cache()
+    library_inputs_phase(torch)
     torch.cuda.empty_cache()
 
     # the summary line: per kernel, the times of its first bf16 case at

@@ -29,3 +29,22 @@ def params_from_jax(tree: Any, device: DeviceLike,
         arr = np.asarray(node, dtype=np.float32)
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
     return conv(tree)
+
+
+def dense_cache_from_jax(tree: Any, device: DeviceLike,
+                         dtype: torch.dtype) -> Any:
+    """A JAX dense decode cache (``Model.init_cache``: ``prefix`` /
+    ``stack`` / ``tail`` lists of ``{"k", "v"}`` (B, cap, Hkv, hd) arrays,
+    stacked periods with a leading period axis), handed over as numpy
+    arrays, filled or not, as the port's cache of the same nesting
+    (``repro_torch.models.transformer.Model.init_cache``), so both
+    packages can decode on from one state (a wrapped rolling buffer, say).
+    """
+    for group in ("prefix", "stack", "tail"):
+        for layer in tree[group]:
+            if set(layer) != {"k", "v"} or layer["k"].shape \
+                    != layer["v"].shape:
+                shapes = {k: np.shape(v) for k, v in layer.items()}
+                raise ValueError(f"not a dense attention cache layer: "
+                                 f"{shapes}")
+    return params_from_jax(tree, device, dtype)

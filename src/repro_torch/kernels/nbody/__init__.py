@@ -10,7 +10,8 @@ def nbody_accel(pos: torch.Tensor, mass: torch.Tensor, *,
                 eps: float = SOFTENING) -> torch.Tensor:
     """Softened gravitational accelerations: pos (3, N), mass (N,) fp32
     -> (3, N) fp32 (``repro/kernels/nbody/ops.py``), routed by the device
-    of ``pos``."""
-    on_card = dispatch._on_card("nbody", pos)
-    fn = nbody_accel_cuda if on_card else nbody_accel_plain
-    return fn(pos, mass, eps=eps)
+    of ``pos`` (views, such as ``x.T`` of positions kept as (N, 3), are
+    made contiguous for the kernel)."""
+    if dispatch._on_card("nbody", pos):
+        return nbody_accel_cuda(pos.contiguous(), mass.contiguous(), eps=eps)
+    return nbody_accel_plain(pos, mass, eps=eps)

@@ -20,6 +20,17 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     if subchunk < 1:
         raise ValueError(f"wkv: subchunk {subchunk} < 1")
     if dispatch._on_card("wkv", r):
-        return wkv_cuda(r, k, v, lw.float(), u.float(), chunk=chunk,
-                        subchunk=subchunk)
+        # the kernel reads dense rows, and its mma route copies them with
+        # cp.async: views are made contiguous, data off a 16-byte boundary
+        # (a contiguous view at an odd offset) is copied
+        return wkv_cuda(*(_aligned(t) for t in (r, k, v, lw.float(),
+                                                 u.float())),
+                        chunk=chunk, subchunk=subchunk)
     return wkv_plain(r, k, v, lw.float(), u.float(), chunk=chunk)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous tensor whose data starts on a 16-byte
+    boundary (a copy only where ``t`` is not one already)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

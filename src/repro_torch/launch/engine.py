@@ -13,7 +13,9 @@ discipline (concurrently executing stages connected by explicit state):
   for running slots under a per-iteration token budget;
 * **step execution** (:class:`StepExecutor`) -- ONE multi-slot prefill
   forward (B = number of chunks) plus ONE batched ragged decode whose view
-  masks non-decoding slots to the trash page;
+  masks non-decoding slots to the trash page; with a drafter, one batched
+  fixed-width verify forward in place of the decode
+  (``launch/speculative.py``);
 * **metrics** (``launch/metrics.py``) -- per-request TTFT and per-token
   latency on the same clock.
 
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +39,12 @@ from .metrics import ServeMetrics
 class StepPlan:
     """One engine iteration's work: ``prefill`` holds (slot, chunk start)
     pairs batched through ONE prefill forward; ``decode`` the slots that
-    take a decode token."""
+    take a decode token; ``verify`` the draft tokens (per decode slot)
+    that speculative mode admitted under the token budget, riding the
+    same batched forward as the decode token they extend."""
     prefill: List[Tuple[int, int]] = field(default_factory=list)
     decode: List[int] = field(default_factory=list)
+    verify: Dict[int, List[int]] = field(default_factory=dict)
 
     def empty(self) -> bool:
         return not self.prefill and not self.decode
@@ -73,9 +78,22 @@ class BatchPolicy:
         self.page = int(page)
 
     def compose(self, running: List[int],
-                prefilling: List[Tuple[int, int]]) -> StepPlan:
+                prefilling: List[Tuple[int, int]],
+                drafts: Optional[Dict[int, List[int]]] = None) -> StepPlan:
+        """``drafts`` (speculative mode) maps running slots to proposed
+        draft tokens; they are admitted after the decode tokens and before
+        prefill chunks, under the same budget, so leftover budget still
+        prefills."""
         decode = list(running)
         left = max(0, self.token_budget - len(decode))
+        verify: Dict[int, List[int]] = {}
+        if drafts:
+            for slot in decode:
+                ks = drafts.get(slot, [])
+                take = min(len(ks), left)
+                if take > 0:
+                    verify[slot] = list(ks[:take])
+                    left -= take
         chunks: List[Tuple[int, int]] = []
         for slot, start in prefilling:
             if left < self.page:
@@ -84,7 +102,7 @@ class BatchPolicy:
             left -= self.page
         if not decode and not chunks and prefilling:
             chunks.append(prefilling[0])   # forced progress
-        return StepPlan(prefill=chunks, decode=decode)
+        return StepPlan(prefill=chunks, decode=decode, verify=verify)
 
 
 class StepExecutor:
@@ -138,6 +156,19 @@ class StepExecutor:
         self.t_decode += time.perf_counter() - t0
         return nxt
 
+    def verify(self, cur: np.ndarray, decode_slots: List[int],
+               drafts: Dict[int, List[int]], width: int) -> np.ndarray:
+        """One batched fixed-width verify forward in place of the decode
+        step: slot rows carry [current token, drafts..., padding];
+        non-decoding slots ride along masked to the trash page as in
+        :meth:`decode`.  Returns (slots, width) greedy predictions."""
+        sched = self.sched
+        sched.prepare_verify(decode_slots, width)  # full-span CoW sweep
+        t0 = time.perf_counter()
+        preds = sched.verify_slots(cur, decode_slots, drafts, width)
+        self.t_decode += time.perf_counter() - t0
+        return preds
+
 
 class ContinuousEngine:
     """Admission -> compose -> execute -> account, once per iteration.
@@ -151,13 +182,18 @@ class ContinuousEngine:
 
     def __init__(self, sched, *, token_budget: int = 0,
                  clock: str = "wall", tick: float = 1.0,
-                 metrics: Optional[ServeMetrics] = None, log=print):
+                 metrics: Optional[ServeMetrics] = None, drafter=None,
+                 log=print):
         if clock not in ("wall", "tick"):
             raise ValueError(f"clock must be wall|tick, got {clock!r}")
         self.sched = sched
         self.policy = BatchPolicy(token_budget or sched.slots * sched.page,
                                   sched.page)
         self.executor = StepExecutor(sched)
+        # speculative mode: a drafter swaps the decode step for a
+        # fixed-width draft / verify / rollback step
+        self.drafter = drafter
+        self.verify_width = (drafter.max_draft + 1) if drafter else 0
         self.clock_mode = clock
         self.tick = float(tick)
         self.metrics = metrics if metrics is not None else ServeMetrics()
@@ -177,10 +213,10 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------- warmup
     def warmup(self) -> None:
-        """Run every prefill batch width (1..slots) plus the masked decode
-        step once outside the timed region (the kernel library loads on
-        first use); all warmup writes land on the trash page, so live
-        state is untouched."""
+        """Run every prefill batch width (1..slots), the masked decode
+        step and, with a drafter, the masked verify step once outside the
+        timed region (the kernel library loads on first use); all warmup
+        writes land on the trash page, so live state is untouched."""
         sched = self.sched
         for b in range(1, sched.slots + 1):
             sched.model.prefill_step_paged(
@@ -191,6 +227,12 @@ class ContinuousEngine:
                 sched._dev(np.full((b,), sched.page - 1)))
         zeros = np.zeros((sched.slots,), np.int32)
         sched.step(zeros, view=(zeros, np.zeros_like(sched.table)))
+        if self.drafter is not None:
+            sched.verify_step(
+                np.zeros((sched.slots, self.verify_width), np.int32),
+                view=(zeros, np.zeros_like(sched.table)))
+            sched.verify_steps = 0
+            sched.verify_seconds = 0.0
         sched.decode_steps = 0
         sched.decode_tokens = 0
 
@@ -278,7 +320,9 @@ class ContinuousEngine:
                    if sched.active[i] is not None and self.states[i] is None]
         prefilling = [(i, self.states[i].pos) for i in range(sched.slots)
                       if self.states[i] is not None]
-        plan = self.policy.compose(running, prefilling)
+        drafts = (sched.draft_for(self.drafter, running)
+                  if self.drafter is not None and running else None)
+        plan = self.policy.compose(running, prefilling, drafts=drafts)
 
         if plan.empty():
             nxt = (self.queue.next_arrival()
@@ -298,8 +342,14 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         first_toks = (self.executor.prefill(plan.prefill, self.states)
                       if plan.prefill else None)
-        nxt_tok = (self.executor.decode(self.cur, plan.decode)
-                   if plan.decode else None)
+        speculative = self.drafter is not None
+        nxt_tok = preds = None
+        if plan.decode:
+            if speculative:
+                preds = self.executor.verify(self.cur, plan.decode,
+                                             plan.verify, self.verify_width)
+            else:
+                nxt_tok = self.executor.decode(self.cur, plan.decode)
         self.clock += ((time.perf_counter() - t0)
                        if self.clock_mode == "wall" else self.tick)
         self.iterations += 1
@@ -329,6 +379,9 @@ class ContinuousEngine:
 
         for slot in plan.decode:
             r = sched.active[slot]
+            if speculative:
+                self._accept(slot, plan.verify.get(slot, []), preds[slot], t)
+                continue
             sched.lengths[slot] += 1
             tok = int(nxt_tok[slot])
             r.out.append(tok)
@@ -341,6 +394,23 @@ class ContinuousEngine:
             else:
                 sched._reclaim_slot(slot)
         return True
+
+    def _accept(self, slot: int, ks: List[int], preds: np.ndarray,
+                t: float) -> None:
+        """Acceptance and host rollback of one slot's verify window
+        (``PagedScheduler.accept``), its tokens and outcome recorded at
+        ``t``."""
+        sched = self.sched
+        r = sched.active[slot]
+        accepted, emitted, finished = sched.accept(slot, ks, preds, self.cur)
+        for _ in range(emitted):
+            self.metrics.on_token(r.rid, t)
+        self.metrics.on_spec_step(len(ks), accepted, emitted)
+        if finished:
+            self._maybe_truncate(r, slot)
+            self._finish(slot, t)
+        else:
+            sched._reclaim_slot(slot)
 
     # ---------------------------------------------------------------- run
     def submit(self, requests: List[Request]) -> None:

@@ -1,4 +1,4 @@
-"""Paged-KV serving: the port of ``repro/launch/serve.py``.
+"""Batched serving: the port of ``repro/launch/serve.py``.
 
 The KV cache is a pool of fixed-size pages (paper §4.3 memory banking); a
 host-side scheduler does admission control (a request is admitted only
@@ -13,7 +13,15 @@ page reclamation and slot recycling.  The scheduler computes addresses
 scales, and ``--weights-dtype int8`` runs every projection and MLP GEMM on
 int8 weights (type demotion, paper §4.4).
 
-Two schedules (``--schedule {static,continuous}``):
+Two cache layouts (``--cache {dense,paged}``; dense is the default, as in
+the JAX package): ``dense`` is ``Server``, one rectangular (slots,
+max_len) cache (rolling buffers for windowed layers) with prompts
+teacher-forced through the decode step one token at a time; ``paged`` is
+``PagedScheduler`` over the page pool.  ``--speculate {ngram,model}``
+(paged) replaces each decode step by draft, one batched verify forward
+and host rollback (``launch/speculative.py``).
+
+Two paged schedules (``--schedule {static,continuous}``):
 
 * ``static`` -- ``PagedScheduler.run``: admit a static request list,
   whole-prompt prefill on admission, decode rounds to completion.
@@ -23,12 +31,14 @@ Two schedules (``--schedule {static,continuous}``):
   TTFT and per-token latency percentiles.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
-      --schedule continuous --requests 6 --prompt-len 100 --max-new 16 \\
-      --max-len 256                 # on the CUDA card (the default)
+      --cache paged --schedule continuous --requests 6 --prompt-len 100 \\
+      --max-new 16 --max-len 256    # on the CUDA card (the default)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
-      --smoke --device cpu          # the plain PyTorch versions on the CPU
+      --smoke --device cpu          # dense, the plain versions on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
-      --kv-dtype int8 --weights-dtype int8 --prefix-cache \\
+      --smoke --device cpu --cache paged --speculate ngram
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+      --cache paged --kv-dtype int8 --weights-dtype int8 --prefix-cache \\
       --shared-prefix-len 64 --shared-frac 1.0 --prompt-len 100 \\
       --max-len 256                 # int8 + prefix sharing on the card
 """
@@ -48,8 +58,103 @@ from ..kernels import dispatch
 from ..models.transformer import Model, paged_supported
 from .loadgen import Request, poisson_stream
 from .prefix import PrefixCache
+from .speculative import accept_longest_prefix, make_drafter
 
 DEFAULT_PAGE_SIZE = 64
+
+
+class Server:
+    """Fixed-slot continuous-batching decoder over a dense rectangular
+    cache (``--cache dense``): prompts are teacher-forced through the
+    decode step one token at a time, every slot at one shared ``pos``;
+    each attention layer reads its cache through the ragged decode kernel
+    (``layers.attention_decode``).  The shared position is also the
+    context wall: at ``max_len - 1`` the run stops, requests in flight are
+    returned truncated and requests never admitted are counted
+    rejected."""
+
+    def __init__(self, model: Model, params, *, slots: int, max_len: int,
+                 log=print):
+        self.model = model
+        # int8 weights are quantized here, once (Model.bind_params)
+        self.params = model.bind_params(params)
+        self.device = model.device
+        self.slots = slots
+        self.max_len = max_len
+        self.log = log or (lambda *a, **k: None)
+        self.cache = model.init_cache(slots, max_len)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.pos = 0
+        self.truncated = 0                # requests cut short at the wall
+        self.rejected = 0                 # unserved at the wall, counted
+        self.rejected_requests: List[Request] = []
+        self.decode_steps = 0
+        self.decode_seconds = 0.0         # host wall, argmax read included
+
+    def step(self, tokens: np.ndarray) -> np.ndarray:
+        t0 = time.perf_counter()
+        toks = torch.from_numpy(np.ascontiguousarray(tokens, np.int32))
+        logits = self.model.decode_step(
+            self.params, self.cache, toks.to(self.device)[:, None],
+            pos=self.pos)
+        self.pos += 1
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.decode_steps += 1
+        self.decode_seconds += time.perf_counter() - t0
+        return nxt
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        queue = list(requests)
+        cur = np.zeros((self.slots,), np.int32)
+        prompt_cursor = np.zeros((self.slots,), np.int64)
+        done: List[Request] = []
+        while queue or any(r is not None for r in self.active):
+            # fill free slots (continuous batching)
+            for i in range(self.slots):
+                if self.active[i] is None and queue:
+                    self.active[i] = queue.pop(0)
+                    prompt_cursor[i] = 0
+                    cur[i] = self.active[i].prompt[0]
+            nxt = self.step(cur)
+            for i, r in enumerate(self.active):
+                if r is None:
+                    continue
+                prompt_cursor[i] += 1
+                if prompt_cursor[i] < len(r.prompt):
+                    cur[i] = r.prompt[prompt_cursor[i]]   # teacher-forced
+                else:
+                    r.out.append(int(nxt[i]))
+                    cur[i] = nxt[i]
+                    if len(r.out) >= r.max_new or self.pos >= self.max_len - 1:
+                        r.done = True
+                        r.truncated = len(r.out) < r.max_new
+                        if r.truncated:
+                            self.truncated += 1
+                        done.append(r)
+                        self.active[i] = None
+            if self.pos >= self.max_len - 1:
+                break
+        # the context wall: the shared pos hit max_len with work in flight.
+        # Requests caught mid-prompt or mid-generation are returned
+        # flagged, and requests never admitted are counted rejected
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            r.done = True
+            r.truncated = True
+            self.truncated += 1
+            done.append(r)
+            self.active[i] = None
+            self.log(f"[dense] truncating request {r.rid} at the "
+                     f"context wall (max_len={self.max_len}, "
+                     f"{len(r.out)} tokens out)")
+        for r in queue:
+            r.done = False
+            self.rejected += 1
+            self.rejected_requests.append(r)
+            self.log(f"[dense] rejecting request {r.rid}: context wall "
+                     f"reached before admission (max_len={self.max_len})")
+        return done
 
 
 class PageAllocator:
@@ -209,6 +314,13 @@ class PagedScheduler:
         self.prefill_tokens = 0
         self.decode_steps = 0
         self.decode_tokens = 0
+        # ---- speculative decoding (launch/speculative.py) ----
+        self.verify_steps = 0             # batched verify forwards
+        self.verify_seconds = 0.0         # their host wall, argmax included
+        self.draft_seconds = 0.0          # the drafter's proposals
+        self.spec_drafted = 0             # candidate tokens proposed
+        self.spec_accepted = 0            # candidates the target agreed with
+        self.spec_emitted = 0             # tokens emitted by verify steps
         self.rejected = 0                 # inadmissible requests, counted
         self.rejected_requests: List[Request] = []
         self.truncated = 0                # finished early at max_len
@@ -387,6 +499,21 @@ class PagedScheduler:
                 continue                 # guard: decode loop ends the req
             self._cow_page(slot, idx)
 
+    def prepare_verify(self, slots: List[int], width: int) -> None:
+        """Copy-on-write sweep before a batched verify step.  A verify
+        window writes the whole fixed-width span ``[lengths, lengths +
+        width)``, padded rows included, so every reserved page the span
+        touches is made private first, not just the page under the
+        cursor.  Pages past the reserved span take the model's trash-page
+        redirect and need no copy; reclaimed leading pages lie below the
+        span."""
+        for slot in slots:
+            lo = int(self.lengths[slot]) // self.page
+            hi = min((int(self.lengths[slot]) + width - 1) // self.page,
+                     len(self.slot_pages[slot]) - 1)
+            for idx in range(max(lo, self.reclaimed[slot]), hi + 1):
+                self._cow_page(slot, idx)
+
     def _reclaim_slot(self, slot: int) -> int:
         """Sliding-window page reclamation (delay buffering §2.2 applied
         to the cache): once every attention layer is windowed, a page
@@ -505,47 +632,190 @@ class PagedScheduler:
         self.decode_tokens += int(np.count_nonzero(lengths))
         return torch.argmax(logits, dim=-1).cpu().numpy()
 
-    def run(self, requests: List[Request]) -> List[Request]:
-        queue = list(requests)
+    # --------------------------------------------------- speculative decoding
+    def draft_for(self, drafter, slots: List[int]) -> Dict[int, List[int]]:
+        """Propose draft tokens for the given active slots from their
+        prompt + emitted histories, clamped so that the accepted prefix
+        plus the bonus token never steps past the request's token budget,
+        the context wall or the slot's reserved pages (so every real
+        window write stays inside pages the slot holds)."""
+        hists = [list(self.active[i].prompt) + list(self.active[i].out)
+                 for i in slots]
+        t0 = time.perf_counter()
+        proposals = drafter.propose(hists)
+        self.draft_seconds += time.perf_counter() - t0
+        drafts: Dict[int, List[int]] = {}
+        for i, ks in zip(slots, proposals):
+            r = self.active[i]
+            cap = min(len(r.prompt) + r.max_new, self.max_len,
+                      len(self.slot_pages[i]) * self.page)
+            k = max(0, min(len(ks), drafter.max_draft,
+                           cap - int(self.lengths[i]) - 1,
+                           r.max_new - len(r.out) - 1))
+            drafts[i] = [int(t) for t in ks[:k]]
+        return drafts
+
+    def verify_step(self, tokens: np.ndarray, view=None) -> np.ndarray:
+        """One batched verify forward: every slot scores a fixed-width
+        window ``[last_emitted, d1..d_{W-1}]`` from its own length through
+        the ragged prefill attention (mid-page starts are legal).  Returns
+        the greedy argmax at every window row, (slots, W): row t is the
+        target's prediction for the token after position ``lengths + t``.
+        The forward writes all W candidates' K/V into the pools; the host
+        rolls a rejected suffix back by never advancing ``lengths`` over
+        it."""
+        lengths, table = view if view is not None \
+            else (self.lengths, self.table)
+        t0 = time.perf_counter()
+        logits = self.model.verify_step_paged(
+            self.params, self.cache, self._dev(tokens), self._dev(lengths),
+            self._dev(table))
+        preds = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.verify_steps += 1
+        self.verify_seconds += time.perf_counter() - t0
+        return preds
+
+    def note_spec(self, drafted: int, accepted: int, emitted: int) -> None:
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+
+    def verify_slots(self, cur: np.ndarray, slots: List[int],
+                     drafts: Dict[int, List[int]], width: int) -> np.ndarray:
+        """One batched fixed-width verify of ``slots``: their rows carry
+        [current token, drafts..., padding]; every other slot rides along
+        at length 0 on the trash page.  The caller runs
+        :meth:`prepare_verify` first.  Returns (slots, width)
+        predictions."""
+        toks = np.zeros((self.slots, width), np.int32)
+        mask = np.zeros((self.slots,), bool)
+        for i in slots:
+            mask[i] = True
+            toks[i, 0] = cur[i]
+            ks = drafts.get(i, [])
+            toks[i, 1:1 + len(ks)] = ks
+        return self.verify_step(
+            toks, view=(np.where(mask, self.lengths, 0).astype(np.int32),
+                        np.where(mask[:, None], self.table, 0
+                                 ).astype(np.int32)))
+
+    def accept(self, i: int, drafts: List[int], preds: np.ndarray,
+               cur: np.ndarray) -> Tuple[int, int, bool]:
+        """Longest-correct-prefix acceptance of slot ``i``'s verify window
+        and host rollback: the emitted tokens advance ``lengths``, join the
+        stream and ``cur``, with the decode path's finish checks after
+        every token, so greedy streams (truncation points included) are
+        the non-speculative ones.  Returns (accepted, emitted, finished)
+        and counts them (``note_spec``)."""
+        r = self.active[i]
+        emit = accept_longest_prefix(drafts, preds)
+        emitted, finished = 0, False
+        for tok in emit:
+            self.lengths[i] += 1
+            r.out.append(tok)
+            cur[i] = tok
+            emitted += 1
+            if len(r.out) >= r.max_new \
+                    or int(self.lengths[i]) >= self.max_len:
+                finished = True
+                break
+        self.note_spec(len(drafts), len(emit) - 1, emitted)
+        return len(emit) - 1, emitted, finished
+
+    def _admit_static(self, queue: List[Request], cur: np.ndarray,
+                      done: List[Request]) -> None:
+        """Static-schedule admission into every free slot, in slot order:
+        reject permanently oversized requests up front (they must not
+        head-of-line-block servable traffic), then admit while pages
+        last.  A max_new == 1 request finishes right out of prefill and
+        frees its slot for the next in line."""
+        for i in range(self.slots):
+            while self.active[i] is None and queue:
+                while queue and not self.admissible(queue[0]):
+                    r = queue.pop(0)
+                    r.done = False
+                    self.rejected += 1
+                    self.rejected_requests.append(r)
+                    self.log(f"[paged] rejecting request {r.rid}: "
+                             f"{self._reject_reason(r)}")
+                if not queue or not self.try_admit(queue[0], i):
+                    return                     # wait for free pages
+                r = queue.pop(0)
+                cur[i] = r.out[-1]
+                if len(r.out) >= r.max_new:    # max_new == 1 edge
+                    r.done = True
+                    done.append(r)
+                    self._recycle(i)
+
+    def _finish_or_reclaim(self, i: int, finished: bool,
+                           done: List[Request]) -> None:
+        r = self.active[i]
+        if not finished:
+            self._reclaim_slot(i)
+            return
+        r.done = True
+        r.truncated = len(r.out) < r.max_new
+        if r.truncated:
+            self.truncated += 1
+            self.log(f"[paged] truncating request {r.rid} at "
+                     f"max_len={self.max_len} "
+                     f"({len(r.out)}/{r.max_new} tokens)")
+        done.append(r)
+        self._recycle(i)
+
+    def _resume(self) -> np.ndarray:
         cur = np.zeros((self.slots,), np.int32)
         for i, r in enumerate(self.active):    # resume pre-admitted slots
             if r is not None:
                 cur[i] = r.out[-1]
+        return cur
+
+    def _idle(self, queue: List[Request]) -> bool:
+        if any(r is not None for r in self.active):
+            return False
+        if queue:
+            # unreachable by construction (an idle scheduler has every
+            # page free, so only inadmissible requests can fail, and those
+            # were rejected above) -- defensive
+            raise RuntimeError("admission deadlock: empty batch but queued "
+                               "requests cannot reserve pages")
+        return True
+
+    def run_speculative(self, requests: List[Request], drafter,
+                        metrics=None) -> List[Request]:
+        """Static-schedule speculative decoding: :meth:`run` with each
+        decode round replaced by draft -> one fixed-width batched verify
+        -> longest-correct-prefix acceptance -> host rollback.  Token
+        emission repeats :meth:`run`'s finish checks after every token, so
+        greedy streams, truncation points included, are the
+        non-speculative ones."""
+        width = drafter.max_draft + 1
+        queue = list(requests)
+        cur = self._resume()
         done: List[Request] = []
         while queue or any(r is not None for r in self.active):
-            blocked = False
-            for i in range(self.slots):
-                # `while`, not `if`: a max_new == 1 request finishes right
-                # out of prefill and frees its slot for the next in line
-                while self.active[i] is None and queue and not blocked:
-                    # reject permanently-oversized requests up front (they
-                    # must not head-of-line-block servable traffic)
-                    while queue and not self.admissible(queue[0]):
-                        r = queue.pop(0)
-                        r.done = False
-                        self.rejected += 1
-                        self.rejected_requests.append(r)
-                        self.log(f"[paged] rejecting request {r.rid}: "
-                                 f"{self._reject_reason(r)}")
-                    if not queue or not self.try_admit(queue[0], i):
-                        blocked = True             # wait for free pages
-                        break
-                    r = queue.pop(0)
-                    cur[i] = r.out[-1]
-                    if len(r.out) >= r.max_new:    # max_new == 1 edge
-                        r.done = True
-                        done.append(r)
-                        self._recycle(i)
-                if blocked:
-                    break
-            if not any(r is not None for r in self.active):
-                if queue:
-                    # unreachable by construction (an idle scheduler has
-                    # every page free, so only inadmissible requests can
-                    # fail, and those were rejected above) -- defensive
-                    raise RuntimeError(
-                        "admission deadlock: empty batch but queued "
-                        "requests cannot reserve pages")
+            self._admit_static(queue, cur, done)
+            if self._idle(queue):
+                break
+            slots = [i for i, r in enumerate(self.active) if r is not None]
+            drafts = self.draft_for(drafter, slots)
+            self.prepare_verify(slots, width)
+            preds = self.verify_slots(cur, slots, drafts, width)
+            for i in slots:
+                accepted, emitted, finished = self.accept(i, drafts[i],
+                                                          preds[i], cur)
+                if metrics is not None:
+                    metrics.on_spec_step(len(drafts[i]), accepted, emitted)
+                self._finish_or_reclaim(i, finished, done)
+        return done
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        queue = list(requests)
+        cur = self._resume()
+        done: List[Request] = []
+        while queue or any(r is not None for r in self.active):
+            self._admit_static(queue, cur, done)
+            if self._idle(queue):
                 break
             self.prepare_decode([i for i, r in enumerate(self.active)
                                  if r is not None])
@@ -556,25 +826,16 @@ class PagedScheduler:
                 self.lengths[i] += 1
                 r.out.append(int(nxt[i]))
                 cur[i] = nxt[i]
-                if len(r.out) >= r.max_new \
-                        or int(self.lengths[i]) >= self.max_len:
-                    r.done = True
-                    r.truncated = len(r.out) < r.max_new
-                    if r.truncated:
-                        self.truncated += 1
-                        self.log(f"[paged] truncating request {r.rid} at "
-                                 f"max_len={self.max_len} "
-                                 f"({len(r.out)}/{r.max_new} tokens)")
-                    done.append(r)
-                    self._recycle(i)
-                else:
-                    self._reclaim_slot(i)
+                self._finish_or_reclaim(
+                    i, len(r.out) >= r.max_new
+                    or int(self.lengths[i]) >= self.max_len, done)
         return done
 
 
 def main(argv=None) -> Dict:
     """Serve a seeded request stream; returns a report dict (the finished
-    requests, token and time totals, TTFT percentiles, dispatch routes)."""
+    requests, token and time totals, TTFT percentiles, dispatch routes,
+    and the dense, prefix and speculative counters)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", required=True)
@@ -584,14 +845,18 @@ def main(argv=None) -> Dict:
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--cache", default="dense", choices=("dense", "paged"),
+                    help="KV-cache layout: a dense rectangle (prompts "
+                         "teacher-forced through decode at one shared "
+                         "position) or the paged pool")
     ap.add_argument("--page-size", type=int, default=DEFAULT_PAGE_SIZE)
     ap.add_argument("--total-pages", type=int, default=0,
                     help="page-pool size; 0 = full capacity "
                          "(slots x max_len); smaller oversubscribes")
     ap.add_argument("--kv-dtype", default="",
                     choices=("", "fp32", "bf16", "int8"),
-                    help="KV pool storage dtype ('' = model compute dtype); "
-                         "int8 stores symmetric-quantized pages with "
+                    help="paged KV pool storage dtype ('' = model compute "
+                         "dtype); int8 stores symmetric-quantized pages with "
                          "per-(page, kv-head) fp32 scales that the "
                          "attention kernels dequantize at tile load")
     ap.add_argument("--weights-dtype", default="", choices=("", "int8"),
@@ -611,7 +876,18 @@ def main(argv=None) -> Dict:
     ap.add_argument("--schedule", default="static",
                     choices=("static", "continuous"),
                     help="static run-to-completion or continuous batching "
-                         "on a virtual arrival clock")
+                         "on a virtual arrival clock (paged)")
+    ap.add_argument("--speculate", default="", choices=("", "ngram", "model"),
+                    help="paged: speculative decoding drafter -- 'ngram' "
+                         "(suffix matching over the emitted tokens) or "
+                         "'model' (the target's leading layers as a draft "
+                         "model); drafts are verified in one fixed-width "
+                         "batched forward through the ragged prefill "
+                         "attention and rejected suffixes rolled back on "
+                         "the host")
+    ap.add_argument("--draft-tokens", type=int, default=3,
+                    help="speculative: max draft tokens per verify window "
+                         "(window width = draft_tokens + 1)")
     ap.add_argument("--token-budget", type=int, default=0,
                     help="continuous: max tokens composed per iteration "
                          "(0 = slots x page_size)")
@@ -630,28 +906,51 @@ def main(argv=None) -> Dict:
                     help="cuda (the hand-written kernels) or cpu (their "
                          "plain PyTorch versions)")
     args = ap.parse_args(argv)
+    if args.speculate and args.cache != "paged":
+        raise SystemExit("--speculate requires --cache paged")
+    if args.schedule == "continuous" and args.cache != "paged":
+        raise SystemExit("--schedule continuous requires --cache paged")
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    cfg = dataclasses.replace(cfg, kv_cache="paged",
+    cfg = dataclasses.replace(cfg, kv_cache=args.cache,
                               kv_page_size=args.page_size,
                               kv_dtype=args.kv_dtype,
                               weights_dtype=args.weights_dtype)
     model = Model(cfg, dt=DtypePolicy(param=torch.bfloat16),
                   device=args.device)
     params = model.init(seed=0)
-    server = PagedScheduler(model, params, slots=args.slots,
-                            max_len=args.max_len, page_size=args.page_size,
-                            total_pages=args.total_pages,
-                            prefix_cache=args.prefix_cache)
-    print(f"[paged] arch={cfg.name} device={model.device} "
-          f"page_size={server.page} pool={server.alloc.total} pages "
-          f"({server.n_slot_pages}/slot max, "
-          f"kv_dtype={args.kv_dtype or 'compute'}, "
-          f"weights_dtype={args.weights_dtype or 'compute'}, "
-          f"page_bytes={server._page_bytes}, "
-          f"prefix_cache={'on' if args.prefix_cache else 'off'})")
+    drafter = None
+    if args.speculate:
+        # the model drafter is the target's leading layers (early-exit
+        # drafting), which is what buys real acceptance
+        drafter = make_drafter(args.speculate, cfg,
+                               max_draft=args.draft_tokens, target=model,
+                               target_params=params,
+                               pad_to=args.max_len + args.draft_tokens,
+                               batch_pad=args.slots)
+        print(f"[spec] drafter={args.speculate} "
+              f"draft_tokens={args.draft_tokens}")
+    if args.cache == "paged":
+        server = PagedScheduler(model, params, slots=args.slots,
+                                max_len=args.max_len,
+                                page_size=args.page_size,
+                                total_pages=args.total_pages,
+                                prefix_cache=args.prefix_cache)
+        print(f"[paged] arch={cfg.name} device={model.device} "
+              f"page_size={server.page} pool={server.alloc.total} pages "
+              f"({server.n_slot_pages}/slot max, "
+              f"kv_dtype={args.kv_dtype or 'compute'}, "
+              f"weights_dtype={args.weights_dtype or 'compute'}, "
+              f"page_bytes={server._page_bytes}, "
+              f"prefix_cache={'on' if args.prefix_cache else 'off'})")
+    else:
+        server = Server(model, params, slots=args.slots,
+                        max_len=args.max_len)
+        print(f"[dense] arch={cfg.name} device={model.device} "
+              f"slots={args.slots} max_len={args.max_len} "
+              f"weights_dtype={args.weights_dtype or 'compute'}")
     # static requests are the rate-0 stream, so both schedules serve one
     # list (without a shared prefix these are the prompts the JAX
     # package's static path draws)
@@ -670,7 +969,8 @@ def main(argv=None) -> Dict:
     if args.schedule == "continuous":
         from .engine import ContinuousEngine
         engine = ContinuousEngine(server, token_budget=args.token_budget,
-                                  clock=args.clock, tick=args.tick)
+                                  clock=args.clock, tick=args.tick,
+                                  drafter=drafter)
         engine.warmup()
         t0 = time.time()
         done = engine.run(reqs)      # ends in a host read of the tokens
@@ -688,33 +988,62 @@ def main(argv=None) -> Dict:
               f"rejected={server.rejected}")
     else:
         t0 = time.time()
-        done = server.run(reqs)
+        if drafter is not None:
+            done = server.run_speculative(reqs, drafter)
+        else:
+            done = server.run(reqs)
         dt = time.time() - t0
+        if args.cache == "dense":
+            phases = {"decode_steps": server.decode_steps,
+                      "decode_seconds": server.decode_seconds}
     total_new = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests, {total_new} new tokens in "
           f"{dt:.2f}s ({total_new / dt:.1f} tok/s, {args.slots} slots, "
-          f"schedule={args.schedule})")
+          f"cache={args.cache}, schedule={args.schedule})")
     fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
     print(f"[serve] ttft p50={fmt(summary.get('ttft_p50'))} "
           f"p99={fmt(summary.get('ttft_p99'))}  tok_latency "
           f"p50={fmt(summary.get('tok_latency_p50'))} "
           f"p99={fmt(summary.get('tok_latency_p99'))} "
           f"({args.clock if args.schedule == 'continuous' else 'n/a'} clock)")
-    if server.window:
-        print(f"[paged] reclaimed {server.pages_reclaimed} window-dead "
-              f"page(s) (window={server.window})")
-    if server.truncated or server.rejected:
-        print(f"[paged] truncated={server.truncated} "
-              f"rejected={server.rejected}")
-    prefix = None
-    if server.prefix is not None:
-        prefix = {"hits": server.prefix.hits,
-                  "misses": server.prefix.misses,
-                  "shared_tokens": server.shared_tokens_total,
-                  "cow_copies": server.cow_copies,
-                  "evictions": server.prefix.evictions,
-                  "cached_pages": server.prefix.n_pages()}
-        print("[prefix] " + " ".join(f"{k}={v}" for k, v in prefix.items()))
+    dense = spec = prefix = None
+    if args.cache == "dense":
+        dense = {"truncated": server.truncated, "rejected": server.rejected,
+                 "pos": server.pos}
+        if server.truncated or server.rejected:
+            print(f"[dense] truncated={server.truncated} "
+                  f"rejected={server.rejected}")
+    else:
+        if server.window:
+            print(f"[paged] reclaimed {server.pages_reclaimed} window-dead "
+                  f"page(s) (window={server.window})")
+        if server.truncated or server.rejected:
+            print(f"[paged] truncated={server.truncated} "
+                  f"rejected={server.rejected}")
+        if server.prefix is not None:
+            prefix = {"hits": server.prefix.hits,
+                      "misses": server.prefix.misses,
+                      "shared_tokens": server.shared_tokens_total,
+                      "cow_copies": server.cow_copies,
+                      "evictions": server.prefix.evictions,
+                      "cached_pages": server.prefix.n_pages()}
+            print("[prefix] " + " ".join(f"{k}={v}"
+                                         for k, v in prefix.items()))
+    if drafter is not None and server.verify_steps:
+        spec = {"verify_steps": server.verify_steps,
+                "drafted": server.spec_drafted,
+                "accepted": server.spec_accepted,
+                "emitted": server.spec_emitted,
+                "accept_rate": (server.spec_accepted / server.spec_drafted
+                                if server.spec_drafted else 0.0),
+                "tokens_per_step": server.spec_emitted / server.verify_steps,
+                "verify_seconds": server.verify_seconds,
+                "draft_seconds": server.draft_seconds}
+        print(f"[spec] verify_steps={spec['verify_steps']} "
+              f"drafted={spec['drafted']} accepted={spec['accepted']} "
+              f"accept_rate={spec['accept_rate']:.3f} "
+              f"emitted={spec['emitted']} "
+              f"tokens_per_step={spec['tokens_per_step']:.2f}")
     if max_kv_bytes is not None:
         print(f"[paged] max_resident_kv_bytes={max_kv_bytes}")
     routes = dispatch.stats()
@@ -723,8 +1052,8 @@ def main(argv=None) -> Dict:
     return {"done": done, "new_tokens": total_new, "seconds": dt,
             "tok_s": total_new / dt, "ttft_p50": summary.get("ttft_p50"),
             "ttft_p99": summary.get("ttft_p99"), "routes": routes,
-            "phases": phases, "prefix": prefix,
-            "max_resident_kv_bytes": max_kv_bytes}
+            "phases": phases, "prefix": prefix, "dense": dense,
+            "spec": spec, "max_resident_kv_bytes": max_kv_bytes}
 
 
 if __name__ == "__main__":

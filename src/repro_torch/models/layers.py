@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -234,6 +234,70 @@ def attention_naive(p: Params, s: AttnSpec, x: torch.Tensor,
     return attention_blockwise(p, s, x, positions, dt)
 
 
+def dense_page(cap: int) -> int:
+    """The page a dense (B, cap, Hkv, hd) cache is viewed in by
+    ``attention_decode``: 64 where it divides ``cap``, else the largest
+    divisor of ``cap`` up to 64."""
+    return next(d for d in range(min(64, cap), 0, -1) if cap % d == 0)
+
+
+def dense_pages(batch: int, cap: int, pos: int, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(table (B, cap / page), lengths (B,)), both int32, that read
+    ``batch`` dense (cap, Hkv, hd) caches at position ``pos`` as pages of
+    ``dense_page(cap)``: slot b's table is its own run of pages, every
+    length ``min(pos + 1, cap)`` (``attention_decode``)."""
+    n_pages = cap // dense_page(cap)
+    table = torch.arange(batch * n_pages, dtype=torch.int32,
+                         device=device).view(batch, n_pages)
+    lengths = torch.full((batch,), min(pos + 1, cap), dtype=torch.int32,
+                         device=device)
+    return table, lengths
+
+
+def attention_decode(p: Params, s: AttnSpec, x: torch.Tensor, pos: int,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     dt: DtypePolicy,
+                     pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """One-token decode against a dense KV cache, written in place.
+
+    x: (B, 1, d).  pos: the current position, shared by every slot.
+    caches: (B, cap, Hkv, hd) with cap = S_max (global layers) or
+    min(window, S_max) (rolling: the delay-buffer §2.2 layout, slot =
+    pos mod cap).  Returns (B, 1, d).
+
+    The JAX package masks the cache with the rolling-buffer validity mask
+    (``age < window`` and ``pos - age >= 0``, or ``idx <= pos`` for
+    global layers) and takes its masked reference attention.  With cap <=
+    window every age is below the window, so the valid entries are the
+    buffer's first ``min(pos + 1, cap)``: a prefix.  Keys carry RoPE from
+    before the write and softmax does not depend on key order, so this is
+    ragged decode over that prefix: the cache is viewed, without a copy,
+    as a (B * cap / page, page, Hkv, hd) pool, slot b's table is its own
+    run of pages, every length is ``min(pos + 1, cap)`` and the window 0
+    (``dispatch.decode_attention``: the decode kernel on the card, its
+    plain version on the CPU).  As in the JAX package the mask does not
+    depend on occupancy: a request admitted into a recycled slot attends
+    to the previous occupant's entries too.  ``pages`` = ``dense_pages(B,
+    cap, pos)``, built once a step for all layers of one cap, or here."""
+    b, cap, hkv, hd = k_cache.shape
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, s, x, positions, dt)
+    slot = pos % cap if s.window > 0 else pos
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    page = dense_page(cap)
+    n_pages = cap // page
+    table, lengths = (pages if pages is not None
+                      else dense_pages(b, cap, pos, x.device))
+    out = dispatch.decode_attention(
+        q[:, 0], k_cache.view(b * n_pages, page, hkv, hd),
+        v_cache.view(b * n_pages, page, hkv, hd), table, lengths,
+        out_dtype=dt.compute)
+    return _out_proj(p, s, out[:, None], dt)
+
+
 def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                            lengths: torch.Tensor, table: torch.Tensor,
                            k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -310,6 +374,58 @@ def attention_prefill_paged(p: Params, s: AttnSpec, x: torch.Tensor,
         k_pages.index_copy_(0, pid, k.to(k_pages.dtype))
         v_pages.index_copy_(0, pid, v.to(v_pages.dtype))
     out = dispatch.prefill_attention(q, k_pages, v_pages, tables, starts,
+                                     k_scale, v_scale, window=s.window,
+                                     out_dtype=dt.compute)
+    return _out_proj(p, s, out, dt)
+
+
+def attention_verify_paged(p: Params, s: AttnSpec, x: torch.Tensor,
+                           lengths: torch.Tensor, table: torch.Tensor,
+                           k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           dt: DtypePolicy,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Speculative verify: score W candidate tokens per slot in one pass.
+
+    x: (B, W, d) -- slot b's candidates sit at positions ``lengths[b] +
+    [0, W)``, which are not page-aligned, so they append token by token
+    as decode does (W is small).  A padded row past the slot's last
+    logical page writes to trash page 0 (a clamped table read would land
+    in the slot's last real page).  int8 pools take the running-max
+    append.  The ragged prefill attention then scores all W queries
+    causally against history plus the window itself: its mask is position
+    arithmetic, so a mid-page start is legal.  Rejected drafts are rolled
+    back by the host not advancing ``lengths``; their K/V (and any int8
+    scale growth) stays in the pool behind every later read's length.
+    The pools are written in place.  Returns (B, W, d)."""
+    b, w, _ = x.shape
+    page = k_pages.shape[1]
+    positions = lengths[:, None] + torch.arange(
+        w, device=x.device, dtype=lengths.dtype)[None, :]
+    q, k, v = _qkv(p, s, x, positions, dt)
+    n_logical = table.shape[1]
+    rows = torch.arange(b, device=x.device)
+    for t in range(w):
+        pos = (lengths + t).long()
+        idx = pos // page
+        pid = torch.where(idx < n_logical,
+                          table[rows, idx.clamp(max=n_logical - 1)].long(),
+                          0)
+        off = pos % page
+        # inactive slots and padded rows past the table all hit the
+        # never-read trash page, so their duplicate indices are harmless
+        if k_scale is not None:
+            for pages, scale, new in ((k_pages, k_scale, k),
+                                      (v_pages, v_scale, v)):
+                pq, sc = quant.append_token_quantized(
+                    pages[pid], scale[pid], new[:, t], off)
+                pages.index_copy_(0, pid, pq)
+                scale.index_copy_(0, pid, sc)
+        else:
+            k_pages.index_put_((pid, off), k[:, t].to(k_pages.dtype))
+            v_pages.index_put_((pid, off), v[:, t].to(v_pages.dtype))
+    out = dispatch.prefill_attention(q, k_pages, v_pages, table, lengths,
                                      k_scale, v_scale, window=s.window,
                                      out_dtype=dt.compute)
     return _out_proj(p, s, out, dt)

@@ -1,5 +1,6 @@
 """The decoder LM -- the port of ``repro/models/transformer.py`` for
-attention + MLP stacks: paged serving forwards, and the training loss.
+attention + MLP stacks: the serving forwards over a paged or a dense KV
+cache, the speculative verify forward, and the training loss.
 
 Layer stacking keeps the JAX package's layout (paper §2.5 loop
 flattening): ``prefix`` layers, ``n_periods`` repetitions of the layer
@@ -19,6 +20,7 @@ JAX tree one to one.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -142,15 +144,54 @@ def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
                                 cfg.weights_dtype)
 
 
+def layer_cache_init(cfg: ArchConfig, kind: LayerKind, batch: int,
+                     max_len: int, dtype: torch.dtype, device,
+                     lead=()) -> Dict[str, torch.Tensor]:
+    """Dense (B, cap, Hkv, hd) K/V caches of one attention layer: cap =
+    max_len for global layers, min(window, max_len) for windowed ones (a
+    rolling buffer, slot = pos mod cap)."""
+    cap = min(cfg.window, max_len) if kind[0] == "swa" else max_len
+    shape = tuple(lead) + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
                  x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 lengths: torch.Tensor, table: torch.Tensor,
-                 dt: DtypePolicy) -> torch.Tensor:
-    """One decode token per slot through one layer, on the paged ragged
-    path: every slot decodes at its own length."""
+                 dt: DtypePolicy, *, pos: Optional[int] = None,
+                 paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """One decode token per slot through one layer.  ``paged`` = (lengths,
+    table) takes the paged ragged path (every slot at its own length);
+    otherwise every slot decodes at the shared ``pos`` against its dense
+    cache, read as ``pages`` (``layers.dense_pages``) where given.  The
+    caches are written in place."""
     h = layers.rmsnorm(p["ln1"], x)
-    h = layers.attention_decode_paged(
-        p["attn"], _attn_spec(cfg, kind[0]), h, lengths, table,
+    spec = _attn_spec(cfg, kind[0])
+    if paged is not None:
+        lengths, table = paged
+        h = layers.attention_decode_paged(
+            p["attn"], spec, h, lengths, table, cache["k_pages"],
+            cache["v_pages"], dt, cache.get("k_scale"), cache.get("v_scale"))
+    else:
+        h = layers.attention_decode(p["attn"], spec, h, pos, cache["k"],
+                                    cache["v"], dt, pages)
+    x = x + h
+    h = layers.rmsnorm(p["ln2"], x)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                                cfg.weights_dtype)
+
+
+def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
+                       x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                       lengths: torch.Tensor, tables: torch.Tensor,
+                       dt: DtypePolicy) -> torch.Tensor:
+    """One speculative verify window of B distinct slots through one layer
+    (x (B, W, d), lengths (B,), tables (B, n_pages))."""
+    h = layers.rmsnorm(p["ln1"], x)
+    h = layers.attention_verify_paged(
+        p["attn"], _attn_spec(cfg, kind[0]), h, lengths, tables,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
         cache.get("v_scale"))
     x = x + h
@@ -200,8 +241,8 @@ def _index(tree, i: int):
 # --------------------------------------------------------------------------
 
 class Model:
-    """Paged serving forwards and the training loss of one arch, on one
-    device.
+    """Serving forwards (paged and dense caches, speculative verify) and
+    the training loss of one arch, on one device.
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
@@ -279,16 +320,21 @@ class Model:
             else params["head"]
         return dispatch.matmul(x, head.to(self.dt.compute))
 
+    def _walk(self, tree) -> Iterator[Any]:
+        """The per-layer subtrees of a params or cache tree in execution
+        order (views into stacked periods)."""
+        lay = self.layout
+        yield from tree["prefix"]
+        for i in range(lay.n_periods):
+            for j in range(len(lay.period)):
+                yield _index(tree["stack"][j], i)
+        yield from tree["tail"]
+
     def _layers(self, params: Params, cache
                 ) -> Iterator[Tuple[Params, LayerKind, Dict[str, Any]]]:
-        """(layer params, kind, layer pools) in execution order."""
-        lay = self.layout
-        yield from zip(params["prefix"], lay.prefix, cache["prefix"])
-        for i in range(lay.n_periods):
-            for j, kind in enumerate(lay.period):
-                yield (_index(params["stack"][j], i), kind,
-                       _index(cache["stack"][j], i))
-        yield from zip(params["tail"], lay.tail, cache["tail"])
+        """(layer params, kind, layer caches) in execution order."""
+        return zip(self._walk(params), self.cfg.layer_kinds(),
+                   self._walk(cache))
 
     # ------------------------------ training / dense forward ---------
     def _positions(self, b: int, s: int) -> torch.Tensor:
@@ -353,14 +399,19 @@ class Model:
         x = self._run_stack(params, x, self._positions(b, s))
         return self._logits(params, x)
 
-    def prefill(self, params: Params, batch: Dict[str, torch.Tensor]
-                ) -> torch.Tensor:
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run the stack over the prompt and return only the last
-        position's logits (B, V)."""
+        position's logits (B, V), or with ``last_idx`` (B,) those of
+        position ``last_idx[b]`` of each row (the final norm and the head
+        run on those rows alone)."""
         x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
         x = self._run_stack(params, x, self._positions(b, s))
-        return self._logits(params, x[:, s - 1:])[:, 0]
+        if last_idx is None:
+            return self._logits(params, x[:, s - 1:])[:, 0]
+        rows = torch.arange(b, device=x.device)
+        return self._logits(params, x[rows, last_idx.long()][:, None])[:, 0]
 
     # ------------------------------ paged serving ---------------------
     def init_paged_cache(self, slots: int, max_len: int, page_size: int,
@@ -404,18 +455,74 @@ class Model:
         return self._logits(params, x_last)[:, 0]
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor, *,
-                    paged: Tuple[torch.Tensor, torch.Tensor]
+                    pos: Optional[int] = None,
+                    paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> torch.Tensor:
-        """One token for every slot.  ``paged`` = (lengths (B,), table
-        (B, n_pages)), both int32: every slot decodes at its own length
-        against the shared page pools, which are written in place.
-        tokens: (B, 1).  Returns logits (B, V)."""
-        lengths, table = paged
+        """One token for every slot; the caches are written in place.
+        tokens: (B, 1).  Returns logits (B, V).
+
+        ``paged`` = (lengths (B,), table (B, n_pages)), both int32: every
+        slot decodes at its own length against the shared page pools
+        (``init_paged_cache``).  Otherwise ``pos`` is the position every
+        slot decodes at, against the dense caches of ``init_cache``."""
+        if (paged is None) == (pos is None):
+            raise ValueError("decode_step takes pos= (dense cache) or "
+                             "paged= (page pools), exactly one")
+        x = self._embed(params, tokens)
+        views = {}      # the dense caches' page tables, one a cap a step
+        for p, kind, c in self._layers(params, cache):
+            pages = None
+            if paged is None:
+                b, cap = c["k"].shape[:2]
+                if cap not in views:
+                    views[cap] = layers.dense_pages(b, cap, int(pos),
+                                                    x.device)
+                pages = views[cap]
+            x = layer_decode(p, self.cfg, kind, x, c, self.dt,
+                             pos=None if pos is None else int(pos),
+                             paged=paged, pages=pages)
+        return self._logits(params, x)[:, 0]
+
+    def verify_step_paged(self, params: Params, cache, tokens: torch.Tensor,
+                          lengths: torch.Tensor,
+                          tables: torch.Tensor) -> torch.Tensor:
+        """Score W candidate tokens each of B distinct slots: the
+        speculative-decoding verify forward, writing their K/V into
+        ``cache`` in place.
+
+        tokens: (B, W) -- slot b's window ``[last_emitted, d1..d_{W-1}]``
+        occupies positions ``lengths[b] + [0, W)`` (not page-aligned; the
+        scheduler holds pages for the span).  Row t predicts the token at
+        position ``lengths + t + 1``, so the caller needs logits at every
+        row.  Returns logits (B, W, V)."""
         x = self._embed(params, tokens)
         for p, kind, c in self._layers(params, cache):
-            x = layer_decode(p, self.cfg, kind, x, c, lengths, table,
-                             self.dt)
-        return self._logits(params, x)[:, 0]
+            x = layer_verify_paged(p, self.cfg, kind, x, c, lengths, tables,
+                                   self.dt)
+        return self._logits(params, x)
+
+    # ------------------------------ dense serving ---------------------
+    def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """Dense per-attention-layer (B, cap, Hkv, hd) K/V caches in the
+        compute dtype (``layer_cache_init``); stacked periods carry a
+        leading period axis."""
+        cfg, lay = self.cfg, self.layout
+
+        def caches(kind, lead=()):
+            return layer_cache_init(cfg, kind, batch, max_len,
+                                    self.dt.compute, self.device, lead)
+        return {"prefix": [caches(k) for k in lay.prefix],
+                "stack": [caches(k, (lay.n_periods,)) for k in lay.period]
+                if lay.n_periods else [],
+                "tail": [caches(k) for k in lay.tail]}
+
+    def leading_layers(self, params: Params, n: int) -> List[Params]:
+        """The params of the first ``n`` layers in execution order (views
+        into stacked periods)."""
+        if n > self.cfg.n_layers:
+            raise ValueError(f"{self.cfg.name} has {self.cfg.n_layers} "
+                             f"layers, not {n}")
+        return list(itertools.islice(self._walk(params), n))
 
 
 def _cast(tree, dtype: torch.dtype):

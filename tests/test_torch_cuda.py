@@ -1058,3 +1058,203 @@ def test_library_ops_route_to_the_kernels(card):
     after = dispatch.launch_counts()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
         == {"wkv": 1, "stencil": 3, "nbody": 1, "histogram": 1}
+
+
+# ------------------------------------------------- the library ops' inputs
+def _lib_tol():
+    """chip_smoke.LIB_TOL, read from the script beside the tests."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.LIB_TOL
+
+
+def test_library_ops_take_views_offsets_and_int64(card):
+    """The public ops take what their plain routes take: transposed and
+    strided views, contiguous views at an odd offset (off a 16-byte
+    boundary), and int64 histogram values, including values at and past
+    2^32 that a bare cast to int32 would wrap into range.  Results equal
+    the plain route exactly (stencil, histogram) or within
+    ``chip_smoke.LIB_TOL`` of max |plain output| (WKV, N-body); every call
+    launches its kernel, WKV on its mma route."""
+    from repro_torch.kernels.histogram import histogram, histogram_plain
+    from repro_torch.kernels.nbody import nbody_accel, nbody_accel_plain
+    from repro_torch.kernels.stencil import jacobi4, jacobi4_plain
+    from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
+    tol = _lib_tol()
+    gen = torch.Generator(device=card).manual_seed(17)
+    dispatch.reset_launch_counts()
+
+    def rel_ok(got, want):
+        torch.cuda.synchronize()
+        return ((got - want).abs().max() / want.abs().max()).item() <= tol
+
+    # WKV: r transposed from (B, H, S, hd), k at an odd offset, v strided
+    b, s, h, hd = 2, 96, 2, 64
+    r = torch.randn(b, h, s, hd, generator=gen,
+                    device=card).bfloat16().transpose(1, 2)
+    k = _misaligned(torch.randn(b, s, h, hd, generator=gen,
+                                device=card).bfloat16())
+    v = torch.randn(b, s, h, 2 * hd, generator=gen,
+                    device=card).bfloat16()[..., ::2]
+    lw = -torch.rand(b, s, h, hd, generator=gen, device=card) * 0.5
+    u = torch.randn(h, hd, generator=gen, device=card)[:, :]
+    assert not r.is_contiguous() and not v.is_contiguous()
+    assert k.data_ptr() % 16
+    got = wkv(r, k, v, lw.transpose(0, 1).contiguous().transpose(0, 1), u,
+              chunk=32, subchunk=16)
+    assert rel_ok(got, wkv_plain(r, k, v, lw, u, chunk=32))
+    assert wkv_cuda.routes["mma"] == 1
+
+    # stencil: a transposed grid, a sub-grid, an odd-offset copy
+    grid = torch.randn(67, 45, generator=gen, device=card)
+    for x in (grid.T, grid[3:-2, 5:-4], _misaligned(grid)):
+        for steps in (1, 2):
+            assert torch.equal(jacobi4(x, steps=steps),
+                               jacobi4_plain(x, steps=steps))
+
+    # N-body: positions kept as (N, 3), masses strided and at an offset
+    n = 1000
+    pos_n3 = torch.randn(n, 3, generator=gen, device=card)
+    mass = torch.rand(2 * n, generator=gen, device=card)[::2] + 0.5
+    for pos, m in ((pos_n3.T, mass), (_misaligned(pos_n3.T.contiguous()),
+                                      _misaligned(mass.contiguous()))):
+        assert rel_ok(nbody_accel(pos, m), nbody_accel_plain(pos, m))
+
+    # histogram: int64 with values past int32, negatives, a strided view,
+    # an odd-offset int32 view
+    bins = 300
+    vals = torch.randint(-50, bins + 50, (40_001,), generator=gen,
+                         device=card)
+    vals[::7] += 1 << 32                       # wraps to vals[::7] in int32
+    vals[1::11] = (1 << 33) + 5
+    vals[2::13] = -(1 << 32) + 3
+    for x in (vals, vals[::3], _misaligned(vals[5::2].int())):
+        want = histogram_plain(x, bins)
+        assert torch.equal(histogram(x, bins), want)
+    assert torch.equal(histogram(vals, bins),
+                       histogram_plain(vals.cpu(), bins).to(card))
+    assert histogram(vals, bins).sum().item() \
+        == int(((vals >= 0) & (vals < bins)).sum())
+    counts = dispatch.launch_counts()
+    assert (counts["wkv"], counts["stencil"], counts["nbody"],
+            counts["histogram"]) == (1, 3 * 3, 2, 5)
+
+
+# ----------------------- dense decode, verify windows, the drafter forward
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cap", [1024, 2048])
+def test_decode_kernel_over_a_dense_cache_view(card, dtype, cap):
+    """``layers.attention_decode``'s call at gemma3-4b's heads (8 query
+    heads over 4 kv heads, hd 256): the (B, cap, Hkv, hd) cache viewed as
+    pages, each slot's own run of pages as its table, every length
+    min(pos + 1, cap) at a position past the window (the local layers'
+    buffer has wrapped; the global one holds pos + 1 keys)."""
+    from repro_torch.models.layers import dense_page
+    b, h, hkv, hd, pos = 2, 8, 4, 256, 1500
+    gen = torch.Generator(device=card).manual_seed(cap)
+    kc = torch.randn(b, cap, hkv, hd, generator=gen, device=card).to(dtype)
+    vc = torch.randn(b, cap, hkv, hd, generator=gen, device=card).to(dtype)
+    q = torch.randn(b, h, hd, generator=gen, device=card).to(dtype)
+    page = dense_page(cap)
+    n_pages = cap // page
+    table = torch.arange(b * n_pages, dtype=torch.int32,
+                         device=card).view(b, n_pages)
+    lengths = torch.full((b,), min(pos + 1, cap), dtype=torch.int32,
+                         device=card)
+    args = (q, kc.view(-1, page, hkv, hd), vc.view(-1, page, hkv, hd),
+            table, lengths)
+    out = decode_attention_cuda(*args)
+    want = decode_attention_plain(*args)
+    _close(out, want, dtype)
+    _slots_close(out, want)
+    # the same as attention over the dense prefix of each slot's buffer
+    keys = int(lengths[0])
+    ref = torch.softmax(torch.einsum(
+        "bhd,bshd->bhs", q.float(),
+        kc[:, :keys].float().repeat_interleave(h // hkv, 2)) / hd ** 0.5,
+        -1)
+    ref = torch.einsum("bhs,bshd->bhd", ref.to(dtype).float(),
+                       vc[:, :keys].float().repeat_interleave(h // hkv, 2))
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_verify_window_through_prefill_kernels(card, int8):
+    """One verify window (W = 4) at gemma-2b's heads on the wgmma route:
+    starts mid-page and across a page edge, and a slot at 0, through B3 /
+    B4b against the plain version."""
+    from repro_torch.kernels.attention.prefill import prefill_route
+    hd, grp, hkv, page, n_pages = 256, 8, 1, 64, 4
+    assert prefill_route(torch.bfloat16, hd, grp) == "wgmma"
+    gen, kp, vp, table = _pools(torch.float32 if int8 else torch.bfloat16,
+                                card, slots=4, h=grp * hkv, hkv=hkv, hd=hd,
+                                page=page, n_pages=n_pages, seed=21)
+    q = torch.randn(4, 4, grp * hkv, hd, generator=gen,
+                    device=card).to(torch.bfloat16)
+    starts = torch.tensor([17, 62, 0, 130], dtype=torch.int32, device=card)
+    kernel = prefill_attention_int8_cuda if int8 else prefill_attention_cuda
+    args = (q, kp, vp, table, starts)
+    tol = torch.bfloat16
+    if int8:
+        kq, vq, ks, vs = _int8(kp, vp)
+        args, tol = (q, kq, vq, table, starts, ks, vs), torch.float32
+    before = dict(kernel.routes)
+    out = kernel(*args)
+    want = prefill_attention_plain(*args)
+    _close(out, want, tol)
+    _slots_close(out, want)
+    assert kernel.routes["wgmma"] == before["wgmma"] + 1
+    for window in (0, 100):
+        assert torch.equal(kernel(*args, window=window),
+                           kernel(*args, window=window))
+
+
+def test_flash_forward_takes_the_drafter_tail(card):
+    """The model drafter's forward: S = max_len 256 + 3 drafts = 259, not
+    a multiple of 64, at gemma-2b's heads in bf16 on the wgmma route."""
+    from repro_torch.kernels.attention import (flash_attention_cuda,
+                                               flash_attention_plain)
+    q, k, v, _ = _bhsd(card, torch.bfloat16, 259, b=4, h=8, s=259, hd=256)
+    before = dict(flash_attention_cuda.routes)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    o_p, lse_p = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    _close(o, o_p, torch.bfloat16)
+    _close(lse, lse_p, torch.float32)
+    assert flash_attention_cuda.routes["wgmma"] == before["wgmma"] + 1
+
+
+@pytest.mark.parametrize("weights", ["", "int8"])
+def test_dense_model_kernels_match_plain(card, weights):
+    """A small dense-cache model on the card (gemma3-4b smoke: window-16
+    buffers wrap by position 20), once through the kernels and once
+    through the plain versions: teacher-forced decode steps at one shared
+    position, two slots."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import F32_POLICY
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_arch("gemma3-4b").smoke(),
+                              weights_dtype=weights)
+    model = Model(cfg, dt=F32_POLICY, device=card)
+    params = model.bind_params(model.init(seed=0))
+    toks = torch.randint(0, cfg.vocab_size, (24, 2, 1), dtype=torch.int32,
+                         generator=torch.Generator(device=card).manual_seed(1),
+                         device=card)
+
+    def run():
+        cache = model.init_cache(2, 40)
+        return torch.stack([model.decode_step(params, cache, t, pos=i)
+                            for i, t in enumerate(toks)])
+
+    dispatch.reset_launch_counts()
+    kernel = run()
+    assert dispatch.launch_counts()["decode_attention"] == 24 * 3
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        plain = run()
+    torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)

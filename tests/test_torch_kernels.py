@@ -238,10 +238,11 @@ def test_decode_split_plan_is_one_for_static_and_continuous_serving(
     seen = {}
     for schedule in ("static", "continuous"):
         plans.clear()
-        serve.main(["--arch", "gemma-2b", "--smoke", "--slots", "2",
-                    "--requests", "3", "--prompt-len", "6", "--max-new", "3",
-                    "--max-len", "160", "--page-size", "4", "--schedule",
-                    schedule, "--clock", "tick", "--device", "cpu", *extra])
+        serve.main(["--arch", "gemma-2b", "--smoke", "--cache", "paged",
+                    "--slots", "2", "--requests", "3", "--prompt-len", "6",
+                    "--max-new", "3", "--max-len", "160", "--page-size",
+                    "4", "--schedule", schedule, "--clock", "tick",
+                    "--device", "cpu", *extra])
         seen[schedule] = set(plans)
     assert seen["static"] == seen["continuous"] == {(64, 3)}
 
@@ -312,10 +313,11 @@ def test_prefill_split_plan_is_one_for_static_and_continuous_serving(
     seen = {}
     for schedule in ("static", "continuous"):
         plans.clear()
-        serve.main(["--arch", "gemma-2b", "--smoke", "--slots", "2",
-                    "--requests", "3", "--prompt-len", "6", "--max-new", "3",
-                    "--max-len", "160", "--page-size", "4", "--schedule",
-                    schedule, "--clock", "tick", "--device", "cpu", *extra])
+        serve.main(["--arch", "gemma-2b", "--smoke", "--cache", "paged",
+                    "--slots", "2", "--requests", "3", "--prompt-len", "6",
+                    "--max-new", "3", "--max-len", "160", "--page-size",
+                    "4", "--schedule", schedule, "--clock", "tick",
+                    "--device", "cpu", *extra])
         seen[schedule] = set(plans)
     assert len(seen["static"]) == 1 and seen["static"] == seen["continuous"]
     assert batches == {1, 2}

@@ -232,9 +232,10 @@ def test_page_allocator_refcounts():
 
 
 def test_serve_main_on_cpu_reports_plain_routes(capsys):
-    rep = serve.main(["--arch", "gemma-2b", "--smoke", "--slots", "2",
-                      "--requests", "3", "--prompt-len", "6", "--max-new",
-                      "3", "--max-len", "16", "--page-size", "4",
+    rep = serve.main(["--arch", "gemma-2b", "--smoke", "--cache", "paged",
+                      "--slots", "2", "--requests", "3", "--prompt-len",
+                      "6", "--max-new", "3", "--max-len", "16",
+                      "--page-size", "4",
                       "--schedule", "continuous", "--clock", "tick",
                       "--device", "cpu"])
     assert len(rep["done"]) == 3 and rep["new_tokens"] == 9
@@ -251,9 +252,10 @@ def test_serve_main_int8_prefix_on_cpu(capsys, schedule):
     """The int8 + prefix-sharing configuration through the entry point:
     every projection takes the int8 GEMM, attention its int8 branch, and
     shared prompts hit the prefix cache."""
-    rep = serve.main(["--arch", "gemma-2b", "--smoke", "--slots", "2",
-                      "--requests", "4", "--prompt-len", "10", "--max-new",
-                      "3", "--max-len", "16", "--page-size", "4",
+    rep = serve.main(["--arch", "gemma-2b", "--smoke", "--cache", "paged",
+                      "--slots", "2", "--requests", "4", "--prompt-len",
+                      "10", "--max-new", "3", "--max-len", "16",
+                      "--page-size", "4",
                       "--kv-dtype", "int8", "--weights-dtype", "int8",
                       "--prefix-cache", "--shared-prefix-len", "8",
                       "--shared-frac", "1.0", "--schedule", schedule,

@@ -35,7 +35,13 @@ def main(argv=None) -> int:
     sys.path.insert(1, str(ROOT))
     import chip_smoke
     from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
     print(cuda.library_path(), flush=True)
+    if not hasattr(serve, "Server"):
+        # a port from before the dense cache serves paged and has no
+        # --cache flag
+        chip_smoke.SERVE_ARGS = [a for a in chip_smoke.SERVE_ARGS
+                                 if a not in ("--cache", "paged")]
     # the prefill kernel's name before the wgmma route (one SIMT kernel)
     chip_smoke.KERNEL_GROUPS += (("prefill_kernel",
                                   "B3/B4b prefill attention"),)
