@@ -40,7 +40,15 @@ Phases, one output line or more each:
               route required); each row carries its route
               (``prefill_route``), split plan and ``device_ms`` and is
               held to the same slot-relative limit, rerun and
-              slot-alone bits.
+              slot-alone bits.  qwen2-moe-a2.7b's shapes: B1's grouped
+              route (the MoE experts, one launch for 60 groups) at the
+              up and down contractions, decode and prefill-chunk
+              capacity (C from ``MoESpec.capacity``), and the backward's
+              two GEMMs, each against its plain version, rerun
+              bit-equal, beside one ``torch.bmm`` and the per-group B1
+              loop; B1 fp32 at the router (N = 60) and bf16 at the
+              untied head (N = 151936); B2/B4a and B3/B4b (and the
+              verify window) at 16 kv heads of 128, group 1.
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
               with the static and once with the continuous schedule, with
@@ -65,6 +73,16 @@ Phases, one output line or more each:
               wgmma route, B6 (wgmma) launched by the model drafter
               alone, no plain route; accept rate, tokens and verify ms
               per verify step.
+3d. moe serve -- qwen2-moe-a2.7b at full width and depth in bf16
+              through ``serve.main`` on phase 3's traffic: paged static
+              and continuous, int8 KV + int8 weights + prefix cache,
+              dense, and speculative with the n-gram and the model
+              drafter: every request served in full, kernel routes only,
+              every forward of the target with exactly the launches its
+              config implies (float: B1 193, grouped 72, B2 or B3 24;
+              int8: B5 96, B1 97, grouped 72, B4a or B4b 24), the first
+              run rerun with the same streams; decode ms a step and new
+              tokens/s.  Its continuous float run is profiled too.
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
               full-width model in fp32, once through the kernels and once
               through the plain versions, both on the card, with float and
@@ -74,6 +92,18 @@ Phases, one output line or more each:
               buffer filled with seeded values, 4 decode steps from
               position 1500 (the local layers' buffers wrapped), kernels
               against plain versions: logits within 1e-3 of max |logit|.
+              4c: qwen2-moe-a2.7b at full width in fp32 (57 GB of
+              parameters), float and int8 KV + weights, as in 4, the
+              plain run taking the kernel run's discrete decisions (each
+              MoE call's expert choice, each int8 rounding of a K/V
+              entry); a plain run on its own decisions beside it, with
+              how many choices and int8 entries differ, the smallest
+              k-th to (k+1)-th probability gap and its logits' error
+              (reported, not held: a flipped decision moves a token by a
+              whole expert or an int8 step).  In int8 the replaying run's
+              K/V (B5's projections) must lie within 1e-3 of the kernel
+              run's, and every int8 entry it would round otherwise must
+              differ by one step, with the tie it crosses printed.
 5. train   -- the port's training entry point,
               ``repro_torch.launch.train.main``, on full-width, full-depth
               gemma-2b (fp32 master weights, bf16 compute, per-layer remat,
@@ -155,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import json
 import math
 import shutil
@@ -195,6 +226,8 @@ COVERED_ARGS = ["--arch", "gemma-2b", "--cache", "paged", "--slots", "4",
                 "--shared-frac", "1.0", "--max-new", "4", "--max-len", "256"]
 REPLACES = {
     "matmul": "src/repro/kernels/matmul/matmul.py:109",
+    # the JAX op's per-expert matmul_pallas calls (B1 per group)
+    "grouped_matmul": "src/repro/kernels/matmul/ops.py:250",
     "decode_attention": "src/repro/kernels/attention/decode.py:114",
     "prefill_attention": "src/repro/kernels/attention/prefill.py:121",
     "quantized_matmul": "src/repro/kernels/matmul/matmul.py:75",
@@ -209,6 +242,7 @@ REPLACES = {
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
+    "grouped_matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "prefill_attention": "src/repro_torch/kernels/csrc/prefill_attention.cu",
     "quantized_matmul": "src/repro_torch/kernels/csrc/quantized_matmul.cu",
@@ -243,6 +277,7 @@ TRAIN_SHAPE = dict(b=2, h=8, s=512, hd=256)
 TRAIN_CASE = "B=2 H=8 S=512 hd=256 causal window=0"
 WKV_CASE = "B=4 S=4096 H=64 hd=64 chunk=64 decay=init"
 SUMMARY_CASE = {"matmul": "M=4 K=2048 N=16384",
+                "grouped_matmul": "G=60 C=8 K=2048 N=1408",
                 "quantized_matmul": "M=4 K=2048 N=16384",
                 "flash_attention": TRAIN_CASE,
                 "flash_attention_bwd": TRAIN_CASE,
@@ -253,6 +288,13 @@ SUMMARY_CASE = {"matmul": "M=4 K=2048 N=16384",
 SUMMARY_DTYPE = {"stencil": "float32", "nbody": "float32",
                  "histogram": "int32"}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 512
+# qwen2-moe-a2.7b (configs/archs.py:14-25; Qwen1.5-MoE-A2.7B): 24 layers,
+# d 2048, 16 heads over 16 kv heads of 128, 60 experts of 1408 (top 4), a
+# fused 5632-wide shared MLP, an untied vocabulary of 151936
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--slots", "4", "--requests", "6",
+                  "--prompt-len", "100", "--max-new", "16", "--max-len",
+                  "256"]
 WEIGHT_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 
 
@@ -347,7 +389,11 @@ def row(name, case, dtype, err, ms, plain_ms, bnd, library_ms=None,
 MATMUL_CASES = ([(m, k, n, False) for m in (4, 256, 1024)
                  for k, n in WEIGHT_SHAPES]
                 + [(m, 2048, 256000, True) for m in (4, 256, 128)])
-MATMUL_F32_CASES = [(128, 256000, 2048, False)]
+# qwen2-moe's fp32 router (N = 60 experts, 240-byte rows) at decode and a
+# prefill chunk; its untied bf16 head (N = 151936) at the same M
+MATMUL_F32_CASES = ([(128, 256000, 2048, False)]
+                    + [(m, 2048, 60, False) for m in (4, 256)])
+MATMUL_BF16_CASES = [(m, 2048, 151936, False) for m in (4, 256)]
 L2_BYTES = 50e6
 
 
@@ -372,7 +418,7 @@ def check_matmul(torch, dtype_name: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     cases = MATMUL_CASES + (MATMUL_F32_CASES if dtype_name == "float32"
-                            else [])
+                            else MATMUL_BF16_CASES)
     for m, k, n, tied in cases:
         a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
         if tied:       # the logits head: embed (V, d) read as embed.T
@@ -384,6 +430,10 @@ def check_matmul(torch, dtype_name: str):
         case = f"M={m} K={k} N={n}" + (" tied-transposed" if tied else "")
         if (m, k, n) == MATMUL_F32_CASES[0][:3]:
             case += " head dx"
+        elif n == 60:
+            case += " qwen2-moe router"
+        elif n == 151936:
+            case += " qwen2-moe head"
         err = compare(torch, "matmul " + case, matmul_cuda(a, b),
                       matmul_plain(a, b), dtype_name)
         size = a.element_size()
@@ -457,6 +507,83 @@ def check_quantized_matmul(torch, dtype_name: str, matmul_rows):
     return rows
 
 
+# B1's grouped route at qwen2-moe's experts (60 groups): the up (K=2048,
+# N=1408) and the down (K=1408, N=2048) contraction, at a decode step's
+# capacity (4 tokens) and a prefill chunk's (4 x 64 tokens), C from
+# MoESpec.capacity; at the decode up-projection also the backward's two
+# GEMMs (dx = g @ w^T with a K-major B, dw = x^T @ g)
+GROUPED_TOKENS = (4, 256)
+GROUPED_SHAPES = ((2048, 1408), (1408, 2048))
+
+
+def moe_spec():
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import _moe_spec
+    return _moe_spec(get_arch(MOE_ARCH))
+
+
+def grouped_row(torch, case: str, dtype_name: str, a, b):
+    """One grouped-route row: against the plain version, a rerun bit-equal,
+    the bound, one ``torch.bmm`` (cuBLAS) as the library time, and the
+    per-group B1 launches the JAX lowering's form would take
+    (``b1_loop_ms``)."""
+    from repro_torch.kernels.matmul import (grouped_matmul_cuda,
+                                            grouped_matmul_plain, matmul_cuda)
+    from repro_torch.kernels.matmul.matmul import split_plan
+    out = grouped_matmul_cuda(a, b)
+    err = compare(torch, "grouped_matmul " + case, out,
+                  grouped_matmul_plain(a, b), dtype_name)
+    if not torch.equal(grouped_matmul_cuda(a, b), out):
+        raise AssertionError(f"grouped_matmul {case}: a rerun changed bits")
+    g, c, k = a.shape
+    n = b.shape[2]
+    bnd = bound((g * c * k + g * k * n + g * c * n) * a.element_size(),
+                2.0 * g * c * k * n, dtype_name)
+
+    def call():
+        return grouped_matmul_cuda(a, b)
+
+    def loop():
+        return [matmul_cuda(a[i], b[i]) for i in range(g)]
+    return row("grouped_matmul", case, dtype_name, err, time_ms(torch, call),
+               time_ms(torch, lambda: grouped_matmul_plain(a, b)), bnd,
+               time_ms(torch, lambda: torch.bmm(a, b)),
+               device_ms=device_ms(torch, call),
+               library_device_ms=device_ms(torch, lambda: torch.bmm(a, b)),
+               b1_loop_ms=time_ms(torch, loop),
+               b1_loop_device_ms=device_ms(torch, loop),
+               split=list(split_plan(k, n, a.dtype, groups=g)),
+               rerun_bit_equal=True)
+
+
+def check_grouped(torch, dtype_name: str):
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    spec = moe_spec()
+    g = spec.e_pad
+    rows = []
+    for tokens in GROUPED_TOKENS:
+        c = spec.capacity(tokens)
+        for k, n in GROUPED_SHAPES:
+            x = torch.randn(g, c, k, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(g, k, n, generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dtype)
+            case = f"G={g} C={c} K={k} N={n}"
+            rows.append(grouped_row(torch, case, dtype_name, x, w))
+            if tokens == GROUPED_TOKENS[0] and k == 2048:
+                gout = torch.randn(g, c, n, generator=gen,
+                                   device="cuda").to(dtype)
+                rows.append(grouped_row(
+                    torch, case + " backward dx = g @ w^T", dtype_name,
+                    gout, w.transpose(1, 2)))
+                rows.append(grouped_row(
+                    torch, case + " backward dw = x^T @ g", dtype_name,
+                    x.transpose(1, 2).contiguous(), gout))
+            del x, w
+    torch.cuda.empty_cache()
+    return rows
+
+
 def paged_inputs(torch, dtype, gen, *, b, h, hkv, hd, page, n_pages):
     pool = 1 + b * n_pages
     kp = torch.randn(pool, page, hkv, hd, generator=gen, device="cuda")
@@ -482,6 +609,10 @@ DECODE_QWEN = dict(b=4, h=32, hkv=32, hd=128, page=64, n_pages=128,
 # caches viewed as pages, each slot's own run of pages its table, at
 # position 1500: the local layers' 1024-entry buffer wrapped (every entry
 # live), the global layers' 2048-entry buffer holding 1501 keys
+# qwen2-moe-a2.7b's heads (16 kv heads of 128, group 1,
+# configs/archs.py:18) on the MoE serving phase's 256-key table
+DECODE_MOE = dict(b=4, h=16, hkv=16, hd=128, page=64, n_pages=4,
+                  lens=(0, 65, 117, 256), windows=(0,))
 DECODE_DENSE = [dict(b=2, h=8, hkv=4, hd=256, page=64, n_pages=cap // 64,
                      lens=(min(1501, cap),) * 2, windows=(0,), dense=True)
                 for cap in (1024, 2048)]
@@ -572,6 +703,8 @@ def check_decode(torch, dtype_name: str):
         for int8 in (False, True):
             rows += decode_rows(torch, dtype_name, DECODE_LONG, int8, 20)
         rows += decode_rows(torch, dtype_name, DECODE_QWEN, False, 20)
+        for int8 in (False, True):
+            rows += decode_rows(torch, dtype_name, DECODE_MOE, int8, 50)
     for shape in DECODE_DENSE:
         rows += decode_rows(torch, dtype_name, shape, False, 20)
     return rows
@@ -595,6 +728,12 @@ PREFILL_QWEN = dict(b=4, c=64, h=32, hkv=32, hd=128, page=64, n_pages=128,
 # a slot at 0; gemma-2b has no window.  The serve runs take the wgmma route
 PREFILL_VERIFY = dict(b=4, c=4, h=8, hkv=1, hd=256, page=64, n_pages=4,
                       starts=(17, 62, 0, 130), windows=(0,), route="wgmma")
+# qwen2-moe-a2.7b's heads (16 kv heads of 128, group 1) at the MoE serving
+# phase's prefill chunk and verify window; its serve runs take the wgmma
+# route
+PREFILL_MOE = [dict(shape, h=16, hkv=16, hd=128) for shape in (
+    dict(b=2, c=64, page=64, n_pages=4, starts=(0, 64), windows=(0,),
+         route="wgmma"), PREFILL_VERIFY)]
 
 
 def prefill_rows(torch, dtype_name: str, shape: dict, int8: bool,
@@ -686,6 +825,9 @@ def check_prefill(torch, dtype_name: str):
         rows += prefill_rows(torch, dtype_name, PREFILL_QWEN, False, 10)
         for int8 in (False, True):
             rows += prefill_rows(torch, dtype_name, PREFILL_VERIFY, int8, 20)
+        for shape in PREFILL_MOE:
+            for int8 in (False, True):
+                rows += prefill_rows(torch, dtype_name, shape, int8, 20)
     return rows
 
 
@@ -1550,21 +1692,160 @@ def spec_serve_phase(torch, base_streams):
     return launches
 
 
-# ------------------------------------------------------------ phase 4
-def model_phase(torch, int8: bool):
-    import dataclasses
+# ------------------------------------------------------------ phase 3d
+# the kernels of each MoE serve run's path; the model drafter's forwards
+# add B6
+MOE_FLOAT_PATH = ("matmul", "grouped_matmul", "decode_attention",
+                  "prefill_attention")
+MOE_INT8_PATH = ("matmul", "quantized_matmul", "grouped_matmul",
+                 "decode_attention_int8", "prefill_attention_int8")
+PAGED = ["--cache", "paged"]
+MOE_SERVE_RUNS = (  # (label, extra arguments, kernels of its path)
+    ("paged static", PAGED + ["--schedule", "static"], MOE_FLOAT_PATH),
+    ("paged continuous",
+     PAGED + ["--schedule", "continuous", "--clock", "tick"],
+     MOE_FLOAT_PATH),
+    ("int8+prefix continuous",
+     PAGED + INT8_ARGS + PREFIX_ARGS
+     + ["--schedule", "continuous", "--clock", "tick"], MOE_INT8_PATH),
+    ("dense", ["--cache", "dense"],
+     ("matmul", "grouped_matmul", "decode_attention")),
+    ("spec ngram static", PAGED + ["--speculate", "ngram"] + SPEC_ARGS,
+     ("matmul", "grouped_matmul", "prefill_attention")),
+    ("spec model static", PAGED + ["--speculate", "model"] + SPEC_ARGS,
+     ("matmul", "grouped_matmul", "prefill_attention", "flash_attention")))
+# the target model's forwards, whose launches are held to the counts the
+# config implies, forward by forward
+FORWARDS = {"decode_step": "decode_attention",
+            "prefill_step_paged": "prefill_attention",
+            "verify_step_paged": "prefill_attention"}
 
-    from repro_torch.configs import get_arch
-    from repro_torch.core.memory import DtypePolicy
+
+def forward_launches(cfg, method: str) -> dict:
+    """The launches one serving forward of ``cfg`` makes: per layer the
+    q, k, v, o projections (B1, or B5 on int8 weights), the fp32 router
+    and the shared MLP's three GEMMs (B1; MoE layers stay float), the
+    three expert contractions (B1's grouped route) and one attention call
+    (B2 for a decode step, B3 for a prefill chunk or a verify window; the
+    int8 branches on int8 pools); plus the head (B1)."""
+    n = cfg.n_layers
+    attn = FORWARDS[method] + ("_int8" if cfg.kv_dtype == "int8" else "")
+    want = {"grouped_matmul": 3 * n, attn: n}
+    if cfg.weights_dtype == "int8":
+        want.update(quantized_matmul=4 * n, matmul=4 * n + 1)
+    else:
+        want["matmul"] = 8 * n + 1
+    return want
+
+
+@contextlib.contextmanager
+def counted_forwards(record: list):
+    """Every serving forward of a ``Model`` (decode, prefill chunk, verify)
+    appends (method, the config, its launches by kernel, its host ms: the
+    enqueue, with no synchronisation) to ``record``."""
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
-    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
-    cfg = get_arch("gemma-2b")
-    if int8:
-        cfg = dataclasses.replace(cfg, kv_dtype="int8", weights_dtype="int8")
-    model = Model(cfg, dt=f32, device="cuda")
-    params = model.bind_params(model.init(seed=1))
-    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def counted(method, name):
+        def run(self, *args, **kwargs):
+            before = dispatch.launch_counts()
+            t0 = time.perf_counter()
+            out = method(self, *args, **kwargs)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = dispatch.launch_counts()
+            record.append((name, self.cfg, {
+                op: after[op] - before[op] for op in after
+                if after[op] != before[op]}, ms))
+            return out
+        return run
+    with contextlib.ExitStack() as stack:
+        for name in FORWARDS:
+            stack.enter_context(mock.patch.object(
+                Model, name, counted(getattr(Model, name), name)))
+        yield record
+
+
+def moe_serve_phase(torch):
+    """qwen2-moe-a2.7b at full width and depth in bf16 through
+    ``serve.main`` on phase 3's traffic: paged static and continuous, int8
+    KV + int8 weights + prefix cache, dense, and speculative with the
+    n-gram and the model drafter.  Every request served in full, kernel
+    routes only, every forward of the target with exactly the launches
+    its config implies, and a rerun of the first run bit-equal.  Streams
+    of different schedules are not compared: the experts' capacity
+    depends on each call's batch shape, as in the JAX package."""
+    t0 = time.time()
+    launches = {}
+    first = None
+    for label, extra, path in MOE_SERVE_RUNS + (MOE_SERVE_RUNS[0],):
+        record = []
+        with counted_forwards(record):
+            rep, streams, counts = serve_run(torch, f"moe {label}",
+                                             MOE_SERVE_ARGS + extra, path)
+        torch.cuda.empty_cache()
+        if first is None:
+            first = streams
+        elif label == MOE_SERVE_RUNS[0][0]:
+            if streams != first:
+                raise AssertionError(f"moe {label}: a rerun changed the "
+                                     f"streams:\n{first}\n{streams}")
+            emit({"phase": "moe_serve", "run": label,
+                  "rerun_bit_equal": True})
+            continue
+        for op, n in counts.items():
+            launches[op] = launches.get(op, 0) + n
+        if len(rep["done"]) != 6 or any(len(r.out) != 16
+                                        for r in rep["done"]) \
+                or (rep["dense"] or {}).get("truncated"):
+            raise AssertionError(f"moe {label}: not every request served "
+                                 f"in full")
+        wrong = [(name, got, forward_launches(cfg, name))
+                 for name, cfg, got, _ in record
+                 if got != forward_launches(cfg, name)]
+        if not record or wrong:
+            raise AssertionError(f"moe {label}: {len(record)} forwards; "
+                                 f"(forward, launches, expected): "
+                                 f"{wrong[:3]}")
+        by_method = {}
+        for name, cfg, got, ms in record:
+            by_method.setdefault(name, []).append(ms)
+        ph, sp = rep["phases"], rep["spec"]
+        line = {"phase": "moe_serve", "run": label,
+                "new_tokens": rep["new_tokens"], "tok_s": rep["tok_s"],
+                "seconds": rep["seconds"],
+                "forwards": {k: len(v) for k, v in by_method.items()},
+                "host_ms_per_forward": {k: sum(v) / len(v)
+                                        for k, v in by_method.items()},
+                "launches_per_forward": {
+                    name: forward_launches(record[0][1], name)
+                    for name in by_method},
+                "streams": streams}
+        if ph.get("decode_steps"):
+            line["decode_ms_per_step"] = (1e3 * ph["decode_seconds"]
+                                          / ph["decode_steps"])
+        if sp:
+            line.update(verify_steps=sp["verify_steps"],
+                        accept_rate=sp["accept_rate"],
+                        tokens_per_step=sp["tokens_per_step"],
+                        verify_ms_per_step=1e3 * sp["verify_seconds"]
+                        / sp["verify_steps"],
+                        draft_ms_per_step=1e3 * sp["draft_seconds"]
+                        / sp["verify_steps"])
+        if rep["prefix"] is not None:
+            line["prefix"] = rep["prefix"]
+            if rep["prefix"]["hits"] == 0:
+                raise AssertionError(f"moe {label}: no prefix hit")
+        emit(line)
+    emit({"phase": "moe_serve", "seconds": time.time() - t0})
+    return launches
+
+
+# ------------------------------------------------------------ phase 4
+def prefill_decode_runner(torch, model, params, seed: int):
+    """A function that runs one 64-token prefill chunk (50 prompt tokens)
+    and 4 teacher-forced decode steps of one slot from a fresh paged cache
+    and returns the 5 rows of logits; the tokens come from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     page, prompt_len = 64, 50
     toks = torch.zeros(1, page, dtype=torch.int32, device="cuda")
     toks[0, :prompt_len] = torch.randint(0, model.cfg.vocab_size,
@@ -1586,7 +1867,23 @@ def model_phase(torch, int8: bool):
                 params, cache, tok.reshape(1, 1),
                 paged=(i32([prompt_len + step]), table)))
         return torch.cat(out)
+    return run
 
+
+def model_phase(torch, int8: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    cfg = get_arch("gemma-2b")
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8", weights_dtype="int8")
+    model = Model(cfg, dt=f32, device="cuda")
+    params = model.bind_params(model.init(seed=1))
+    run = prefill_decode_runner(torch, model, params, seed=3)
     kernel = run()
     with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
         plain = run()
@@ -1605,6 +1902,185 @@ def model_phase(torch, int8: bool):
         raise AssertionError(f"full-width logits: max |err| {err:.3e} > "
                              f"1e-3 x {scale:.3e}")
     del params, kernel, plain
+
+
+# ------------------------------------------------------------ phase 4c
+def moe_model_phase(torch, int8: bool):
+    """qwen2-moe-a2.7b at full width and depth in fp32 (57 GB of
+    parameters): one prefill chunk and 4 decode steps through the kernels,
+    then twice through the plain versions, on the card.
+
+    A run's discrete decisions are each MoE call's expert choice and, on
+    int8 pools, each rounding of a K/V entry to int8.  The first plain run
+    makes its own: the line gives how many (token, k) choices and int8
+    entries differ from the kernel run's, the first MoE call where a
+    choice does, the smallest gap between the k-th and (k+1)-th
+    probability each run saw, and its logits' error (an ulp between the
+    routes flips a choice whose gap is that small, or an int8 entry at a
+    rounding tie; a flip moves that token by a whole expert or one int8
+    step, and the next layers carry it on).  The second plain run takes
+    the kernel run's decisions (the choices gated by its own
+    probabilities, the int8 pages and scales as written): its logits must
+    lie within 1e-3 of max |logit| of the kernel run's.
+
+    The replayed writes would hide the K/V projections (B5 at the int8
+    run's shapes), so each quantizer call of the replaying run also
+    rounds its own input: that input must lie within 1e-3 of max |K/V|
+    of the kernel run's, and each int8 entry it rounds otherwise must
+    differ by one step.  The line gives how many do, and, over them, the
+    largest distance between the two runs' unrounded values and the
+    largest distance of the kernel run's from a rounding tie, in int8
+    steps: an ulp-sized input difference that flips an entry leaves both
+    tiny.  At the first call both plain runs hold the same state, so its
+    count is the free-running run's there too."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import quant
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model
+    t0 = time.time()
+    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    cfg = get_arch(MOE_ARCH)
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_dtype="int8", weights_dtype="int8")
+    model = Model(cfg, dt=f32, device="cuda")
+    params = model.bind_params(model.init(seed=1))
+    run = prefill_decode_runner(torch, model, params, seed=3)
+    route = moe.route
+    # a list a run: (expert ids, top-k gap) a MoE call; (int8 pages,
+    # scales) a K/V quantizer call, and (float input, unrounded values in
+    # int8 steps, its own int8 pages) of that call
+    routed, written, rounded = [], [], []
+
+    def recording(p, spec, tokens):
+        gate, eidx, probs = route(p, spec, tokens)
+        top = torch.topk(probs, spec.top_k + 1, dim=-1).values
+        routed[-1].append((eidx, float((top[:, -2] - top[:, -1]).min())))
+        return gate, eidx, probs
+
+    def replaying(p, spec, tokens):
+        _, _, probs = route(p, spec, tokens)
+        eidx = routed[0][len(routed[-1])][0]
+        routed[-1].append((eidx, None))
+        gate = probs.gather(1, eidx)
+        if spec.norm_topk:
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return gate, eidx, probs
+
+    def unrounded(args, out):
+        """The float input of a K/V quantizer call and the values it
+        rounds (in int8 steps) for every entry of the pages it returns."""
+        safe = torch.where(out[1] > 0, out[1], torch.ones_like(out[1]))
+        if len(args) == 1:                  # quantize_pages(x)
+            return args[0].float(), args[0].float() / safe[..., None, :,
+                                                           None]
+        page_q, page_scale, token, off = args   # append_token_quantized
+        u = page_q.float() * (page_scale / safe)[:, None, :, None]
+        u[torch.arange(len(off), device=off.device), off.long()] = \
+            token.float() / safe[..., None]
+        return token.float(), u
+
+    def quantizer(real, replay):
+        def call(*args):
+            args = tuple(a.clone() for a in args)
+            out = real(*args)
+            rounded[-1].append(unrounded(args, out) + (out[0],))
+            if replay:
+                out = tuple(t.clone() for t in written[0][len(written[-1])])
+            written[-1].append(out)
+            return out
+        return call
+
+    def logits(replay, on_card=True):
+        routed.append([])
+        written.append([])
+        rounded.append([])
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                moe, "route", replaying if replay else recording))
+            for name in ("quantize_pages", "append_token_quantized"):
+                stack.enter_context(mock.patch.object(
+                    quant, name, quantizer(getattr(quant, name), replay)))
+            if not on_card:
+                stack.enter_context(mock.patch.object(
+                    dispatch, "_on_card", lambda op, t: False))
+            out = run()
+            torch.cuda.synchronize()
+        return out
+
+    dispatch.reset_launch_counts()
+    with dispatch.stats_scope() as stats:
+        kernel = logits(False)
+        routes = stats()
+    launches = dispatch.launch_counts()
+    plain = logits(False, on_card=False)
+    replayed = logits(True, on_card=False)
+    scale = replayed.abs().max().item()
+    err = (kernel - replayed).abs().max().item()
+    free_err = (kernel - plain).abs().max().item()
+    calls = len(routed[0])
+    differ = [int((a != b).sum()) for (a, _), (b, _) in zip(*routed[:2])]
+    # the replaying run's own rounding against the kernel run's writes
+    kv_err = kv_scale = 0.0
+    flips, step, crossing, tie = [], 0, 0.0, 0.0
+    for (xk, uk, _), (xr, ur, qr), (qk, _) in zip(rounded[0], rounded[2],
+                                                  written[0]):
+        kv_err = max(kv_err, (xr - xk).abs().max().item())
+        kv_scale = max(kv_scale, xk.abs().max().item())
+        flip = qr != qk
+        flips.append(int(flip.sum()))
+        if flips[-1]:
+            step = max(step, int((qr[flip].int() - qk[flip].int()).abs()
+                                 .max()))
+            crossing = max(crossing, (ur[flip] - uk[flip]).abs().max()
+                           .item())
+            tie = max(tie, (uk[flip] - uk[flip].floor() - 0.5).abs().max()
+                      .item())
+    emit({"phase": "moe_model", "arch": cfg.name, "dtype": "float32",
+          "kv_dtype": cfg.kv_dtype or "float32",
+          "weights_dtype": cfg.weights_dtype or "float32",
+          "positions": 5, "max_abs_err": err, "max_abs_logit": scale,
+          "rel_err": err / scale, "logit_std": replayed.std().item(),
+          "own_decisions_max_abs_err": free_err,
+          "own_decisions_rel_err": free_err / scale,
+          "moe_calls": calls,
+          "expert_choices": sum(e.numel() for e, _ in routed[0]),
+          "expert_choices_differ": sum(differ),
+          "first_differing_call": next(
+              (i for i, n in enumerate(differ) if n), None),
+          "min_topk_gap": [min(gap for _, gap in r) for r in routed[:2]],
+          "kv_int8_writes": len(written[0]),
+          "kv_int8_entries": sum(q.numel() for q, _ in written[0]),
+          "kv_int8_entries_differ": sum(
+              int((a[0] != b[0]).sum()) for a, b in zip(*written[:2])),
+          "kv_input_max_abs_err": kv_err, "kv_input_max_abs": kv_scale,
+          "kv_replay_own_entries_differ": sum(flips),
+          "kv_replay_own_first_call_differ": flips[0] if flips else None,
+          "kv_replay_own_max_step": step,
+          "kv_replay_own_max_crossing_steps": crossing,
+          "kv_replay_own_max_tie_dist_steps": tie,
+          "grouped_launches": launches["grouped_matmul"],
+          "seconds": time.time() - t0})
+    if any(route_ == "plain" for _, route_ in routes):
+        raise AssertionError(f"moe model: plain routes {routes}")
+    if calls != 5 * cfg.n_layers or {len(r) for r in routed} != {calls} \
+            or launches["grouped_matmul"] != 3 * calls \
+            or len({len(w) for w in written}) != 1:
+        raise AssertionError(f"moe model: {[len(r) for r in routed]} MoE "
+                             f"calls, {[len(w) for w in written]} K/V "
+                             f"writes, {launches['grouped_matmul']} grouped "
+                             f"launches")
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"moe full-width logits: max |err| {err:.3e} "
+                             f"> 1e-3 x {scale:.3e}")
+    if not kv_err <= 1e-3 * kv_scale or step > 1:
+        raise AssertionError(f"moe model K/V: max |err| {kv_err:.3e} of "
+                             f"{kv_scale:.3e}, own rounding {step} int8 "
+                             f"steps off the kernel run's")
+    del params, kernel, plain, replayed, rounded
 
 
 # ------------------------------------------------------------ phase 4b
@@ -1765,6 +2241,11 @@ def train_phase(torch):
 KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("quantized_f32_kernel", "B5 int8 matmul fp32 (SIMT)"),
                  ("quantized_splitk_sum_kernel", "B5 split-K sum"),
+                 # B1's kernels are templated on <B K-major, grouped>
+                 ("matmul_bf16_wgmma_kernel<false, true>",
+                  "B1 grouped bf16 (wgmma)"),
+                 ("matmul_bf16_wgmma_kernel<true, true>",
+                  "B1 grouped bf16 (wgmma)"),
                  ("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
                  ("matmul_f32_simt_kernel", "B1 matmul fp32 (SIMT)"),
                  ("matmul_splitk_reduce_kernel", "B1 split-K sum"),
@@ -1882,7 +2363,7 @@ def range_breakdown(torch, events, name: str):
     return len(windows), window_ms, groups, other
 
 
-def serve_profile(torch, label: str, extra: list):
+def serve_profile(torch, label: str, extra: list, base=None):
     """Where the decode steps and the prefill calls of a continuous serve
     run spend the card's time: phase 3's continuous run with ``extra``
     arguments again under ``torch.profiler``, with each
@@ -1907,8 +2388,9 @@ def serve_profile(torch, label: str, extra: list):
                               marked(ex.prefill, PREFILL_RANGE)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            rep = serve.main(SERVE_ARGS + extra + ["--schedule", "continuous",
-                                                   "--clock", "tick"])
+            rep = serve.main((base or SERVE_ARGS) + extra
+                             + ["--schedule", "continuous", "--clock",
+                                "tick"])
             torch.cuda.synchronize()
     events = prof.events()
     line = {"phase": "serve_profile", "run": label, "phases": rep["phases"],
@@ -2024,6 +2506,7 @@ def main(argv=None) -> int:
         rows += check_matmul(torch, dtype_name)
     for dtype_name in ("bfloat16", "float32"):
         rows += check_quantized_matmul(torch, dtype_name, rows)
+        rows += check_grouped(torch, dtype_name)
         rows += check_decode(torch, dtype_name)
         rows += check_prefill(torch, dtype_name)
         rows += check_flash(torch, dtype_name)
@@ -2040,14 +2523,22 @@ def main(argv=None) -> int:
         for op, n in phase_launches.items():
             launches[op] = launches.get(op, 0) + n
         torch.cuda.empty_cache()
+    for op, n in moe_serve_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
+    torch.cuda.empty_cache()
     for label, extra in PROFILED_SERVE_RUNS:
         serve_profile(torch, label, extra)
         torch.cuda.empty_cache()
+    serve_profile(torch, "moe float continuous", PAGED, MOE_SERVE_ARGS)
+    torch.cuda.empty_cache()
     for int8 in (False, True):
         model_phase(torch, int8)
         torch.cuda.empty_cache()
     dense_model_phase(torch)
     torch.cuda.empty_cache()
+    for int8 in (False, True):
+        moe_model_phase(torch, int8)
+        torch.cuda.empty_cache()
     for op, n in train_phase(torch).items():
         launches[op] = launches.get(op, 0) + n
     torch.cuda.empty_cache()

@@ -2,7 +2,9 @@
 
 The JAX tree (``repro/models/transformer.py::Model.init``), handed over
 as numpy arrays, maps one to one: same keys, same ``prefix``/``stack``/
-``tail`` nesting, same leading period axis on stacked layers.
+``tail`` nesting, same leading period axis on stacked layers (a MoE
+layer's ``moe`` subtree, its ``router``, stacked experts ``wg``/``wu``/
+``wd`` and ``shared`` MLP, included).
 """
 from __future__ import annotations
 

@@ -27,10 +27,18 @@
 // - Split K: when N has too few tiles for the card, `split` blocks take
 //   consecutive K slices of one output tile and write fp32 partial tiles
 //   to a scratch tensor; a second kernel sums them in rank order.  No
-//   atomics.  The split is chosen by the wrapper from (K, N, dtype) only.
+//   atomics.  The split is chosen by the wrapper from (K, N, dtype) only
+//   (grouped: (G, K, N, dtype)).
 //   (Blocks of one cluster summing through distributed shared memory were
 //   measured slower: clusters of 8 one-block-per-SM blocks did not all
 //   run at once.)
+// - Grouped: (G, M, K) @ (G, K, N) -> (G, M, N), the MoE experts' form
+//   (repro/kernels/matmul/ops.py::_grouped_kernel_lowering, per-expert
+//   matmul_pallas calls).  One launch covers every group: blockIdx.z is
+//   group x split + rank, each group's tiles are the dense route's tiles
+//   over that group's operands.  bf16 reads them through 3-D tensor maps,
+//   boxes one group deep, so a tile past a group's M or K rows gets TMA's
+//   zeros and never the next group's data; fp32 offsets its pointers.
 //
 // A row's bits depend on nothing but its own inputs: the tile shape, the
 // K order and the split are fixed by (K, N, dtype), rows past M are zeros,
@@ -46,22 +54,36 @@ using sm90::aligned16;
 using sm90::cp_async16;
 using sm90::cp_async4;
 using sm90::encode_map;
+using sm90::encode_map_3d;
 using sm90::launch;
 
 constexpr int BM = 128, BN = 128;
 // the K unit of a split's slice (kernels/matmul/matmul.py's TILE_K)
 constexpr int SLICE_K32 = 32;
 
-// the block's output: straight to c, or its rank's partial to scratch
+// the block's output: straight to c, or its rank's partial to scratch,
+// where a rank's partials span `rank_rows` rows (every group's M)
 template <typename TC>
 __device__ __forceinline__ void put(TC* __restrict__ c,
                                     float* __restrict__ scratch, int split,
-                                    int rank, int M, int N, int gm, int gn,
-                                    float v) {
+                                    int rank, long long rank_rows, int N,
+                                    int gm, int gn, float v) {
   if (split == 1)
     c[static_cast<long long>(gm) * N + gn] = from_f32<TC>(v);
   else
-    scratch[(static_cast<long long>(rank) * M + gm) * N + gn] = v;
+    scratch[(rank * rank_rows + gm) * N + gn] = v;
+}
+
+// the group and the K rank of this block (blockIdx.z = group x split +
+// rank), and its output and partials moved to the group's
+struct Place {
+  int grp, rank;
+  long long offset;  // of the group's (M, N) output and partials
+};
+__device__ __forceinline__ Place place(int M, int N, int split) {
+  const int grp = blockIdx.z / split;
+  return {grp, static_cast<int>(blockIdx.z % split),
+          static_cast<long long>(grp) * M * N};
 }
 
 // ------------------------------------------------------------------ bf16
@@ -69,21 +91,26 @@ constexpr int BK16 = wgmma_tile::BK;
 constexpr int THREADS16 = wgmma_tile::threads<__nv_bfloat16>();
 constexpr int SMEM16 = wgmma_tile::smem_bytes<__nv_bfloat16>();
 
-template <bool B_KMAJOR>
+template <bool B_KMAJOR, bool GROUPED>
 __global__ void __launch_bounds__(THREADS16, 1)
 matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                          const __grid_constant__ CUtensorMap tm_b,
                          const __nv_bfloat16* __restrict__ a,
                          const __nv_bfloat16* __restrict__ b,
                          __nv_bfloat16* __restrict__ c,
-                         float* __restrict__ scratch, int M, int N, int K,
-                         long long lda, long long sbk, long long sbn,
-                         int split, int slice_steps, int use_tma) {
-  const int rank = blockIdx.z;
-  wgmma_tile::tile<__nv_bfloat16, B_KMAJOR>(
-      tm_a, tm_b, a, b, M, N, K, lda, sbk, sbn, slice_steps, use_tma, BM,
+                         float* __restrict__ scratch, int G, int M, int N,
+                         int K, long long lda, long long sag, long long sbg,
+                         long long sbk, long long sbn, int split,
+                         int slice_steps, int use_tma) {
+  const Place at = place(M, N, split);
+  __nv_bfloat16* cg = c + at.offset;
+  float* sg = split > 1 ? scratch + at.offset : scratch;
+  const long long rank_rows = static_cast<long long>(G) * M;
+  wgmma_tile::tile<__nv_bfloat16, B_KMAJOR, GROUPED>(
+      tm_a, tm_b, a + at.grp * sag, b + at.grp * sbg, M, N, K, lda, sbk, sbn,
+      slice_steps, use_tma, BM, at.rank, at.grp,
       [&](int gm, int gn, float v) {
-        put(c, scratch, split, rank, M, N, gm, gn, v);
+        put(cg, sg, split, at.rank, rank_rows, N, gm, gn, v);
       });
 }
 
@@ -169,8 +196,9 @@ template <bool B_KMAJOR, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS32, 1)
 matmul_f32_simt_kernel(const float* __restrict__ a,
                        const float* __restrict__ b, float* __restrict__ c,
-                       float* __restrict__ scratch, int M, int N, int K,
-                       long long lda, long long sbk, long long sbn, int split,
+                       float* __restrict__ scratch, int G, int M, int N,
+                       int K, long long lda, long long sag, long long sbg,
+                       long long sbk, long long sbn, int split,
                        int slice_steps) {
   using T = Tile32<B_KMAJOR>;
   extern __shared__ float4 smem32_raw[];
@@ -183,7 +211,13 @@ matmul_f32_simt_kernel(const float* __restrict__ a,
   const int cbase = B_KMAJOR ? tx : 4 * tx;
   const int cstep = 16, crun = 64;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int rank = blockIdx.z;
+  const Place at = place(M, N, split);
+  const int rank = at.rank;
+  const long long rank_rows = static_cast<long long>(G) * M;
+  a += at.grp * sag;
+  b += at.grp * sbg;
+  c += at.offset;
+  if (split > 1) scratch += at.offset;
   const int kb = rank * slice_steps * SLICE_K32;
   const int ke = min(K, kb + slice_steps * SLICE_K32);
   const int nt = max(0, (ke - kb + T::BK - 1) / T::BK);
@@ -268,7 +302,7 @@ matmul_f32_simt_kernel(const float* __restrict__ a,
       const int gn = n0 + (B_KMAJOR ? cbase + cstep * j
                                     : cbase + crun * (j / 4) + j % 4);
       if (gm < M && gn < N)
-        put(c, scratch, split, rank, M, N, gm, gn, acc[i][j]);
+        put(c, scratch, split, rank, rank_rows, N, gm, gn, acc[i][j]);
     }
   }
 }
@@ -287,57 +321,134 @@ matmul_splitk_reduce_kernel(const float* __restrict__ scratch,
 }
 
 // ------------------------------------------------------------------ host
-// the split's second pass, where it takes one
+// the split's second pass, where it takes one: c's `rows` (every group's)
+// rows of N
 template <typename TC>
-int reduce_splits(const float* scratch, TC* c, int M, int N, int split,
-                  cudaStream_t stream) {
+int reduce_splits(const float* scratch, TC* c, long long rows, int N,
+                  int split, cudaStream_t stream) {
   if (split == 1) return 0;
-  const long long mn = static_cast<long long>(M) * N;
+  const long long mn = rows * N;
   const long long blocks = std::min<long long>((mn + 255) / 256, 132 * 8);
   matmul_splitk_reduce_kernel<TC><<<static_cast<int>(blocks), 256, 0,
                                     stream>>>(scratch, c, mn, split);
   return static_cast<int>(cudaGetLastError());
 }
 
+// G groups of a (M, K) @ b (K, N) -> c (M, N): a's groups `sag` elements
+// apart, b's `sbg`, c's M x N (G = 1 and `grouped` false for the dense
+// route)
+struct Problem {
+  int G, M, N, K;
+  long long lda, sag, sbg, sbk, sbn;
+  int split, slice_steps;
+  bool grouped;
+};
+
+// the tensor maps of the bf16 route, 2-D (dense) or 3-D, one group deep
+// (grouped); false where cuTensorMapEncodeTiled refuses one
+bool encode_maps(CUtensorMap* tm_a, CUtensorMap* tm_b,
+                 const __nv_bfloat16* a, const __nv_bfloat16* b,
+                 const Problem& p) {
+  const bool kmajor = p.sbn != 1;
+  const long long b_row = kmajor ? p.sbn : p.sbk;
+  // B's map: rows of K (K-major) or of N, 64-wide boxes of N
+  const uint64_t b_inner = kmajor ? p.K : p.N, b_outer = kmajor ? p.N : p.K;
+  const uint32_t b_box_inner = kmajor ? BK16 : 64,
+                 b_box_outer = kmajor ? BN : BK16;
+  if (!p.grouped)
+    return encode_map(tm_a, a, p.K, p.M, 2 * p.lda, BK16, BM) &&
+           encode_map(tm_b, b, b_inner, b_outer, 2 * b_row, b_box_inner,
+                      b_box_outer);
+  // a lone group's plane stride is its own extent (never stepped over)
+  const long long plane_a = p.G > 1 ? p.sag : p.lda * p.M;
+  const long long plane_b = p.G > 1 ? p.sbg : b_row * b_outer;
+  return encode_map_3d(tm_a, a, p.K, p.M, p.G, 2 * p.lda, 2 * plane_a, BK16,
+                       BM) &&
+         encode_map_3d(tm_b, b, b_inner, b_outer, p.G, 2 * b_row,
+                       2 * plane_b, b_box_inner, b_box_outer);
+}
+
+template <bool B_KMAJOR, bool GROUPED>
+int launch_bf16_as(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                   const __nv_bfloat16* a, const __nv_bfloat16* b,
+                   __nv_bfloat16* c, float* scratch, const Problem& p,
+                   int use_tma, cudaStream_t stream) {
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.G * p.split);
+  return launch(matmul_bf16_wgmma_kernel<B_KMAJOR, GROUPED>, grid, THREADS16,
+                SMEM16, stream, tm_a, tm_b, a, b, c, scratch, p.G, p.M, p.N,
+                p.K, p.lda, p.sag, p.sbg, p.sbk, p.sbn, p.split,
+                p.slice_steps, use_tma);
+}
+
 int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                __nv_bfloat16* c, float* scratch, int M, int N, int K,
-                long long lda, long long sbk, long long sbn, int split,
-                int slice_steps, cudaStream_t stream) {
-  const bool kmajor = sbn != 1;  // else sbk == 1 (checked by the caller)
-  const long long b_row = kmajor ? sbn : sbk;
+                __nv_bfloat16* c, float* scratch, const Problem& p,
+                cudaStream_t stream) {
+  const bool kmajor = p.sbn != 1;  // else sbk == 1 (checked by the caller)
   CUtensorMap tm_a = {}, tm_b = {};
-  const int use_tma =
-      K > 0 && aligned16(a, 2 * lda) && aligned16(b, 2 * b_row);
-  if (use_tma &&
-      !(encode_map(&tm_a, a, K, M, 2 * lda, BK16, BM) &&
-        (kmajor ? encode_map(&tm_b, b, K, N, 2 * b_row, BK16, BN)
-                : encode_map(&tm_b, b, N, K, 2 * b_row, 64, BK16))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split);
-  const int rc =
-      kmajor ? launch(matmul_bf16_wgmma_kernel<true>, grid, THREADS16, SMEM16,
-                      stream, tm_a, tm_b, a, b, c, scratch, M, N, K, lda, sbk,
-                      sbn, split, slice_steps, use_tma)
-             : launch(matmul_bf16_wgmma_kernel<false>, grid, THREADS16,
-                      SMEM16, stream, tm_a, tm_b, a, b, c, scratch, M, N, K,
-                      lda, sbk, sbn, split, slice_steps, use_tma);
-  return rc ? rc : reduce_splits(scratch, c, M, N, split, stream);
+  // TMA wants 16-byte bases and row strides, and so every group's base
+  const bool groups16 = p.G == 1 || (2 * p.sag % 16 == 0 &&
+                                     2 * p.sbg % 16 == 0);
+  int use_tma = p.K > 0 && groups16 && aligned16(a, 2 * p.lda) &&
+                aligned16(b, 2 * (kmajor ? p.sbn : p.sbk));
+  if (use_tma && !encode_maps(&tm_a, &tm_b, a, b, p)) {
+    // the dense route's maps are plain row-major matrices; a grouped
+    // operand at strides the encoder refuses takes the masked path
+    if (!p.grouped) return static_cast<int>(cudaErrorInvalidValue);
+    use_tma = 0;
+  }
+  int rc;
+  if (p.grouped)
+    rc = kmajor ? launch_bf16_as<true, true>(tm_a, tm_b, a, b, c, scratch, p,
+                                             use_tma, stream)
+                : launch_bf16_as<false, true>(tm_a, tm_b, a, b, c, scratch,
+                                              p, use_tma, stream);
+  else
+    rc = kmajor ? launch_bf16_as<true, false>(tm_a, tm_b, a, b, c, scratch,
+                                              p, use_tma, stream)
+                : launch_bf16_as<false, false>(tm_a, tm_b, a, b, c, scratch,
+                                               p, use_tma, stream);
+  return rc ? rc
+            : reduce_splits(scratch, c, static_cast<long long>(p.G) * p.M,
+                            p.N, p.split, stream);
 }
 
 template <bool B_KMAJOR>
 int launch_f32(const float* a, const float* b, float* c, float* scratch,
-               int M, int N, int K, long long lda, long long sbk,
-               long long sbn, int split, int slice_steps,
-               cudaStream_t stream) {
-  const bool al =
-      aligned16(a, 4 * lda) && aligned16(b, 4 * (B_KMAJOR ? sbn : sbk));
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split);
+               const Problem& p, cudaStream_t stream) {
+  const bool groups16 = p.G == 1 || (4 * p.sag % 16 == 0 &&
+                                     4 * p.sbg % 16 == 0);
+  const bool al = groups16 && aligned16(a, 4 * p.lda) &&
+                  aligned16(b, 4 * (B_KMAJOR ? p.sbn : p.sbk));
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.G * p.split);
   const int rc = launch(al ? matmul_f32_simt_kernel<B_KMAJOR, true>
                            : matmul_f32_simt_kernel<B_KMAJOR, false>,
                         grid, THREADS32, Tile32<B_KMAJOR>::SMEM, stream, a, b,
-                        c, scratch, M, N, K, lda, sbk, sbn, split,
-                        slice_steps);
-  return rc ? rc : reduce_splits(scratch, c, M, N, split, stream);
+                        c, scratch, p.G, p.M, p.N, p.K, p.lda, p.sag, p.sbg,
+                        p.sbk, p.sbn, p.split, p.slice_steps);
+  return rc ? rc
+            : reduce_splits(scratch, c, static_cast<long long>(p.G) * p.M,
+                            p.N, p.split, stream);
+}
+
+int run(const void* a, const void* b, void* c, void* scratch,
+        const Problem& p, int dtype, cudaStream_t s) {
+  float* part = static_cast<float*>(scratch);
+  if ((p.sbk != 1 && p.sbn != 1) || p.split < 1 || p.split > 8 ||
+      p.slice_steps < 0 || p.G < 1 || p.G * p.split > 65535 ||
+      (p.M + BM - 1) / BM > 65535 || (p.split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DTYPE_BF16)
+    return launch_bf16(static_cast<const __nv_bfloat16*>(a),
+                       static_cast<const __nv_bfloat16*>(b),
+                       static_cast<__nv_bfloat16*>(c), part, p, s);
+  if (dtype == DTYPE_F32) {
+    const float* fa = static_cast<const float*>(a);
+    const float* fb = static_cast<const float*>(b);
+    float* fc = static_cast<float*>(c);
+    return p.sbn != 1 ? launch_f32<true>(fa, fb, fc, part, p, s)
+                      : launch_f32<false>(fa, fb, fc, part, p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -352,24 +463,22 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c,
                             void* scratch, int M, int N, int K, int lda,
                             int sbk, int sbn, int split, int slice_steps,
                             int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(scratch);
-  if ((sbk != 1 && sbn != 1) || split < 1 || split > 8 || slice_steps < 0 ||
-      (M + BM - 1) / BM > 65535 || (split > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == DTYPE_BF16)
-    return launch_bf16(static_cast<const __nv_bfloat16*>(a),
-                       static_cast<const __nv_bfloat16*>(b),
-                       static_cast<__nv_bfloat16*>(c), part, M, N, K, lda,
-                       sbk, sbn, split, slice_steps, s);
-  if (dtype == DTYPE_F32) {
-    const float* fa = static_cast<const float*>(a);
-    const float* fb = static_cast<const float*>(b);
-    float* fc = static_cast<float*>(c);
-    return sbn != 1 ? launch_f32<true>(fa, fb, fc, part, M, N, K, lda, sbk,
-                                       sbn, split, slice_steps, s)
-                    : launch_f32<false>(fa, fb, fc, part, M, N, K, lda, sbk,
-                                        sbn, split, slice_steps, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Problem p{1, M, N, K, lda, 0, 0, sbk, sbn, split, slice_steps, false};
+  return run(a, b, c, scratch, p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// G groups, in one launch: group g computes a_g (M, K) @ b_g (K, N) into
+// c_g (M, N), where a_g = a + g sag (rows lda apart, unit K stride), b_g =
+// b + g sbg (strides sbk, sbn, one of them 1) and c (G, M, N) is
+// contiguous.  The split is repro_matmul's, applied in every group; with
+// split > 1, scratch holds split x G x M x N fp32 partial products.
+// Returns a cudaError_t.
+extern "C" int repro_grouped_matmul(const void* a, const void* b, void* c,
+                                    void* scratch, int G, int M, int N, int K,
+                                    int lda, int sag, int sbg, int sbk,
+                                    int sbn, int split, int slice_steps,
+                                    int dtype, void* stream) {
+  const Problem p{G, M, N, K, lda, sag, sbg, sbk, sbn, split, slice_steps,
+                  true};
+  return run(a, b, c, scratch, p, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -91,6 +91,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a 3-D tile at element coordinates (c0 innermost, c1, c2); with a box
+// one plane deep in c2 (a group of B1's grouped route), a tile never reads
+// into the next plane and zeros arrive past the plane's own edges
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor, 128-byte swizzle.  lbo and sbo in bytes:
 // sbo is the stride between groups of 8 rows of 128 bytes; lbo the stride
@@ -207,6 +222,24 @@ inline bool encode_map(CUtensorMap* map, const void* base, uint64_t inner,
   return encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                        CU_TENSOR_MAP_SWIZZLE_128B, base, inner, outer,
                        row_bytes, box_inner, box_outer);
+}
+
+// a stack of `planes` such row-major bf16 matrices, `plane_bytes` apart,
+// boxes one plane deep (128-byte swizzle)
+inline bool encode_map_3d(CUtensorMap* map, const void* base, uint64_t inner,
+                          uint64_t outer, uint64_t planes, uint64_t row_bytes,
+                          uint64_t plane_bytes, uint32_t box_inner,
+                          uint32_t box_outer) {
+  const cuuint64_t dims[3] = {inner, outer, planes};
+  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 inline bool aligned16(const void* p, long long stride_bytes) {

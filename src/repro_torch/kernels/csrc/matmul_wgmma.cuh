@@ -153,21 +153,25 @@ __device__ __forceinline__ void widen_stage(uint8_t* sb, int tid) {
   }
 }
 
-// The block's tile: output tile (blockIdx.x, blockIdx.y), K slice of rank
-// blockIdx.z, `slice_steps` K steps of 64 a rank.  epi(gm, gn, v) is
-// called once for each element of the tile inside M x N.  For int8 B,
-// TMA's A box holds `a_rows` rows (tm_a's box; BM for bf16 B) and the
-// rest of each A tile is zeroed once, before the ring starts.
-template <typename TB, bool B_KMAJOR, typename Epilogue>
+// The block's tile: output tile (blockIdx.x, blockIdx.y), K slice of
+// `rank`, `slice_steps` K steps of 64 a rank.  epi(gm, gn, v) is called
+// once for each element of the tile inside M x N.  For int8 B, TMA's A box
+// holds `a_rows` rows (tm_a's box; BM for bf16 B) and the rest of each A
+// tile is zeroed once, before the ring starts.  GROUPED tiles read group
+// `grp` of stacked operands: TMA through 3-D maps at plane `grp`, the
+// masked path through `a` and `b`, which the caller points at the group.
+template <typename TB, bool B_KMAJOR, bool GROUPED = false, typename Epilogue>
 __device__ __forceinline__ void tile(const CUtensorMap& tm_a,
                                      const CUtensorMap& tm_b,
                                      const __nv_bfloat16* __restrict__ a,
                                      const TB* __restrict__ b, int M, int N,
                                      int K, long long lda, long long sbk,
                                      long long sbn, int slice_steps,
-                                     int use_tma, int a_rows, Epilogue epi) {
+                                     int use_tma, int a_rows, int rank,
+                                     int grp, Epilogue epi) {
   using R = Ring<TB>;
   static_assert(!(R::WIDEN && B_KMAJOR), "int8 B is MN-major");
+  static_assert(!(R::WIDEN && GROUPED), "int8 B is not grouped");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -179,7 +183,7 @@ __device__ __forceinline__ void tile(const CUtensorMap& tm_a,
   const int wg = tid / 128;  // consumers: 0, 1
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int steps = (K + BK - 1) / BK;
-  const int t0 = blockIdx.z * slice_steps;
+  const int t0 = rank * slice_steps;
   const int nt = max(0, min(steps, t0 + slice_steps) - t0);
 
   if (R::WIDEN && use_tma && a_rows < BM) {  // A's rows past the box
@@ -231,13 +235,20 @@ __device__ __forceinline__ void tile(const CUtensorMap& tm_a,
             sm90::tma_load_2d(sa, &tm_a, &full[s], k0, m0);
             sm90::tma_load_2d(sb + TILE_B - R::RAW, &tm_b, &full[s], n0, k0);
           } else {
+            auto load = [&](void* dst, const CUtensorMap* map, int c0,
+                            int c1) {
+              if constexpr (GROUPED)
+                sm90::tma_load_3d(dst, map, &full[s], c0, c1, grp);
+              else
+                sm90::tma_load_2d(dst, map, &full[s], c0, c1);
+            };
             sm90::mbar_arrive_expect_tx(&full[s], R::STAGE);
-            sm90::tma_load_2d(sa, &tm_a, &full[s], k0, m0);
+            load(sa, &tm_a, k0, m0);
             if (B_KMAJOR) {
-              sm90::tma_load_2d(sb, &tm_b, &full[s], k0, n0);
+              load(sb, &tm_b, k0, n0);
             } else {
-              sm90::tma_load_2d(sb, &tm_b, &full[s], n0, k0);
-              sm90::tma_load_2d(sb + BK * 128, &tm_b, &full[s], n0 + 64, k0);
+              load(sb, &tm_b, n0, k0);
+              load(sb + BK * 128, &tm_b, n0 + 64, k0);
             }
           }
         }

@@ -71,7 +71,7 @@ quantized_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int rank = blockIdx.z;
   wgmma_tile::tile<int8_t, false>(
       tm_a, tm_b, a, b, M, N, K, lda, N, 1, slice_steps, use_tma, a_rows,
-      [&](int gm, int gn, float v) {
+      rank, 0, [&](int gm, int gn, float v) {
         flush(c, scratch, scale, split, rank, M, N, gm, gn, v);
       });
 }

@@ -14,9 +14,11 @@ CUDA routes (``wgmma`` and ``simt``, chosen by dtype and head width, and
 for the prefill the GQA group), count them by route too
 (``route_counts``).
 
-``matmul`` and ``attention`` are ``torch.autograd.Function``s: their
-backwards route by the device of the incoming gradient in the same way
-(``matmul_bwd``: both gradient GEMMs through B1 in fp32;
+``matmul``, ``grouped_matmul`` and ``attention`` are
+``torch.autograd.Function``s (a ctypes launch is invisible to autograd):
+their backwards route by the device of the incoming gradient in the same
+way (``matmul_bwd``: both gradient GEMMs through B1 in fp32;
+``grouped_matmul_bwd``: both through B1's grouped route in fp32;
 ``attention_bwd``: the fused recompute backward), so the CPU tests walk
 the control flow and counters the card does.
 """
@@ -34,7 +36,8 @@ from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
                         flash_attention_plain, prefill_attention_cuda,
                         prefill_attention_int8_cuda, prefill_attention_plain)
 from .histogram.histogram import histogram_cuda
-from .matmul import (matmul_cuda, matmul_plain, quantized_matmul_cuda,
+from .matmul import (grouped_matmul_cuda, grouped_matmul_plain, matmul_cuda,
+                     matmul_plain, quantized_matmul_cuda,
                      quantized_matmul_plain)
 from .nbody.nbody import nbody_accel_cuda
 from .stencil.stencil import jacobi4_cuda
@@ -46,6 +49,7 @@ _stats: Counter = Counter()
 # int8 attention branches count under their own names, so a run shows
 # which branch launched.
 KERNELS = {"matmul": matmul_cuda,
+           "grouped_matmul": grouped_matmul_cuda,
            "quantized_matmul": quantized_matmul_cuda,
            "decode_attention": decode_attention_cuda,
            "decode_attention_int8": decode_attention_int8_cuda,
@@ -145,6 +149,48 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k = x.shape[-1]
     out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1))
     return out.reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _grouped_grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One fp32 grouped gradient GEMM, routed and counted as
+    ``grouped_matmul_bwd``."""
+    if _on_card("grouped_matmul_bwd", a):
+        return grouped_matmul_cuda(a, b)
+    return grouped_matmul_plain(a, b)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """x (G, C, K) @ w (G, K, N) with the JAX op's custom VJP
+    (``repro/kernels/matmul/ops.py::_grouped_vjp_bwd``): per group, dx =
+    g @ w^T (w^T read through its strides) and dw = x^T @ g (x^T made
+    contiguous), both in fp32 through the device's grouped route, each
+    cast back to its primal dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        return grouped_matmul_cuda(x, w) if _on_card("grouped_matmul", x) \
+            else grouped_matmul_plain(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float().contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped_grad_gemm(g, w.float().transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _grouped_grad_gemm(x.float().transpose(1, 2).contiguous(),
+                                    g).to(w.dtype)
+        return dx, dw
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-group matmul, the MoE expert contraction: x (G, C, K) @ w
+    (G, K, N) -> (G, C, N) in the promoted input dtype; differentiable in
+    both."""
+    return _GroupedMatmul.apply(x, w)
 
 
 class _Attention(torch.autograd.Function):

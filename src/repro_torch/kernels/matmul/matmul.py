@@ -5,7 +5,12 @@ Replaces ``repro/kernels/matmul/matmul.py::matmul_pallas`` (kernel
 ``kernels/csrc/matmul.cu``) and ``::quantized_matmul_pallas`` (kernel
 ``kernels/csrc/quantized_matmul.cu``).  ``matmul`` returns A's dtype, the
 JAX lowering's ``astype(result_type(x, w))`` of the fp32 accumulator;
-``quantized_matmul`` returns fp32, as the JAX op does.
+``quantized_matmul`` returns fp32, as the JAX op does.  ``grouped_matmul``
+is B1's grouped route (``repro_grouped_matmul`` in ``matmul.cu``): the MoE
+experts' (G, C, K) @ (G, K, N), which the JAX op lowers to one
+``matmul_pallas`` call per group
+(``repro/kernels/matmul/ops.py::_grouped_kernel_lowering``), in one
+launch.
 """
 from __future__ import annotations
 
@@ -52,15 +57,17 @@ def _split(k: int, tile_k: int, tiles_n: int, max_split: int,
     return split, per
 
 
-def split_plan(k: int, n: int, dtype: torch.dtype) -> tuple:
+def split_plan(k: int, n: int, dtype: torch.dtype, groups: int = 1) -> tuple:
     """(split, slice_steps): how many blocks of B1 share an output tile,
     each taking ``slice_steps`` units of ``TILE_K`` of K (rank r the units
     [r * slice_steps, (r + 1) * slice_steps)), their fp32 partial products
-    summed in rank order by a second pass.  A function of (K, N, dtype)
-    only, never of M, so a row's bits do not depend on how many rows share
-    the call: split K while the N tiles alone leave SMs idle, each slice at
-    least ``MIN_SLICE`` deep and no slice empty."""
-    return _split(k, TILE_K[dtype], -(-n // TILE_N), MAX_SPLIT, MIN_SLICE)
+    summed in rank order by a second pass.  A function of (K, N, dtype,
+    groups) only, never of M (or of the rows a group of the grouped route
+    holds), so a row's bits do not depend on how many rows share the call:
+    split K while the N tiles of all ``groups`` alone leave SMs idle, each
+    slice at least ``MIN_SLICE`` deep and no slice empty."""
+    return _split(k, TILE_K[dtype], groups * -(-n // TILE_N), MAX_SPLIT,
+                  MIN_SLICE)
 
 
 # B5's tiles (csrc/quantized_matmul.cu): bf16 A on B1's tensor-core tile
@@ -131,6 +138,61 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 matmul_cuda.launches = 0
+
+
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (G, C, K) @ w (G, K, N) group by group, accumulated in fp32, in the
+    promoted dtype (the JAX op's ``einsum("gck,gkn->gcn")``)."""
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum("gck,gkn->gcn", x.float(), w.float()).to(out_dtype)
+
+
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch ``repro_grouped_matmul`` once for all groups: x (G, C, K)
+    contiguous, w (G, K, N) with a unit stride along K or N in each group
+    (the experts' weights are N-contiguous; the backward's w^T is
+    K-contiguous), both bf16 or both fp32, on one CUDA device; K split by
+    ``split_plan(k, n, dtype, groups=g)``.  Returns a new (G, C, N) tensor
+    of x's dtype."""
+    cuda.require_cuda("grouped_matmul", x, w, contiguous=False)
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"grouped_matmul: want (G, C, K) @ (G, K, N), got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.dtype != w.dtype:
+        raise TypeError(f"grouped_matmul: operand dtypes differ ({x.dtype}, "
+                        f"{w.dtype})")
+    if not x.is_contiguous():
+        raise ValueError("grouped_matmul: x must be contiguous")
+    if 1 not in w.stride()[1:]:
+        raise ValueError(f"grouped_matmul: w needs a unit stride along K or "
+                         f"N, got strides {w.stride()}")
+    g, c, k = x.shape
+    n = w.shape[2]
+    code = cuda.dtype_code(x)
+    out = torch.empty((g, c, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _check_rows("grouped_matmul", c, TILE_M)
+    split, per = split_plan(k, n, x.dtype, groups=g)
+    if g * split > 65535:                      # the grid's group axis
+        raise ValueError(f"grouped_matmul: {g} groups x split {split} "
+                         f"exceed 65535")
+    # the split's partial products, summed in rank order by a second pass
+    scratch = (torch.empty((split, g, c, n), dtype=torch.float32,
+                           device=x.device) if split > 1 else None)
+    rc = cuda.library().repro_grouped_matmul(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        *cuda.c_ints("grouped_matmul", g, c, n, k, k, c * k, w.stride(0),
+                     w.stride(1), w.stride(2), split, per), code,
+        cuda.stream_of(x))
+    cuda.check(rc, "grouped_matmul")
+    grouped_matmul_cuda.launches += 1
+    return out
+
+
+grouped_matmul_cuda.launches = 0
 
 
 def quantized_matmul_plain(a: torch.Tensor, b_q: torch.Tensor,

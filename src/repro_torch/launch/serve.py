@@ -11,7 +11,8 @@ page reclamation and slot recycling.  The scheduler computes addresses
 (refcounted pages, copy-on-write appends, prefill skipping); with
 ``--kv-dtype int8`` the pools hold int8 pages with per-(page, kv head)
 scales, and ``--weights-dtype int8`` runs every projection and MLP GEMM on
-int8 weights (type demotion, paper §4.4).
+int8 weights (type demotion, paper §4.4); MoE layers (router, experts,
+shared MLP) stay float, as in the JAX package.
 
 Two cache layouts (``--cache {dense,paged}``; dense is the default, as in
 the JAX package): ``dense`` is ``Server``, one rectangular (slots,
@@ -279,8 +280,9 @@ class PagedScheduler:
                  prefix_cache: bool = False, log=print):
         if not paged_supported(model.cfg):
             raise ValueError(
-                f"arch {model.cfg.name} has layers this port cannot serve "
-                "from a paged cache (attention + MLP stacks only)")
+                f"arch {model.cfg.name} has recurrent/stateful layers; "
+                "paged serving requires attention-family stacks "
+                "(use --cache dense)")
         self.model = model
         # int8 weights are quantized here, once (Model.bind_params)
         self.params = model.bind_params(params)

@@ -1,12 +1,13 @@
 """End-to-end training entry point: the port of ``repro/launch/train.py``.
 
-Trains any attention + MLP arch, at its published size on the card or at
-its smoke size on the CPU, with the training stack of this package:
-AdamW (optionally int8 moments, gradient compression), the deterministic
-synthetic data stream, atomic checkpoints, supervised restart and the
-straggler watch.  Every attention forward runs the flash kernel and every
-attention backward the fused recompute backward; every projection and
-the head run the matmul kernel forward and backward.  Routing is by
+Trains any attention arch with MLP or MoE FFNs, at its published size on
+the card or at its smoke size on the CPU, with the training stack of this
+package: AdamW (optionally int8 moments, gradient compression), the
+deterministic synthetic data stream, atomic checkpoints, supervised
+restart and the straggler watch.  Every attention forward runs the flash
+kernel and every attention backward the fused recompute backward; every
+projection, MoE router and the head run the matmul kernel forward and
+backward, and the MoE experts its grouped route.  Routing is by
 device (``--device``, default ``cuda``): there is no ``--dispatch`` mode,
 no mesh and no tuned-plan preload.
 
@@ -42,8 +43,9 @@ from ..train.steps import TrainStepConfig, init_train_state, make_train_step
 
 def main(argv=None, report: Optional[Dict] = None) -> List[float]:
     """Run the CLI; returns the per-step losses.  A ``report`` dict, when
-    given, receives the per-step seconds, the dispatch routes and the last
-    checkpoint's bytes and seconds."""
+    given, receives the per-step seconds and MoE aux losses (0 without MoE
+    layers), the dispatch routes and the last checkpoint's bytes and
+    seconds."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -100,6 +102,7 @@ def main(argv=None, report: Optional[Dict] = None) -> List[float]:
     sup = Supervisor(ckpt, save_every=args.save_every, injector=injector)
 
     losses: List[float] = []
+    auxes: List[float] = []
     step_seconds: List[float] = []
     started = {}
 
@@ -116,6 +119,7 @@ def main(argv=None, report: Optional[Dict] = None) -> List[float]:
         loss = float(metrics["loss"])
         step_seconds.append(time.perf_counter() - started[step])
         losses.append(loss)
+        auxes.append(float(metrics["aux"]))
         if step % args.log_every == 0:
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
@@ -135,7 +139,8 @@ def main(argv=None, report: Optional[Dict] = None) -> List[float]:
           + (", ".join(f"{op}/{r}={n}" for (op, r), n in sorted(
               routes.items())) or "none"))
     if report is not None:
-        report.update(step_seconds=step_seconds, seconds=dt, routes=routes,
+        report.update(step_seconds=step_seconds, aux=auxes, seconds=dt,
+                      routes=routes,
                       restarts=sup.restarts,
                       checkpoint_bytes=ckpt.last_bytes,
                       checkpoint_seconds=ckpt.last_seconds)

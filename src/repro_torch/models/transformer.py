@@ -1,6 +1,7 @@
 """The decoder LM -- the port of ``repro/models/transformer.py`` for
-attention + MLP stacks: the serving forwards over a paged or a dense KV
-cache, the speculative verify forward, and the training loss.
+attention stacks with dense MLP or MoE FFNs: the serving forwards over a
+paged or a dense KV cache, the speculative verify forward, and the
+training loss (with the MoE layers' load-balancing aux loss).
 
 Layer stacking keeps the JAX package's layout (paper §2.5 loop
 flattening): ``prefix`` layers, ``n_periods`` repetitions of the layer
@@ -14,8 +15,8 @@ slice's gradient).
 
 Params are a nested dict with the JAX tree's keys and nesting
 (``embed``, ``final_norm/scale``, ``prefix``/``stack``/``tail`` lists of
-``{"ln1", "ln2", "attn", "mlp"}``), so ``convert.params_from_jax`` maps a
-JAX tree one to one.
+``{"ln1", "ln2", "attn", "mlp" or "moe"}``), so ``convert.params_from_jax``
+maps a JAX tree one to one.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.memory import BF16_POLICY, DtypePolicy
 from ..core.quant import kv_dtype_of
 from ..kernels import dispatch
-from . import layers
+from . import layers, moe
 from .layers import Params
 
 
@@ -79,19 +80,30 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> layers.AttnSpec:
         weights_dtype=cfg.weights_dtype)
 
 
+def _moe_spec(cfg: ArchConfig) -> moe.MoESpec:
+    """The JAX ``_moe_spec`` on one device: experts are not padded
+    (``pad_to=1``) until an expert-parallel mesh is ported."""
+    return moe.MoESpec(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_expert=cfg.d_expert, n_shared_experts=cfg.n_shared_experts,
+        shared_d_expert=cfg.shared_d_expert,
+        capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+        pad_to=1)
+
+
 def paged_supported(cfg: ArchConfig) -> bool:
     """Can this port serve the arch from a paged KV cache?  Every mixer
-    must be attention-family and every FFN a dense MLP (MoE FFNs and
-    recurrent mixers come with later slices of the port)."""
-    return all(m in ("attn", "swa") and f == "mlp"
+    must be attention-family and every FFN stateless, a dense MLP or MoE
+    (recurrent mixers come with a later slice of the port)."""
+    return all(m in ("attn", "swa") and f in ("mlp", "moe")
                for m, f in cfg.layer_kinds())
 
 
 def _require_paged(cfg: ArchConfig) -> None:
     if not paged_supported(cfg):
         raise ValueError(
-            f"arch {cfg.name} has layers this port does not run yet; paged "
-            "serving here requires attention + MLP stacks")
+            f"arch {cfg.name} has layers this port does not run yet; it "
+            "runs attention stacks with MLP or MoE FFNs")
 
 
 # --------------------------------------------------------------------------
@@ -99,14 +111,34 @@ def _require_paged(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
-               lead=()) -> Params:
-    """One layer's params; ``lead`` = (n_periods,) stacks a period."""
-    mixer, _ = kind
-    return {"ln1": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
-            "ln2": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
-            "attn": layers.attention_init(gen, _attn_spec(cfg, mixer), lead),
-            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                   cfg.activation, lead)}
+               lead=(), dtype: torch.dtype = torch.float32) -> Params:
+    """One layer's params in ``dtype``; ``lead`` = (n_periods,) stacks a
+    period."""
+    mixer, ffn = kind
+    p = {"ln1": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
+         "ln2": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
+         "attn": layers.attention_init(gen, _attn_spec(cfg, mixer), lead)}
+    if ffn == "mlp":
+        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                   cfg.activation, lead)
+    elif ffn == "moe":
+        # cast leaf by leaf: the experts are most of a MoE model
+        p["moe"] = moe.moe_init(gen, _moe_spec(cfg), lead, dtype)
+    else:
+        raise ValueError(f"ffn {ffn!r} is not ported")
+    return _cast(p, dtype)
+
+
+def _ffn(p: Params, cfg: ArchConfig, kind: LayerKind, h: torch.Tensor,
+         dt: DtypePolicy) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's FFN on h (B, S, d): (out, aux loss, None for an MLP).
+    MoE layers route every token of the (B, S) they are given and keep
+    float weights under ``weights_dtype="int8"``, as the JAX package's
+    do."""
+    if kind[1] == "moe":
+        return moe.moe_apply(p["moe"], _moe_spec(cfg), h, dt)
+    return layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                            cfg.weights_dtype), None
 
 
 def layer_cache_init_paged(cfg: ArchConfig, total_pages: int, page_size: int,
@@ -139,9 +171,7 @@ def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
         cache.get("v_scale"))
     x = x + h
-    h = layers.rmsnorm(p["ln2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
-                                cfg.weights_dtype)
+    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
 
 
 def layer_cache_init(cfg: ArchConfig, kind: LayerKind, batch: int,
@@ -178,9 +208,7 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
         h = layers.attention_decode(p["attn"], spec, h, pos, cache["k"],
                                     cache["v"], dt, pages)
     x = x + h
-    h = layers.rmsnorm(p["ln2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
-                                cfg.weights_dtype)
+    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
 
 
 def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
@@ -195,16 +223,15 @@ def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
         cache.get("v_scale"))
     x = x + h
-    h = layers.rmsnorm(p["ln2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
-                                cfg.weights_dtype)
+    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
 
 
 def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
                 x: torch.Tensor, positions: torch.Tensor, dt: DtypePolicy,
-                opts: ExecOptions) -> torch.Tensor:
+                opts: ExecOptions
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training / dense forward over whole sequences:
-    x (B, S, d) -> (B, S, d)."""
+    x (B, S, d) -> ((B, S, d), the FFN's aux loss or None)."""
     spec = _attn_spec(cfg, kind[0])
     h = layers.rmsnorm(p["ln1"], x)
     if opts.attn_impl == "naive":
@@ -214,9 +241,8 @@ def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
                                        block_q=opts.block_q,
                                        block_kv=opts.block_kv)
     x = x + h
-    h = layers.rmsnorm(p["ln2"], x)
-    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
-                                cfg.weights_dtype)
+    h, aux = _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)
+    return x + h, aux
 
 
 def _unbind(tree) -> List[Any]:
@@ -270,7 +296,8 @@ class Model:
     # ------------------------------ init ------------------------------
     def init(self, seed: int) -> Params:
         """Random params from a seeded ``torch.Generator`` on the model's
-        device, in the policy's param dtype."""
+        device, in the policy's param dtype (each layer cast as it is
+        drawn, so the fp32 draws of a whole model never coexist)."""
         cfg, lay, pdt = self.cfg, self.layout, self.dt.param
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params: Params = {
@@ -280,19 +307,25 @@ class Model:
         if not cfg.tie_embeddings:
             params["head"] = layers.dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), cfg.d_model)
-        params["prefix"] = [layer_init(gen, cfg, k) for k in lay.prefix]
-        params["stack"] = [layer_init(gen, cfg, k, (lay.n_periods,))
+        params = _cast(params, pdt)
+
+        def init(kind, lead=()):
+            return layer_init(gen, cfg, kind, lead, pdt)
+        params["prefix"] = [init(k) for k in lay.prefix]
+        params["stack"] = [init(k, (lay.n_periods,))
                            for k in lay.period] if lay.n_periods else []
-        params["tail"] = [layer_init(gen, cfg, k) for k in lay.tail]
-        return _cast(params, pdt)
+        params["tail"] = [init(k) for k in lay.tail]
+        return params
 
     def bind_params(self, params: Params) -> Params:
         """The params the paged forwards run on.  With
         ``weights_dtype="int8"`` every projection and MLP weight is
         quantized per output channel here, once, from its compute-dtype
         cast (the JAX package quantizes the same input at every call, so
-        the ints and scales are its own); the embedding, the head and the
-        norms stay float.  Float weights are returned as they are."""
+        the ints and scales are its own); the embedding, the head, the
+        norms and the MoE layers (router, experts and shared MLP, which
+        the JAX package runs in float) stay float.  Float weights are
+        returned as they are."""
         if self.cfg.weights_dtype != "int8":
             return params
         cdt = self.dt.compute
@@ -342,22 +375,30 @@ class Model:
                             device=self.device)[None, :].expand(b, s)
 
     def _run_stack(self, params: Params, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every layer in order; with ``opts.remat`` each layer is
         recomputed in the backward (``torch.utils.checkpoint``, as the
-        JAX package's per-layer ``jax.checkpoint``)."""
+        JAX package's per-layer ``jax.checkpoint``).  Returns (x, the
+        layers' aux losses summed in layer order)."""
         cfg, dt, opts, lay = self.cfg, self.dt, self.opts, self.layout
         if opts.remat and opts.remat_policy == "dots":
             raise NotImplementedError(
                 "remat_policy='dots' (save the matmul outputs) is not "
                 "ported yet; use 'full'")
 
+        auxes = []
+
         def one(p, kind, x):
             if opts.remat:
-                return torch.utils.checkpoint.checkpoint(
+                x, aux = torch.utils.checkpoint.checkpoint(
                     layer_apply, p, cfg, kind, x, positions, dt, opts,
                     use_reentrant=False)
-            return layer_apply(p, cfg, kind, x, positions, dt, opts)
+            else:
+                x, aux = layer_apply(p, cfg, kind, x, positions, dt, opts)
+            if aux is not None:
+                auxes.append(aux)
+            return x
 
         for p, kind in zip(params["prefix"], lay.prefix):
             x = one(p, kind, x)
@@ -368,7 +409,10 @@ class Model:
                     x = one(periods[j][i], kind, x)
         for p, kind in zip(params["tail"], lay.tail):
             x = one(p, kind, x)
-        return x
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for aux in auxes:
+            aux_total = aux_total + aux
+        return x, aux_total
 
     def _head(self, params: Params) -> torch.Tensor:
         head = params["embed"].T if self.cfg.tie_embeddings \
@@ -378,15 +422,15 @@ class Model:
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross entropy of ``batch`` ("tokens" and
-        "labels", (B, S) int).  Returns (loss, {"loss", "xent", "aux"});
-        aux is 0 (no MoE layers in this port yet)."""
+        "labels", (B, S) int) plus the MoE layers' load-balancing aux loss
+        (0 without MoE layers).  Returns (loss, {"loss", "xent",
+        "aux"})."""
         x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
-        x = self._run_stack(params, x, self._positions(b, s))
+        x, aux = self._run_stack(params, x, self._positions(b, s))
         x = layers.rmsnorm(params["final_norm"], x)
         xent = layers.chunked_xent(x, self._head(params), batch["labels"],
                                    n_chunks=min(self.opts.xent_chunks, s))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
 
@@ -396,7 +440,7 @@ class Model:
         and tests)."""
         x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
-        x = self._run_stack(params, x, self._positions(b, s))
+        x, _ = self._run_stack(params, x, self._positions(b, s))
         return self._logits(params, x)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -407,7 +451,7 @@ class Model:
         run on those rows alone)."""
         x = self._embed(params, batch["tokens"])
         b, s = x.shape[:2]
-        x = self._run_stack(params, x, self._positions(b, s))
+        x, _ = self._run_stack(params, x, self._positions(b, s))
         if last_idx is None:
             return self._logits(params, x[:, s - 1:])[:, 0]
         rows = torch.arange(b, device=x.device)

@@ -8,8 +8,10 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Small shapes cover what the full-width chip_smoke.py does not: ragged
-GEMM edges, GQA groups 1/4/8, tiny pages, windows and empty slots, for
-the float kernels and for the int8 ones (the int8-weight GEMM and the
+GEMM edges (also of B1's grouped route for the MoE experts, at 1 and 60
+groups, both weight layouts, split K and its backward), GQA groups
+1/4/8, tiny pages, windows and empty slots, for the float kernels and for
+the int8 ones (the int8-weight GEMM and the
 int8 branches of the attention kernels); the paged prefill's wgmma route
 at full width over page sizes and split boundaries, with batch
 invariance and route counts; the flash forward and its
@@ -34,9 +36,11 @@ from repro_torch.kernels.attention import (decode_attention_cuda,
                                            prefill_attention_int8_cuda,
                                            prefill_attention_plain)
 from repro_torch.kernels.attention.decode import decode_split_plan
-from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
-                                        quantized_matmul_cuda,
+from repro_torch.kernels.matmul import (grouped_matmul_cuda,
+                                        grouped_matmul_plain, matmul_cuda,
+                                        matmul_plain, quantized_matmul_cuda,
                                         quantized_matmul_plain)
+from repro_torch.kernels.matmul.matmul import split_plan
 
 torch.set_num_threads(1)
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -151,6 +155,115 @@ def test_matmul_rejects_b_without_unit_stride(card):
     with pytest.raises(ValueError, match="unit stride"):
         matmul_cuda(a, b)
     assert matmul_cuda.launches == before
+
+
+GROUPED_SHAPES = [(1, 1, 1, 1), (1, 9, 37, 70), (3, 5, 130, 67),
+                  (60, 8, 200, 130), (60, 9, 72, 30), (2, 130, 96, 200)]
+
+
+def _grouped_operands(card, dtype, gen, g, c, k, n, kmajor):
+    x = torch.randn(g, c, k, generator=gen, device=card).to(dtype)
+    w = torch.randn(g, k, n, generator=gen, device=card) / math.sqrt(k)
+    if kmajor:        # (G, N, K) storage read as (G, K, N): w^T's layout
+        w = w.transpose(1, 2).contiguous().transpose(1, 2)
+    return x, w.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kmajor", [False, True], ids=["mn-major", "k-major"])
+@pytest.mark.parametrize("g,c,k,n", GROUPED_SHAPES)
+def test_grouped_matmul_matches_plain_and_b1(card, dtype, kmajor, g, c, k,
+                                             n):
+    """One launch for every group; each group's bits are B1's on that
+    group alone (no split at these K), and a rerun and fewer rows give
+    the same bits."""
+    gen = torch.Generator(device=card).manual_seed(g * 1000 + c + n)
+    x, w = _grouped_operands(card, dtype, gen, g, c, k, n, kmajor)
+    before = grouped_matmul_cuda.launches
+    out = grouped_matmul_cuda(x, w)
+    assert grouped_matmul_cuda.launches == before + 1
+    assert out.dtype == dtype and out.shape == (g, c, n)
+    _close(out, grouped_matmul_plain(x, w), dtype)
+    assert split_plan(k, n, dtype, groups=g)[0] == 1
+    for i in {0, g // 2, g - 1}:
+        assert torch.equal(matmul_cuda(x[i], w[i]), out[i])
+    assert torch.equal(grouped_matmul_cuda(x, w), out)
+    if c > 1:
+        assert torch.equal(grouped_matmul_cuda(x[:, :c - 1].contiguous(), w),
+                           out[:, :c - 1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_matmul_split_k(card, dtype):
+    """Past MIN_SLICE of K with few output tiles the groups split K; the
+    partials of every group are summed in rank order."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for g in (1, 2):
+        x, w = _grouped_operands(card, dtype, gen, g, 7, 9000, 130, False)
+        assert split_plan(9000, 130, dtype, groups=g)[0] > 1
+        out = grouped_matmul_cuda(x, w)
+        _close(out, grouped_matmul_plain(x, w), dtype)
+        assert torch.equal(grouped_matmul_cuda(x, w), out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_matmul_misaligned_groups_give_the_aligned_bits(card, dtype):
+    """Groups whose bases or strides are not 16-byte multiples take the
+    masked path and give the TMA path's bits."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    x, w = _grouped_operands(card, dtype, gen, 4, 9, 130, 70, False)
+    want = grouped_matmul_cuda(x, w)
+    assert torch.equal(grouped_matmul_cuda(_misaligned(x), w), want)
+    assert torch.equal(grouped_matmul_cuda(x, _misaligned(w)), want)
+    wide = torch.zeros(4, 130, 71, dtype=dtype, device=card)
+    wide[..., :70] = w
+    assert torch.equal(grouped_matmul_cuda(x, wide[..., :70]), want)
+
+
+def test_grouped_matmul_autograd_on_the_card(card):
+    """dispatch.grouped_matmul's backward: dx = g @ w^T (K-major B) and
+    dw = x^T @ g through the grouped route in fp32, against the plain
+    route's gradients; three launches, no plain route."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    for dtype in DTYPES:
+        x, w = _grouped_operands(card, dtype, gen, 60, 8, 72, 40, False)
+        cot = torch.randn(60, 8, 40, generator=gen, device=card)
+        grads = []
+        for route in ("kernel", "plain"):
+            xr = x.detach().clone().requires_grad_(True)
+            wr = w.detach().clone().requires_grad_(True)
+            with dispatch.stats_scope() as stats:
+                if route == "kernel":
+                    before = grouped_matmul_cuda.launches
+                    out = dispatch.grouped_matmul(xr, wr)
+                else:
+                    out = dispatch._GroupedMatmul.apply(xr.cpu(), wr.cpu())
+                grads.append(torch.autograd.grad(
+                    (out.float() * cot.to(out.device)).sum(), (xr, wr)))
+                routes = stats()
+            if route == "kernel":
+                assert grouped_matmul_cuda.launches == before + 3
+                assert routes == {("grouped_matmul", "kernel"): 1,
+                                  ("grouped_matmul_bwd", "kernel"): 2}
+        for got, want in zip(*grads):
+            assert got.dtype == dtype
+            _close(got, want.to(got.device), torch.float32
+                   if dtype == torch.float32 else dtype)
+
+
+def test_grouped_matmul_rejects_what_it_does_not_take(card):
+    x = torch.ones(2, 4, 8, device=card)
+    before = grouped_matmul_cuda.launches
+    with pytest.raises(ValueError, match="unit stride"):
+        grouped_matmul_cuda(x, torch.ones(2, 16, 24, device=card)[:, ::2,
+                                                                     ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul_cuda(torch.ones(2, 8, 4, device=card).transpose(1, 2),
+                            torch.ones(2, 8, 3, device=card))
+    with pytest.raises(TypeError, match="dtypes"):
+        grouped_matmul_cuda(x, torch.ones(2, 8, 3, device=card,
+                                          dtype=torch.bfloat16))
+    assert grouped_matmul_cuda.launches == before
 
 
 def _int8_weight(card, gen, k, n):
@@ -553,8 +666,9 @@ def test_int8_wrappers_count_launches_and_reject_bad_inputs(card):
                            ("quantized_matmul", "kernel"): 1}
     after = dispatch.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "matmul": 0, "decode_attention": 0, "prefill_attention": 0,
-        "decode_attention_int8": 1, "prefill_attention_int8": 1,
+        "matmul": 0, "grouped_matmul": 0, "decode_attention": 0,
+        "prefill_attention": 0, "decode_attention_int8": 1,
+        "prefill_attention_int8": 1,
         "quantized_matmul": 1, "flash_attention": 0,
         "flash_attention_bwd": 0, "wkv": 0, "stencil": 0, "nbody": 0,
         "histogram": 0}

@@ -120,7 +120,7 @@ def test_split_plan_depends_on_k_n_and_dtype_only():
 
     from repro_torch.kernels.matmul import matmul as mm
     assert list(inspect.signature(mm.split_plan).parameters) == [
-        "k", "n", "dtype"]
+        "k", "n", "dtype", "groups"]
     bf16, f32 = torch.bfloat16, torch.float32
     assert mm.split_plan(16384, 2048, bf16) == (4, 64)     # decode wd
     assert mm.split_plan(2048, 16384, bf16) == (1, 32)     # wg / wu
@@ -584,12 +584,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         nbody_accel_cuda(torch.zeros(3, 6), torch.zeros(6))
     with pytest.raises(ValueError, match="CUDA"):
         histogram_cuda(torch.zeros(6, dtype=torch.int32))
+    from repro_torch.kernels.matmul import grouped_matmul_cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_matmul_cuda(torch.zeros(2, 3, 4), torch.zeros(2, 4, 5))
     assert dispatch.launch_counts() == before
-    assert set(before) == {"matmul", "quantized_matmul", "decode_attention",
-                           "decode_attention_int8", "prefill_attention",
-                           "prefill_attention_int8", "flash_attention",
-                           "flash_attention_bwd", "wkv", "stencil", "nbody",
-                           "histogram"}
+    assert set(before) == {"matmul", "grouped_matmul", "quantized_matmul",
+                           "decode_attention", "decode_attention_int8",
+                           "prefill_attention", "prefill_attention_int8",
+                           "flash_attention", "flash_attention_bwd", "wkv",
+                           "stencil", "nbody", "histogram"}
 
 
 def test_dispatch_attention_routes_by_device():
@@ -814,6 +817,23 @@ def test_histogram_route_follows_n_bins(n_bins, route):
     assert set(ROUTES) == {"shared", "global"}
     with pytest.raises(ValueError):
         histogram_route(0)
+
+
+def test_c_signatures_match_the_sources():
+    """Every C entry point of the kernel sources is declared to ctypes with
+    its own arity and argument kinds (pointers, ints, floats): a missing
+    or extra argument would only show as a launch on the card."""
+    import ctypes
+    import re
+    found = {}
+    for source in sorted(cuda.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (repro_\w+)\(([^)]*)\)',
+                                       source.read_text(), re.S):
+            found[name] = [
+                ctypes.c_void_p if "*" in prm
+                else ctypes.c_float if prm.split()[0] == "float"
+                else ctypes.c_int for prm in params.split(",")]
+    assert found == cuda.SIGNATURES
 
 
 def test_kernel_variant_edits_match_the_sources():
