@@ -44,11 +44,13 @@ Phases, one output line or more each:
               route (the MoE experts, one launch for 60 groups) at the
               up and down contractions, decode and prefill-chunk
               capacity (C from ``MoESpec.capacity``), and the backward's
-              two GEMMs, each against its plain version, rerun
-              bit-equal, beside one ``torch.bmm`` and the per-group B1
-              loop; B1 fp32 at the router (N = 60) and bf16 at the
-              untied head (N = 151936); B2/B4a and B3/B4b (and the
-              verify window) at 16 kv heads of 128, group 1.
+              two GEMMs, and at a training step's capacity (C = 88) the
+              bf16 up and down and the fp32 backward's two, each against
+              its plain version, rerun bit-equal, beside one
+              ``torch.bmm`` and the per-group B1 loop; B1 fp32 at the
+              router (N = 60; M = 4, 256 and the training step's 1024)
+              and bf16 at the untied head (N = 151936); B2/B4a and B3/B4b
+              (and the verify window) at 16 kv heads of 128, group 1.
 3. serve   -- the port's entry point, ``repro_torch.launch.serve.main``, on
               full-width gemma-2b in bf16 with seeded random weights, once
               with the static and once with the continuous schedule, with
@@ -124,6 +126,30 @@ Phases, one output line or more each:
               through the kernels and through the plain versions on the
               card: loss within 1e-5 relative, every gradient leaf within
               1e-3 of that leaf's max |grad|.
+6b. moe train -- phase 5's entry point and settings on qwen2-moe-a2.7b
+              at its published width with its depth cut to 4 layers
+              (2.905e9 params; all 24 would not fit the card's 80 GB),
+              reaching ``launch.train`` through a patched ``get_arch``:
+              exact launches (B1 4 x 40 per step, the grouped route 48,
+              B6 8, B7 4, every flash call on wgmma at hd 128), kernel
+              routes only, each MoE layer's remat recompute choosing the
+              forward's experts bit for bit (``moe.route`` recorded), peak
+              memory under 80 GB; a profiled step (failing if it sees
+              device time but none in the grouped bf16 or fp32 kernels
+              or the wgmma B6/B7 kernels); and ``moe_train_parity``: one
+              fp32 loss and backward, kernels against plain versions, the
+              plain run replaying the kernel run's expert choices, loss
+              within 1e-5 relative and every leaf within 1e-3 of its max
+              |grad|, with a free-running plain loss, its differing
+              choices and the smallest top-k gaps reported.
+6c. embed train -- the entry point on the embedding-input archs at full
+              width and depth: musicgen-large (hd 64, a non-gated GELU
+              MLP; B1 4 x 296 per step, B6 96, B7 48) and qwen2-vl-2b (hd
+              128, GQA 6:1, a tied 151936-wide head, M-RoPE; B1 4 x 204,
+              B6 56, B7 28), held as phase 5, each with a profiled
+              step; then ``embed_train_parity``: qwen2-vl-2b's fp32
+              loss and backward, kernels against plain versions, on a
+              batch whose three M-RoPE position streams differ.
 7. library -- the kernel library's public ops
               (``repro_torch.kernels.{wkv,stencil,nbody,histogram}``) on
               CUDA tensors at phase 2b's sizes: only kernel routes, one
@@ -186,6 +212,8 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -389,10 +417,11 @@ def row(name, case, dtype, err, ms, plain_ms, bnd, library_ms=None,
 MATMUL_CASES = ([(m, k, n, False) for m in (4, 256, 1024)
                  for k, n in WEIGHT_SHAPES]
                 + [(m, 2048, 256000, True) for m in (4, 256, 128)])
-# qwen2-moe's fp32 router (N = 60 experts, 240-byte rows) at decode and a
-# prefill chunk; its untied bf16 head (N = 151936) at the same M
+# qwen2-moe's fp32 router (N = 60 experts, 240-byte rows) at decode, a
+# prefill chunk and a training step's 2 x 512 tokens; its untied bf16 head
+# (N = 151936) at decode and prefill
 MATMUL_F32_CASES = ([(128, 256000, 2048, False)]
-                    + [(m, 2048, 60, False) for m in (4, 256)])
+                    + [(m, 2048, 60, False) for m in (4, 256, 1024)])
 MATMUL_BF16_CASES = [(m, 2048, 151936, False) for m in (4, 256)]
 L2_BYTES = 50e6
 
@@ -440,7 +469,8 @@ def check_matmul(torch, dtype_name: str):
         bnd = bound((m * k + k * n + m * n) * size, 2.0 * m * n * k,
                     dtype_name)
         extra = {}
-        if m in (4, 256) and not tied:    # beside B5's at the same shape
+        # beside B5's at the same shape; the router at every M
+        if (m in (4, 256) and not tied) or n == 60:
             extra["device_ms"] = device_ms(torch, lambda: matmul_cuda(a, b))
         if m == 4:
             nbytes = k * n * size
@@ -511,7 +541,9 @@ def check_quantized_matmul(torch, dtype_name: str, matmul_rows):
 # N=1408) and the down (K=1408, N=2048) contraction, at a decode step's
 # capacity (4 tokens) and a prefill chunk's (4 x 64 tokens), C from
 # MoESpec.capacity; at the decode up-projection also the backward's two
-# GEMMs (dx = g @ w^T with a K-major B, dw = x^T @ g)
+# GEMMs (dx = g @ w^T with a K-major B, dw = x^T @ g).  At a training
+# step's capacity (2 x 512 tokens: C = 88) the bf16 forward's up and
+# down, and the fp32 backward's dx and dw at the up shape
 GROUPED_TOKENS = (4, 256)
 GROUPED_SHAPES = ((2048, 1408), (1408, 2048))
 
@@ -580,6 +612,26 @@ def check_grouped(torch, dtype_name: str):
                     torch, case + " backward dw = x^T @ g", dtype_name,
                     x.transpose(1, 2).contiguous(), gout))
             del x, w
+    c = spec.capacity(TRAIN_BATCH * TRAIN_SEQ)
+    for k, n in GROUPED_SHAPES:
+        if dtype_name == "float32" and k != 2048:
+            continue
+        x = torch.randn(g, c, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(g, k, n, generator=gen, device="cuda")
+             / math.sqrt(k)).to(dtype)
+        case = f"G={g} C={c} K={k} N={n} training"
+        if dtype_name == "bfloat16":
+            rows.append(grouped_row(torch, case, dtype_name, x, w))
+        else:
+            gout = torch.randn(g, c, n, generator=gen, device="cuda")
+            rows.append(grouped_row(
+                torch, case + " backward dx = g @ w^T", dtype_name, gout,
+                w.transpose(1, 2)))
+            rows.append(grouped_row(
+                torch, case + " backward dw = x^T @ g", dtype_name,
+                x.transpose(1, 2).contiguous(), gout))
+            del gout
+        del x, w
     torch.cuda.empty_cache()
     return rows
 
@@ -1871,8 +1923,6 @@ def prefill_decode_runner(torch, model, params, seed: int):
 
 
 def model_phase(torch, int8: bool):
-    import dataclasses
-
     from repro_torch.configs import get_arch
     from repro_torch.core.memory import DtypePolicy
     from repro_torch.kernels import dispatch
@@ -1933,8 +1983,6 @@ def moe_model_phase(torch, int8: bool):
     steps: an ulp-sized input difference that flips an entry leaves both
     tiny.  At the first call both plain runs hold the same state, so its
     count is the free-running run's there too."""
-    import dataclasses
-
     from repro_torch.configs import get_arch
     from repro_torch.core import quant
     from repro_torch.core.memory import DtypePolicy
@@ -2159,80 +2207,170 @@ def dense_model_phase(torch):
 
 
 # ------------------------------------------------------------ phase 5
-TRAIN_KERNELS = ("matmul", "flash_attention", "flash_attention_bwd")
 TRAIN_OPS = ("attention", "attention_bwd", "matmul", "matmul_bwd")
+MOE_TRAIN_OPS = TRAIN_OPS + ("grouped_matmul", "grouped_matmul_bwd")
+# qwen2-moe-a2.7b trains at its published width with its depth cut to 4
+# of 24 layers: a layer holds 570.6M params (experts 519.0M, shared MLP
+# 34.6M, attention 16.8M, router 0.12M) and the untied embed and head
+# 622.3M, so 4 layers make 2.905e9 params, 46.5 GB of fp32 params,
+# gradients and AdamW moments (6 layers 64.7 GB, all 24 about 229 GB)
+MOE_TRAIN_LAYERS = 4
+# the embedding-input archs, trained at their published width and depth
+EMBED_TRAIN_ARCHS = ("musicgen-large", "qwen2-vl-2b")
+MEMORY_LIMIT_BYTES = 80e9
 
 
-def expected_train_launches():
-    """Launches per kernel that ``TRAIN_STEPS`` steps of full-width
-    gemma-2b imply: every layer's forward and its remat recompute run B6
-    and the 7 GEMMs, each of the 8 xent chunks (also recomputed) one head
-    GEMM, every GEMM backward two B1 launches, every layer's backward one
-    B7 call."""
+def release(torch) -> None:
+    """Free what earlier phases left before a phase that measures or needs
+    the card's memory: the first ``torch.utils.checkpoint`` call in a
+    process imports torch._dynamo, and that import's frames hold the
+    calling run's stack (its params and moments) until the cycle
+    collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_train_config():
     from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+
+
+def expected_train_launches(cfg):
+    """Launches per kernel that ``TRAIN_STEPS`` steps of ``cfg`` imply:
+    every layer's forward and its remat recompute run B6 and the layer's
+    GEMMs (q, k, v, o; a dense MLP's two or three; a MoE layer's fp32
+    router and its shared MLP's three on B1, its experts' two or three
+    contractions on B1's grouped route), each of the 8 xent chunks (also
+    recomputed) one head GEMM, every GEMM backward two launches of its
+    route, every layer's backward one B7 call."""
     from repro_torch.models.transformer import ExecOptions
-    n_layers = get_arch("gemma-2b").n_layers
-    chunks = min(ExecOptions().xent_chunks, TRAIN_SEQ)
-    gemms = 7 * n_layers + chunks
-    return {"matmul": TRAIN_STEPS * (2 * gemms + 2 * gemms),
-            "flash_attention": TRAIN_STEPS * 2 * n_layers,
-            "flash_attention_bwd": TRAIN_STEPS * n_layers}
+    glu = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    gemms, grouped = min(ExecOptions().xent_chunks, TRAIN_SEQ), 0
+    for _, ffn in cfg.layer_kinds():
+        gemms += 4
+        if ffn == "moe":
+            gemms += 1 + (glu if cfg.n_shared_experts else 0)
+            grouped += glu
+        else:
+            gemms += glu
+    want = {"matmul": TRAIN_STEPS * 4 * gemms,
+            "flash_attention": TRAIN_STEPS * 2 * cfg.n_layers,
+            "flash_attention_bwd": TRAIN_STEPS * cfg.n_layers}
+    if grouped:
+        want["grouped_matmul"] = TRAIN_STEPS * 4 * grouped
+    return want
 
 
-def train_phase(torch):
-    """``launch.train.main`` at full width and depth; the checkpoint
-    directory lives in the checkout's (git-ignored) build/ and is removed
-    afterwards."""
+class RemattedRoutes:
+    """``moe.route`` recording each call's expert ids.  Within a step a MoE
+    layer's first call is its forward and its second the remat recompute
+    in the backward, which gets the same router view again, so calls pair
+    up by that view."""
+
+    def __init__(self, route):
+        self.route, self.pending, self.pairs, self.layers = route, {}, [], {}
+
+    def __call__(self, p, spec, tokens):
+        gate, eidx, probs = self.route(p, spec, tokens)
+        key = p["router"].data_ptr()
+        self.layers.setdefault(key, len(self.layers))
+        if key in self.pending:
+            self.pairs.append((self.layers[key], self.pending.pop(key), eidx))
+        else:
+            self.pending[key] = eidx
+        return gate, eidx, probs
+
+    def differ(self):
+        """(token, k) choices of the recompute unlike the forward's, per
+        layer, summed over the steps."""
+        out = [0] * len(self.layers)
+        for layer, fwd, again in self.pairs:
+            out[layer] += int((fwd != again).sum())
+        return out
+
+
+def train_run(torch, phase: str, cfg):
+    """``launch.train.main`` on ``cfg`` (fp32 master weights, bf16
+    compute, per-layer remat, 8 xent chunks, AdamW) for ``TRAIN_STEPS``
+    steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens with a final
+    checkpoint, in the checkout's (git-ignored) build/ and removed
+    afterwards.  The entry point looks the arch up by name; a config cut
+    in depth reaches it through a patched ``get_arch``.  Every loss
+    finite, kernel routes only, exactly the launches ``cfg`` implies,
+    every flash call on wgmma, peak memory under 80 GB; a MoE config's
+    remat recompute must choose the forward's experts, bit for bit."""
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import dispatch
     from repro_torch.launch import train
+    from repro_torch.models import moe
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
+    moe_layers = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    remat = RemattedRoutes(moe.route)
     report = {}
-    try:
+    with contextlib.ExitStack() as stack:
+        stack.callback(shutil.rmtree, ckpt_dir, ignore_errors=True)
+        if cfg != get_arch(cfg.name):
+            stack.enter_context(mock.patch.object(train, "get_arch",
+                                                  lambda name: cfg))
+        stack.enter_context(mock.patch.object(moe, "route", remat))
         losses = train.main(
-            ["--arch", "gemma-2b", "--steps", str(TRAIN_STEPS), "--batch",
+            ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch",
              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
              "--ckpt-dir", str(ckpt_dir)], report=report)
         torch.cuda.synchronize()
         launches = dispatch.launch_counts()
         flash_routes = {k: n for k, n in dispatch.route_counts().items()
                         if k.startswith("flash_attention")}
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     routes = {f"{op}/{route}": n for (op, route), n in report[
         "routes"].items()}
-    emit({"phase": "train", "arch": "gemma-2b", "steps": TRAIN_STEPS,
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
-          "step_seconds": report["step_seconds"],
-          "tok_s_per_step": [tokens / t for t in report["step_seconds"]],
-          "seconds": report["seconds"],
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "checkpoint_bytes": report["checkpoint_bytes"],
-          "checkpoint_seconds": report["checkpoint_seconds"],
-          "routes": routes, "launches": launches,
-          "flash_routes": flash_routes})
+    differ = remat.differ()
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+            "params": report["params"], "head_dim": cfg.head_dim,
+            "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "losses": losses, "step_seconds": report["step_seconds"],
+            "tok_s_per_step": [tokens / t for t in report["step_seconds"]],
+            "seconds": report["seconds"], "max_memory_allocated": peak,
+            "checkpoint_bytes": report["checkpoint_bytes"],
+            "checkpoint_seconds": report["checkpoint_seconds"],
+            "routes": routes, "launches": launches,
+            "flash_routes": flash_routes}
+    if moe_layers:
+        line.update(aux=report["aux"],
+                    remat_route_pairs=len(remat.pairs),
+                    remat_choices_differ_per_layer=differ)
+    emit(line)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"train: losses {losses}")
-    off = {k: n for k, n in report["routes"].items()
-           if k[0] in TRAIN_OPS and k[1] != "kernel"}
-    missing = [op for op in TRAIN_OPS
+        raise AssertionError(f"{phase}: losses {losses}")
+    ops = MOE_TRAIN_OPS if moe_layers else TRAIN_OPS
+    off = {k: n for k, n in report["routes"].items() if k[1] != "kernel"}
+    missing = [op for op in ops
                if report["routes"].get((op, "kernel"), 0) == 0]
     if off or missing:
-        raise AssertionError(f"train: routes {routes}")
-    want = expected_train_launches()
+        raise AssertionError(f"{phase}: routes {routes}")
+    want = expected_train_launches(cfg)
     got = {op: n for op, n in launches.items() if n or op in want}
     if got != want:
-        raise AssertionError(f"train: launches {got}, expected {want}")
-    # bf16 compute at gemma-2b's hd = 256: every flash call on wgmma
+        raise AssertionError(f"{phase}: launches {got}, expected {want}")
+    # bf16 compute at hd 64, 128 or 256: every flash call on wgmma
     want_routes = {f"{op}/{route}": want[op] if route == "wgmma" else 0
                    for op in ("flash_attention", "flash_attention_bwd")
                    for route in ("wgmma", "simt")}
     if flash_routes != want_routes:
-        raise AssertionError(f"train: flash routes {flash_routes}, "
+        raise AssertionError(f"{phase}: flash routes {flash_routes}, "
                              f"expected {want_routes}")
+    if not peak < MEMORY_LIMIT_BYTES:
+        raise AssertionError(f"{phase}: peak memory {peak} bytes")
+    if moe_layers and (remat.pending or len(remat.pairs)
+                       != TRAIN_STEPS * moe_layers or any(differ)):
+        raise AssertionError(
+            f"{phase}: {len(remat.pairs)} forward/recompute route pairs "
+            f"({len(remat.pending)} unpaired), choices differ {differ}")
     return launches
 
 
@@ -2241,12 +2379,14 @@ def train_phase(torch):
 KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("quantized_f32_kernel", "B5 int8 matmul fp32 (SIMT)"),
                  ("quantized_splitk_sum_kernel", "B5 split-K sum"),
-                 # B1's kernels are templated on <B K-major, grouped>
+                 # B1's kernels are templated on <B K-major, grouped>, its
+                 # fp32 ones on <grouped, B K-major, aligned>
                  ("matmul_bf16_wgmma_kernel<false, true>",
                   "B1 grouped bf16 (wgmma)"),
                  ("matmul_bf16_wgmma_kernel<true, true>",
                   "B1 grouped bf16 (wgmma)"),
                  ("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
+                 ("matmul_f32_simt_kernel<true,", "B1 grouped fp32 (SIMT)"),
                  ("matmul_f32_simt_kernel", "B1 matmul fp32 (SIMT)"),
                  ("matmul_splitk_reduce_kernel", "B1 split-K sum"),
                  ("flash_fwd_wgmma_kernel", "B6 flash forward bf16 (wgmma)"),
@@ -2262,40 +2402,38 @@ KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("prefill_combine_kernel", "B3/B4b prefill attention"),
                  ("prefill_simt_kernel", "B3/B4b prefill attention"))
 OTHER_GROUP = "other (PyTorch ops)"
-# what the bf16 train step's attention must run on (gemma-2b: hd = 256)
+# what a bf16 train step's attention must run on (hd 64, 128 or 256)
 TRAIN_WGMMA_GROUPS = ("B6 flash forward bf16 (wgmma)",
                       "B7 dQ sweep bf16 (wgmma)",
                       "B7 dK/dV sweep bf16 (wgmma)")
+# and a MoE step's experts: the bf16 forward and the fp32 backward
+MOE_TRAIN_GROUPS = TRAIN_WGMMA_GROUPS + ("B1 grouped bf16 (wgmma)",
+                                         "B1 grouped fp32 (SIMT)")
 
 
 def kernel_group(name: str) -> str:
     return next((g for key, g in KERNEL_GROUPS if key in name), OTHER_GROUP)
 
 
-def train_profile(torch):
-    """Where one full-width train step's device time goes, by kernel,
+def train_profile(torch, phase: str, cfg, required):
+    """Where one train step of ``cfg`` spends the card's time, by kernel,
     from ``torch.profiler`` over one step after a warm-up step (the same
-    step function, config and batch as the train phase, without the
+    step function, settings and batch as the train phases, without the
     supervisor and checkpoint).  If the profiler sees no device time,
-    says so instead of failing: it is a breakdown, not a check."""
+    says so instead of failing: it is a breakdown, not a check; if it sees
+    device time, every group of ``required`` must have some."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.transformer import Model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import (TrainStepConfig, init_train_state,
                                          make_train_step)
-    cfg = get_arch("gemma-2b")
     model = Model(cfg, device="cuda")
     ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
                                          total_steps=TRAIN_STEPS))
     step_fn = make_train_step(model, ts)
     params, opt = init_train_state(model, ts, seed=0)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
-    batch = {k: torch.from_numpy(v).to("cuda")
-             for k, v in data.batch_at(0).items()}
+    batch = train_batch(torch, cfg, seed=0)
     params, opt, metrics = step_fn(params, opt, batch)
     float(metrics["loss"])
     with profile(activities=[ProfilerActivity.CPU,
@@ -2316,15 +2454,16 @@ def train_profile(torch):
             other.append((ms, evt.count, evt.key[:90]))
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
-    missing = [g for g in TRAIN_WGMMA_GROUPS if busy and not groups.get(g)]
-    emit({"phase": "train_profile", "profiled_step_wall_ms": wall_ms,
+    missing = [g for g in required if busy and not groups.get(g)]
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "profiled_step_wall_ms": wall_ms,
           "device_ms": groups if busy else "not measured",
           "device_busy_ms": busy if busy else None,
           "idle_share": 1 - busy / wall_ms if busy else None,
           "top_other": [{"ms": ms, "calls": n, "kernel": name}
                         for ms, n, name in sorted(other, reverse=True)[:8]]})
     if missing:
-        raise AssertionError(f"train profile: no device time in {missing}")
+        raise AssertionError(f"{phase}: no device time in {missing}")
     del params, opt, metrics
 
 
@@ -2416,36 +2555,106 @@ def serve_profile(torch, label: str, extra: list, base=None):
 
 
 # ------------------------------------------------------------ phase 6
-def train_parity_phase(torch):
-    """One fp32 loss and backward of full-width gemma-2b, kernels against
-    the plain versions on the card (TF32 is off)."""
-    from repro_torch.configs import get_arch
+def train_batch(torch, cfg, seed: int):
+    """A ``TRAIN_BATCH`` x ``TRAIN_SEQ`` batch of the synthetic stream on
+    the card (embeddings for an embedding-input arch); an M-RoPE arch's
+    positions are three different streams, the text position and a seeded
+    permutation of it per row for each further section (the train CLI's
+    positions repeat the text position, which makes M-RoPE plain RoPE)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=seed, input_mode=cfg.input_mode,
+                                  d_model=cfg.d_model))
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(0).items()}
+    if cfg.mrope_sections:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        text = torch.arange(TRAIN_SEQ, device="cuda").expand(TRAIN_BATCH, -1)
+        streams = [text] + [
+            torch.stack([torch.randperm(TRAIN_SEQ, generator=gen,
+                                        device="cuda")
+                         for _ in range(TRAIN_BATCH)])
+            for _ in cfg.mrope_sections[1:]]
+        batch["positions"] = torch.stack(streams, -1).to(torch.int32)
+    return batch
+
+
+def train_parity_phase(torch, phase: str, cfg, seed: int = 7):
+    """One fp32 loss and backward of ``cfg``, kernels against the plain
+    versions on the card (TF32 is off): loss within 1e-5 relative, every
+    gradient leaf within 1e-3 of that leaf's max |grad|.
+
+    An ulp between the routes flips a MoE expert choice whose k-th to
+    (k+1)-th probability gap is that small, and a flip moves its token by
+    a whole expert, so for a MoE config the held plain run takes the
+    kernel run's choices (each MoE layer's, by its router; the remat
+    recompute gets the same).  A free-running plain loss beside it
+    reports its own choices: how many differ, and the smallest gap each
+    run saw (reported, not held)."""
     from repro_torch.core import tree
     from repro_torch.core.memory import DtypePolicy
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import dispatch
+    from repro_torch.models import moe
     from repro_torch.models.transformer import Model
     f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
-    cfg = get_arch("gemma-2b")
     model = Model(cfg, dt=f32, device="cuda")
     params = model.init(seed=2)
     flat, rebuild = tree.flatten(params)
     for t in flat:
         t.requires_grad_(True)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                                  seed=7))
-    batch = {k: torch.from_numpy(v).to("cuda")
-             for k, v in data.batch_at(0).items()}
+    batch = train_batch(torch, cfg, seed)
+    route = moe.route
+    chosen = [{}, {}]     # a run's (expert ids, smallest gap) by router
 
-    def run():
-        loss, _ = model.loss_fn(rebuild(flat), batch)
-        grads = torch.autograd.grad(loss, flat)
+    def recording(store):
+        def call(p, spec, tokens):
+            gate, eidx, probs = route(p, spec, tokens)
+            key = p["router"].data_ptr()
+            if key not in store:     # the forward (the recompute saves
+                # what the forward saved, so nothing is read off the graph)
+                top = torch.topk(probs.detach(), spec.top_k + 1,
+                                 dim=-1).values
+                store[key] = (eidx, float((top[:, -2] - top[:, -1]).min()))
+            return gate, eidx, probs
+        return call
+
+    def replaying(p, spec, tokens):
+        _, _, probs = route(p, spec, tokens)
+        eidx = chosen[0][p["router"].data_ptr()][0]
+        gate = probs.gather(1, eidx)
+        if spec.norm_topk:
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return gate, eidx, probs
+
+    def run(route_fn, on_card=True, backward=True):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(moe, "route", route_fn))
+            if not on_card:
+                stack.enter_context(mock.patch.object(
+                    dispatch, "_on_card", lambda op, t: False))
+            loss, _ = model.loss_fn(rebuild(flat), batch)
+            grads = torch.autograd.grad(loss, flat) if backward else None
         return float(loss.detach()), grads
 
-    loss_k, grads_k = run()
-    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
-        loss_p, grads_p = run()
+    loss_k, grads_k = run(recording(chosen[0]))
+    moe_layers = len(chosen[0])
+    line = {}
+    if moe_layers:
+        loss_free, _ = run(recording(chosen[1]), on_card=False,
+                           backward=False)
+        loss_p, grads_p = run(replaying, on_card=False)
+        line.update(
+            moe_layers=moe_layers,
+            expert_choices=sum(e.numel() for e, _ in chosen[0].values()),
+            own_choices_differ=sum(int((chosen[0][k][0] != e).sum())
+                                   for k, (e, _) in chosen[1].items()),
+            own_loss_plain=loss_free,
+            own_loss_rel_err=abs(loss_k - loss_free) / abs(loss_free),
+            min_topk_gap=[min(gap for _, gap in c.values())
+                          for c in chosen])
+    else:
+        loss_p, grads_p = run(route, on_card=False)
     torch.cuda.synchronize()
     names = [f"leaf {i} {tuple(t.shape)}" for i, t in enumerate(flat)]
     worst = (0.0, "", 0.0)
@@ -2456,15 +2665,15 @@ def train_parity_phase(torch):
         if ratio >= worst[0]:
             worst = (ratio, name, scale)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    emit({"phase": "train_parity", "arch": "gemma-2b", "dtype": "float32",
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_kernel": loss_k,
-          "loss_plain": loss_p, "loss_rel_err": rel,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+          "dtype": "float32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel_err": rel,
           "worst_leaf": worst[1], "worst_leaf_err_over_max_grad": worst[0],
-          "worst_leaf_max_grad": worst[2], "leaves": len(flat)})
+          "worst_leaf_max_grad": worst[2], "leaves": len(flat), **line})
     if not rel <= 1e-5:
-        raise AssertionError(f"train parity: loss {loss_k} vs {loss_p}")
+        raise AssertionError(f"{phase}: loss {loss_k} vs {loss_p}")
     if not worst[0] <= 1e-3:
-        raise AssertionError(f"train parity: {worst[1]} off by "
+        raise AssertionError(f"{phase}: {worst[1]} off by "
                              f"{worst[0]:.3e} of its max |grad|")
     del params, flat, grads_k, grads_p
 
@@ -2539,13 +2748,26 @@ def main(argv=None) -> int:
     for int8 in (False, True):
         moe_model_phase(torch, int8)
         torch.cuda.empty_cache()
-    for op, n in train_phase(torch).items():
-        launches[op] = launches.get(op, 0) + n
-    torch.cuda.empty_cache()
-    train_profile(torch)
-    torch.cuda.empty_cache()
-    train_parity_phase(torch)
-    torch.cuda.empty_cache()
+    from repro_torch.configs import get_arch
+    for phase, cfg, groups in (
+            ("train", get_arch("gemma-2b"), TRAIN_WGMMA_GROUPS),
+            ("moe_train", moe_train_config(), MOE_TRAIN_GROUPS)):
+        for op, n in train_run(torch, phase, cfg).items():
+            launches[op] = launches.get(op, 0) + n
+        release(torch)
+        train_profile(torch, phase + "_profile", cfg, groups)
+        release(torch)
+        train_parity_phase(torch, phase + "_parity", cfg)
+        release(torch)
+    for arch in EMBED_TRAIN_ARCHS:
+        for op, n in train_run(torch, "embed_train", get_arch(arch)).items():
+            launches[op] = launches.get(op, 0) + n
+        release(torch)
+        train_profile(torch, "embed_train_profile", get_arch(arch),
+                      TRAIN_WGMMA_GROUPS)
+        release(torch)
+    train_parity_phase(torch, "embed_train_parity", get_arch("qwen2-vl-2b"))
+    release(torch)
     launches.update(library_phase(torch))
     torch.cuda.empty_cache()
     library_inputs_phase(torch)

@@ -31,14 +31,18 @@ def flatten(tree: Any, is_leaf: IsLeaf = None
             return lambda it: QuantizedBlock(q(it), scale(it), block)
         if isinstance(node, (list, tuple)):
             subs = [walk(v) for v in node]
-            if hasattr(node, "_fields"):                  # NamedTuple
-                return lambda it: type(node)(*[s(it) for s in subs])
             kind = type(node)
+            if hasattr(node, "_fields"):                  # NamedTuple
+                return lambda it: kind(*[s(it) for s in subs])
             return lambda it: kind(s(it) for s in subs)
         leaves.append(node)
         return next
 
     build = walk(tree)
+    # ``walk`` reaches itself through its closure; left bound, that cycle
+    # would hold every leaf (a step's gradients, a run's whole state) until
+    # the cycle collector happens to run
+    del walk
     return leaves, lambda new: build(iter(new))
 
 

@@ -192,7 +192,9 @@ __device__ __forceinline__ void load_stage32(
   }
 }
 
-template <bool B_KMAJOR, bool ALIGNED>
+// GROUPED names the grouped route's instantiations apart from the dense
+// route's (the arithmetic is the same), so a profile can tell them apart
+template <bool GROUPED, bool B_KMAJOR, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS32, 1)
 matmul_f32_simt_kernel(const float* __restrict__ a,
                        const float* __restrict__ b, float* __restrict__ c,
@@ -412,16 +414,16 @@ int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
                             p.N, p.split, stream);
 }
 
-template <bool B_KMAJOR>
-int launch_f32(const float* a, const float* b, float* c, float* scratch,
-               const Problem& p, cudaStream_t stream) {
+template <bool GROUPED, bool B_KMAJOR>
+int launch_f32_as(const float* a, const float* b, float* c, float* scratch,
+                  const Problem& p, cudaStream_t stream) {
   const bool groups16 = p.G == 1 || (4 * p.sag % 16 == 0 &&
                                      4 * p.sbg % 16 == 0);
   const bool al = groups16 && aligned16(a, 4 * p.lda) &&
                   aligned16(b, 4 * (B_KMAJOR ? p.sbn : p.sbk));
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.G * p.split);
-  const int rc = launch(al ? matmul_f32_simt_kernel<B_KMAJOR, true>
-                           : matmul_f32_simt_kernel<B_KMAJOR, false>,
+  const int rc = launch(al ? matmul_f32_simt_kernel<GROUPED, B_KMAJOR, true>
+                           : matmul_f32_simt_kernel<GROUPED, B_KMAJOR, false>,
                         grid, THREADS32, Tile32<B_KMAJOR>::SMEM, stream, a, b,
                         c, scratch, p.G, p.M, p.N, p.K, p.lda, p.sag, p.sbg,
                         p.sbk, p.sbn, p.split, p.slice_steps);
@@ -445,8 +447,12 @@ int run(const void* a, const void* b, void* c, void* scratch,
     const float* fa = static_cast<const float*>(a);
     const float* fb = static_cast<const float*>(b);
     float* fc = static_cast<float*>(c);
-    return p.sbn != 1 ? launch_f32<true>(fa, fb, fc, part, p, s)
-                      : launch_f32<false>(fa, fb, fc, part, p, s);
+    const bool kmajor = p.sbn != 1;
+    if (p.grouped)
+      return kmajor ? launch_f32_as<true, true>(fa, fb, fc, part, p, s)
+                    : launch_f32_as<true, false>(fa, fb, fc, part, p, s);
+    return kmajor ? launch_f32_as<false, true>(fa, fb, fc, part, p, s)
+                  : launch_f32_as<false, false>(fa, fb, fc, part, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -920,6 +920,8 @@ def main(argv=None) -> Dict:
                               kv_page_size=args.page_size,
                               kv_dtype=args.kv_dtype,
                               weights_dtype=args.weights_dtype)
+    if cfg.input_mode == "embeddings":
+        raise SystemExit("serving demo drives token-mode archs")
     model = Model(cfg, dt=DtypePolicy(param=torch.bfloat16),
                   device=args.device)
     params = model.init(seed=0)

@@ -1,21 +1,24 @@
 """End-to-end training entry point: the port of ``repro/launch/train.py``.
 
-Trains any attention arch with MLP or MoE FFNs, at its published size on
-the card or at its smoke size on the CPU, with the training stack of this
-package: AdamW (optionally int8 moments, gradient compression), the
-deterministic synthetic data stream, atomic checkpoints, supervised
-restart and the straggler watch.  Every attention forward runs the flash
-kernel and every attention backward the fused recompute backward; every
-projection, MoE router and the head run the matmul kernel forward and
-backward, and the MoE experts its grouped route.  Routing is by
-device (``--device``, default ``cuda``): there is no ``--dispatch`` mode,
-no mesh and no tuned-plan preload.
+Trains any attention arch with MLP or MoE FFNs, token- or
+embedding-input (musicgen-large, qwen2-vl-2b with M-RoPE positions), at
+its published size on the card or at its smoke size on the CPU, with the
+training stack of this package: AdamW (optionally int8 moments, gradient
+compression), the deterministic synthetic data stream, atomic
+checkpoints, supervised restart and the straggler watch.  Every
+attention forward runs the flash kernel and every attention backward the
+fused recompute backward; every projection, MoE router and the head run
+the matmul kernel forward and backward, and the MoE experts its grouped
+route.  Routing is by device (``--device``, default ``cuda``): there is
+no ``--dispatch`` mode, no mesh and no tuned-plan preload.
 
 Examples:
   python -m repro_torch.launch.train --arch gemma-2b --steps 3 --batch 2 \\
       --seq 512 --ckpt-dir /tmp/ck                 # full width, on the card
   python -m repro_torch.launch.train --arch gemma-2b --smoke --steps 3 \\
       --batch 2 --seq 32 --device cpu --ckpt-dir /tmp/ck
+  python -m repro_torch.launch.train --arch qwen2-vl-2b --steps 3 \\
+      --batch 2 --seq 512 --ckpt-dir /tmp/ck    # embeddings, M-RoPE
 """
 from __future__ import annotations
 
@@ -43,9 +46,9 @@ from ..train.steps import TrainStepConfig, init_train_state, make_train_step
 
 def main(argv=None, report: Optional[Dict] = None) -> List[float]:
     """Run the CLI; returns the per-step losses.  A ``report`` dict, when
-    given, receives the per-step seconds and MoE aux losses (0 without MoE
-    layers), the dispatch routes and the last checkpoint's bytes and
-    seconds."""
+    given, receives the param count, the per-step seconds and MoE aux
+    losses (0 without MoE layers), the dispatch routes and the last
+    checkpoint's bytes and seconds."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -111,6 +114,13 @@ def main(argv=None, report: Optional[Dict] = None) -> List[float]:
         started[step] = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch_at(step).items()}
+        if cfg.mrope_sections:
+            # every section's stream is the text position, as the JAX
+            # CLI builds it
+            b, s = batch["labels"].shape
+            batch["positions"] = torch.arange(
+                s, dtype=torch.int32, device=device)[None, :, None].expand(
+                    b, s, len(cfg.mrope_sections))
         params, opt, metrics = step_fn_raw(params, opt, batch)
         return (params, opt), metrics
 
@@ -139,7 +149,8 @@ def main(argv=None, report: Optional[Dict] = None) -> List[float]:
           + (", ".join(f"{op}/{r}={n}" for (op, r), n in sorted(
               routes.items())) or "none"))
     if report is not None:
-        report.update(step_seconds=step_seconds, aux=auxes, seconds=dt,
+        report.update(params=n_params, step_seconds=step_seconds,
+                      aux=auxes, seconds=dt,
                       routes=routes,
                       restarts=sup.restarts,
                       checkpoint_bytes=ckpt.last_bytes,

@@ -74,11 +74,33 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) int.  Angles in fp32; the
-    first and second halves of hd are the rotated pairs."""
-    freqs = _rope_freqs(x.shape[-1], theta, x.device)
-    angle = positions.float()[..., None] * freqs              # (B, S, hd/2)
+               theta: float = 1e4,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int, or (B, S, 3) for M-RoPE.
+    Angles in fp32; the first and second halves of hd are the rotated
+    pairs.
+
+    M-RoPE (qwen2-vl): the hd/2 frequency slots are split into
+    ``mrope_sections`` groups, each rotated by its own position stream
+    (temporal / height / width)."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd, theta, x.device)
+    if mrope_sections:
+        if positions.dim() != 3 or positions.shape[-1] != len(
+                mrope_sections) or sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} need "
+                             f"positions (B, S, {len(mrope_sections)}) and "
+                             f"hd/2 = {hd // 2} slots; got positions "
+                             f"{tuple(positions.shape)}")
+        # pos[b, s, f] = positions[b, s, section of f], by slices on the
+        # device: an index list copied from the host would wait for the
+        # card at every call
+        b, sq = positions.shape[:2]
+        pos = torch.cat([positions[..., i, None].expand(b, sq, n)
+                         for i, n in enumerate(mrope_sections)], dim=-1)
+        angle = pos.float() * freqs                           # (B, S, hd/2)
+    else:
+        angle = positions.float()[..., None] * freqs          # (B, S, hd/2)
     sin = torch.sin(angle)[:, :, None, :]
     cos = torch.cos(angle)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -103,6 +125,8 @@ class AttnSpec:
     # quantized projections through dispatch.quantized_matmul (§4.4),
     # copied from ArchConfig.weights_dtype by the model
     weights_dtype: str = ""
+    # M-RoPE frequency sections (qwen2-vl); () = plain RoPE
+    mrope_sections: Tuple[int, ...] = ()
 
 
 def quantize_weight(w: torch.Tensor, n_lead: int,
@@ -180,8 +204,10 @@ def _qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    q = apply_rope(q, positions, theta=s.rope_theta)
-    k = apply_rope(k, positions, theta=s.rope_theta)
+    q = apply_rope(q, positions, theta=s.rope_theta,
+                   mrope_sections=s.mrope_sections)
+    k = apply_rope(k, positions, theta=s.rope_theta,
+                   mrope_sections=s.mrope_sections)
     return q, k, v
 
 

@@ -77,7 +77,8 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> layers.AttnSpec:
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
         window=cfg.window if mixer == "swa" else 0,
         rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias,
-        weights_dtype=cfg.weights_dtype)
+        weights_dtype=cfg.weights_dtype,
+        mrope_sections=cfg.mrope_sections)
 
 
 def _moe_spec(cfg: ArchConfig) -> moe.MoESpec:
@@ -270,6 +271,12 @@ class Model:
     """Serving forwards (paged and dense caches, speculative verify) and
     the training loss of one arch, on one device.
 
+    An arch with ``input_mode="embeddings"`` (musicgen-large, qwen2-vl-2b:
+    the frontend is a stub) takes ``batch["embeddings"]`` (B, S, d) in
+    place of tokens, and an M-RoPE arch ``batch["positions"]`` (B, S, 3),
+    in ``loss_fn``, ``forward`` and ``prefill``; the serving forwards take
+    token-mode archs only.
+
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
 
@@ -277,9 +284,9 @@ class Model:
                  device: DeviceLike = None,
                  opts: ExecOptions = ExecOptions()):
         _require_paged(cfg)
-        if cfg.input_mode != "tokens":
-            raise ValueError(f"arch {cfg.name} takes {cfg.input_mode}; the "
-                             "port serves token-mode archs")
+        if cfg.input_mode not in ("tokens", "embeddings"):
+            raise ValueError(f"input_mode {cfg.input_mode!r} is not "
+                             "supported (tokens or embeddings)")
         if cfg.weights_dtype not in ("", "int8"):
             raise ValueError(f"weights_dtype {cfg.weights_dtype!r} is not "
                              "supported (float '' or 'int8')")
@@ -336,9 +343,16 @@ class Model:
         return out
 
     # ------------------------------ pieces -----------------------------
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, batch: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+        """The (B, S, d) input of the stack in the compute dtype:
+        ``batch["embeddings"]`` for an embedding-input arch, else the
+        embedding rows of ``batch["tokens"]``; then the ``embed_scale``."""
         cdt = self.dt.compute
-        x = params["embed"].to(cdt)[tokens.long()]
+        if self.cfg.input_mode == "embeddings":
+            x = batch["embeddings"].to(cdt)
+        else:
+            x = params["embed"].to(cdt)[batch["tokens"].long()]
         if self.cfg.embed_scale:
             # sqrt(d) rounded to the compute dtype first, as the JAX
             # package multiplies by jnp.asarray(sqrt(d), compute)
@@ -369,8 +383,21 @@ class Model:
         return zip(self._walk(params), self.cfg.layer_kinds(),
                    self._walk(cache))
 
+    def _require_tokens(self, what: str) -> None:
+        """The serving forwards' refusal of embedding-input archs (their
+        M-RoPE branches are not ported yet)."""
+        if self.cfg.input_mode != "tokens":
+            raise ValueError(f"{what}: arch {self.cfg.name} takes "
+                             f"{self.cfg.input_mode}; the port serves "
+                             "token-mode archs")
+
     # ------------------------------ training / dense forward ---------
-    def _positions(self, b: int, s: int) -> torch.Tensor:
+    def _positions(self, batch: Dict[str, torch.Tensor], b: int, s: int
+                   ) -> torch.Tensor:
+        """``batch["positions"]`` (B, S, 3) for an M-RoPE arch, else
+        0..S-1 for every row (B, S)."""
+        if self.cfg.mrope_sections:
+            return batch["positions"]
         return torch.arange(s, dtype=torch.int32,
                             device=self.device)[None, :].expand(b, s)
 
@@ -421,13 +448,13 @@ class Model:
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean next-token cross entropy of ``batch`` ("tokens" and
-        "labels", (B, S) int) plus the MoE layers' load-balancing aux loss
-        (0 without MoE layers).  Returns (loss, {"loss", "xent",
-        "aux"})."""
-        x = self._embed(params, batch["tokens"])
+        """Mean next-token cross entropy of ``batch`` ("tokens" or
+        "embeddings", "positions" for an M-RoPE arch, and "labels" (B, S)
+        int) plus the MoE layers' load-balancing aux loss (0 without MoE
+        layers).  Returns (loss, {"loss", "xent", "aux"})."""
+        x = self._embed(params, batch)
         b, s = x.shape[:2]
-        x, aux = self._run_stack(params, x, self._positions(b, s))
+        x, aux = self._run_stack(params, x, self._positions(batch, b, s))
         x = layers.rmsnorm(params["final_norm"], x)
         xent = layers.chunked_xent(x, self._head(params), batch["labels"],
                                    n_chunks=min(self.opts.xent_chunks, s))
@@ -436,11 +463,12 @@ class Model:
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-        """Full logits (B, S, V) of ``batch["tokens"]`` (small-scale eval
+        """Full logits (B, S, V) of ``batch`` (its "tokens" or
+        "embeddings", and "positions" for an M-RoPE arch; small-scale eval
         and tests)."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch)
         b, s = x.shape[:2]
-        x, _ = self._run_stack(params, x, self._positions(b, s))
+        x, _ = self._run_stack(params, x, self._positions(batch, b, s))
         return self._logits(params, x)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -449,9 +477,9 @@ class Model:
         position's logits (B, V), or with ``last_idx`` (B,) those of
         position ``last_idx[b]`` of each row (the final norm and the head
         run on those rows alone)."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch)
         b, s = x.shape[:2]
-        x, _ = self._run_stack(params, x, self._positions(b, s))
+        x, _ = self._run_stack(params, x, self._positions(batch, b, s))
         if last_idx is None:
             return self._logits(params, x[:, s - 1:])[:, 0]
         rows = torch.arange(b, device=x.device)
@@ -466,6 +494,7 @@ class Model:
         fp32 scale leaves); stacked periods carry a leading period axis.  Physical page 0 is the TRASH page:
         the scheduler points inactive slots' tables at it, so their
         (masked, discarded) writes never land in a live sequence."""
+        self._require_tokens("init_paged_cache")
         cfg, lay = self.cfg, self.layout
         dtype = kv_dtype_of(cfg.kv_dtype, self.dt.compute)
         if total_pages is None:
@@ -490,7 +519,8 @@ class Model:
         offsets; tables: (B, n_pages) int32; last_idx: (B,) index of the
         last REAL prompt token of each chunk.  Returns logits (B, V) at
         last_idx."""
-        x = self._embed(params, tokens)
+        self._require_tokens("prefill_step_paged")
+        x = self._embed(params, {"tokens": tokens})
         for p, kind, c in self._layers(params, cache):
             x = layer_prefill_paged(p, self.cfg, kind, x, c, starts, tables,
                                     self.dt)
@@ -512,7 +542,8 @@ class Model:
         if (paged is None) == (pos is None):
             raise ValueError("decode_step takes pos= (dense cache) or "
                              "paged= (page pools), exactly one")
-        x = self._embed(params, tokens)
+        self._require_tokens("decode_step")
+        x = self._embed(params, {"tokens": tokens})
         views = {}      # the dense caches' page tables, one a cap a step
         for p, kind, c in self._layers(params, cache):
             pages = None
@@ -539,7 +570,8 @@ class Model:
         scheduler holds pages for the span).  Row t predicts the token at
         position ``lengths + t + 1``, so the caller needs logits at every
         row.  Returns logits (B, W, V)."""
-        x = self._embed(params, tokens)
+        self._require_tokens("verify_step_paged")
+        x = self._embed(params, {"tokens": tokens})
         for p, kind, c in self._layers(params, cache):
             x = layer_verify_paged(p, self.cfg, kind, x, c, lengths, tables,
                                    self.dt)
@@ -550,6 +582,7 @@ class Model:
         """Dense per-attention-layer (B, cap, Hkv, hd) K/V caches in the
         compute dtype (``layer_cache_init``); stacked periods carry a
         leading period axis."""
+        self._require_tokens("init_cache")
         cfg, lay = self.cfg, self.layout
 
         def caches(kind, lead=()):

@@ -35,9 +35,14 @@ def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig()
 
     def grads_of(flat, rebuild, batch):
         loss, metrics = model.loss_fn(rebuild(flat), batch)
-        grads = torch.autograd.grad(loss, flat)
+        # a leaf the loss never reads (an embedding-input arch's untied
+        # ``embed``) gets zeros, as jax.value_and_grad gives it; AdamW
+        # then decays it as JAX's step does
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            list(grads)
+            grads
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         residual = None

@@ -251,6 +251,46 @@ def test_grouped_matmul_autograd_on_the_card(card):
                    if dtype == torch.float32 else dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(130, 67), (72, 1409), (2048, 1408)])
+def test_grouped_matmul_backward_at_training_capacity(card, dtype, k, n):
+    """The grouped VJP at a training step's capacity (C = 88: 2 x 512
+    tokens, top 4, factor 1.25, 60 experts): dx (K-major B) and dw (the
+    capacity its contraction) in fp32 through the grouped route at ragged
+    K and N edges, against the plain version's gradients, and a rerun
+    bit-equal."""
+    gen = torch.Generator(device=card).manual_seed(k + n)
+    x, w = _grouped_operands(card, dtype, gen, 60, 88, k, n, False)
+    cot = torch.randn(60, 88, n, generator=gen, device=card)
+    grads = []
+    for route in ("kernel", "plain", "kernel"):
+        xr = x.detach().clone().requires_grad_(True)
+        wr = w.detach().clone().requires_grad_(True)
+        with dispatch.stats_scope() as stats:
+            if route == "kernel":
+                out = dispatch.grouped_matmul(xr, wr)
+            else:
+                with _plain_routes():
+                    out = dispatch.grouped_matmul(xr, wr)
+            grads.append(torch.autograd.grad((out.float() * cot).sum(),
+                                             (xr, wr)))
+            routes = stats()
+        if route == "kernel":
+            assert routes == {("grouped_matmul", "kernel"): 1,
+                              ("grouped_matmul_bwd", "kernel"): 2}
+    for got, want, again in zip(*grads):
+        assert got.dtype == dtype
+        # the backward's GEMMs run in fp32; a bf16 primal rounds once
+        _close(got, want, dtype)
+        assert torch.equal(got, again)
+
+
+def _plain_routes():
+    """Route every dispatch call to its plain version, on the card."""
+    from unittest import mock
+    return mock.patch.object(dispatch, "_on_card", lambda op, t: False)
+
+
 def test_grouped_matmul_rejects_what_it_does_not_take(card):
     x = torch.ones(2, 4, 8, device=card)
     before = grouped_matmul_cuda.launches
@@ -1372,3 +1412,72 @@ def test_dense_model_kernels_match_plain(card, weights):
     with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
         plain = run()
     torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen2-vl-2b"])
+def test_train_step_kernels_match_plain(card, arch):
+    """One fp32 train step (remat, 4 xent chunks, clipped AdamW) of a
+    smoke config on the card, through the kernels and through the plain
+    versions: the MoE experts on the grouped route and its VJP, and
+    qwen2-vl's embeddings with three different M-RoPE position streams.
+    The loss, the gradient norm and every gradient leaf the step hands
+    AdamW (within 1e-3 of the leaf's max |grad|, as chip_smoke.py's
+    parity phases) agree; the kernel run takes no plain route.  (The
+    params after the step are not compared: Adam's first step moves an
+    entry by lr g / (|g| + eps), so a bias whose gradient nearly cancels
+    moves by a share of lr on a gradient ulp.)"""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree
+    from repro_torch.core.memory import F32_POLICY
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import ExecOptions, Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps
+    cfg = get_arch(arch).smoke()
+    model = Model(cfg, dt=F32_POLICY, device=card,
+                  opts=ExecOptions(xent_chunks=4))
+    ts = steps.TrainStepConfig(opt=AdamWConfig(lr=1e-2, warmup_steps=1))
+    step = steps.make_train_step(model, ts)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                  global_batch=2, input_mode=cfg.input_mode,
+                                  d_model=cfg.d_model))
+    batch = {k: torch.from_numpy(v).to(card)
+             for k, v in data.batch_at(0).items()}
+    if cfg.mrope_sections:
+        gen = torch.Generator(device=card).manual_seed(3)
+        streams = [torch.arange(16, device=card).expand(2, 16)] + [
+            torch.stack([torch.randperm(16, generator=gen, device=card)
+                         for _ in range(2)]) for _ in range(2)]
+        batch["positions"] = torch.stack(streams, -1).to(torch.int32)
+    update = steps.adamw_update
+    results = []
+    for route in ("kernel", "plain"):
+        params, opt = steps.init_train_state(model, ts, seed=0)
+        handed = []
+
+        def capture(grads, *args):
+            handed.append([g.clone() for g in tree.leaves(grads)])
+            return update(grads, *args)
+        with mock.patch.object(steps, "adamw_update", capture), \
+                dispatch.stats_scope() as stats:
+            if route == "kernel":
+                _, _, metrics = step(params, opt, batch)
+            else:
+                with _plain_routes():
+                    _, _, metrics = step(params, opt, batch)
+            routes = stats()
+        results.append((handed[0], metrics))
+        if route == "kernel":
+            assert routes and all(r == "kernel" for _, r in routes)
+            assert (("grouped_matmul_bwd", "kernel") in routes) \
+                == bool(cfg.n_experts)
+    (gk, mk), (gp, mp) = results
+    assert math.isclose(float(mk["loss"]), float(mp["loss"]), rel_tol=1e-5)
+    assert math.isclose(float(mk["grad_norm"]), float(mp["grad_norm"]),
+                        rel_tol=1e-4)
+    assert len(gk) == len(gp)
+    for got, want in zip(gk, gp):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 * scale

@@ -20,7 +20,10 @@ Every input is made with numpy from a seed; JAX runs with ``dispatch``
 passed explicitly and an empty tuned-plan cache.
 """
 import dataclasses
+import gc
 import math
+import weakref
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -326,7 +329,9 @@ def test_lr_schedule_and_clipping_match_jax():
 def test_synthetic_batches_are_bit_equal_to_jax():
     for kw in (dict(vocab_size=512, seq_len=16, global_batch=4, seed=3),
                dict(vocab_size=50, seq_len=9, global_batch=4, n_hosts=2,
-                    host_id=1)):
+                    host_id=1),
+               dict(vocab_size=64, seq_len=8, global_batch=2, seed=5,
+                    input_mode="embeddings", d_model=24)):
         jdata, tdata = JaxSyntheticLM(JaxDataConfig(**kw)), \
             SyntheticLM(DataConfig(**kw))
         for step in (0, 1, 17):
@@ -345,6 +350,57 @@ def test_pipeline_prefetches_the_synthetic_stream():
         for key in want:
             np.testing.assert_array_equal(got[key], want[key])
     it.close()
+
+
+# ------------------------------------------------------------ state trees
+def test_flatten_holds_no_leaf_past_its_caller():
+    """``tree.flatten``'s walk once reached itself through its closure:
+    the cycle held the leaves (a step's gradients, a run's params and
+    moments) until the cycle collector ran, so a second run in the
+    process (and each step's peak) carried the previous one's."""
+    leaf = torch.zeros(3)
+    probe = weakref.ref(leaf)
+    state = adamw.AdamWState(torch.zeros(()), {"w": leaf}, [leaf])
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        flat, rebuild = tree.flatten({"a": [leaf], "b": state})
+        assert len(flat) == 4
+        assert float(tree.tree_map(lambda t: t + 1, state).m["w"][0]) == 1
+        del flat, rebuild, state, leaf
+        assert probe() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def test_train_cli_frees_its_state_on_return(tmp_path):
+    """The run's params and moments die with ``train.main``'s frames, not
+    at the next cycle collection.  (The first ``torch.utils.checkpoint``
+    call in a process imports torch._dynamo, whose import frames hold
+    the caller's stack until a collection: one call is made first.)"""
+    x = torch.ones(2, requires_grad=True)
+    torch.utils.checkpoint.checkpoint(torch.sin, x, use_reentrant=False)
+    probes = []
+    real = train_cli.init_train_state
+
+    def recording(*args, **kwargs):
+        params, opt = real(*args, **kwargs)
+        probes.extend(weakref.ref(t) for t in tree.leaves((params, opt)))
+        return params, opt
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        with mock.patch.object(train_cli, "init_train_state", recording):
+            train_cli.main(["--arch", "qwen2-moe-a2.7b", "--smoke",
+                            "--steps", "2", "--batch", "2", "--seq", "16",
+                            "--log-every", "5", "--device", "cpu",
+                            "--ckpt-dir", str(tmp_path / "ck")])
+        assert probes and not [p for p in probes if p() is not None]
+    finally:
+        if enabled:
+            gc.enable()
 
 
 # ------------------------------------------------------------ checkpoints
@@ -451,20 +507,37 @@ def test_supervisor_replay_reaches_the_clean_params(tmp_path):
 
 
 # ------------------------------------------------------------ CLI
-def test_train_cli_on_the_cpu(tmp_path, capsys):
+# per arch: the GEMMs of one smoke layer (q, k, v, o and the MLP's three;
+# MoE: the router and the shared MLP's three) and its expert contractions
+CLI_ARCHS = {"gemma-2b": (7, 0), "qwen2-moe-a2.7b": (8, 3),
+             "qwen2-vl-2b": (7, 0)}
+
+
+@pytest.mark.parametrize("arch", sorted(CLI_ARCHS))
+def test_train_cli_on_the_cpu(arch, tmp_path, capsys):
+    """3 steps of the smoke config (2 layers, 8 xent chunks), each layer
+    and chunk recomputed once in the backward: exact routes per arch
+    (qwen2-vl-2b takes embeddings and M-RoPE positions)."""
     report = {}
     losses = train_cli.main(
-        ["--arch", "gemma-2b", "--smoke", "--steps", "3", "--batch", "2",
+        ["--arch", arch, "--smoke", "--steps", "3", "--batch", "2",
          "--seq", "16", "--log-every", "1", "--device", "cpu", "--ckpt-dir",
          str(tmp_path / "ck"), "--int8-moments", "--compress-grads"],
         report=report)
     out = capsys.readouterr().out
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert "done: 3 steps" in out and "[dispatch] routes:" in out
+    gemms, experts = CLI_ARCHS[arch]
+    calls = 3 * 2 * (gemms * 2 + 8)
+    want = {("attention", "plain"): 3 * 2 * 2,
+            ("attention_bwd", "plain"): 3 * 2,
+            ("matmul", "plain"): calls, ("matmul_bwd", "plain"): calls}
+    if experts:
+        want.update({("grouped_matmul", "plain"): 3 * 2 * 2 * experts,
+                     ("grouped_matmul_bwd", "plain"): 3 * 2 * 2 * experts})
     routes = report["routes"]
-    assert routes[("attention_bwd", "plain")] == 3 * 2   # 2 smoke layers
-    assert routes[("matmul_bwd", "plain")] == 3 * 2 * (7 * 2 + 8)
-    assert not any(route == "kernel" for _, route in routes)
+    assert routes == want
+    assert all(a > 0 for a in report["aux"]) == bool(experts)
     assert len(report["step_seconds"]) == 3
     assert report["checkpoint_bytes"] > 0
     assert CheckpointManager(str(tmp_path / "ck")).steps() == [3]
