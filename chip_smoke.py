@@ -85,6 +85,20 @@ Phases, one output line or more each:
               int8: B5 96, B1 97, grouped 72, B4a or B4b 24), the first
               run rerun with the same streams; decode ms a step and new
               tokens/s.  Its continuous float run is profiled too.
+3e. recurrent serve -- the recurrent archs at full width and depth in
+              bf16 through ``serve.main --cache dense`` (their one
+              serving layout) on phase 3's traffic: rwkv6-7b, and
+              recurrentgemma-9b with float and int8 weights.  Every
+              request served in full, kernel routes only, every decode
+              step with exactly the launches its layer kinds imply
+              (rwkv6-7b: B1 once, the head; its time and channel mixes are
+              plain products, as in the JAX package; recurrentgemma-9b:
+              B1 163 = 12 local layers' 4 projections, 38 x 3 GeGLU GEMMs
+              and the head, B2 12; int8: B5 162, B1 1, B2 12); decode ms a
+              step, new tokens/s, peak memory, and 8 profiled decode
+              steps by kernel group with the idle share; recurrentgemma's
+              logits finite (rwkv6-7b's decode diverges, as the JAX
+              package's does: its first non-finite step is reported).
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
               full-width model in fp32, once through the kernels and once
               through the plain versions, both on the card, with float and
@@ -94,6 +108,13 @@ Phases, one output line or more each:
               buffer filled with seeded values, 4 decode steps from
               position 1500 (the local layers' buffers wrapped), kernels
               against plain versions: logits within 1e-3 of max |logit|.
+              4d: the same comparison in fp32 at published width, one
+              model alive at a time: recurrentgemma-9b (34 GB) from
+              filled caches at position 2100 (the local layers'
+              2048-entry buffers wrapped), rwkv6-7b (30 GB) from a filled
+              WKV state and token shifts, and qwen2-vl-2b fed embeddings
+              and three differing M-RoPE position streams over a filled
+              dense cache and filled page pools; exact launches a step.
               4c: qwen2-moe-a2.7b at full width in fp32 (57 GB of
               parameters), float and int8 KV + weights, as in 4, the
               plain run taking the kernel run's discrete decisions (each
@@ -220,6 +241,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -1774,20 +1796,28 @@ FORWARDS = {"decode_step": "decode_attention",
 
 
 def forward_launches(cfg, method: str) -> dict:
-    """The launches one serving forward of ``cfg`` makes: per layer the
-    q, k, v, o projections (B1, or B5 on int8 weights), the fp32 router
-    and the shared MLP's three GEMMs (B1; MoE layers stay float), the
-    three expert contractions (B1's grouped route) and one attention call
-    (B2 for a decode step, B3 for a prefill chunk or a verify window; the
-    int8 branches on int8 pools); plus the head (B1)."""
-    n = cfg.n_layers
+    """The launches one serving forward of ``cfg`` makes, from its layer
+    kinds: an attention layer's q, k, v, o projections (B1, or B5 on int8
+    weights) and one attention call (B2 for a decode step, B3 for a
+    prefill chunk or a verify window; the int8 branches on int8 pools);
+    an MLP's GEMMs (3 gated, else 2; B1 or B5); a MoE layer's fp32 router
+    and its shared MLP's three GEMMs (B1: MoE layers stay float) and its
+    three expert contractions (B1's grouped route); the RWKV mixes and
+    the RG-LRU block none (plain products, as in the JAX package); plus
+    the head (B1)."""
+    proj = "quantized_matmul" if cfg.weights_dtype == "int8" else "matmul"
     attn = FORWARDS[method] + ("_int8" if cfg.kv_dtype == "int8" else "")
-    want = {"grouped_matmul": 3 * n, attn: n}
-    if cfg.weights_dtype == "int8":
-        want.update(quantized_matmul=4 * n, matmul=4 * n + 1)
-    else:
-        want["matmul"] = 8 * n + 1
-    return want
+    want = Counter(matmul=1)
+    for mixer, ffn in cfg.layer_kinds():
+        if mixer in ("attn", "swa"):
+            want[proj] += 4
+            want[attn] += 1
+        if ffn == "mlp":
+            want[proj] += 3 if cfg.activation in ("swiglu", "geglu") else 2
+        elif ffn == "moe":
+            want["matmul"] += 1 + 3 * bool(cfg.n_shared_experts)
+            want["grouped_matmul"] += 3
+    return dict(want)
 
 
 @contextlib.contextmanager
@@ -1889,6 +1919,143 @@ def moe_serve_phase(torch):
                 raise AssertionError(f"moe {label}: no prefix hit")
         emit(line)
     emit({"phase": "moe_serve", "seconds": time.time() - t0})
+    return launches
+
+
+# ------------------------------------------------------------ phase 3e
+# the recurrent archs at published width and depth in bf16 on the dense
+# cache, their one serving layout (configs/archs.py): rwkv6-7b (32 layers
+# of RWKV6 time mix and channel mix, d 4096, d_ff 14336, an untied
+# vocabulary of 65536) and recurrentgemma-9b (38 layers, two RG-LRU
+# blocks of width 4096 to one local attention of window 2048 with one kv
+# head of 256, GeGLU d_ff 12288, a tied vocabulary of 256000)
+RECURRENT_SERVE_RUNS = (  # (label, arch, extra arguments, kernels of its path)
+    ("rwkv6-7b", "rwkv6-7b", [], ("matmul",)),
+    ("recurrentgemma-9b", "recurrentgemma-9b", [],
+     ("matmul", "decode_attention")),
+    ("recurrentgemma-9b int8 weights", "recurrentgemma-9b",
+     ["--weights-dtype", "int8"],
+     ("matmul", "quantized_matmul", "decode_attention")))
+# each run profiles decode steps [40, 48), inside the first wave's prompts
+RECURRENT_PROFILE = dict(skip=40, active=8)
+# the JAX package's RWKV decode shifts the channel mix's normed input
+# against the previous token's raw residual (ROADMAP Queue 3, reference
+# caveats), which the port mirrors: at rwkv6-7b's width with random
+# weights the residual stream grows step by step until the logits stop
+# being finite (tools/rwkv_decode_growth.py), so its served tokens are
+# reported, not held to be finite
+DIVERGING_DECODE = ("rwkv6-7b",)
+
+
+def recurrent_serve_phase(torch):
+    """The recurrent archs through ``serve.main --cache dense`` on phase
+    3's traffic: every request served in full, kernel routes only, every
+    decode step with exactly the launches its layer kinds imply (rwkv6-7b:
+    the head alone; recurrentgemma-9b: B1 163 and B2 12, or on int8
+    weights B5 162, B1 1 and B2 12).  The head (B1) never makes a
+    non-finite logit from a finite input, and recurrentgemma-9b's logits
+    stay finite (rwkv6-7b's first non-finite step is reported:
+    ``DIVERGING_DECODE``).  Each run's ms per decode step (host wall, the
+    argmax read included), new tokens/s, peak memory, and a profile of 8
+    decode steps: device time by kernel group and the idle share (or "not
+    measured" if the profiler sees no device time)."""
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+    t0 = time.time()
+    launches = {}
+    skip, active = RECURRENT_PROFILE["skip"], RECURRENT_PROFILE["active"]
+    for label, arch, extra, path in RECURRENT_SERVE_RUNS:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        record, step_ms, traces = [], [], []
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=skip - 1, warmup=1,
+                                         active=active, repeat=1),
+                       on_trace_ready=lambda p: traces.append(p.events()))
+        real, real_logits = serve.Server.step, Model._logits
+        finite = []     # per head call: its input's and output's finiteness
+
+        def step(self, tokens):
+            t = time.perf_counter()
+            with record_function(DECODE_RANGE):
+                out = real(self, tokens)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            prof.step()
+            return out
+
+        def logits(self, params, x):
+            out = real_logits(self, params, x)
+            finite.append(torch.stack([torch.isfinite(x).all(),
+                                       torch.isfinite(out).all()]))
+            return out
+        with counted_forwards(record), prof, \
+                mock.patch.object(serve.Server, "step", step), \
+                mock.patch.object(Model, "_logits", logits):
+            rep, streams, counts = serve_run(
+                torch, f"recurrent {label}",
+                ["--arch", arch] + DENSE_ARGS[2:] + extra, path)
+        peak = torch.cuda.max_memory_allocated()
+        for op, n in counts.items():
+            launches[op] = launches.get(op, 0) + n
+        if len(rep["done"]) != 6 or any(len(r.out) != 16
+                                        for r in rep["done"]) \
+                or rep["dense"]["truncated"] or rep["dense"]["rejected"]:
+            raise AssertionError(f"recurrent {label}: not every request "
+                                 f"served in full: {rep['dense']}")
+        cfg = record[0][1] if record else None
+        want = forward_launches(cfg, "decode_step") if cfg else None
+        wrong = [(name, got) for name, _, got, _ in record
+                 if name != "decode_step" or got != want]
+        steps = rep["phases"]["decode_steps"]
+        if len(record) != steps or wrong:
+            raise AssertionError(f"recurrent {label}: {len(record)} "
+                                 f"forwards of {steps} steps; expected "
+                                 f"{want}, got {wrong[:3]}")
+        flags = torch.stack(finite).tolist()
+        nonfinite = [i for i, (_, out) in enumerate(flags) if not out]
+        if any(inp and not out for inp, out in flags):
+            raise AssertionError(f"recurrent {label}: the head made a "
+                                 f"non-finite logit from a finite input")
+        if nonfinite and arch not in DIVERGING_DECODE:
+            raise AssertionError(f"recurrent {label}: non-finite logits "
+                                 f"from decode step {nonfinite[0]}")
+        outside = sorted(ms for i, ms in enumerate(step_ms)
+                         if not skip - 1 <= i < skip + active)
+        line = {"phase": "recurrent_serve", "run": label,
+                "layers": cfg.n_layers, "decode_steps": steps,
+                "decode_ms_per_step": 1e3 * rep["phases"]["decode_seconds"]
+                / steps,
+                "decode_ms_per_step_median_unprofiled":
+                    outside[len(outside) // 2],
+                "new_tokens": rep["new_tokens"], "tok_s": rep["tok_s"],
+                "seconds": rep["seconds"], "peak_memory_bytes": peak,
+                "first_nonfinite_step": nonfinite[0] if nonfinite else None,
+                "launches_per_step": want, "streams": streams}
+        if traces:
+            n, window_ms, groups, other = range_breakdown(
+                torch, traces[0], DECODE_RANGE)
+            busy = sum(groups.values())
+            line.update({
+                "profiled_steps": n,
+                "profiled_window_ms_per_step": window_ms / n if n else None,
+                "device_ms_per_step": ({g: ms / n for g, ms in groups.items()}
+                                       if busy and n else "not measured"),
+                "device_busy_ms_per_step": busy / n if busy and n else None,
+                "idle_share": 1 - busy / window_ms if busy and window_ms
+                else None,
+                "top_other": [{"ms_per_step": ms / n, "kernel": k}
+                              for k, ms in sorted(other.items(),
+                                                  key=lambda kv: -kv[1])[:6]]
+                if n else []})
+        else:
+            line["device_ms_per_step"] = "not measured"
+        emit(line)
+        del rep
+    emit({"phase": "recurrent_serve", "seconds": time.time() - t0})
     return launches
 
 
@@ -2145,41 +2312,23 @@ def dense_model_phase(torch):
     1e-3 of max |logit|.  The kernel run must launch B2 once a layer a
     step and take no plain route."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.memory import DtypePolicy
-    from repro_torch.kernels import dispatch
-    from repro_torch.models.transformer import Model
     t0 = time.time()
-    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
     cfg = get_arch(DENSE_MODEL["arch"])
-    model = Model(cfg, dt=f32, device="cuda")
-    params = model.init(seed=5)
+    model, params = fp32_model(torch, cfg, seed=5)
     gen = torch.Generator(device="cuda").manual_seed(6)
     b, max_len, pos0, steps = (DENSE_MODEL[k] for k in (
         "slots", "max_len", "pos", "steps"))
-    filled = model.init_cache(b, max_len)
-    for group in filled.values():
-        for layer in group:
-            for leaf in layer.values():
-                leaf.normal_(generator=gen)
+    filled = filled_cache(model.init_cache(b, max_len), gen)
     toks = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=gen,
                          device="cuda").to(torch.int32)
 
     def run():
-        cache = {g: [{k: t.clone() for k, t in layer.items()}
-                     for layer in group] for g, group in filled.items()}
+        cache = clone_cache(filled)
         return torch.stack([model.decode_step(params, cache, toks[i],
                                               pos=pos0 + i)
                             for i in range(steps)])
 
-    dispatch.reset_launch_counts()
-    with dispatch.stats_scope() as stats:
-        kernel = run()
-        torch.cuda.synchronize()
-        routes = stats()
-    launches = dispatch.launch_counts()
-    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
-        plain = run()
-    torch.cuda.synchronize()
+    kernel, plain, routes, launches = kernel_and_plain(torch, run)
     scale = plain.abs().max().item()
     err = (kernel - plain).abs().max().item()
     caps = sorted({layer["k"].shape[-3] for group in filled.values()
@@ -2204,6 +2353,143 @@ def dense_model_phase(torch):
         raise AssertionError(f"dense model logits: max |err| {err:.3e} > "
                              f"1e-3 x {scale:.3e}")
     del params, filled, kernel, plain
+
+
+def fp32_model(torch, cfg, seed: int):
+    """``cfg`` on the card in fp32 (params and compute) and its seeded
+    params."""
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.models.transformer import Model
+    model = Model(cfg, dt=DtypePolicy(param=torch.float32,
+                                      compute=torch.float32), device="cuda")
+    return model, model.init(seed=seed)
+
+
+def filled_cache(cache, gen):
+    """Every leaf of a cache tree (K/V, page pools, recurrent states and
+    buffers) filled in place with seeded normal values."""
+    for group in cache.values():
+        for layer in group:
+            for leaf in layer.values():
+                leaf.normal_(generator=gen)
+    return cache
+
+
+def clone_cache(cache):
+    return {g: [{k: t.clone() for k, t in layer.items()} for layer in group]
+            for g, group in cache.items()}
+
+
+def kernel_and_plain(torch, run):
+    """``run()`` through the kernels, its routes and the launch counts of
+    that run alone, then ``run()`` again through the plain versions on the
+    card: (kernel output, plain output, routes, launches)."""
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launch_counts()
+    with dispatch.stats_scope() as stats:
+        kernel = run()
+        torch.cuda.synchronize()
+        routes = stats()
+    launches = dispatch.launch_counts()
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        plain = run()
+    torch.cuda.synchronize()
+    return kernel, plain, routes, launches
+
+
+# ------------------------------------------------------------ phase 4d
+# (label, arch, layout, slots, max_len, first positions, steps): the
+# recurrent archs from filled dense caches (recurrentgemma's local
+# layers' 2048-entry buffers wrapped at position 2100), and qwen2-vl-2b
+# fed embeddings and three-axis M-RoPE positions over a filled dense
+# cache and filled page pools (pages of 64; each slot at its own length)
+RECURRENT_MODEL = (
+    ("recurrentgemma-9b", "recurrentgemma-9b", "dense", 2, 2112,
+     (2100, 2100), 4),
+    ("rwkv6-7b", "rwkv6-7b", "dense", 2, 256, (200, 200), 4),
+    ("qwen2-vl-2b dense", "qwen2-vl-2b", "dense", 2, 2048, (1500, 1500), 4),
+    ("qwen2-vl-2b paged", "qwen2-vl-2b", "paged", 2, 2048, (700, 1500), 4))
+MROPE_PAGE = 64
+
+
+def recurrent_model_phase(torch):
+    """Each model of ``RECURRENT_MODEL`` at its published width and depth
+    in fp32, one alive at a time: a few decode steps from seeded caches
+    through the kernels and through the plain versions on the card,
+    logits within 1e-3 of max |logit|, exactly the launches its layer
+    kinds imply a step, and no plain route in the kernel run.  The M-RoPE
+    runs' three position streams differ: the first is the slot's
+    position, the others jump."""
+    from repro_torch.configs import get_arch
+    for label, arch, layout, b, max_len, first, steps in RECURRENT_MODEL:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        cfg = get_arch(arch)
+        model, params = fp32_model(torch, cfg, seed=8)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        starts = torch.tensor(first, dtype=torch.int32, device="cuda")
+        if layout == "paged":
+            filled = model.init_paged_cache(b, max_len, MROPE_PAGE)
+            n_pages = -(-max_len // MROPE_PAGE)
+            table = torch.arange(1, 1 + b * n_pages, dtype=torch.int32,
+                                 device="cuda").view(b, n_pages)
+        else:
+            filled = model.init_cache(b, max_len)
+        filled_cache(filled, gen)
+        inputs = []
+        for i in range(steps):
+            if cfg.input_mode == "embeddings":
+                pos = torch.stack(
+                    [starts + i] + [torch.randint(0, max_len, (b,),
+                                                  generator=gen,
+                                                  device="cuda")
+                                    for _ in range(2)], -1)
+                inputs.append({"embeddings": torch.randn(
+                    b, 1, cfg.d_model, generator=gen, device="cuda"),
+                    "positions": pos.to(torch.int32)[:, None]})
+            else:
+                inputs.append({"tokens": torch.randint(
+                    0, cfg.vocab_size, (b, 1), generator=gen,
+                    device="cuda").to(torch.int32)})
+
+        def run():
+            cache = clone_cache(filled)
+            return torch.stack([model.decode_step(
+                params, cache, **inputs[i],
+                **({"paged": (starts + i, table)} if layout == "paged"
+                   else {"pos": first[0] + i})) for i in range(steps)])
+
+        kernel, plain, routes, launches = kernel_and_plain(torch, run)
+        scale = plain.abs().max().item()
+        err = (kernel - plain).abs().max().item()
+        want = {op: steps * n
+                for op, n in forward_launches(cfg, "decode_step").items()}
+        got = {op: n for op, n in launches.items() if n}
+        emit({"phase": "recurrent_model", "run": label, "arch": cfg.name,
+              "layout": layout, "dtype": "float32", "slots": b,
+              "max_len": max_len,
+              "positions": [[p, p + steps] for p in first],
+              "max_abs_err": err, "max_abs_logit": scale,
+              "rel_err": err / scale, "logit_std": plain.std().item(),
+              "launches": got,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "seconds": time.time() - t0})
+        if not bool(torch.isfinite(kernel).all()) \
+                or kernel.shape != (steps, b, cfg.vocab_size):
+            raise AssertionError(f"recurrent model {label}: logits "
+                                 f"{tuple(kernel.shape)}, finite "
+                                 f"{bool(torch.isfinite(kernel).all())}")
+        if any(route == "plain" for _, route in routes):
+            raise AssertionError(f"recurrent model {label}: plain routes "
+                                 f"{routes}")
+        if got != want:
+            raise AssertionError(f"recurrent model {label}: launches {got}, "
+                                 f"expected {want}")
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"recurrent model {label} logits: max "
+                                 f"|err| {err:.3e} > 1e-3 x {scale:.3e}")
+        del model, params, filled, kernel, plain, inputs
 
 
 # ------------------------------------------------------------ phase 5
@@ -2735,6 +3021,9 @@ def main(argv=None) -> int:
     for op, n in moe_serve_phase(torch).items():
         launches[op] = launches.get(op, 0) + n
     torch.cuda.empty_cache()
+    for op, n in recurrent_serve_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
+    release(torch)
     for label, extra in PROFILED_SERVE_RUNS:
         serve_profile(torch, label, extra)
         torch.cuda.empty_cache()
@@ -2745,6 +3034,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     dense_model_phase(torch)
     torch.cuda.empty_cache()
+    recurrent_model_phase(torch)
+    release(torch)
     for int8 in (False, True):
         moe_model_phase(torch, int8)
         torch.cuda.empty_cache()

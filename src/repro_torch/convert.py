@@ -36,17 +36,32 @@ def params_from_jax(tree: Any, device: DeviceLike,
 def dense_cache_from_jax(tree: Any, device: DeviceLike,
                          dtype: torch.dtype) -> Any:
     """A JAX dense decode cache (``Model.init_cache``: ``prefix`` /
-    ``stack`` / ``tail`` lists of ``{"k", "v"}`` (B, cap, Hkv, hd) arrays,
-    stacked periods with a leading period axis), handed over as numpy
-    arrays, filled or not, as the port's cache of the same nesting
+    ``stack`` / ``tail`` lists of per-layer dicts, stacked periods with a
+    leading period axis), handed over as numpy arrays, filled or not, as
+    the port's cache of the same nesting
     (``repro_torch.models.transformer.Model.init_cache``), so both
-    packages can decode on from one state (a wrapped rolling buffer, say).
-    """
+    packages can decode on from one state (a wrapped rolling buffer, a
+    carried recurrent state).  A layer holds attention's ``k`` and ``v``
+    (B, cap, Hkv, hd), RWKV's ``state``, ``xprev`` and ``cm_xprev``, or
+    the RG-LRU's ``h`` and ``conv``.  ``state`` and ``h`` stay fp32, as
+    the port keeps them; every other leaf becomes ``dtype``."""
+    out = {}
     for group in ("prefix", "stack", "tail"):
+        out[group] = []
         for layer in tree[group]:
-            if set(layer) != {"k", "v"} or layer["k"].shape \
-                    != layer["v"].shape:
+            if not (set(layer) in _DENSE_LAYERS and np.shape(
+                    layer.get("k")) == np.shape(layer.get("v"))):
                 shapes = {k: np.shape(v) for k, v in layer.items()}
-                raise ValueError(f"not a dense attention cache layer: "
+                raise ValueError(f"not a dense decode cache layer: "
                                  f"{shapes}")
-    return params_from_jax(tree, device, dtype)
+            out[group].append({
+                k: params_from_jax(v, device, torch.float32
+                                   if k in _FP32_STATE else dtype)
+                for k, v in layer.items()})
+    return out
+
+
+# the leaf sets of one dense cache layer: attention; RWKV (time mix and
+# channel mix); RG-LRU
+_DENSE_LAYERS = ({"k", "v"}, {"state", "xprev", "cm_xprev"}, {"h", "conv"})
+_FP32_STATE = ("state", "h")

@@ -1,0 +1,138 @@
+"""The RG-LRU recurrent block of RecurrentGemma (Griffin) -- the port of
+``repro/models/griffin.py``'s decode.
+
+The block: a GELU gate branch and a main branch, the main branch through
+a width-K depthwise causal conv (a K-1 deep delay buffer carried as decode
+state), then the real-gated linear recurrence
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
+    log a_t = -8 * r_t * softplus(lam),
+
+whose gates r_t and i_t are block-diagonal projections, all in fp32; the
+gated state goes out through the output projection.  The projections are
+plain products, as in the JAX package (no Pallas kernel runs there).  The
+whole-sequence block (``rglru_scan``, ``rglru_block_apply``) comes with
+the recurrent archs' forward.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import dense_init
+
+Params = Dict[str, torch.Tensor]
+
+_C = 8.0  # Griffin's fixed gate sharpness
+
+
+@dataclasses.dataclass(frozen=True)
+class GriffinSpec:
+    d_model: int
+    lru_width: int
+    conv_width: int = 4
+    block_width: int = 256        # block-diagonal gate projections
+
+    @property
+    def n_blocks(self) -> int:
+        return self.lru_width // self.block_width
+
+
+def rglru_block_init(gen: torch.Generator, s: GriffinSpec,
+                     lead=()) -> Params:
+    """The JAX ``rglru_block_init`` distributions; ``lead`` =
+    (n_periods,) stacks a period."""
+    lead, d, w, dev = tuple(lead), s.d_model, s.lru_width, gen.device
+    nb, bw = s.n_blocks, s.block_width
+
+    def zeros(n):
+        return torch.zeros(lead + (n,), dtype=torch.float32, device=dev)
+    return {
+        "w_main": dense_init(gen, lead + (d, w), d),
+        "w_gate": dense_init(gen, lead + (d, w), d),
+        "conv_w": 0.01 * torch.randn(lead + (s.conv_width, w),
+                                     generator=gen, dtype=torch.float32,
+                                     device=dev),
+        "conv_b": zeros(w),
+        # block-diagonal recurrence and input gates
+        "wa": dense_init(gen, lead + (nb, bw, bw), bw),
+        "ba": zeros(w),
+        "wx": dense_init(gen, lead + (nb, bw, bw), bw),
+        "bx": zeros(w),
+        # lam parametrizes a in (0, 1): a = sigmoid(lam)
+        "lam": torch.linspace(2.2, 5.5, w, dtype=torch.float32,
+                              device=dev).expand(lead + (w,)).clone(),
+        "w_out": dense_init(gen, lead + (w, d), w),
+    }
+
+
+def _block_diag(x: torch.Tensor, w: torch.Tensor,
+                s: GriffinSpec) -> torch.Tensor:
+    """x (..., lru) times the block-diagonal w (nb, bw, bw)."""
+    shape = x.shape
+    x = x.reshape(shape[:-1] + (s.n_blocks, s.block_width))
+    return torch.einsum("...nc,ncd->...nd", x, w).reshape(shape)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of width K = w.shape[0] as K shifted taps.
+    x: (B, S, lru); prev: (B, K-1, lru) delay buffer."""
+    k, sq = w.shape[0], x.shape[1]
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)          # (B, S+K-1, lru)
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + sq, :] * w[k - 1 - i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it, logaddexp(x, 0),
+    with no threshold (``F.softplus`` returns x itself past 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _rglru_coeffs(p: Params, s: GriffinSpec, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence weight a_t and input b_t, all fp32.  x: (..., lru)."""
+    f32 = torch.float32
+    xf = x.to(f32)
+    r = torch.sigmoid(_block_diag(xf, p["wa"].to(f32), s) + p["ba"])
+    i = torch.sigmoid(_block_diag(xf, p["wx"].to(f32), s) + p["bx"])
+    log_a = -_C * r * _softplus(p["lam"])        # log a_t <= 0
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) in a numerically safe form
+    multiplier = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                        min=1e-12))
+    return a, multiplier * i * xf
+
+
+def rglru_block_decode(p: Params, s: GriffinSpec, x: torch.Tensor,
+                       cache: Dict[str, torch.Tensor],
+                       cdt: torch.dtype) -> torch.Tensor:
+    """One token of the block.  x: (B, 1, d); cache: ``h`` (B, lru) fp32
+    and ``conv`` (B, K-1, lru), both written in place: the delay buffer
+    takes the pre-conv main branch.  Returns (B, 1, d)."""
+    gate = F.gelu(x @ p["w_gate"].to(cdt), approximate="tanh")
+    main = x @ p["w_main"].to(cdt)                        # (B, 1, lru)
+    conv = cache["conv"]
+    main_c = _causal_conv(main, p["conv_w"], p["conv_b"], conv)
+    conv.copy_(torch.cat([conv[:, 1:], main.to(conv.dtype)], dim=1))
+    a, bb = _rglru_coeffs(p, s, main_c)
+    h = a[:, 0] * cache["h"] + bb[:, 0]                  # (B, lru) fp32
+    cache["h"].copy_(h)
+    return (h[:, None].to(cdt) * gate) @ p["w_out"].to(cdt)
+
+
+def griffin_cache_init(b: int, s: GriffinSpec, dtype: torch.dtype, device,
+                       lead=()) -> Dict[str, torch.Tensor]:
+    """Zero decode state: ``h`` (B, lru) fp32 and the conv's (B, K-1, lru)
+    delay buffer in ``dtype``."""
+    lead = tuple(lead)
+    return {"h": torch.zeros(lead + (b, s.lru_width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (b, s.conv_width - 1, s.lru_width),
+                                dtype=dtype, device=device)}

@@ -284,7 +284,8 @@ def dense_pages(batch: int, cap: int, pos: int, device
 def attention_decode(p: Params, s: AttnSpec, x: torch.Tensor, pos: int,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      dt: DtypePolicy,
-                     pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     positions: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """One-token decode against a dense KV cache, written in place.
 
@@ -306,9 +307,13 @@ def attention_decode(p: Params, s: AttnSpec, x: torch.Tensor, pos: int,
     plain version on the CPU).  As in the JAX package the mask does not
     depend on occupancy: a request admitted into a recycled slot attends
     to the previous occupant's entries too.  ``pages`` = ``dense_pages(B,
-    cap, pos)``, built once a step for all layers of one cap, or here."""
+    cap, pos)``, built once a step for all layers of one cap, or here.
+    ``positions`` (B, 1, 3) replaces ``pos`` in an M-RoPE arch's rotation
+    (the cache slot stays ``pos``'s)."""
     b, cap, hkv, hd = k_cache.shape
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    if positions is None:
+        positions = torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device)
     q, k, v = _qkv(p, s, x, positions, dt)
     slot = pos % cap if s.window > 0 else pos
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
@@ -329,7 +334,8 @@ def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                            k_pages: torch.Tensor, v_pages: torch.Tensor,
                            dt: DtypePolicy,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           positions: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One-token ragged decode against the paged KV cache.
 
@@ -339,10 +345,12 @@ def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,
     shared (P, page, Hkv, hd) pools, which are written in place.  int8
     pools carry ``k_scale`` / ``v_scale`` (P, Hkv) fp32, also written in
     place: the append runs the running-max requantize of ``core.quant``.
-    Returns (B, 1, d)."""
+    ``positions`` (B, 1, 3) replaces ``lengths`` in an M-RoPE arch's
+    rotation.  Returns (B, 1, d)."""
     b = x.shape[0]
     page = k_pages.shape[1]
-    q, k, v = _qkv(p, s, x, lengths[:, None], dt)
+    q, k, v = _qkv(p, s, x, lengths[:, None] if positions is None
+                   else positions, dt)
     pid = table[torch.arange(b, device=x.device), lengths // page].long()
     off = (lengths % page).long()
     # in-place pool writes (the JAX package's donated .at[].set); inactive
@@ -371,7 +379,8 @@ def attention_prefill_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                             k_pages: torch.Tensor, v_pages: torch.Tensor,
                             dt: DtypePolicy,
                             k_scale: Optional[torch.Tensor] = None,
-                            v_scale: Optional[torch.Tensor] = None
+                            v_scale: Optional[torch.Tensor] = None,
+                            positions: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Chunked prefill: one page-aligned chunk each from B distinct slots.
 
@@ -382,11 +391,13 @@ def attention_prefill_paged(p: Params, s: AttnSpec, x: torch.Tensor,
     over that slot's cached history plus the chunk itself.  The pools are
     written in place; int8 pools get a clean abs-max scale per page
     (``quant.quantize_pages`` over the whole padded chunk, as in the JAX
-    package).  Returns (B, C, d)."""
+    package).  ``positions`` (B, C, 3) replaces ``starts[b] + t`` in an
+    M-RoPE arch's rotation.  Returns (B, C, d)."""
     b, c, _ = x.shape
     page = k_pages.shape[1]
-    positions = starts[:, None] + torch.arange(c, device=x.device,
-                                               dtype=starts.dtype)[None, :]
+    if positions is None:
+        positions = starts[:, None] + torch.arange(
+            c, device=x.device, dtype=starts.dtype)[None, :]
     q, k, v = _qkv(p, s, x, positions, dt)
     pid = tables[torch.arange(b, device=x.device), starts // page].long()
     # in-place whole-page writes (the JAX package's donated .at[].set)
@@ -410,7 +421,8 @@ def attention_verify_paged(p: Params, s: AttnSpec, x: torch.Tensor,
                            k_pages: torch.Tensor, v_pages: torch.Tensor,
                            dt: DtypePolicy,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           positions: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Speculative verify: score W candidate tokens per slot in one pass.
 
@@ -424,11 +436,13 @@ def attention_verify_paged(p: Params, s: AttnSpec, x: torch.Tensor,
     arithmetic, so a mid-page start is legal.  Rejected drafts are rolled
     back by the host not advancing ``lengths``; their K/V (and any int8
     scale growth) stays in the pool behind every later read's length.
-    The pools are written in place.  Returns (B, W, d)."""
+    The pools are written in place.  ``positions`` (B, W, 3) replaces
+    ``lengths[b] + t`` in an M-RoPE arch's rotation.  Returns (B, W, d)."""
     b, w, _ = x.shape
     page = k_pages.shape[1]
-    positions = lengths[:, None] + torch.arange(
-        w, device=x.device, dtype=lengths.dtype)[None, :]
+    if positions is None:
+        positions = lengths[:, None] + torch.arange(
+            w, device=x.device, dtype=lengths.dtype)[None, :]
     q, k, v = _qkv(p, s, x, positions, dt)
     n_logical = table.shape[1]
     rows = torch.arange(b, device=x.device)

@@ -11,14 +11,166 @@ a product, and only the (hd, hd) state crosses from one chunk to the
 next.  Every decay factor is the exponential of a non-positive log-sum,
 so nothing overflows.  This is the plain version of the WKV kernel
 (``kernels/wkv``), as ``repro/kernels/wkv/ref.py`` makes it the oracle of
-the TPU kernel.  The rest of the RWKV model (time mix, channel mix,
-decode, cache) is not ported yet.
+the TPU kernel.
+
+The RWKV block's decode runs the recurrence one token at a time: the
+time mix (token-shift lerp, r/k/v/g projections, the data-dependent decay
+from its LoRA in fp32, the per-head group norm and the output gate) over
+a carried (B, H, hd, hd) fp32 state, and the channel mix over its own
+token shift.  Its projections are plain products, as in the JAX package
+(no Pallas kernel runs there).  The whole-sequence time mix
+(``time_mix_apply`` over ``wkv_chunked``) comes with the recurrent
+archs' forward.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class RwkvSpec:
+    """The RWKV block's widths (the decode's fields of the JAX spec; its
+    chunking fields come with ``time_mix_apply``)."""
+    d_model: int
+    head_dim: int = 64
+    decay_lora: int = 64
+    d_ff: int = 0                # channel-mix width
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_model // self.head_dim
+
+
+# --------------------------------------------------------------------------
+# time mix
+# --------------------------------------------------------------------------
+
+def time_mix_init(gen: torch.Generator, s: RwkvSpec, lead=()) -> Params:
+    """The JAX ``time_mix_init`` distributions; ``lead`` = (n_periods,)
+    stacks a period."""
+    # imported here: layers imports the kernels, whose WKV module imports
+    # this one
+    from .layers import dense_init
+    lead, d, dev = tuple(lead), s.d_model, gen.device
+
+    def full(shape, value):
+        return torch.full(lead + shape, value, dtype=torch.float32,
+                          device=dev)
+    p = {"mu": full((5, d), 0.5)}        # shift-lerp for r, k, v, g, w
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        p[name] = dense_init(gen, lead + (d, d), d)
+    p["w0"] = full((d,), -6.0)           # base log-log decay
+    p["wa"] = dense_init(gen, lead + (d, s.decay_lora), d)
+    p["wb"] = 0.01 * dense_init(gen, lead + (s.decay_lora, d), s.decay_lora)
+    p["u"] = full((s.n_heads, s.head_dim), 0.0)        # bonus
+    p["ln_scale"] = full((d,), 1.0)      # group norm on the output
+    p["ln_bias"] = full((d,), 0.0)
+    return p
+
+
+def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """A delay buffer of depth one: x_{t-1}, seeded by ``prev`` (B, d)."""
+    return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+
+
+def _rkvgw(p: Params, s: RwkvSpec, x: torch.Tensor, x_prev: torch.Tensor,
+           cdt: torch.dtype):
+    """r, k, v, g in the compute dtype and the log-decay lw <= 0 in fp32
+    (the decay LoRA runs in fp32), each (B, S, d)."""
+    xx = _token_shift(x, x_prev)
+    mix = [x + (xx - x) * p["mu"][i].to(x.dtype) for i in range(5)]
+    r, k, v, g = (m @ p[name].to(cdt) for m, name in zip(
+        mix, ("wr", "wk", "wv", "wg")))
+    f32 = torch.float32
+    lw = -torch.exp(p["w0"].to(f32) + torch.tanh(
+        mix[4].to(f32) @ p["wa"].to(f32)) @ p["wb"].to(f32))
+    return r, k, v, g, lw
+
+
+def _heads(x: torch.Tensor, s: RwkvSpec) -> torch.Tensor:
+    b, sq, _ = x.shape
+    return x.reshape(b, sq, s.n_heads, s.head_dim)
+
+
+def _group_norm(p: Params, o: torch.Tensor, s: RwkvSpec,
+                eps: float = 1e-5) -> torch.Tensor:
+    """Per-head layer norm (RWKV's GroupNorm(n_heads)) of o (B, S, H, hd),
+    with the population variance, as ``jnp.var``; -> (B, S, H * hd)."""
+    b, sq, h, hd = o.shape
+    mean = o.mean(dim=-1, keepdim=True)
+    var = o.var(dim=-1, keepdim=True, correction=0)
+    o = ((o - mean) * torch.rsqrt(var + eps)).reshape(b, sq, h * hd)
+    return o * p["ln_scale"] + p["ln_bias"]
+
+
+def time_mix_decode(p: Params, s: RwkvSpec, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor],
+                    cdt: torch.dtype) -> torch.Tensor:
+    """One token of the time mix.  x: (B, 1, d); cache: ``state`` (B, H,
+    hd, hd) fp32 and ``xprev`` (B, d), both written in place.  Returns
+    (B, 1, d)."""
+    r, k, v, g, lw = _rkvgw(p, s, x, cache["xprev"], cdt)
+    f32 = torch.float32
+    rh, kh, vh = (_heads(t, s)[:, 0].to(f32) for t in (r, k, v))
+    w = torch.exp(_heads(lw, s)[:, 0])                       # (B, H, hd)
+    state = cache["state"]
+    o = torch.einsum("bhk,bhkv->bhv", rh, state) \
+        + torch.einsum("bhk,hk,bhk->bh", rh, p["u"].to(f32),
+                       kh)[..., None] * vh
+    state.copy_(w[..., None] * state
+                + torch.einsum("bhk,bhv->bhkv", kh, vh))
+    cache["xprev"].copy_(x[:, 0])
+    o = _group_norm(p, o[:, None], s).to(cdt)
+    o = o * F.silu(g)
+    return o @ p["wo"].to(cdt)
+
+
+# --------------------------------------------------------------------------
+# channel mix
+# --------------------------------------------------------------------------
+
+def channel_mix_init(gen: torch.Generator, s: RwkvSpec, lead=()) -> Params:
+    from .layers import dense_init
+    lead, d, ff = tuple(lead), s.d_model, s.d_ff
+    return {"mu": torch.full(lead + (2, d), 0.5, dtype=torch.float32,
+                             device=gen.device),
+            "wk": dense_init(gen, lead + (d, ff), d),
+            "wv": dense_init(gen, lead + (ff, d), ff),
+            "wr": dense_init(gen, lead + (d, d), d)}
+
+
+def channel_mix_apply(p: Params, s: RwkvSpec, x: torch.Tensor,
+                      cdt: torch.dtype,
+                      x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The channel mix of x (B, S, d), token-shifted against ``x_prev``
+    (B, d; zeros when None)."""
+    prev = x_prev if x_prev is not None else x.new_zeros(
+        (x.shape[0], s.d_model))
+    xx = _token_shift(x, prev)
+    xk = x + (xx - x) * p["mu"][0].to(x.dtype)
+    xr = x + (xx - x) * p["mu"][1].to(x.dtype)
+    k = torch.square(F.relu(xk @ p["wk"].to(cdt)))
+    return torch.sigmoid(xr @ p["wr"].to(cdt)) * (k @ p["wv"].to(cdt))
+
+
+def rwkv_cache_init(b: int, s: RwkvSpec, dtype: torch.dtype, device,
+                    lead=()) -> Dict[str, torch.Tensor]:
+    """Zero decode state: the fp32 (B, H, hd, hd) WKV state and the time
+    and channel mixes' (B, d) token-shift buffers in ``dtype``."""
+    lead = tuple(lead)
+    return {"state": torch.zeros(lead + (b, s.n_heads, s.head_dim,
+                                         s.head_dim),
+                                 dtype=torch.float32, device=device),
+            "xprev": torch.zeros(lead + (b, s.d_model), dtype=dtype,
+                                 device=device),
+            "cm_xprev": torch.zeros(lead + (b, s.d_model), dtype=dtype,
+                                    device=device)}
 
 
 def chunk_len(s: int, chunk: int) -> int:

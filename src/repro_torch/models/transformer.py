@@ -1,7 +1,10 @@
-"""The decoder LM -- the port of ``repro/models/transformer.py`` for
-attention stacks with dense MLP or MoE FFNs: the serving forwards over a
+"""The decoder LM -- the port of ``repro/models/transformer.py``: for
+attention stacks with dense MLP or MoE FFNs, the serving forwards over a
 paged or a dense KV cache, the speculative verify forward, and the
-training loss (with the MoE layers' load-balancing aux loss).
+training loss (with the MoE layers' load-balancing aux loss); for the
+recurrent archs (RWKV6 time and channel mixes, Griffin's RG-LRU blocks
+beside local attention), the decode step over the dense cache, which is
+their whole serving path, as in the JAX package.
 
 Layer stacking keeps the JAX package's layout (paper §2.5 loop
 flattening): ``prefix`` layers, ``n_periods`` repetitions of the layer
@@ -15,8 +18,8 @@ slice's gradient).
 
 Params are a nested dict with the JAX tree's keys and nesting
 (``embed``, ``final_norm/scale``, ``prefix``/``stack``/``tail`` lists of
-``{"ln1", "ln2", "attn", "mlp" or "moe"}``), so ``convert.params_from_jax``
-maps a JAX tree one to one.
+``{"ln1", "ln2", "attn" / "tm" / "rec", "mlp" / "moe" / "cm"}``), so
+``convert.params_from_jax`` maps a JAX tree one to one.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.memory import BF16_POLICY, DtypePolicy
 from ..core.quant import kv_dtype_of
 from ..kernels import dispatch
-from . import layers, moe
+from . import griffin, layers, moe, rwkv
 from .layers import Params
 
 
@@ -92,19 +95,38 @@ def _moe_spec(cfg: ArchConfig) -> moe.MoESpec:
         pad_to=1)
 
 
+def _rwkv_spec(cfg: ArchConfig) -> rwkv.RwkvSpec:
+    return rwkv.RwkvSpec(d_model=cfg.d_model, head_dim=cfg.rwkv_head_dim,
+                         d_ff=cfg.d_ff)
+
+
+def _griffin_spec(cfg: ArchConfig) -> griffin.GriffinSpec:
+    width = cfg.lru_width or cfg.d_model
+    return griffin.GriffinSpec(d_model=cfg.d_model, lru_width=width,
+                               conv_width=cfg.conv_width,
+                               block_width=min(256, width))
+
+
 def paged_supported(cfg: ArchConfig) -> bool:
-    """Can this port serve the arch from a paged KV cache?  Every mixer
-    must be attention-family and every FFN stateless, a dense MLP or MoE
-    (recurrent mixers come with a later slice of the port)."""
+    """Can this arch serve from a paged KV cache?  Every mixer must be
+    attention-family and every FFN stateless, a dense MLP or MoE (chunked
+    prefill has no carried-state scan for recurrent layers)."""
     return all(m in ("attn", "swa") and f in ("mlp", "moe")
                for m, f in cfg.layer_kinds())
 
 
 def _require_paged(cfg: ArchConfig) -> None:
+    """The paged entry points' refusal of recurrent archs, in the JAX
+    scheduler's words."""
     if not paged_supported(cfg):
         raise ValueError(
-            f"arch {cfg.name} has layers this port does not run yet; it "
-            "runs attention stacks with MLP or MoE FFNs")
+            f"arch {cfg.name} has recurrent/stateful layers; paged serving "
+            "requires attention-family stacks (use --cache dense)")
+
+
+def _recurrent(cfg: ArchConfig) -> bool:
+    return any(m in ("rwkv", "rglru") or f == "rwkv_cm"
+               for m, f in cfg.layer_kinds())
 
 
 # --------------------------------------------------------------------------
@@ -113,20 +135,30 @@ def _require_paged(cfg: ArchConfig) -> None:
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
                lead=(), dtype: torch.dtype = torch.float32) -> Params:
-    """One layer's params in ``dtype``; ``lead`` = (n_periods,) stacks a
-    period."""
+    """One layer's params in ``dtype``, the mixer cast before the FFN is
+    drawn; ``lead`` = (n_periods,) stacks a period."""
     mixer, ffn = kind
     p = {"ln1": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
-         "ln2": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
-         "attn": layers.attention_init(gen, _attn_spec(cfg, mixer), lead)}
+         "ln2": layers.rmsnorm_init(cfg.d_model, lead, gen.device)}
+    if mixer in ("attn", "swa"):
+        p["attn"] = layers.attention_init(gen, _attn_spec(cfg, mixer), lead)
+    elif mixer == "rwkv":
+        p["tm"] = rwkv.time_mix_init(gen, _rwkv_spec(cfg), lead)
+    elif mixer == "rglru":
+        p["rec"] = griffin.rglru_block_init(gen, _griffin_spec(cfg), lead)
+    else:
+        raise ValueError(f"mixer {mixer!r}")
+    p = _cast(p, dtype)
     if ffn == "mlp":
         p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
                                    cfg.activation, lead)
     elif ffn == "moe":
         # cast leaf by leaf: the experts are most of a MoE model
         p["moe"] = moe.moe_init(gen, _moe_spec(cfg), lead, dtype)
+    elif ffn == "rwkv_cm":
+        p["cm"] = rwkv.channel_mix_init(gen, _rwkv_spec(cfg), lead)
     else:
-        raise ValueError(f"ffn {ffn!r} is not ported")
+        raise ValueError(f"ffn {ffn!r}")
     return _cast(p, dtype)
 
 
@@ -163,14 +195,17 @@ def layer_cache_init_paged(cfg: ArchConfig, total_pages: int, page_size: int,
 def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
                         x: torch.Tensor, cache: Dict[str, torch.Tensor],
                         starts: torch.Tensor, tables: torch.Tensor,
-                        dt: DtypePolicy) -> torch.Tensor:
+                        dt: DtypePolicy,
+                        positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """One page-aligned prompt chunk each of B distinct slots through one
-    layer (x (B, C, d), starts (B,), tables (B, n_pages))."""
+    layer (x (B, C, d), starts (B,), tables (B, n_pages); ``positions``
+    (B, C, 3) for an M-RoPE arch)."""
     h = layers.rmsnorm(p["ln1"], x)
     h = layers.attention_prefill_paged(
         p["attn"], _attn_spec(cfg, kind[0]), h, starts, tables,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
-        cache.get("v_scale"))
+        cache.get("v_scale"), positions=positions)
     x = x + h
     return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
 
@@ -178,51 +213,90 @@ def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
 def layer_cache_init(cfg: ArchConfig, kind: LayerKind, batch: int,
                      max_len: int, dtype: torch.dtype, device,
                      lead=()) -> Dict[str, torch.Tensor]:
-    """Dense (B, cap, Hkv, hd) K/V caches of one attention layer: cap =
-    max_len for global layers, min(window, max_len) for windowed ones (a
-    rolling buffer, slot = pos mod cap)."""
-    cap = min(cfg.window, max_len) if kind[0] == "swa" else max_len
-    shape = tuple(lead) + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """One layer's dense decode state.  Attention: (B, cap, Hkv, hd) K/V,
+    cap = max_len for global layers, min(window, max_len) for windowed
+    ones (a rolling buffer, slot = pos mod cap).  RWKV: the fp32 WKV
+    ``state`` and the ``xprev`` / ``cm_xprev`` token shifts; RG-LRU: the
+    fp32 ``h`` and the ``conv`` delay buffer (``dtype`` for all but the
+    fp32 leaves)."""
+    mixer, ffn = kind
+    lead = tuple(lead)
+    cache: Dict[str, torch.Tensor] = {}
+    if mixer in ("attn", "swa"):
+        cap = min(cfg.window, max_len) if mixer == "swa" else max_len
+        shape = lead + (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    elif mixer == "rwkv":
+        cache.update(rwkv.rwkv_cache_init(batch, _rwkv_spec(cfg), dtype,
+                                          device, lead))
+    elif mixer == "rglru":
+        cache.update(griffin.griffin_cache_init(
+            batch, _griffin_spec(cfg), dtype, device, lead))
+    if ffn == "rwkv_cm" and "cm_xprev" not in cache:
+        cache["cm_xprev"] = torch.zeros(lead + (batch, cfg.d_model),
+                                        dtype=dtype, device=device)
+    return cache
 
 
 def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
                  x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  dt: DtypePolicy, *, pos: Optional[int] = None,
                  paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                 ) -> torch.Tensor:
+                 pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode token per slot through one layer.  ``paged`` = (lengths,
     table) takes the paged ragged path (every slot at its own length);
     otherwise every slot decodes at the shared ``pos`` against its dense
-    cache, read as ``pages`` (``layers.dense_pages``) where given.  The
-    caches are written in place."""
+    cache, read as ``pages`` (``layers.dense_pages``) where given.
+    ``positions`` (B, 1, 3) rotates an M-RoPE arch's q and k.  Recurrent
+    mixers and the channel mix carry their state in the same cache tree
+    (dense only).  The caches are written in place."""
+    mixer, ffn = kind
+    cdt = dt.compute
     h = layers.rmsnorm(p["ln1"], x)
-    spec = _attn_spec(cfg, kind[0])
-    if paged is not None:
+    if mixer == "rwkv":
+        h = rwkv.time_mix_decode(p["tm"], _rwkv_spec(cfg), h, cache, cdt)
+    elif mixer == "rglru":
+        h = griffin.rglru_block_decode(p["rec"], _griffin_spec(cfg), h,
+                                       cache, cdt)
+    elif paged is not None:
         lengths, table = paged
         h = layers.attention_decode_paged(
-            p["attn"], spec, h, lengths, table, cache["k_pages"],
-            cache["v_pages"], dt, cache.get("k_scale"), cache.get("v_scale"))
+            p["attn"], _attn_spec(cfg, mixer), h, lengths, table,
+            cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
+            cache.get("v_scale"), positions=positions)
     else:
-        h = layers.attention_decode(p["attn"], spec, h, pos, cache["k"],
-                                    cache["v"], dt, pages)
+        h = layers.attention_decode(p["attn"], _attn_spec(cfg, mixer), h,
+                                    pos, cache["k"], cache["v"], dt, pages,
+                                    positions=positions)
     x = x + h
+    if ffn == "rwkv_cm":
+        # the shift runs the normed input against the residual stream the
+        # previous token left after its time mix: the JAX package's decode
+        # stores x, where its forward shifts normed against normed
+        h = rwkv.channel_mix_apply(p["cm"], _rwkv_spec(cfg),
+                                   layers.rmsnorm(p["ln2"], x), cdt,
+                                   x_prev=cache["cm_xprev"])
+        cache["cm_xprev"].copy_(x[:, 0])
+        return x + h
     return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
 
 
 def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
                        x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        lengths: torch.Tensor, tables: torch.Tensor,
-                       dt: DtypePolicy) -> torch.Tensor:
+                       dt: DtypePolicy,
+                       positions: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """One speculative verify window of B distinct slots through one layer
-    (x (B, W, d), lengths (B,), tables (B, n_pages))."""
+    (x (B, W, d), lengths (B,), tables (B, n_pages); ``positions`` (B, W,
+    3) for an M-RoPE arch)."""
     h = layers.rmsnorm(p["ln1"], x)
     h = layers.attention_verify_paged(
         p["attn"], _attn_spec(cfg, kind[0]), h, lengths, tables,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
-        cache.get("v_scale"))
+        cache.get("v_scale"), positions=positions)
     x = x + h
     return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
 
@@ -274,8 +348,13 @@ class Model:
     An arch with ``input_mode="embeddings"`` (musicgen-large, qwen2-vl-2b:
     the frontend is a stub) takes ``batch["embeddings"]`` (B, S, d) in
     place of tokens, and an M-RoPE arch ``batch["positions"]`` (B, S, 3),
-    in ``loss_fn``, ``forward`` and ``prefill``; the serving forwards take
-    token-mode archs only.
+    in ``loss_fn``, ``forward`` and ``prefill``, and (B, 1, d) and (B, 1,
+    3) in ``decode_step``; the paged prefill and verify forwards embed
+    tokens, as the JAX package's do.
+
+    The recurrent archs (rwkv6-7b, recurrentgemma-9b) serve through
+    ``decode_step`` on the dense cache; their whole-sequence forwards
+    come with a later slice of the port.
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
@@ -283,7 +362,6 @@ class Model:
     def __init__(self, cfg: ArchConfig, dt: DtypePolicy = BF16_POLICY,
                  device: DeviceLike = None,
                  opts: ExecOptions = ExecOptions()):
-        _require_paged(cfg)
         if cfg.input_mode not in ("tokens", "embeddings"):
             raise ValueError(f"input_mode {cfg.input_mode!r} is not "
                              "supported (tokens or embeddings)")
@@ -384,12 +462,33 @@ class Model:
                    self._walk(cache))
 
     def _require_tokens(self, what: str) -> None:
-        """The serving forwards' refusal of embedding-input archs (their
-        M-RoPE branches are not ported yet)."""
+        """The paged prefill and verify forwards' refusal of
+        embedding-input archs: the JAX package embeds their tokens."""
         if self.cfg.input_mode != "tokens":
             raise ValueError(f"{what}: arch {self.cfg.name} takes "
-                             f"{self.cfg.input_mode}; the port serves "
-                             "token-mode archs")
+                             f"{self.cfg.input_mode}; this forward embeds "
+                             "tokens, as the JAX package's does")
+
+    def _require_sequence_forward(self, what: str) -> None:
+        """The whole-sequence forwards' refusal of the recurrent archs."""
+        if _recurrent(self.cfg):
+            raise ValueError(
+                f"{what}: arch {self.cfg.name} has recurrent layers, whose "
+                "whole-sequence forward (time_mix_apply, rglru_scan) comes "
+                "with a later slice of the port; it serves through "
+                "decode_step on the dense cache")
+
+    def _mrope_override(self, offsets: torch.Tensor, width: int
+                        ) -> Optional[torch.Tensor]:
+        """The JAX package's M-RoPE positions for a token-fed paged
+        forward: ``offsets[b] + t`` on every axis, (B, width, 3); None for
+        an arch without M-RoPE."""
+        if not self.cfg.mrope_sections:
+            return None
+        pos = offsets[:, None].to(torch.int32) + torch.arange(
+            width, dtype=torch.int32, device=offsets.device)[None, :]
+        return pos[:, :, None].expand(
+            -1, -1, len(self.cfg.mrope_sections))
 
     # ------------------------------ training / dense forward ---------
     def _positions(self, batch: Dict[str, torch.Tensor], b: int, s: int
@@ -452,6 +551,7 @@ class Model:
         "embeddings", "positions" for an M-RoPE arch, and "labels" (B, S)
         int) plus the MoE layers' load-balancing aux loss (0 without MoE
         layers).  Returns (loss, {"loss", "xent", "aux"})."""
+        self._require_sequence_forward("loss_fn")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux = self._run_stack(params, x, self._positions(batch, b, s))
@@ -466,6 +566,7 @@ class Model:
         """Full logits (B, S, V) of ``batch`` (its "tokens" or
         "embeddings", and "positions" for an M-RoPE arch; small-scale eval
         and tests)."""
+        self._require_sequence_forward("forward")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, _ = self._run_stack(params, x, self._positions(batch, b, s))
@@ -477,6 +578,7 @@ class Model:
         position's logits (B, V), or with ``last_idx`` (B,) those of
         position ``last_idx[b]`` of each row (the final norm and the head
         run on those rows alone)."""
+        self._require_sequence_forward("prefill")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, _ = self._run_stack(params, x, self._positions(batch, b, s))
@@ -494,7 +596,7 @@ class Model:
         fp32 scale leaves); stacked periods carry a leading period axis.  Physical page 0 is the TRASH page:
         the scheduler points inactive slots' tables at it, so their
         (masked, discarded) writes never land in a live sequence."""
-        self._require_tokens("init_paged_cache")
+        _require_paged(self.cfg)
         cfg, lay = self.cfg, self.layout
         dtype = kv_dtype_of(cfg.kv_dtype, self.dt.compute)
         if total_pages is None:
@@ -518,44 +620,69 @@ class Model:
         tokens: (B, C) with C == page size; starts: (B,) int32 chunk
         offsets; tables: (B, n_pages) int32; last_idx: (B,) index of the
         last REAL prompt token of each chunk.  Returns logits (B, V) at
-        last_idx."""
+        last_idx.  An M-RoPE arch rotates position ``starts[b] + t`` on
+        every axis, as the JAX package does."""
+        _require_paged(self.cfg)
         self._require_tokens("prefill_step_paged")
         x = self._embed(params, {"tokens": tokens})
+        positions = self._mrope_override(starts, tokens.shape[1])
         for p, kind, c in self._layers(params, cache):
             x = layer_prefill_paged(p, self.cfg, kind, x, c, starts, tables,
-                                    self.dt)
+                                    self.dt, positions)
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, last_idx.long()][:, None]
         return self._logits(params, x_last)[:, 0]
 
-    def decode_step(self, params: Params, cache, tokens: torch.Tensor, *,
+    def decode_step(self, params: Params, cache,
+                    tokens: Optional[torch.Tensor] = None, *,
                     pos: Optional[int] = None,
-                    paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    embeddings: Optional[torch.Tensor] = None,
+                    positions: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
         """One token for every slot; the caches are written in place.
-        tokens: (B, 1).  Returns logits (B, V).
+        tokens: (B, 1), or for an embedding-input arch ``embeddings`` (B,
+        1, d).  Returns logits (B, V).
 
         ``paged`` = (lengths (B,), table (B, n_pages)), both int32: every
         slot decodes at its own length against the shared page pools
-        (``init_paged_cache``).  Otherwise ``pos`` is the position every
-        slot decodes at, against the dense caches of ``init_cache``."""
+        (``init_paged_cache``; attention stacks only).  Otherwise ``pos``
+        is the position every slot decodes at, against the dense caches
+        of ``init_cache`` (the recurrent archs' one layout).
+
+        ``positions`` (B, 1, 3) int are an M-RoPE arch's rotary positions
+        (ignored by other archs, as in the JAX package).  Left out, every
+        axis takes the slot's decode position: what the JAX package's
+        servers feed."""
         if (paged is None) == (pos is None):
             raise ValueError("decode_step takes pos= (dense cache) or "
                              "paged= (page pools), exactly one")
-        self._require_tokens("decode_step")
-        x = self._embed(params, {"tokens": tokens})
+        if paged is not None:
+            _require_paged(self.cfg)
+        cfg = self.cfg
+        given = embeddings if cfg.input_mode == "embeddings" else tokens
+        if given is None:
+            raise ValueError(f"decode_step: arch {cfg.name} takes "
+                             f"{cfg.input_mode}")
+        x = self._embed(params, {cfg.input_mode: given})
+        if not cfg.mrope_sections:
+            positions = None
+        elif positions is None:
+            at = paged[0] if paged is not None else torch.full(
+                (x.shape[0],), int(pos), dtype=torch.int32, device=x.device)
+            positions = self._mrope_override(at, 1)
         views = {}      # the dense caches' page tables, one a cap a step
         for p, kind, c in self._layers(params, cache):
             pages = None
-            if paged is None:
+            if paged is None and "k" in c:
                 b, cap = c["k"].shape[:2]
                 if cap not in views:
                     views[cap] = layers.dense_pages(b, cap, int(pos),
                                                     x.device)
                 pages = views[cap]
-            x = layer_decode(p, self.cfg, kind, x, c, self.dt,
+            x = layer_decode(p, cfg, kind, x, c, self.dt,
                              pos=None if pos is None else int(pos),
-                             paged=paged, pages=pages)
+                             paged=paged, pages=pages, positions=positions)
         return self._logits(params, x)[:, 0]
 
     def verify_step_paged(self, params: Params, cache, tokens: torch.Tensor,
@@ -569,20 +696,23 @@ class Model:
         occupies positions ``lengths[b] + [0, W)`` (not page-aligned; the
         scheduler holds pages for the span).  Row t predicts the token at
         position ``lengths + t + 1``, so the caller needs logits at every
-        row.  Returns logits (B, W, V)."""
+        row.  Returns logits (B, W, V).  An M-RoPE arch rotates position
+        ``lengths[b] + t`` on every axis, as the JAX package does."""
+        _require_paged(self.cfg)
         self._require_tokens("verify_step_paged")
         x = self._embed(params, {"tokens": tokens})
+        positions = self._mrope_override(lengths, tokens.shape[1])
         for p, kind, c in self._layers(params, cache):
             x = layer_verify_paged(p, self.cfg, kind, x, c, lengths, tables,
-                                   self.dt)
+                                   self.dt, positions)
         return self._logits(params, x)
 
     # ------------------------------ dense serving ---------------------
     def init_cache(self, batch: int, max_len: int) -> Dict[str, Any]:
-        """Dense per-attention-layer (B, cap, Hkv, hd) K/V caches in the
-        compute dtype (``layer_cache_init``); stacked periods carry a
-        leading period axis."""
-        self._require_tokens("init_cache")
+        """Dense per-layer decode state (``layer_cache_init``): K/V
+        caches and token-shift and conv buffers in the compute dtype, the
+        recurrent states in fp32; stacked periods carry a leading period
+        axis."""
         cfg, lay = self.cfg, self.layout
 
         def caches(kind, lead=()):

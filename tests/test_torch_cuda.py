@@ -1481,3 +1481,110 @@ def test_train_step_kernels_match_plain(card, arch):
     for got, want in zip(gk, gp):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("arch, weights", [("rwkv6-7b", ""),
+                                           ("recurrentgemma-9b", ""),
+                                           ("recurrentgemma-9b", "int8")])
+def test_recurrent_decode_kernels_match_plain(card, arch, weights):
+    """The recurrent archs' dense decode at smoke width on the card: 20
+    teacher-forced steps of two slots (recurrentgemma's local layer at
+    max_len 12 wraps its buffer), once through the kernels and once
+    through the plain versions.  The kernel run launches exactly the
+    head (rwkv6-7b) or the head, the local layer's 4 projections, 3
+    GEMMs an MLP and one decode attention a step (recurrentgemma; B5 for
+    the projections and MLPs on int8 weights), takes no plain route and
+    reruns bit-equal; logits and every cache leaf agree with the plain
+    run."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import F32_POLICY
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_arch(arch).smoke(), weights_dtype=weights)
+    model = Model(cfg, dt=F32_POLICY, device=card)
+    params = model.bind_params(model.init(seed=0))
+    steps = 20
+    toks = torch.randint(0, cfg.vocab_size, (steps, 2, 1), dtype=torch.int32,
+                         generator=torch.Generator(device=card).manual_seed(1),
+                         device=card)
+
+    def run():
+        cache = model.init_cache(2, 12)
+        logits = torch.stack([model.decode_step(params, cache, t, pos=i)
+                              for i, t in enumerate(toks)])
+        return logits, cache
+
+    dispatch.reset_launch_counts()
+    with dispatch.stats_scope() as stats:
+        kernel, kcache = run()
+        torch.cuda.synchronize()
+        routes = stats()
+    launches = {op: n for op, n in dispatch.launch_counts().items() if n}
+    if arch == "rwkv6-7b":
+        want = {"matmul": steps}
+    elif weights:
+        want = {"matmul": steps, "quantized_matmul": 13 * steps,
+                "decode_attention": steps}
+    else:
+        want = {"matmul": 14 * steps, "decode_attention": steps}
+    assert launches == want
+    assert routes and all(route == "kernel" for _, route in routes)
+    again, _ = run()
+    assert torch.equal(kernel, again)
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        plain, pcache = run()
+    torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)
+    for mine, ref in zip(kcache["prefix"], pcache["prefix"]):
+        for k in ref:
+            torch.testing.assert_close(mine[k], ref[k], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_mrope_embedding_decode_kernels_match_plain(card, layout):
+    """qwen2-vl smoke's decode step on the card, fed embeddings and three
+    different M-RoPE position streams, over a dense cache or page pools:
+    kernels against plain versions, B1 7 a layer plus the head and B2
+    once a layer a step."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import F32_POLICY
+    from repro_torch.models.transformer import Model
+    cfg = get_arch("qwen2-vl-2b").smoke()
+    model = Model(cfg, dt=F32_POLICY, device=card)
+    params = model.init(seed=0)
+    gen = torch.Generator(device=card).manual_seed(2)
+    steps, b = 6, 2
+    emb = torch.randn(steps, b, 1, cfg.d_model, generator=gen, device=card)
+    pos = torch.randint(0, 30, (steps, b, 1, 3), generator=gen, device=card,
+                        dtype=torch.int32)
+    table = torch.arange(1, 1 + 2 * b, dtype=torch.int32,
+                         device=card).view(b, 2)
+
+    def run():
+        out = []
+        if layout == "dense":
+            cache = model.init_cache(b, 8)
+        else:
+            cache = model.init_paged_cache(b, 8, 4)
+        for i in range(steps):
+            kw = ({"pos": i} if layout == "dense" else
+                  {"paged": (torch.full((b,), i, dtype=torch.int32,
+                                        device=card), table)})
+            out.append(model.decode_step(params, cache, embeddings=emb[i],
+                                         positions=pos[i], **kw))
+        return torch.stack(out)
+
+    dispatch.reset_launch_counts()
+    kernel = run()
+    torch.cuda.synchronize()
+    launches = {op: n for op, n in dispatch.launch_counts().items() if n}
+    n = cfg.n_layers
+    assert launches == {"matmul": steps * (7 * n + 1),
+                        "decode_attention": steps * n}
+    with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
+        plain = run()
+    torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)

@@ -319,17 +319,26 @@ def test_serving_refuses_embedding_archs(arch):
         jax_serve.main(argv[:3])
     assert str(mine.value) == str(theirs.value) \
         == "serving demo drives token-mode archs"
+    # the model's decode step takes embeddings (and M-RoPE positions) on
+    # both cache layouts; the paged prefill and verify forwards embed
+    # tokens, as the JAX package's do, so they refuse
     model = Model(ARCHS[arch].smoke(), device="cpu")
     params = model.init(0)
     one = torch.zeros((1, 1), dtype=torch.int32)
+    emb = torch.zeros((1, 1, model.cfg.d_model))
+    cache = model.init_cache(1, 8)
+    pools = model.init_paged_cache(1, 8, 4)
+    assert model.decode_step(params, cache, embeddings=emb, pos=0).shape \
+        == (1, model.cfg.vocab_size)
+    assert model.decode_step(params, pools, embeddings=emb,
+                             paged=(one[0], one + 1)).shape \
+        == (1, model.cfg.vocab_size)
     calls = {
-        "init_cache": lambda: model.init_cache(1, 8),
-        "init_paged_cache": lambda: model.init_paged_cache(1, 8, 4),
-        "decode_step": lambda: model.decode_step(params, None, one, pos=0),
+        "decode_step": lambda: model.decode_step(params, cache, one, pos=0),
         "prefill_step_paged": lambda: model.prefill_step_paged(
-            params, None, one, one[0], one, one[0]),
+            params, pools, one, one[0], one, one[0]),
         "verify_step_paged": lambda: model.verify_step_paged(
-            params, None, one, one[0], one)}
+            params, pools, one, one[0], one)}
     for name, call in calls.items():
         with pytest.raises(ValueError, match=f"{name}: arch"):
             call()
