@@ -171,11 +171,30 @@ Phases, one output line or more each:
               step; then ``embed_train_parity``: qwen2-vl-2b's fp32
               loss and backward, kernels against plain versions, on a
               batch whose three M-RoPE position streams differ.
+6d. recurrent -- ``recurrent_prefill``: ``Model.prefill`` of rwkv6-7b
+              (32 layers) and recurrentgemma-9b (38) at full width and
+              depth in bf16 on 2 x 2048 tokens, one model alive at a
+              time: exactly their launches (rwkv6-7b B8 32 on mma and B1
+              1; recurrentgemma-9b B1 163 and B6 12 on wgmma), kernel
+              routes only, finite logits.  ``recurrent_train``: phase
+              5's entry point on rwkv6-7b cut to 8 layers (2.286e9
+              params) and recurrentgemma-9b cut to 6 (two whole periods;
+              2.236e9), through a patched ``get_arch``, its final
+              checkpoint patched out (four train runs above write one):
+              exact launches by layer kind (rwkv6-7b B1 96, B8 48, its
+              backward 24; recurrentgemma-9b B1 408, B6 12, B7 6 on
+              wgmma), peak memory under 80 GB, a profiled step each
+              (failing without
+              device time in B8 and its backward, or in the wgmma B6/B7
+              kernels); ``recurrent_train_parity``: each arch's fp32
+              loss and backward, kernels against plain versions, at
+              less depth (rwkv6-7b 2 layers, recurrentgemma-9b 3).
 7. library -- the kernel library's public ops
               (``repro_torch.kernels.{wkv,stencil,nbody,histogram}``) on
-              CUDA tensors at phase 2b's sizes: only kernel routes, one
-              launch per call (the stencil one per sweep; B10 counts its
-              split sum in the call's one), WKV once on each route (bf16
+              CUDA tensors at phase 2b's sizes, the launch counts set to
+              0 just before: only kernel routes, one launch per call
+              (the stencil one per sweep; B10 counts its split sum in
+              the call's one), WKV once on each route (bf16
               rwkv6-7b on mma, fp32 at hd 128 on simt), outputs equal to
               the plain versions within phase 2b's tolerances.  Then
               the same ops on a transposed or strided view, an
@@ -194,7 +213,13 @@ bf16 and fp32, max |err| within 1e-4 of max |out|, each row on the route
 (sub-chunk and piece, or the simt tiles), a rerun bit-equal, and a bound
 from bytes and the function's operations at the peak of the row's type;
 mma rows also print what that route issues (bf16 hi + lo products at
-the bf16 peak, its FP32 work) apart from the bound; the Jacobi stencil
+the bf16 peak, its FP32 work) apart from the bound; the WKV backward
+(the model's, no TPU kernel) at rwkv6-7b's training shape (B=2 S=512
+H=64 hd=64) in bf16 and fp32 and at S=4096 in fp32 under strong decays,
+each gradient within 5e-2 (bf16) or 2e-4 (fp32) of its max |grad| of
+the plain backward run in fp64 on the same inputs, a rerun bit-equal,
+beside the fp32 plain backward's time and a bound from bytes and the
+recurrence's operations; the Jacobi stencil
 (B9) on 8192 x 8192 fp32 (1 and 32 sweeps) and 8191 x 8193, bit for bit, beside one
 ``F.conv2d`` with the cross kernel; N-body (B10) at N = 16128 and 65536,
 within 1e-4 of max |a|, its split plan, a rerun bit-equal, and beside the
@@ -286,6 +311,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/attention/flash.py:89",
     "flash_attention_bwd": "src/repro/kernels/attention/backward.py:134",
     "wkv": "src/repro/kernels/wkv/wkv.py:102",
+    # no TPU kernel: the JAX package differentiates wkv_chunked by autodiff
+    "wkv_bwd": "src/repro/models/rwkv.py:171",
     "stencil": "src/repro/kernels/stencil/stencil.py:51",
     "nbody": "src/repro/kernels/nbody/nbody.py:53",
     "histogram": "src/repro/kernels/histogram/histogram.py:45",
@@ -304,6 +331,7 @@ SOURCES = {
     "flash_attention_bwd":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "wkv": "src/repro_torch/kernels/csrc/wkv.cu",
+    "wkv_bwd": "src/repro_torch/kernels/csrc/wkv_bwd.cu",
     "stencil": "src/repro_torch/kernels/csrc/stencil.cu",
     "nbody": "src/repro_torch/kernels/csrc/nbody.cu",
     "histogram": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -316,6 +344,10 @@ WKV_SHAPE = dict(b=4, s=4096, h=64, hd=64)
 # key-side pieces a head
 WKV_WIDE_SHAPE = dict(b=4, s=4096, h=32, hd=128)
 WKV_CHUNK, WKV_SUBCHUNK = 64, 16
+# the WKV backward at rwkv6-7b's training shape (2 x 512 tokens) and, in
+# fp32 under strong decays, at 4096 tokens
+WKV_TRAIN_SHAPE = dict(b=2, s=512, h=64, hd=64)
+WKV_LONG_SHAPE = dict(b=2, s=4096, h=64, hd=64)
 STENCIL_CASES = ((8192, 8192, 1), (8192, 8192, 32), (8191, 8193, 1))
 NBODY_SIZES = (16128, 65536)
 HIST_N, HIST_BINS = 1 << 26, 256
@@ -326,12 +358,14 @@ LIB_TOL = 1e-4            # WKV and N-body: max |err| / max |plain output|
 TRAIN_SHAPE = dict(b=2, h=8, s=512, hd=256)
 TRAIN_CASE = "B=2 H=8 S=512 hd=256 causal window=0"
 WKV_CASE = "B=4 S=4096 H=64 hd=64 chunk=64 decay=init"
+WKV_BWD_CASE = "B=2 S=512 H=64 hd=64 decay=init"
 SUMMARY_CASE = {"matmul": "M=4 K=2048 N=16384",
                 "grouped_matmul": "G=60 C=8 K=2048 N=1408",
                 "quantized_matmul": "M=4 K=2048 N=16384",
                 "flash_attention": TRAIN_CASE,
                 "flash_attention_bwd": TRAIN_CASE,
                 "wkv": WKV_CASE,
+                "wkv_bwd": WKV_BWD_CASE,
                 "stencil": "8192x8192 steps=1",
                 "nbody": "N=65536",
                 "histogram": "N=2^26 bins=256 uniform"}
@@ -1275,6 +1309,100 @@ def check_wkv(torch):
             f"(wkv_ops) at the {dtype_name} peak, "
             f"{PEAK_OPS_S[dtype_name] / 1e12:g} TFLOP/s", **issued))
         del r, k, v, lw, u, got
+    return rows
+
+
+def wkv_bwd_ops(b: int, s: int, h: int, hd: int) -> float:
+    """Operations the WKV recurrence's gradient needs, per (batch, step,
+    head), at their least: the state and its gradient advanced by k v^T
+    and r do^T (2 hd^2 each; the chunked form scales a chunk's state by
+    its decay once), the state-side products dr' = S do, dk' = G v and
+    dv' = G^T k (2 hd^2 each), 10 hd^2 in all; dlw from reverse running
+    sums of r * dr' and k * dk' (no hd^2 rowsum of G * S) and the bonus
+    terms (v . do and r . (u * k), their products into dr, dk, dv, du),
+    about 20 hd."""
+    return float(b * s * h * (10 * hd * hd + 20 * hd))
+
+
+def wkv_bwd_reference(torch, args, do):
+    """The plain backward (the autograd of ``wkv_chunked``) in fp64, one
+    batch row at a time, du summed over the rows: in fp32 its dlw is the
+    difference of O(1) terms, whose rounding is most of a strong decay's
+    dlw of e^-20 size; fp64 of one row at 4096 tokens holds ~26 GB of
+    intra-chunk weights."""
+    from repro_torch.kernels.wkv import wkv_bwd_plain
+    r, k, v, lw, u = args
+    parts = []
+    for i in range(r.shape[0]):
+        rows = [t[i:i + 1].double() for t in (r, k, v, lw)]
+        parts.append(wkv_bwd_plain(*rows, u.double(), do[i:i + 1].double(),
+                                   chunk=WKV_CHUNK))
+        torch.cuda.empty_cache()
+    grads = [torch.cat([p[j] for p in parts]) for j in range(4)]
+    return grads + [sum(p[4] for p in parts)]
+
+
+# phase 2b's WKV backward rows: (dtype, strong decays, shape)
+WKV_BWD_ROWS = (("bfloat16", False, WKV_TRAIN_SHAPE),
+                ("float32", False, WKV_TRAIN_SHAPE),
+                ("float32", True, WKV_LONG_SHAPE))
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dlw", "du")
+
+
+def check_wkv_bwd(torch):
+    """The WKV backward kernel against the plain backward in fp64 on the
+    same inputs (``wkv_bwd_reference``): each gradient within the row
+    type's tolerance of its max |grad|, a rerun bit-equal; times of the
+    kernel and of the plain backward in the row's type (the model's CPU
+    route), a bound from bytes and ``wkv_bwd_ops``."""
+    from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain
+    rows = []
+    for dtype_name, strong, shape in WKV_BWD_ROWS:
+        b, s, h, hd = (shape[x] for x in ("b", "s", "h", "hd"))
+        args = wkv_inputs(torch, dtype_name, strong, shape)
+        gen = torch.Generator(device="cuda").manual_seed(11 + strong)
+        do = torch.randn(args[0].shape, generator=gen, device="cuda")
+        case = (f"B={b} S={s} H={h} hd={hd} "
+                f"decay={'strong' if strong else 'init'}")
+
+        def call():
+            return wkv_bwd_cuda(*args, do)
+        got = call()
+        want = wkv_bwd_reference(torch, args, do)
+        torch.cuda.synchronize()
+        rel, err = {}, 0.0
+        for name, g, w in zip(WKV_BWD_NAMES, got, want):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"wkv_bwd {case}: non-finite {name}")
+            e = (g.double() - w).abs().max().item()
+            rel[name] = e / max(w.abs().max().item(), 1e-300)
+            err = max(err, e)
+        del want
+        bad = {n: x for n, x in rel.items() if not x <= TOL[dtype_name]}
+        if bad:
+            raise AssertionError(f"wkv_bwd {case}: {bad} of max |grad|, "
+                                 f"over {TOL[dtype_name]}")
+        if not all(torch.equal(x, y) for x, y in zip(got, call())):
+            raise AssertionError(f"wkv_bwd {case}: a rerun changed the bits")
+        del got
+        n = args[0].numel()
+        nbytes = (3 * n * args[0].element_size() + 2 * 4 * n + 4 * h * hd
+                  + 4 * 4 * n + 4 * h * hd)
+        reps = 2 if s > WKV_TRAIN_SHAPE["s"] else 5
+        rows.append(row(
+            "wkv_bwd", case, dtype_name, err, time_ms(torch, call, reps),
+            time_ms(torch, lambda: wkv_bwd_plain(*args, do, chunk=WKV_CHUNK),
+                    reps // 2),
+            bound(nbytes, wkv_bwd_ops(b, s, h, hd), dtype_name), None,
+            rel_err=rel, rerun_bit_equal=True,
+            device_ms=device_ms(torch, call, reps),
+            reference="plain backward in fp64",
+            library="none: no PyTorch call computes WKV6's gradient",
+            bound_peaks=f"bytes at 3.35 TB/s; the recurrence's operations "
+            f"(wkv_bwd_ops) at the {dtype_name} peak, "
+            f"{PEAK_OPS_S[dtype_name] / 1e12:g} TFLOP/s"))
+        del args, do
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2493,8 +2621,6 @@ def recurrent_model_phase(torch):
 
 
 # ------------------------------------------------------------ phase 5
-TRAIN_OPS = ("attention", "attention_bwd", "matmul", "matmul_bwd")
-MOE_TRAIN_OPS = TRAIN_OPS + ("grouped_matmul", "grouped_matmul_bwd")
 # qwen2-moe-a2.7b trains at its published width with its depth cut to 4
 # of 24 layers: a layer holds 570.6M params (experts 519.0M, shared MLP
 # 34.6M, attention 16.8M, router 0.12M) and the untied embed and head
@@ -2521,30 +2647,66 @@ def moe_train_config():
     return dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
 
 
+def layer_launches(cfg) -> Counter:
+    """The launches one forward of ``cfg``'s layers makes, per kernel, by
+    layer kind: an attention layer B6 and its q, k, v, o GEMMs, an RWKV
+    time mix B8 (its mixes, like the channel mix and the RG-LRU block,
+    are plain products, as in the JAX package); a dense MLP's two or
+    three GEMMs, a MoE layer's fp32 router and its shared MLP's three on
+    B1 and its experts' two or three contractions on B1's grouped
+    route."""
+    glu = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    want = Counter()
+    for mixer, ffn in cfg.layer_kinds():
+        if mixer in ("attn", "swa"):
+            want["matmul"] += 4
+            want["flash_attention"] += 1
+        if mixer == "rwkv":
+            want["wkv"] += 1
+        if ffn == "moe":
+            want["matmul"] += 1 + (glu if cfg.n_shared_experts else 0)
+            want["grouped_matmul"] += glu
+        elif ffn == "mlp":
+            want["matmul"] += glu
+    return want
+
+
 def expected_train_launches(cfg):
     """Launches per kernel that ``TRAIN_STEPS`` steps of ``cfg`` imply:
-    every layer's forward and its remat recompute run B6 and the layer's
-    GEMMs (q, k, v, o; a dense MLP's two or three; a MoE layer's fp32
-    router and its shared MLP's three on B1, its experts' two or three
-    contractions on B1's grouped route), each of the 8 xent chunks (also
-    recomputed) one head GEMM, every GEMM backward two launches of its
-    route, every layer's backward one B7 call."""
+    every layer's forward and its remat recompute make the layers'
+    ``layer_launches`` once each, and each of the 8 xent chunks (also
+    recomputed) one head GEMM.  Every GEMM backward is two launches of
+    its route, every attention layer's backward one B7 call, every time
+    mix's one WKV backward."""
     from repro_torch.models.transformer import ExecOptions
-    glu = 3 if cfg.activation in ("swiglu", "geglu") else 2
-    gemms, grouped = min(ExecOptions().xent_chunks, TRAIN_SEQ), 0
-    for _, ffn in cfg.layer_kinds():
-        gemms += 4
-        if ffn == "moe":
-            gemms += 1 + (glu if cfg.n_shared_experts else 0)
-            grouped += glu
-        else:
-            gemms += glu
-    want = {"matmul": TRAIN_STEPS * 4 * gemms,
-            "flash_attention": TRAIN_STEPS * 2 * cfg.n_layers,
-            "flash_attention_bwd": TRAIN_STEPS * cfg.n_layers}
-    if grouped:
-        want["grouped_matmul"] = TRAIN_STEPS * 4 * grouped
+    fwd = layer_launches(cfg)
+    gemms = fwd["matmul"] + min(ExecOptions().xent_chunks, TRAIN_SEQ)
+    want = {"matmul": TRAIN_STEPS * 4 * gemms}
+    if fwd["flash_attention"]:
+        want.update(flash_attention=TRAIN_STEPS * 2 * fwd["flash_attention"],
+                    flash_attention_bwd=TRAIN_STEPS * fwd["flash_attention"])
+    if fwd["wkv"]:
+        want.update(wkv=TRAIN_STEPS * 2 * fwd["wkv"],
+                    wkv_bwd=TRAIN_STEPS * fwd["wkv"])
+    if fwd["grouped_matmul"]:
+        want["grouped_matmul"] = TRAIN_STEPS * 4 * fwd["grouped_matmul"]
     return want
+
+
+# the dispatch ops of a train step: each kernel's forward op and its
+# backward's
+TRAIN_OP_OF = {"matmul": ("matmul", "matmul_bwd"),
+               "grouped_matmul": ("grouped_matmul", "grouped_matmul_bwd"),
+               "flash_attention": ("attention", "attention_bwd"),
+               "wkv": ("wkv", "wkv_bwd")}
+
+
+def train_ops(cfg) -> tuple:
+    """The dispatch ops every train step of ``cfg`` must route to a
+    kernel."""
+    want = expected_train_launches(cfg)
+    return tuple(op for kernel, ops in TRAIN_OP_OF.items() if kernel in want
+                 for op in ops)
 
 
 class RemattedRoutes:
@@ -2575,16 +2737,21 @@ class RemattedRoutes:
         return out
 
 
-def train_run(torch, phase: str, cfg):
+def train_run(torch, phase: str, cfg, checkpoint: bool = True):
     """``launch.train.main`` on ``cfg`` (fp32 master weights, bf16
     compute, per-layer remat, 8 xent chunks, AdamW) for ``TRAIN_STEPS``
     steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens with a final
     checkpoint, in the checkout's (git-ignored) build/ and removed
-    afterwards.  The entry point looks the arch up by name; a config cut
-    in depth reaches it through a patched ``get_arch``.  Every loss
-    finite, kernel routes only, exactly the launches ``cfg`` implies,
-    every flash call on wgmma, peak memory under 80 GB; a MoE config's
-    remat recompute must choose the forward's experts, bit for bit."""
+    afterwards; with ``checkpoint`` false the save is patched out (the
+    same save of a tree of tensors, 18-35 GB written at ~0.7 GB/s, that
+    the other train runs make).  The entry point looks the arch up by
+    name; a config cut in depth reaches it through a patched
+    ``get_arch``.  Every loss
+    finite, kernel routes only, exactly the launches ``cfg`` implies
+    (``expected_train_launches``), every flash call on wgmma and every
+    WKV on mma, peak memory under 80 GB; a MoE config's remat recompute
+    must choose the forward's experts, bit for bit."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
     from repro_torch.configs import get_arch
     from repro_torch.kernels import dispatch
     from repro_torch.launch import train
@@ -2603,14 +2770,17 @@ def train_run(torch, phase: str, cfg):
             stack.enter_context(mock.patch.object(train, "get_arch",
                                                   lambda name: cfg))
         stack.enter_context(mock.patch.object(moe, "route", remat))
+        if not checkpoint:
+            stack.enter_context(mock.patch.object(
+                CheckpointManager, "save", lambda *args, **kwargs: None))
         losses = train.main(
             ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch",
              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
              "--ckpt-dir", str(ckpt_dir)], report=report)
         torch.cuda.synchronize()
         launches = dispatch.launch_counts()
-        flash_routes = {k: n for k, n in dispatch.route_counts().items()
-                        if k.startswith("flash_attention")}
+        kernel_routes = {k: n for k, n in dispatch.route_counts().items()
+                         if k.startswith(("flash_attention", "wkv"))}
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     routes = {f"{op}/{route}": n for (op, route), n in report[
@@ -2622,10 +2792,11 @@ def train_run(torch, phase: str, cfg):
             "losses": losses, "step_seconds": report["step_seconds"],
             "tok_s_per_step": [tokens / t for t in report["step_seconds"]],
             "seconds": report["seconds"], "max_memory_allocated": peak,
+            "checkpoint": checkpoint,
             "checkpoint_bytes": report["checkpoint_bytes"],
             "checkpoint_seconds": report["checkpoint_seconds"],
             "routes": routes, "launches": launches,
-            "flash_routes": flash_routes}
+            "kernel_routes": kernel_routes}
     if moe_layers:
         line.update(aux=report["aux"],
                     remat_route_pairs=len(remat.pairs),
@@ -2633,9 +2804,8 @@ def train_run(torch, phase: str, cfg):
     emit(line)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{phase}: losses {losses}")
-    ops = MOE_TRAIN_OPS if moe_layers else TRAIN_OPS
     off = {k: n for k, n in report["routes"].items() if k[1] != "kernel"}
-    missing = [op for op in ops
+    missing = [op for op in train_ops(cfg)
                if report["routes"].get((op, "kernel"), 0) == 0]
     if off or missing:
         raise AssertionError(f"{phase}: routes {routes}")
@@ -2643,12 +2813,16 @@ def train_run(torch, phase: str, cfg):
     got = {op: n for op, n in launches.items() if n or op in want}
     if got != want:
         raise AssertionError(f"{phase}: launches {got}, expected {want}")
-    # bf16 compute at hd 64, 128 or 256: every flash call on wgmma
-    want_routes = {f"{op}/{route}": want[op] if route == "wgmma" else 0
-                   for op in ("flash_attention", "flash_attention_bwd")
-                   for route in ("wgmma", "simt")}
-    if flash_routes != want_routes:
-        raise AssertionError(f"{phase}: flash routes {flash_routes}, "
+    # bf16 compute at hd 64, 128 or 256: every flash call on wgmma; at
+    # rwkv6-7b's hd 64, chunk 64 and sub-chunk 16 every WKV on mma
+    want_routes = {f"{op}/{route}": want.get(op, 0) if route == fast else 0
+                   for op, fast in (("flash_attention", "wgmma"),
+                                    ("flash_attention_bwd", "wgmma"),
+                                    ("wkv", "mma"))
+                   for route in (fast, "simt")}
+    want_routes["wkv_bwd/simt"] = want.get("wkv_bwd", 0)
+    if kernel_routes != want_routes:
+        raise AssertionError(f"{phase}: kernel routes {kernel_routes}, "
                              f"expected {want_routes}")
     if not peak < MEMORY_LIMIT_BYTES:
         raise AssertionError(f"{phase}: peak memory {peak} bytes")
@@ -2686,7 +2860,13 @@ KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("decode_combine_kernel", "B2/B4a decode attention"),
                  ("prefill_wgmma_kernel", "B3/B4b prefill attention"),
                  ("prefill_combine_kernel", "B3/B4b prefill attention"),
-                 ("prefill_simt_kernel", "B3/B4b prefill attention"))
+                 ("prefill_simt_kernel", "B3/B4b prefill attention"),
+                 # the WKV backward (wkv_bwd_kernel, and its du sum) before
+                 # B8's routes (wkv_mma_kernel, the simt wkv_kernel)
+                 ("wkv_bwd_kernel", "B8 backward (WKV gradient)"),
+                 ("wkv_bwd_du_kernel", "B8 backward (WKV gradient)"),
+                 ("wkv_mma_kernel", "B8 WKV (mma)"),
+                 ("wkv_kernel", "B8 WKV (SIMT)"))
 OTHER_GROUP = "other (PyTorch ops)"
 # what a bf16 train step's attention must run on (hd 64, 128 or 256)
 TRAIN_WGMMA_GROUPS = ("B6 flash forward bf16 (wgmma)",
@@ -2695,6 +2875,8 @@ TRAIN_WGMMA_GROUPS = ("B6 flash forward bf16 (wgmma)",
 # and a MoE step's experts: the bf16 forward and the fp32 backward
 MOE_TRAIN_GROUPS = TRAIN_WGMMA_GROUPS + ("B1 grouped bf16 (wgmma)",
                                          "B1 grouped fp32 (SIMT)")
+# and an RWKV step's time mixes: B8 forward and the WKV backward
+RWKV_TRAIN_GROUPS = ("B8 WKV (mma)", "B8 backward (WKV gradient)")
 
 
 def kernel_group(name: str) -> str:
@@ -2838,6 +3020,111 @@ def serve_profile(torch, label: str, extra: list, base=None):
             f"{key}_top_other": [{"ms": ms, "kernel": k} for k, ms in sorted(
                 other.items(), key=lambda kv: -kv[1])[:8]]})
     emit(line)
+
+
+# ------------------------------------------------------------ phase 6d
+# the recurrent archs' whole-sequence prefill at full width and depth in
+# bf16: 2 x 2048 tokens; exact launches (``prefill_launches``: rwkv6-7b
+# B8 once a layer and B1 for the head, recurrentgemma-9b its decode
+# step's B1 163 and B6 once a local layer)
+RECURRENT_ARCHS = ("rwkv6-7b", "recurrentgemma-9b")
+RECURRENT_PREFILL = dict(batch=2, seq=2048)
+# training at published width with the depth cut: fp32 master weights and
+# AdamW take ~16 bytes a parameter (rwkv6-7b 7.535e9 params, ~121 GB;
+# recurrentgemma-9b 8.579e9, ~137 GB); rwkv6-7b 8 layers (2.286e9),
+# recurrentgemma-9b 6 (two whole rglru, rglru, swa periods; 2.236e9)
+RECURRENT_TRAIN_LAYERS = {"rwkv6-7b": 8, "recurrentgemma-9b": 6}
+# the fp32 parity step (a kernel run and a plain run, each with its
+# gradients) at less depth, every layer kind still present: rwkv6-7b 2
+# layers, recurrentgemma-9b 3 (one whole rglru, rglru, swa period)
+RECURRENT_PARITY_LAYERS = {"rwkv6-7b": 2, "recurrentgemma-9b": 3}
+RECURRENT_TRAIN_GROUPS = {"rwkv6-7b": RWKV_TRAIN_GROUPS,
+                          "recurrentgemma-9b": TRAIN_WGMMA_GROUPS}
+
+
+def prefill_launches(cfg) -> dict:
+    """The launches one whole-sequence prefill of ``cfg`` makes: its
+    layers' ``layer_launches`` and the head once (B1)."""
+    want = layer_launches(cfg)
+    want["matmul"] += 1
+    return dict(want)
+
+
+def recurrent_prefill_phase(torch):
+    """``Model.prefill`` of each recurrent arch at full width and depth in
+    bf16 (one model alive at a time) on ``RECURRENT_PREFILL`` seeded
+    tokens, every launch count set to 0 just before and read just after:
+    exactly ``prefill_launches``, kernel routes only (B6 on wgmma, B8 on
+    mma), finite logits; its seconds (host wall, synchronised), tokens/s
+    and peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    launches = {}
+    b, s = RECURRENT_PREFILL["batch"], RECURRENT_PREFILL["seq"]
+    for arch in RECURRENT_ARCHS:
+        release(torch)
+        cfg = get_arch(arch)
+        model = Model(cfg, dt=DtypePolicy(param=torch.bfloat16),
+                      device="cuda")
+        params = model.init(seed=3)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            model.prefill(params, {"tokens": tokens})        # warm-up
+            torch.cuda.synchronize()
+            dispatch.reset_launch_counts()
+            with dispatch.stats_scope() as stats:
+                t0 = time.perf_counter()
+                logits = model.prefill(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                routes = stats()
+        got = {op: n for op, n in dispatch.launch_counts().items() if n}
+        kernel_routes = {k: n for k, n in dispatch.route_counts().items()
+                         if n}
+        want = prefill_launches(cfg)
+        finite = bool(torch.isfinite(logits).all())
+        emit({"phase": "recurrent_prefill", "arch": arch,
+              "layers": cfg.n_layers, "batch": b, "seq": s,
+              "seconds": seconds, "tok_s": b * s / seconds,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches": got, "kernel_routes": kernel_routes,
+              "routes": {f"{op}/{r}": n for (op, r), n in routes.items()},
+              "logits_finite": finite, "logits_shape": list(logits.shape)})
+        if any(r != "kernel" for _, r in routes):
+            raise AssertionError(f"recurrent_prefill {arch}: routes "
+                                 f"{routes}")
+        if got != want:
+            raise AssertionError(f"recurrent_prefill {arch}: launches "
+                                 f"{got}, expected {want}")
+        fast = {"flash_attention/wgmma": want.get("flash_attention", 0),
+                "wkv/mma": want.get("wkv", 0)}
+        if {k: kernel_routes.get(k, 0) for k in fast} != fast \
+                or set(kernel_routes) - set(fast):
+            raise AssertionError(f"recurrent_prefill {arch}: kernel routes "
+                                 f"{kernel_routes}")
+        if not finite or tuple(logits.shape) != (b, cfg.vocab_size):
+            raise AssertionError(f"recurrent_prefill {arch}: logits "
+                                 f"{tuple(logits.shape)}, finite {finite}")
+        for op, n in got.items():
+            launches[op] = launches.get(op, 0) + n
+        del model, params, logits
+    release(torch)
+    return launches
+
+
+def recurrent_train_config(arch: str, parity: bool = False):
+    """``arch`` at its published width, its depth cut to
+    ``RECURRENT_TRAIN_LAYERS`` (``RECURRENT_PARITY_LAYERS`` for the
+    parity step)."""
+    from repro_torch.configs import get_arch
+    depth = RECURRENT_PARITY_LAYERS if parity else RECURRENT_TRAIN_LAYERS
+    return dataclasses.replace(get_arch(arch), n_layers=depth[arch])
 
 
 # ------------------------------------------------------------ phase 6
@@ -3007,7 +3294,8 @@ def main(argv=None) -> int:
         rows += check_flash(torch, dtype_name)
         rows += check_matmul_backward(torch, dtype_name)
     torch.cuda.empty_cache()
-    for check in (check_wkv, check_stencil, check_nbody, check_histogram):
+    for check in (check_wkv, check_wkv_bwd, check_stencil, check_nbody,
+                  check_histogram):
         rows += check(torch)
         torch.cuda.empty_cache()
 
@@ -3059,7 +3347,23 @@ def main(argv=None) -> int:
         release(torch)
     train_parity_phase(torch, "embed_train_parity", get_arch("qwen2-vl-2b"))
     release(torch)
-    launches.update(library_phase(torch))
+    for op, n in recurrent_prefill_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
+    for arch in RECURRENT_ARCHS:
+        cfg = recurrent_train_config(arch)
+        for op, n in train_run(torch, "recurrent_train", cfg,
+                               checkpoint=False).items():
+            launches[op] = launches.get(op, 0) + n
+        release(torch)
+        train_profile(torch, "recurrent_train_profile", cfg,
+                      RECURRENT_TRAIN_GROUPS[arch])
+        release(torch)
+    for arch in RECURRENT_ARCHS:
+        train_parity_phase(torch, "recurrent_train_parity",
+                           recurrent_train_config(arch, parity=True))
+        release(torch)
+    for op, n in library_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
     torch.cuda.empty_cache()
     library_inputs_phase(torch)
     torch.cuda.empty_cache()
@@ -3068,8 +3372,8 @@ def main(argv=None) -> int:
     # the serving shapes (the GEMMs: the decode MLP up-projection, M=4
     # K=2048 N=16384; B6/B7: the causal training case; B8-B11: the case
     # SUMMARY_CASE names, in SUMMARY_DTYPE) and the largest error over
-    # all its cases; launches sum the serve and train runs (B8-B11: the
-    # library phase)
+    # all its cases; launches sum the serve, prefill and train runs and
+    # the library phase
     kernels = []
     for name in SOURCES:
         mine = [r for r in rows if r["kernel"] == name]

@@ -57,6 +57,7 @@ SIGNATURES = {
     "repro_flash_attention_bwd_wgmma": [_P] * 10 + [_I] * 5 + [_P],
     "repro_wkv": [_P] * 6 + [_I] * 8 + [_P],
     "repro_wkv_mma": [_P] * 6 + [_I] * 7 + [_P],
+    "repro_wkv_bwd": [_P] * 12 + [_I] * 5 + [_P],
     "repro_jacobi4": [_P] * 2 + [_I] * 3 + [_P],
     "repro_nbody": [_P] * 4 + [_I] * 3 + [_F, _P],
     # int32 values: no float dtype code

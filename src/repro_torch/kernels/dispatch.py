@@ -14,13 +14,14 @@ CUDA routes (``wgmma`` and ``simt``, chosen by dtype and head width, and
 for the prefill the GQA group), count them by route too
 (``route_counts``).
 
-``matmul``, ``grouped_matmul`` and ``attention`` are
+``matmul``, ``grouped_matmul``, ``attention`` and ``wkv`` are
 ``torch.autograd.Function``s (a ctypes launch is invisible to autograd):
 their backwards route by the device of the incoming gradient in the same
 way (``matmul_bwd``: both gradient GEMMs through B1 in fp32;
 ``grouped_matmul_bwd``: both through B1's grouped route in fp32;
-``attention_bwd``: the fused recompute backward), so the CPU tests walk
-the control flow and counters the card does.
+``attention_bwd``: the fused recompute backward; ``wkv_bwd``: the WKV
+backward kernel), so the CPU tests walk the control flow and counters
+the card does.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ from .matmul import (grouped_matmul_cuda, grouped_matmul_plain, matmul_cuda,
                      quantized_matmul_plain)
 from .nbody.nbody import nbody_accel_cuda
 from .stencil.stencil import jacobi4_cuda
-from .wkv.wkv import wkv_cuda
+from .wkv.wkv import (aligned, wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda,
+                      wkv_plain)
 
 _stats: Counter = Counter()
 
@@ -58,6 +60,7 @@ KERNELS = {"matmul": matmul_cuda,
            "flash_attention": flash_attention_cuda,
            "flash_attention_bwd": flash_attention_bwd_cuda,
            "wkv": wkv_cuda,
+           "wkv_bwd": wkv_bwd_cuda,
            "stencil": jacobi4_cuda,
            "nbody": nbody_accel_cuda,
            "histogram": histogram_cuda}
@@ -233,6 +236,56 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``out_dtype`` (default q's dtype); differentiable in q, k and v."""
     return _Attention.apply(q, k, v, bool(causal), int(window),
                             q.dtype if out_dtype is None else out_dtype)
+
+
+class _Wkv(torch.autograd.Function):
+    """The model's WKV recurrence from a zero state, o (B, S, H, hd) fp32:
+    forward on B8 (``wkv_cuda``) on the card and ``wkv_chunked`` on the
+    CPU; backward on the WKV backward kernel on the card and the autograd
+    of ``wkv_chunked`` on the CPU (the JAX package differentiates
+    ``wkv_chunked`` by autodiff), the fp32 gradients cast to each input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, chunk, intra, subchunk):
+        ctx.dtypes = tuple(t.dtype for t in (r, k, v, lw, u))
+        ctx.form = (chunk, intra, subchunk)
+        acc = torch.promote_types(r.dtype, torch.float32)
+        args = (r, k, v, lw.to(acc), u.to(acc))
+        if _on_card("wkv", r):
+            args = tuple(aligned(t) for t in args)
+            o = wkv_cuda(*args, chunk=chunk, subchunk=subchunk)
+        else:
+            o = wkv_plain(*args, chunk=chunk, intra=intra,
+                          subchunk=subchunk)
+        ctx.save_for_backward(*args)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        args = ctx.saved_tensors
+        chunk, intra, subchunk = ctx.form
+        if _on_card("wkv_bwd", do):
+            grads = wkv_bwd_cuda(*args, aligned(do.float()))
+        else:
+            grads = wkv_bwd_plain(*args, do, chunk=chunk, intra=intra,
+                                  subchunk=subchunk)
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)),
+                None, None, None)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
+        u: torch.Tensor, *, chunk: int, intra: str = "direct",
+        subchunk: int = 16) -> torch.Tensor:
+    """The RWKV6 time mix's WKV over whole sequences from a zero state:
+    r, k, v (B, S, H, hd) in one float type, lw (B, S, H, hd) fp32
+    log-decays (<= 0), u (H, hd).  Returns o (B, S, H, hd) fp32 (fp64
+    for fp64 inputs on the CPU); differentiable in all five.  ``chunk``,
+    ``intra`` and ``subchunk`` set the chunked form
+    (``models.rwkv.wkv_chunked``); the card's kernel computes the
+    sub-chunked form at ``subchunk``, whose e^-60 clamp differs from the
+    direct form's by less than e^-60 of a term."""
+    return _Wkv.apply(r, k, v, lw, u, int(chunk), intra, int(subchunk))
 
 
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,

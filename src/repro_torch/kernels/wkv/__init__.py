@@ -1,8 +1,10 @@
-"""RWKV6 WKV, a public op of the kernel library (``repro.kernels.wkv``)."""
+"""RWKV6 WKV, a public op of the kernel library (``repro.kernels.wkv``);
+the model's differentiable WKV is ``kernels.dispatch.wkv``."""
 import torch
 
 from .. import dispatch
-from .wkv import wkv_cuda, wkv_plain
+from .wkv import (aligned, wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda,
+                  wkv_plain)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
@@ -23,14 +25,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
         # the kernel reads dense rows, and its mma route copies them with
         # cp.async: views are made contiguous, data off a 16-byte boundary
         # (a contiguous view at an odd offset) is copied
-        return wkv_cuda(*(_aligned(t) for t in (r, k, v, lw.float(),
-                                                 u.float())),
+        return wkv_cuda(*(aligned(t) for t in (r, k, v, lw.float(),
+                                                u.float())),
                         chunk=chunk, subchunk=subchunk)
     return wkv_plain(r, k, v, lw.float(), u.float(), chunk=chunk)
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as a contiguous tensor whose data starts on a 16-byte
-    boundary (a copy only where ``t`` is not one already)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,5 +1,5 @@
-"""RWKV6 chunked WKV: the CUDA kernel's wrapper and its plain PyTorch
-version.
+"""RWKV6 chunked WKV: the CUDA kernels' wrappers (the forward and its
+backward) and their plain PyTorch versions.
 
 Replaces ``repro/kernels/wkv/wkv.py::wkv_pallas``; the kernel is
 ``kernels/csrc/wkv.cu``, one per route (``wkv_route``: ``mma``, the TPU
@@ -14,13 +14,20 @@ Layout, as the JAX op's (``repro/kernels/wkv/ops.py``): r, k, v
 log-decays (<= 0); u (H, hd) fp32.  Returns o (B, S, H, hd) fp32.  The
 chunk length is ``models.rwkv.chunk_len(S, chunk)``, the sub-chunk length
 ``subchunk_len(c, subchunk)``.
+
+The backward (``wkv_bwd_cuda``, ``kernels/csrc/wkv_bwd.cu``) replaces no
+TPU kernel: the JAX package differentiates ``wkv_chunked`` by autodiff
+(``repro/models/rwkv.py:171``), and its plain version here is the
+autograd of ``wkv_chunked`` (``wkv_bwd_plain``).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import cuda
-from ...models.rwkv import chunk_len, wkv_chunked
+# the module, not its names: models.rwkv imports dispatch, which imports
+# this module, so its functions are looked up when called
+from ...models import rwkv
 
 # csrc/wkv.cu's tile edges: row pieces and value-column blocks of at most
 # 64, key-side channels staged 64 at a time
@@ -33,10 +40,28 @@ MMA_HEAD_DIMS = (64, 128)
 MMA_PIECES = (64, 32, 16)
 
 
+# csrc/wkv_bwd.cu: the state is stored every BWD_SEGMENT steps; head
+# widths a warp's lanes split evenly, at most 4 columns (or rows) a lane
+BWD_SEGMENT = 64
+BWD_HEAD_DIMS = (32, 64, 128)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous tensor whose data starts on a 16-byte
+    boundary (a copy only where ``t`` is not one already)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               lw: torch.Tensor, u: torch.Tensor, *,
-              chunk: int = 64) -> torch.Tensor:
-    return wkv_chunked(r, k, v, lw, u, chunk=chunk, intra="direct")[0]
+              chunk: int = 64, intra: str = "direct",
+              subchunk: int = 16) -> torch.Tensor:
+    """The chunked WKV from a zero state (``models.rwkv.wkv_chunked``,
+    its final state dropped): o (B, S, H, hd) fp32 (fp64 for fp64
+    inputs)."""
+    return rwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk, intra=intra,
+                            subchunk=subchunk)[0]
 
 
 def smem_bytes(rows: int, cols: int, hd: int) -> int:
@@ -128,7 +153,7 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if out.numel() == 0:
         return out
-    c = chunk_len(s, chunk)
+    c = rwkv.chunk_len(s, chunk)
     sc = subchunk_len(c, subchunk)
     route = wkv_route(c, sc, hd, r.dtype)
     ptrs = [t.data_ptr() for t in (r, k, v, lw, u, out)]
@@ -152,3 +177,78 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 wkv_cuda.launches = 0
 wkv_cuda.routes = {route: 0 for route in ROUTES}
+
+
+def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lw: torch.Tensor, u: torch.Tensor, do: torch.Tensor, *,
+                  chunk: int = 64, intra: str = "direct",
+                  subchunk: int = 16) -> tuple:
+    """The gradients (dr, dk, dv, dlw, du) of sum(o * do) where o =
+    ``wkv_chunked(r, k, v, lw, u, ...)`` from a zero state (its final
+    state unused): the autograd of the chunked form, recomputed here in
+    fp32 (fp64 for fp64 inputs), the type of every gradient."""
+    acc = torch.promote_types(r.dtype, torch.float32)
+    with torch.enable_grad():
+        leaves = [t.detach().to(acc).requires_grad_(True)
+                  for t in (r, k, v, lw, u)]
+        o = wkv_plain(*leaves, chunk=chunk, intra=intra,
+                      subchunk=subchunk)
+        return torch.autograd.grad(o, leaves, do.to(acc))
+
+
+def wkv_bwd_scratch_floats(b: int, s: int, h: int, hd: int) -> int:
+    """csrc/wkv_bwd.cu's scratch: the (hd, hd) state of every (batch,
+    head) at each segment start, and each (batch, head)'s partial du."""
+    segments = -(-s // BWD_SEGMENT)
+    return b * h * (segments * hd * hd + hd)
+
+
+def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lw: torch.Tensor, u: torch.Tensor,
+                 do: torch.Tensor) -> tuple:
+    """Launch ``repro_wkv_bwd``: the gradients (dr, dk, dv, dlw (B, S, H,
+    hd), du (H, hd)), new fp32 tensors, of sum(o * do) for o the WKV
+    recurrence from a zero state.  r, k, v (B, S, H, hd) one float type;
+    lw, do (B, S, H, hd) and u (H, hd) fp32; all contiguous on one CUDA
+    device; hd in ``BWD_HEAD_DIMS``.  The kernel computes the exact
+    recurrence's gradient; the chunked forward's e^-60 clamp moves it by
+    less than e^-60 of a term.  Counts the launch in ``.launches`` and on
+    its one route in ``.routes``; raises on anything the kernel does not
+    take."""
+    cuda.require_cuda("wkv_bwd", r, k, v, lw, u, do)
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw, do)):
+        raise ValueError(f"wkv_bwd: want equal (B, S, H, hd) shapes for r, "
+                         f"k, v, lw and do, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, lw, do)]}")
+    b, s, h, hd = r.shape
+    if u.shape != (h, hd):
+        raise ValueError(f"wkv_bwd: want u of shape {(h, hd)}, got "
+                         f"{tuple(u.shape)}")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"wkv_bwd: head width {hd} is not one of "
+                         f"{BWD_HEAD_DIMS}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"wkv_bwd: r, k and v must share one dtype, got "
+                        f"{[t.dtype for t in (r, k, v)]}")
+    if any(t.dtype != torch.float32 for t in (lw, u, do)):
+        raise TypeError(f"wkv_bwd: lw, u and do must be float32, got "
+                        f"{[t.dtype for t in (lw, u, do)]}")
+    grads = [torch.empty(r.shape, dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    du = torch.zeros((h, hd), dtype=torch.float32, device=r.device)
+    if r.numel() == 0:
+        return (*grads, du)
+    scratch = torch.empty(wkv_bwd_scratch_floats(b, s, h, hd),
+                          dtype=torch.float32, device=r.device)
+    rc = cuda.library().repro_wkv_bwd(
+        *(t.data_ptr() for t in (r, k, v, lw, u, do, *grads, du, scratch)),
+        *cuda.c_ints("wkv_bwd", b, s, h, hd), cuda.dtype_code(r),
+        cuda.stream_of(r))
+    cuda.check(rc, "wkv_bwd")
+    wkv_bwd_cuda.launches += 1
+    wkv_bwd_cuda.routes["simt"] += 1
+    return (*grads, du)
+
+
+wkv_bwd_cuda.launches = 0
+wkv_bwd_cuda.routes = {"simt": 0}

@@ -1,16 +1,20 @@
 """End-to-end training entry point: the port of ``repro/launch/train.py``.
 
-Trains any attention arch with MLP or MoE FFNs, token- or
-embedding-input (musicgen-large, qwen2-vl-2b with M-RoPE positions), at
-its published size on the card or at its smoke size on the CPU, with the
-training stack of this package: AdamW (optionally int8 moments, gradient
+Trains any arch: attention archs with MLP or MoE FFNs, token- or
+embedding-input (musicgen-large, qwen2-vl-2b with M-RoPE positions), and
+the recurrent archs (rwkv6-7b, recurrentgemma-9b), at its published size
+on the card (the recurrent archs' fp32 state fits one card only with
+their depth cut) or at its smoke size on the CPU, with the training
+stack of this package: AdamW (optionally int8 moments, gradient
 compression), the deterministic synthetic data stream, atomic
 checkpoints, supervised restart and the straggler watch.  Every
 attention forward runs the flash kernel and every attention backward the
 fused recompute backward; every projection, MoE router and the head run
 the matmul kernel forward and backward, and the MoE experts its grouped
-route.  Routing is by device (``--device``, default ``cuda``): there is
-no ``--dispatch`` mode, no mesh and no tuned-plan preload.
+route; every RWKV time mix runs the WKV kernel forward and the WKV
+backward kernel.  Routing is by device (``--device``, default
+``cuda``): there is no ``--dispatch`` mode, no mesh and no tuned-plan
+preload.
 
 Examples:
   python -m repro_torch.launch.train --arch gemma-2b --steps 3 --batch 2 \\
@@ -19,6 +23,8 @@ Examples:
       --batch 2 --seq 32 --device cpu --ckpt-dir /tmp/ck
   python -m repro_torch.launch.train --arch qwen2-vl-2b --steps 3 \\
       --batch 2 --seq 512 --ckpt-dir /tmp/ck    # embeddings, M-RoPE
+  python -m repro_torch.launch.train --arch rwkv6-7b --smoke --steps 3 \\
+      --batch 2 --seq 32 --device cpu --ckpt-dir /tmp/ck   # recurrent
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """The RG-LRU recurrent block of RecurrentGemma (Griffin) -- the port of
-``repro/models/griffin.py``'s decode.
+``repro/models/griffin.py``.
 
 The block: a GELU gate branch and a main branch, the main branch through
 a width-K depthwise causal conv (a K-1 deep delay buffer carried as decode
@@ -10,14 +10,16 @@ state), then the real-gated linear recurrence
 
 whose gates r_t and i_t are block-diagonal projections, all in fp32; the
 gated state goes out through the output projection.  The projections are
-plain products, as in the JAX package (no Pallas kernel runs there).  The
-whole-sequence block (``rglru_scan``, ``rglru_block_apply``) comes with
-the recurrent archs' forward.
+plain products, as in the JAX package (no Pallas kernel runs there).
+Over a whole sequence the diagonal recurrence is a log-depth scan of
+PyTorch ops (``rglru_scan``, the pairwise recursion of
+``jax.lax.associative_scan``), differentiated by autograd; the decode
+carries h and the conv's delay buffer one token at a time.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -108,6 +110,68 @@ def _rglru_coeffs(p: Params, s: GriffinSpec, x: torch.Tensor
     multiplier = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
                                         min=1e-12))
     return a, multiplier * i * xf
+
+
+def _combine(left: Tuple[torch.Tensor, torch.Tensor],
+             right: Tuple[torch.Tensor, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compose h -> a_l h + b_l, then h -> a_r h + b_r."""
+    (al, bl), (ar, br) = left, right
+    return al * ar, ar * bl + br
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], odd[1], ... along axis 1 (``even`` has as
+    many entries as ``odd`` or one more)."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([pairs, even[:, n:]], dim=1)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of (a, b) under ``_combine`` along axis 1, in
+    ``jax.lax.associative_scan``'s recursion: combine adjacent pairs,
+    scan the half-length sequence, then combine each of its prefixes with
+    the next even element.  log2(S) levels, each a few elementwise ops
+    over the whole sequence."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd_a, odd_b = _scan(*_combine((a[:, 0:n - 1:2], b[:, 0:n - 1:2]),
+                                   (a[:, 1::2], b[:, 1::2])))
+    if n % 2 == 0:
+        left = (odd_a[:, :-1], odd_b[:, :-1])
+    else:
+        left = (odd_a, odd_b)
+    even_a, even_b = _combine(left, (a[:, 2::2], b[:, 2::2]))
+    even_a = torch.cat([a[:, :1], even_a], dim=1)
+    even_b = torch.cat([b[:, :1], even_b], dim=1)
+    return _interleave(even_a, odd_a), _interleave(even_b, odd_b)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1 of a, b (B, S, lru), from
+    ``h0`` (B, lru) folded into the first step (zero when None)."""
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _scan(a, b)[1]
+
+
+def rglru_block_apply(p: Params, s: GriffinSpec, x: torch.Tensor,
+                      cdt: torch.dtype) -> torch.Tensor:
+    """The block over whole sequences x (B, S, d) from a zero state: the
+    gate and main branches, the causal conv from a zero delay buffer,
+    the RG-LRU scan in fp32, the gated output projection.  Returns
+    (B, S, d)."""
+    gate = F.gelu(x @ p["w_gate"].to(cdt), approximate="tanh")
+    main = x @ p["w_main"].to(cdt)
+    prev = main.new_zeros((x.shape[0], s.conv_width - 1, s.lru_width))
+    main = _causal_conv(main, p["conv_w"], p["conv_b"], prev)
+    a, bb = _rglru_coeffs(p, s, main)
+    h = rglru_scan(a, bb).to(cdt)
+    return (h * gate) @ p["w_out"].to(cdt)
 
 
 def rglru_block_decode(p: Params, s: GriffinSpec, x: torch.Tensor,

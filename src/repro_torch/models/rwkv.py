@@ -13,14 +13,15 @@ so nothing overflows.  This is the plain version of the WKV kernel
 (``kernels/wkv``), as ``repro/kernels/wkv/ref.py`` makes it the oracle of
 the TPU kernel.
 
-The RWKV block's decode runs the recurrence one token at a time: the
-time mix (token-shift lerp, r/k/v/g projections, the data-dependent decay
-from its LoRA in fp32, the per-head group norm and the output gate) over
-a carried (B, H, hd, hd) fp32 state, and the channel mix over its own
-token shift.  Its projections are plain products, as in the JAX package
-(no Pallas kernel runs there).  The whole-sequence time mix
-(``time_mix_apply`` over ``wkv_chunked``) comes with the recurrent
-archs' forward.
+The RWKV block: the time mix (token-shift lerp, r/k/v/g projections, the
+data-dependent decay from its LoRA in fp32, the per-head group norm and
+the output gate) and the channel mix over its own token shift.  Its
+projections are plain products, as in the JAX package (no Pallas kernel
+runs there).  Over a whole sequence (``time_mix_apply``) the recurrence
+is the model's WKV op, ``kernels.dispatch.wkv``: the WKV kernel and its
+backward kernel on the card, ``wkv_chunked`` and its autograd on the
+CPU.  The decode runs it one token at a time over a carried (B, H, hd,
+hd) fp32 state.
 """
 from __future__ import annotations
 
@@ -30,17 +31,25 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import dispatch
+
 Params = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
 class RwkvSpec:
-    """The RWKV block's widths (the decode's fields of the JAX spec; its
-    chunking fields come with ``time_mix_apply``)."""
+    """The RWKV block's widths and the chunking of its whole-sequence
+    WKV, as the JAX spec's."""
     d_model: int
     head_dim: int = 64
     decay_lora: int = 64
+    chunk: int = 64
     d_ff: int = 0                # channel-mix width
+    # intra-chunk form of the CPU route ("direct" or "matmul", sub-chunks
+    # of ``subchunk`` rows); the card's WKV kernel computes the sub-chunked
+    # form at ``subchunk``
+    intra: str = "direct"
+    subchunk: int = 16
 
     @property
     def n_heads(self) -> int:
@@ -107,6 +116,21 @@ def _group_norm(p: Params, o: torch.Tensor, s: RwkvSpec,
     var = o.var(dim=-1, keepdim=True, correction=0)
     o = ((o - mean) * torch.rsqrt(var + eps)).reshape(b, sq, h * hd)
     return o * p["ln_scale"] + p["ln_bias"]
+
+
+def time_mix_apply(p: Params, s: RwkvSpec, x: torch.Tensor,
+                   cdt: torch.dtype) -> torch.Tensor:
+    """The time mix of whole sequences x (B, S, d), token-shifted against
+    zeros: the WKV recurrence from a zero state through
+    ``dispatch.wkv`` (its final state is dropped), then the group norm
+    in fp32 and the output gate.  Returns (B, S, d)."""
+    r, k, v, g, lw = _rkvgw(p, s, x, x.new_zeros((x.shape[0], s.d_model)),
+                            cdt)
+    o = dispatch.wkv(*(_heads(t, s) for t in (r, k, v, lw)), p["u"],
+                     chunk=s.chunk, intra=s.intra, subchunk=s.subchunk)
+    o = _group_norm(p, o, s).to(cdt)
+    o = o * F.silu(g)
+    return o @ p["wo"].to(cdt)
 
 
 def time_mix_decode(p: Params, s: RwkvSpec, x: torch.Tensor,
@@ -185,13 +209,18 @@ def chunk_len(s: int, chunk: int) -> int:
 def _decay_weights(ecum_rows: torch.Tensor,
                    cum_cols: torch.Tensor) -> torch.Tensor:
     """exp(ecum_i - cum_j) for j < i, clamped at -60, zero elsewhere:
-    (b, n, h, hd) x (b, n, h, hd) -> (b, n, n, h, hd)."""
+    (b, n, h, hd) x (b, n, h, hd) -> (b, n, n, h, hd).  The exponents
+    above the diagonal (positive, up to the chunk's whole decay) are
+    masked to -inf before the exponential, as the JAX package masks
+    them, so none overflows: an overflow there would be dropped by the
+    forward but turn its gradient into 0 * inf = nan."""
     n = ecum_rows.shape[1]
-    expo = ecum_rows[:, :, None] - cum_cols[:, None]
     below = torch.tril(torch.ones(n, n, dtype=torch.bool,
-                                  device=expo.device), diagonal=-1)
-    return torch.where(below[None, :, :, None, None],
-                       torch.exp(torch.clamp(expo, min=-60.0)), 0.0)
+                                  device=ecum_rows.device),
+                       diagonal=-1)[None, :, :, None, None]
+    expo = torch.where(below, ecum_rows[:, :, None] - cum_cols[:, None],
+                       float("-inf"))
+    return torch.exp(torch.clamp(expo, min=-60.0)) * below
 
 
 def _intra_direct(rj, kj, vj, cum, ecum):
@@ -245,7 +274,9 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     initial state.  Returns (o (B, S, H, hd) fp32, final state
     (B, H, hd, hd) fp32).  ``intra`` selects the intra-chunk form,
     "direct" or "matmul" (sub-chunks of ``subchunk`` rows); both compute
-    the same function.  The chunk loop is a Python loop (JAX's scan)."""
+    the same function.  The chunk loop is a Python loop (JAX's scan).
+    fp64 inputs are computed, and returned, in fp64 (for gradient
+    checks); every other type in fp32."""
     if intra not in ("direct", "matmul"):
         raise ValueError(f"wkv_chunked: intra must be 'direct' or "
                          f"'matmul', got {intra!r}")
@@ -253,15 +284,15 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     c = chunk_len(sq, chunk)
     sc = min(subchunk, c)
     use_matmul = intra == "matmul" and c % sc == 0 and c > sc
-    f32 = torch.float32
+    acc = torch.promote_types(r.dtype, torch.float32)
     if state is None:
-        state = torch.zeros(b, h, hd, hd, dtype=f32, device=r.device)
-    uf = u.to(f32)
+        state = torch.zeros(b, h, hd, hd, dtype=acc, device=r.device)
+    uf = u.to(acc)
     S = state
     outs = []
     for s0 in range(0, sq, c):
-        rj, kj, vj = (x[:, s0:s0 + c].to(f32) for x in (r, k, v))
-        lwj = lw[:, s0:s0 + c].to(f32)
+        rj, kj, vj = (x[:, s0:s0 + c].to(acc) for x in (r, k, v))
+        lwj = lw[:, s0:s0 + c].to(acc)
         cum = torch.cumsum(lwj, dim=1)           # inclusive, (b,c,h,hd)
         ecum = cum - lwj                         # exclusive
         total = cum[:, -1]                       # (b,h,hd)

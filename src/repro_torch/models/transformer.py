@@ -1,10 +1,11 @@
-"""The decoder LM -- the port of ``repro/models/transformer.py``: for
-attention stacks with dense MLP or MoE FFNs, the serving forwards over a
-paged or a dense KV cache, the speculative verify forward, and the
-training loss (with the MoE layers' load-balancing aux loss); for the
-recurrent archs (RWKV6 time and channel mixes, Griffin's RG-LRU blocks
-beside local attention), the decode step over the dense cache, which is
-their whole serving path, as in the JAX package.
+"""The decoder LM -- the port of ``repro/models/transformer.py``: the
+whole-sequence forward and the training loss (with the MoE layers'
+load-balancing aux loss) of every arch; for attention stacks with dense
+MLP or MoE FFNs, the serving forwards over a paged or a dense KV cache
+and the speculative verify forward; for the recurrent archs (RWKV6 time
+and channel mixes, Griffin's RG-LRU blocks beside local attention), the
+decode step over the dense cache, which is their whole serving path, as
+in the JAX package.
 
 Layer stacking keeps the JAX package's layout (paper §2.5 loop
 flattening): ``prefix`` layers, ``n_periods`` repetitions of the layer
@@ -97,7 +98,8 @@ def _moe_spec(cfg: ArchConfig) -> moe.MoESpec:
 
 def _rwkv_spec(cfg: ArchConfig) -> rwkv.RwkvSpec:
     return rwkv.RwkvSpec(d_model=cfg.d_model, head_dim=cfg.rwkv_head_dim,
-                         d_ff=cfg.d_ff)
+                         chunk=cfg.rwkv_chunk, d_ff=cfg.d_ff,
+                         intra=cfg.rwkv_intra)
 
 
 def _griffin_spec(cfg: ArchConfig) -> griffin.GriffinSpec:
@@ -122,11 +124,6 @@ def _require_paged(cfg: ArchConfig) -> None:
         raise ValueError(
             f"arch {cfg.name} has recurrent/stateful layers; paged serving "
             "requires attention-family stacks (use --cache dense)")
-
-
-def _recurrent(cfg: ArchConfig) -> bool:
-    return any(m in ("rwkv", "rglru") or f == "rwkv_cm"
-               for m, f in cfg.layer_kinds())
 
 
 # --------------------------------------------------------------------------
@@ -306,17 +303,29 @@ def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
                 opts: ExecOptions
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training / dense forward over whole sequences:
-    x (B, S, d) -> ((B, S, d), the FFN's aux loss or None)."""
-    spec = _attn_spec(cfg, kind[0])
+    x (B, S, d) -> ((B, S, d), the FFN's aux loss or None).  The
+    recurrent mixers and the channel mix start from a zero state, as the
+    JAX package's do."""
+    mixer, ffn = kind
+    cdt = dt.compute
     h = layers.rmsnorm(p["ln1"], x)
-    if opts.attn_impl == "naive":
-        h = layers.attention_naive(p["attn"], spec, h, positions, dt)
+    if mixer == "rwkv":
+        h = rwkv.time_mix_apply(p["tm"], _rwkv_spec(cfg), h, cdt)
+    elif mixer == "rglru":
+        h = griffin.rglru_block_apply(p["rec"], _griffin_spec(cfg), h, cdt)
+    elif opts.attn_impl == "naive":
+        h = layers.attention_naive(p["attn"], _attn_spec(cfg, mixer), h,
+                                   positions, dt)
     else:
-        h = layers.attention_blockwise(p["attn"], spec, h, positions, dt,
-                                       block_q=opts.block_q,
+        h = layers.attention_blockwise(p["attn"], _attn_spec(cfg, mixer), h,
+                                       positions, dt, block_q=opts.block_q,
                                        block_kv=opts.block_kv)
     x = x + h
-    h, aux = _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)
+    h = layers.rmsnorm(p["ln2"], x)
+    if ffn == "rwkv_cm":
+        return x + rwkv.channel_mix_apply(p["cm"], _rwkv_spec(cfg), h,
+                                          cdt), None
+    h, aux = _ffn(p, cfg, kind, h, dt)
     return x + h, aux
 
 
@@ -352,9 +361,10 @@ class Model:
     3) in ``decode_step``; the paged prefill and verify forwards embed
     tokens, as the JAX package's do.
 
-    The recurrent archs (rwkv6-7b, recurrentgemma-9b) serve through
-    ``decode_step`` on the dense cache; their whole-sequence forwards
-    come with a later slice of the port.
+    The recurrent archs (rwkv6-7b, recurrentgemma-9b) run the
+    whole-sequence forwards (``loss_fn``, ``forward``, ``prefill``) and
+    serve through ``decode_step`` on the dense cache only, as in the JAX
+    package.
 
     ``device`` defaults to the CUDA card and raises without one; pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
@@ -469,15 +479,6 @@ class Model:
                              f"{self.cfg.input_mode}; this forward embeds "
                              "tokens, as the JAX package's does")
 
-    def _require_sequence_forward(self, what: str) -> None:
-        """The whole-sequence forwards' refusal of the recurrent archs."""
-        if _recurrent(self.cfg):
-            raise ValueError(
-                f"{what}: arch {self.cfg.name} has recurrent layers, whose "
-                "whole-sequence forward (time_mix_apply, rglru_scan) comes "
-                "with a later slice of the port; it serves through "
-                "decode_step on the dense cache")
-
     def _mrope_override(self, offsets: torch.Tensor, width: int
                         ) -> Optional[torch.Tensor]:
         """The JAX package's M-RoPE positions for a token-fed paged
@@ -551,7 +552,6 @@ class Model:
         "embeddings", "positions" for an M-RoPE arch, and "labels" (B, S)
         int) plus the MoE layers' load-balancing aux loss (0 without MoE
         layers).  Returns (loss, {"loss", "xent", "aux"})."""
-        self._require_sequence_forward("loss_fn")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux = self._run_stack(params, x, self._positions(batch, b, s))
@@ -566,7 +566,6 @@ class Model:
         """Full logits (B, S, V) of ``batch`` (its "tokens" or
         "embeddings", and "positions" for an M-RoPE arch; small-scale eval
         and tests)."""
-        self._require_sequence_forward("forward")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, _ = self._run_stack(params, x, self._positions(batch, b, s))
@@ -578,7 +577,6 @@ class Model:
         position's logits (B, V), or with ``last_idx`` (B,) those of
         position ``last_idx[b]`` of each row (the final norm and the head
         run on those rows alone)."""
-        self._require_sequence_forward("prefill")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, _ = self._run_stack(params, x, self._positions(batch, b, s))

@@ -18,9 +18,11 @@ invariance and route counts; the flash forward and its
 fused backward at ragged sequence lengths, windows and head widths up to
 gemma's 256, with their autograd routes; and the kernel library's WKV,
 Jacobi stencil, N-body and histogram at ragged chunks, grids, particle
-counts and bin counts.  fp32 runs with TF32 off;
-tolerances are those of tests/test_paged_decode.py (the int8 kernels
-compute in fp32, so a bf16 q costs only its own rounding).
+counts and bin counts; and the WKV backward kernel at ragged lengths
+and strong decay, with the model's differentiable WKV op on the card.
+fp32 runs with TF32 off; tolerances are those of
+tests/test_paged_decode.py (the int8 kernels compute in fp32, so a bf16
+q costs only its own rounding).
 """
 import math
 
@@ -710,8 +712,8 @@ def test_int8_wrappers_count_launches_and_reject_bad_inputs(card):
         "prefill_attention": 0, "decode_attention_int8": 1,
         "prefill_attention_int8": 1,
         "quantized_matmul": 1, "flash_attention": 0,
-        "flash_attention_bwd": 0, "wkv": 0, "stencil": 0, "nbody": 0,
-        "histogram": 0}
+        "flash_attention_bwd": 0, "wkv": 0, "wkv_bwd": 0, "stencil": 0,
+        "nbody": 0, "histogram": 0}
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_int8_cuda(q, kq, vq, table, lengths, ks.cpu(), vs)
     with pytest.raises(TypeError):             # float pools with scales
@@ -866,7 +868,7 @@ def test_flash_calls_take_the_route_of_dtype_and_head_width(card, dtype, hd,
         **{f"{op}/{r}": 0 for op in ("prefill_attention",
                                      "prefill_attention_int8")
            for r in ("wgmma", "simt")},
-        "wkv/mma": 0, "wkv/simt": 0}
+        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/simt": 0}
     assert dispatch.launch_counts()["flash_attention"] == 1
     assert dispatch.launch_counts()["flash_attention_bwd"] == 1
 
@@ -1072,6 +1074,96 @@ def test_wkv_mma_route_rejects_misaligned_inputs(card):
     odd.copy_(r)
     with pytest.raises(ValueError, match="16-byte"):
         wkv_cuda(odd, k, v, lw, u)
+
+
+def _wkv_bwd_check(card, dtype, shape, *, strong=False, seed=0):
+    """The backward kernel against the autograd of the plain version on
+    the same inputs, run in fp64: each gradient within the dtype's
+    tolerance of its max |grad|, and a rerun bit-equal.  (In fp32 the
+    plain version's dlw is the difference of O(1) terms, whose rounding
+    is most of a strong decay's dlw of e^-20 size.)"""
+    from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain
+    args = _wkv_inputs(card, dtype, *shape, seed=seed, strong=strong)
+    gen = torch.Generator(device=card).manual_seed(seed + 1)
+    do = torch.randn(shape, generator=gen, device=card)
+    before = wkv_bwd_cuda.launches
+    got = wkv_bwd_cuda(*args, do)
+    assert wkv_bwd_cuda.launches == before + 1
+    want = wkv_bwd_plain(*(t.double() for t in args), do.double(),
+                         chunk=64)
+    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        err = _rel_err(g.double(), w)
+        assert err <= TOLS[dtype], (name, shape, strong, err)
+    again = wkv_bwd_cuda(*args, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 128, 3, 64), (1, 100, 2, 64),
+                                   (2, 130, 2, 128), (1, 7, 2, 128),
+                                   (3, 64, 1, 32)])
+def test_wkv_bwd_kernel_matches_plain(card, dtype, shape):
+    """Head widths 32, 64 and 128, whole segments of 64 steps and S not
+    a multiple of 64 (100, 130, 7), batches summed into du."""
+    _wkv_bwd_check(card, dtype, shape, seed=sum(shape))
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 2, 64), (1, 200, 2, 128)])
+def test_wkv_bwd_kernel_strong_decay(card, shape):
+    """Decays in [-50, -20] (fp32): the plain version's e^-60 clamp and
+    the kernel's exact products differ by less than e^-60 of a term."""
+    _wkv_bwd_check(card, torch.float32, shape, strong=True, seed=5)
+
+
+def test_wkv_bwd_wrapper_rejects_bad_inputs(card):
+    from repro_torch.kernels.wkv import wkv_bwd_cuda
+    r, k, v, lw, u = _wkv_inputs(card, torch.float32, 1, 8, 1, 64, seed=0)
+    do = torch.zeros_like(lw)
+    before = wkv_bwd_cuda.launches
+    with pytest.raises(TypeError):
+        wkv_bwd_cuda(r, k.bfloat16(), v, lw, u, do)
+    with pytest.raises(TypeError):
+        wkv_bwd_cuda(r, k, v, lw, u, do.bfloat16())
+    with pytest.raises(ValueError):
+        wkv_bwd_cuda(r, k, v, lw, u[:, :8], do)
+    with pytest.raises(ValueError):
+        wkv_bwd_cuda(r, k, v, lw, u, do[:, :4])
+    with pytest.raises(ValueError, match="head width"):
+        wkv_bwd_cuda(*(t[..., :48].contiguous() for t in (r, k, v, lw, u,
+                                                           do)))
+    strided = torch.zeros(1, 8, 1, 128, device=card)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_bwd_cuda(r, k, v, lw, u, strided)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_bwd_cuda(r.cpu(), k, v, lw, u, do)
+    assert wkv_bwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dispatch_wkv_gradients_on_card_match_the_cpu_route(card, dtype):
+    """The model's WKV op: forward on B8, backward on the backward kernel
+    (one launch each, kernel routes), against the CPU route (the chunked
+    form and its autograd) on the same inputs."""
+    shape = (2, 96, 2, 64)
+    args = _wkv_inputs(card, dtype, *shape, seed=11)
+    do = torch.randn(shape, generator=torch.Generator(device=card)
+                     .manual_seed(12), device=card)
+    results = []
+    for dev in (card, "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in args]
+        with dispatch.stats_scope() as stats:
+            out = dispatch.wkv(*leaves, chunk=64, subchunk=16)
+            grads = torch.autograd.grad(out, leaves, do.to(dev))
+            routes = stats()
+        route = "kernel" if dev == card else "plain"
+        assert routes == {("wkv", route): 1, ("wkv_bwd", route): 1}
+        assert [g.dtype for g in grads] == [t.dtype for t in args]
+        results.append((out, grads))
+    (out_k, grads_k), (out_p, grads_p) = results
+    assert _rel_err(out_k, out_p.to(card)) <= 1e-4
+    for g, w in zip(grads_k, grads_p):
+        assert _rel_err(g.float(), w.to(card).float()) <= TOLS[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -592,7 +592,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                            "decode_attention", "decode_attention_int8",
                            "prefill_attention", "prefill_attention_int8",
                            "flash_attention", "flash_attention_bwd", "wkv",
-                           "stencil", "nbody", "histogram"}
+                           "wkv_bwd", "stencil", "nbody", "histogram"}
 
 
 def test_dispatch_attention_routes_by_device():
@@ -868,4 +868,4 @@ def test_route_counts_reset_with_the_launch_counts():
                                          "flash_attention",
                                          "flash_attention_bwd")
            for route in ("wgmma", "simt")},
-        "wkv/mma": 0, "wkv/simt": 0}
+        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/simt": 0}

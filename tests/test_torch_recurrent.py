@@ -16,7 +16,8 @@ across by ``params_from_jax``:
   recycled, its recurrent state carried over as JAX carries it), float
   and int8 weights;
 * ``serve.main`` routes, and its paged, continuous and speculative
-  refusals equal JAX's; the whole-sequence forwards refuse;
+  refusals equal JAX's (the whole-sequence forwards and training are
+  held to JAX in tests/test_torch_recurrent_train.py);
 * the reference caveat: JAX's RWKV decode does not reproduce its own
   forward past position 0 (its channel mix shifts against the raw
   residual), and the port's decode follows JAX's decode.
@@ -405,19 +406,6 @@ def test_init_draws_the_jax_tree_and_constants(arch):
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
-def test_sequence_forwards_refuse(arch):
-    _, _, tmodel, tparams = _models(arch)
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-             "labels": torch.zeros(1, 4, dtype=torch.int32)}
-    for name, call in (("forward", tmodel.forward),
-                       ("loss_fn", tmodel.loss_fn),
-                       ("prefill", tmodel.prefill)):
-        with pytest.raises(ValueError, match=f"{name}: arch .* recurrent "
-                           "layers.*later slice"):
-            call(tparams, batch)
-
-
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
 def test_paged_entry_points_refuse_in_the_jax_words(arch):
     _, _, tmodel, tparams = _models(arch)
