@@ -401,11 +401,11 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int = 10):
-    """Mean device milliseconds of the kernels ``fn`` launches, per call,
-    over ``reps`` calls under ``torch.profiler`` (after one warm-up call):
-    the card's own time where a short kernel's CUDA-event time is paced by
-    the host's launches.  None if the profiler sees no device time."""
+def launch_device_ms(torch, fn, reps: int = 10) -> dict:
+    """Device milliseconds per call of each kernel ``fn`` launches, over
+    ``reps`` calls under ``torch.profiler`` (after one warm-up call),
+    keyed by the kernel's name without namespace, template arguments or
+    parameters."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -413,9 +413,21 @@ def device_ms(torch, fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / reps if total else None
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.split("(")[0].split("<")[0].split("::")[-1]
+            ms = e.self_device_time_total / 1e3 / reps
+            out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def device_ms(torch, fn, reps: int = 10):
+    """Mean device milliseconds of the kernels ``fn`` launches, per call
+    (``launch_device_ms`` summed): the card's own time where a short
+    kernel's CUDA-event time is paced by the host's launches.  None if
+    the profiler sees no device time."""
+    return sum(launch_device_ms(torch, fn, reps).values()) or None
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -1317,10 +1329,12 @@ def wkv_bwd_ops(b: int, s: int, h: int, hd: int) -> float:
     head), at their least: the state and its gradient advanced by k v^T
     and r do^T (2 hd^2 each; the chunked form scales a chunk's state by
     its decay once), the state-side products dr' = S do, dk' = G v and
-    dv' = G^T k (2 hd^2 each), 10 hd^2 in all; dlw from reverse running
-    sums of r * dr' and k * dk' (no hd^2 rowsum of G * S) and the bonus
-    terms (v . do and r . (u * k), their products into dr, dk, dv, du),
-    about 20 hd."""
+    dv' = G^T k (2 hd^2 each), 10 hd^2 in all; dlw as reverse running
+    sums of r * dr' and k * dk' (the fewest operations; in fp32 that form
+    cancels under strong decay, so the kernel sums terms that each carry
+    w_t, at ~hd^2 / 64 + ~10 hd more a step, not counted here) and the
+    bonus terms (v . do and r . (u * k), their products into dr, dk, dv,
+    du), about 20 hd."""
     return float(b * s * h * (10 * hd * hd + 20 * hd))
 
 
@@ -1352,9 +1366,11 @@ WKV_BWD_NAMES = ("dr", "dk", "dv", "dlw", "du")
 def check_wkv_bwd(torch):
     """The WKV backward kernel against the plain backward in fp64 on the
     same inputs (``wkv_bwd_reference``): each gradient within the row
-    type's tolerance of its max |grad|, a rerun bit-equal; times of the
-    kernel and of the plain backward in the row's type (the model's CPU
-    route), a bound from bytes and ``wkv_bwd_ops``."""
+    type's tolerance of its max |grad|, a rerun bit-equal, the call on
+    the mma route (the chunked form on the tensor cores); times of the
+    kernel (and of each of its four launches) and of the plain backward
+    in the row's type (the model's CPU route), a bound from bytes and
+    ``wkv_bwd_ops``."""
     from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain
     rows = []
     for dtype_name, strong, shape in WKV_BWD_ROWS:
@@ -1367,7 +1383,10 @@ def check_wkv_bwd(torch):
 
         def call():
             return wkv_bwd_cuda(*args, do)
+        before = wkv_bwd_cuda.routes["mma"]
         got = call()
+        if wkv_bwd_cuda.routes["mma"] != before + 1:
+            raise AssertionError(f"wkv_bwd {case}: not on the mma route")
         want = wkv_bwd_reference(torch, args, do)
         torch.cuda.synchronize()
         rel, err = {}, 0.0
@@ -1389,13 +1408,14 @@ def check_wkv_bwd(torch):
         nbytes = (3 * n * args[0].element_size() + 2 * 4 * n + 4 * h * hd
                   + 4 * 4 * n + 4 * h * hd)
         reps = 2 if s > WKV_TRAIN_SHAPE["s"] else 5
+        launches = launch_device_ms(torch, call, reps)
         rows.append(row(
             "wkv_bwd", case, dtype_name, err, time_ms(torch, call, reps),
             time_ms(torch, lambda: wkv_bwd_plain(*args, do, chunk=WKV_CHUNK),
                     reps // 2),
             bound(nbytes, wkv_bwd_ops(b, s, h, hd), dtype_name), None,
-            rel_err=rel, rerun_bit_equal=True,
-            device_ms=device_ms(torch, call, reps),
+            rel_err=rel, rerun_bit_equal=True, route="mma",
+            device_ms=sum(launches.values()), launch_device_ms=launches,
             reference="plain backward in fp64",
             library="none: no PyTorch call computes WKV6's gradient",
             bound_peaks=f"bytes at 3.35 TB/s; the recurrence's operations "
@@ -2820,7 +2840,7 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
                                     ("flash_attention_bwd", "wgmma"),
                                     ("wkv", "mma"))
                    for route in (fast, "simt")}
-    want_routes["wkv_bwd/simt"] = want.get("wkv_bwd", 0)
+    want_routes["wkv_bwd/mma"] = want.get("wkv_bwd", 0)
     if kernel_routes != want_routes:
         raise AssertionError(f"{phase}: kernel routes {kernel_routes}, "
                              f"expected {want_routes}")
@@ -2861,9 +2881,12 @@ KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("prefill_wgmma_kernel", "B3/B4b prefill attention"),
                  ("prefill_combine_kernel", "B3/B4b prefill attention"),
                  ("prefill_simt_kernel", "B3/B4b prefill attention"),
-                 # the WKV backward (wkv_bwd_kernel, and its du sum) before
-                 # B8's routes (wkv_mma_kernel, the simt wkv_kernel)
-                 ("wkv_bwd_kernel", "B8 backward (WKV gradient)"),
+                 # the WKV backward's four launches (the chunk products,
+                 # the scans, the gradient kernel, the du sum) before B8's
+                 # routes (wkv_mma_kernel, the simt wkv_kernel)
+                 ("wkv_bwd_chunk_kernel", "B8 backward (WKV gradient)"),
+                 ("wkv_bwd_scan_kernel", "B8 backward (WKV gradient)"),
+                 ("wkv_bwd_grad_kernel", "B8 backward (WKV gradient)"),
                  ("wkv_bwd_du_kernel", "B8 backward (WKV gradient)"),
                  ("wkv_mma_kernel", "B8 WKV (mma)"),
                  ("wkv_kernel", "B8 WKV (SIMT)"))

@@ -3,8 +3,8 @@ the model's differentiable WKV is ``kernels.dispatch.wkv``."""
 import torch
 
 from .. import dispatch
-from .wkv import (aligned, wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda,
-                  wkv_plain)
+from .wkv import (aligned, wkv_bwd_chunked, wkv_bwd_cuda, wkv_bwd_plain,
+                  wkv_cuda, wkv_plain)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,

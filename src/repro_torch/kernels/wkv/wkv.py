@@ -18,7 +18,8 @@ chunk length is ``models.rwkv.chunk_len(S, chunk)``, the sub-chunk length
 The backward (``wkv_bwd_cuda``, ``kernels/csrc/wkv_bwd.cu``) replaces no
 TPU kernel: the JAX package differentiates ``wkv_chunked`` by autodiff
 (``repro/models/rwkv.py:171``), and its plain version here is the
-autograd of ``wkv_chunked`` (``wkv_bwd_plain``).
+autograd of ``wkv_chunked`` (``wkv_bwd_plain``); ``wkv_bwd_chunked``
+writes the kernel's chunked decomposition in plain tensor code.
 """
 from __future__ import annotations
 
@@ -40,9 +41,7 @@ MMA_HEAD_DIMS = (64, 128)
 MMA_PIECES = (64, 32, 16)
 
 
-# csrc/wkv_bwd.cu: the state is stored every BWD_SEGMENT steps; head
-# widths a warp's lanes split evenly, at most 4 columns (or rows) a lane
-BWD_SEGMENT = 64
+# csrc/wkv_bwd.cu's head widths (instantiated kernels)
 BWD_HEAD_DIMS = (32, 64, 128)
 
 
@@ -196,11 +195,178 @@ def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.autograd.grad(o, leaves, do.to(acc))
 
 
+def _excl_prefix(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of the entries before each one along ``dim`` (0 at the first),
+    formed without subtracting anything."""
+    head = torch.zeros_like(x.narrow(dim, 0, 1))
+    return torch.cat([head, x.narrow(dim, 0, x.shape[dim] - 1)
+                      .cumsum(dim)], dim)
+
+
+def _excl_suffix(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of the entries after each one along ``dim`` (0 at the last)."""
+    return _excl_prefix(x.flip(dim), dim).flip(dim)
+
+
+def wkv_bwd_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lw: torch.Tensor, u: torch.Tensor, do: torch.Tensor, *,
+                    chunk: int = 64, subchunk: int = 16) -> tuple:
+    """The WKV gradient (dr, dk, dv, dlw, du) of ``wkv_bwd_plain`` in the
+    chunked form ``csrc/wkv_bwd.cu`` computes, as plain tensor code: the
+    oracle of the kernel's decomposition (the model's CPU route stays
+    ``wkv_bwd_plain``).  fp32 (fp64 for fp64 inputs); no intra-chunk
+    weight is clamped, so it is the exact recurrence's gradient.
+
+    For a chunk j of c rows (cum, ecum the inclusive and exclusive cumsums
+    of lw over it, total its sum; rows past S zero, lw 0):
+
+    * states: ``Sin_{j+1} = e^total Sin_j + (k e^(total - cum))^T v`` and
+      state gradients ``Gout_{j-1} = e^total Gout_j + (r e^ecum)^T do``,
+      each chunk's product taken apart and the two scans run after;
+    * inter-chunk terms: dr += e^ecum (do Sin^T), dk += e^(total - cum)
+      (v Gout^T), dv += (k e^(total - cum)) Gout;
+    * intra-chunk terms from M = do v^T over sub-chunks of ``subchunk``
+      rows, the decay between sub-chunks a > b factored through the
+      sub-chunk ends (m_a the cumsum at a's last row): products off the
+      diagonal sub-blocks, the direct form on them; the bonus u;
+    * dlw_t = sum over s < t < tau of r_tau k_s e^(ecum_tau - cum_s)
+      (v_s . do_tau), with the boundary state or gradient for s or tau
+      outside the chunk.  Every such term carries w_t; the sum is split by
+      where s and tau lie (before the chunk, an earlier sub-chunk, t's
+      sub-chunk before t, ...; after t likewise) into a rowsum of
+      Gout * Sin, whole sub-block sums, sums of r * dr' after t and of
+      k * dk' before t in t's sub-chunk, and the direct form inside it.
+      Nothing is a difference of sums that hold a weight-1 pair (tau =
+      s + 1), as dlw = suffix(r dr) - suffix(k dk) would be: under strong
+      decay (w_t ~ e^-20) that form leaves rounding noise of O(1) sums."""
+    acc = torch.promote_types(r.dtype, torch.float32)
+    b, s, h, hd = r.shape
+    c = chunk
+    sc = subchunk_len(c, subchunk)
+    nc, nsc = -(-s // c), c // sc
+    pad = nc * c - s
+
+    def blocks(x):      # (b, s, h, hd) -> (b, h, nc, c, hd), zero past s
+        x = torch.nn.functional.pad(x.to(acc), (0, 0, 0, 0, 0, pad))
+        return x.reshape(b, nc, c, h, hd).permute(0, 3, 1, 2, 4)
+
+    r_, k_, v_, lw_, do_ = map(blocks, (r, k, v, lw, do))
+    u_ = u.to(acc)[None, :, None, None, :]
+    cum = lw_.cumsum(3)
+    ecum = _excl_prefix(lw_, 3)
+    total = cum[..., -1, :]
+    et = total.exp()
+
+    # chunk states and state gradients
+    kd = k_ * (total[..., None, :] - cum).exp()
+    ds = kd.transpose(-1, -2) @ v_
+    dg = (r_ * ecum.exp()).transpose(-1, -2) @ do_
+    sin, gout = [], [None] * nc
+    run = torch.zeros_like(ds[:, :, 0])
+    for j in range(nc):
+        sin.append(run)
+        run = et[:, :, j, :, None] * run + ds[:, :, j]
+    run = torch.zeros_like(run)
+    for j in reversed(range(nc)):
+        gout[j] = run
+        run = et[:, :, j, :, None] * run + dg[:, :, j]
+    sin, gout = torch.stack(sin, 2), torch.stack(gout, 2)
+
+    dr_inter = ecum.exp() * (do_ @ sin.transpose(-1, -2))
+    dk_inter = ((total[..., None, :] - cum).exp()
+                * (v_ @ gout.transpose(-1, -2)))
+    dv = kd @ gout
+    er = et * (gout * sin).sum(-1)
+
+    # sub-chunks: rows a * sc .. of each chunk
+    def sub(x, a):
+        return x[..., a * sc:(a + 1) * sc, :]
+
+    m = cum[..., sc - 1::sc, :]                 # (b, h, nc, nsc, hd)
+    m_prev = torch.cat([torch.zeros_like(m[..., :1, :]), m[..., :-1, :]], -2)
+    mm = do_ @ v_.transpose(-1, -2)             # M[tau, s] = do_tau . v_s
+    bonus = mm.diagonal(dim1=-2, dim2=-1)       # v_t . do_t
+    att = torch.zeros_like(mm)                  # the forward's A, lower
+    ra = [sub(r_, a) * (sub(ecum, a) - m_prev[..., a, None, :]).exp()
+          for a in range(nsc)]
+    kb = [sub(k_, a) * (m[..., a, None, :] - sub(cum, a)).exp()
+          for a in range(nsc)]
+    dr_off = [torch.zeros_like(x) for x in ra]
+    dk_off = [torch.zeros_like(x) for x in ra]
+    blk = {}                                    # B[a, b]: whole sub-blocks
+    for a in range(nsc):
+        for bb in range(a):
+            gap = (m_prev[..., a, :] - m[..., bb, :]).exp()[..., None, :]
+            mab = mm[..., a * sc:(a + 1) * sc, bb * sc:(bb + 1) * sc]
+            scr = (sub(ecum, a) - m_prev[..., a, None, :]).exp()
+            part = scr * (mab @ (kb[bb] * gap))
+            dr_off[a] = dr_off[a] + part
+            if a >= bb + 2:
+                blk[a, bb] = (sub(r_, a) * part).sum(-2)
+            sck = (m[..., bb, None, :] - sub(cum, bb)).exp()
+            dk_off[bb] = dk_off[bb] + sck * (mab.transpose(-1, -2)
+                                             @ (ra[a] * gap))
+            att[..., a * sc:(a + 1) * sc, bb * sc:(bb + 1) * sc] = (
+                (ra[a] * gap) @ kb[bb].transpose(-1, -2))
+
+    # the diagonal sub-blocks in the direct form: E[tau, s, i] =
+    # e^(ecum_tau - cum_s) for s < tau
+    idx = torch.arange(sc, device=r_.device)
+    lower = idx[:, None] > idx[None, :]
+    between = ((idx[None, None, :] < idx[:, None, None])          # s < t
+               & (idx[:, None, None] < idx[None, :, None]))       # t < tau
+    between = between.to(acc)
+    dr, dk, dlw = [], [], []
+    ri = [(sub(r_, a) * sub(dr_inter, a)).sum(-2) for a in range(nsc)]
+    ki = [(sub(k_, a) * sub(dk_inter, a)).sum(-2) for a in range(nsc)]
+    for a in range(nsc):
+        rr, kk = sub(r_, a), sub(k_, a)
+        expo = sub(ecum, a)[..., :, None, :] - sub(cum, a)[..., None, :, :]
+        e = torch.where(lower[..., None], expo,
+                        torch.full_like(expo, -torch.inf)).exp()
+        mab = mm[..., a * sc:(a + 1) * sc, a * sc:(a + 1) * sc]
+        pp = e * mab[..., None]
+        att[..., a * sc:(a + 1) * sc, a * sc:(a + 1) * sc] = (
+            (rr[..., :, None, :] * kk[..., None, :, :] * e).sum(-1)
+            + torch.diag_embed((rr * u_ * kk).sum(-1)))
+        bon = sub(bonus[..., None], a)
+        dr.append(sub(dr_inter, a) + dr_off[a] + (pp * kk[..., None, :, :])
+                  .sum(-2) + u_ * kk * bon)
+        dk.append(sub(dk_inter, a) + dk_off[a] + (pp * rr[..., :, None, :])
+                  .sum(-3) + u_ * rr * bon)
+        full = pp * rr[..., :, None, :] * kk[..., None, :, :]
+        q = torch.einsum("tqs,...qsi->...ti", between, full)
+        xs = rr * (sub(dr_inter, a) + dr_off[a])
+        ys = kk * (sub(dk_inter, a) + dk_off[a])
+        cross = er + sum((ri[x_] for x_ in range(a + 1, nsc)),
+                         torch.zeros_like(er))
+        cross = cross + sum((ki[y_] for y_ in range(a)), torch.zeros_like(er))
+        cross = cross + sum((blk[a2, b2] for (a2, b2) in blk
+                             if a2 > a > b2), torch.zeros_like(er))
+        dlw.append(q + _excl_suffix(xs, -2) + _excl_prefix(ys, -2)
+                   + cross[..., None, :])
+    dv = dv + att.transpose(-1, -2) @ do_
+    du = (r_ * k_ * bonus[..., None]).sum((0, 2, 3))
+
+    def rows(parts):    # (b, h, nc, c, hd) pieces -> (b, s, h, hd)
+        x = torch.cat(parts, -2) if isinstance(parts, list) else parts
+        return x.permute(0, 2, 3, 1, 4).reshape(b, nc * c, h, hd)[:, :s]
+
+    return rows(dr), rows(dk), rows(dv), rows(dlw), du
+
+
+def bwd_chunk(hd: int) -> int:
+    """Rows of csrc/wkv_bwd.cu's chunks: 64, or 32 at hd 128, where nine
+    (64, 132) fp32 tiles would not fit a block's shared memory."""
+    return 64 if hd <= 64 else 32
+
+
 def wkv_bwd_scratch_floats(b: int, s: int, h: int, hd: int) -> int:
-    """csrc/wkv_bwd.cu's scratch: the (hd, hd) state of every (batch,
-    head) at each segment start, and each (batch, head)'s partial du."""
-    segments = -(-s // BWD_SEGMENT)
-    return b * h * (segments * hd * hd + hd)
+    """csrc/wkv_bwd.cu's scratch: for every (batch, head, chunk) the
+    (hd, hd) state before the chunk and state gradient after it, the
+    chunk's decay total and its partial du."""
+    chunks = b * h * -(-s // bwd_chunk(hd))
+    return chunks * (2 * hd * hd + 2 * hd)
 
 
 def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -208,13 +374,15 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor) -> tuple:
     """Launch ``repro_wkv_bwd``: the gradients (dr, dk, dv, dlw (B, S, H,
     hd), du (H, hd)), new fp32 tensors, of sum(o * do) for o the WKV
-    recurrence from a zero state.  r, k, v (B, S, H, hd) one float type;
-    lw, do (B, S, H, hd) and u (H, hd) fp32; all contiguous on one CUDA
-    device; hd in ``BWD_HEAD_DIMS``.  The kernel computes the exact
+    recurrence from a zero state, in the chunked form on the tensor cores
+    (``wkv_bwd_chunked`` is its plain oracle; four launches, counted as
+    one).  r, k, v (B, S, H, hd) one float type; lw, do (B, S, H, hd) and
+    u (H, hd) fp32; all contiguous on one CUDA device and 16-byte aligned;
+    hd in ``BWD_HEAD_DIMS``; any S.  The kernel computes the exact
     recurrence's gradient; the chunked forward's e^-60 clamp moves it by
     less than e^-60 of a term.  Counts the launch in ``.launches`` and on
-    its one route in ``.routes``; raises on anything the kernel does not
-    take."""
+    its route, ``mma``, in ``.routes``; raises on anything the kernel does
+    not take."""
     cuda.require_cuda("wkv_bwd", r, k, v, lw, u, do)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw, do)):
         raise ValueError(f"wkv_bwd: want equal (B, S, H, hd) shapes for r, "
@@ -233,6 +401,9 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.dtype != torch.float32 for t in (lw, u, do)):
         raise TypeError(f"wkv_bwd: lw, u and do must be float32, got "
                         f"{[t.dtype for t in (lw, u, do)]}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, lw, u, do)):
+        raise ValueError("wkv_bwd: inputs must start on a 16-byte boundary "
+                         "(16-byte row loads)")
     grads = [torch.empty(r.shape, dtype=torch.float32, device=r.device)
              for _ in range(4)]
     du = torch.zeros((h, hd), dtype=torch.float32, device=r.device)
@@ -246,9 +417,9 @@ def wkv_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cuda.stream_of(r))
     cuda.check(rc, "wkv_bwd")
     wkv_bwd_cuda.launches += 1
-    wkv_bwd_cuda.routes["simt"] += 1
+    wkv_bwd_cuda.routes["mma"] += 1
     return (*grads, du)
 
 
 wkv_bwd_cuda.launches = 0
-wkv_bwd_cuda.routes = {"simt": 0}
+wkv_bwd_cuda.routes = {"mma": 0}

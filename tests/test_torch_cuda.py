@@ -868,7 +868,7 @@ def test_flash_calls_take_the_route_of_dtype_and_head_width(card, dtype, hd,
         **{f"{op}/{r}": 0 for op in ("prefill_attention",
                                      "prefill_attention_int8")
            for r in ("wgmma", "simt")},
-        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/simt": 0}
+        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/mma": 0}
     assert dispatch.launch_counts()["flash_attention"] == 1
     assert dispatch.launch_counts()["flash_attention_bwd"] == 1
 
@@ -1077,24 +1077,30 @@ def test_wkv_mma_route_rejects_misaligned_inputs(card):
 
 
 def _wkv_bwd_check(card, dtype, shape, *, strong=False, seed=0):
-    """The backward kernel against the autograd of the plain version on
-    the same inputs, run in fp64: each gradient within the dtype's
-    tolerance of its max |grad|, and a rerun bit-equal.  (In fp32 the
-    plain version's dlw is the difference of O(1) terms, whose rounding
-    is most of a strong decay's dlw of e^-20 size.)"""
-    from repro_torch.kernels.wkv import wkv_bwd_cuda, wkv_bwd_plain
+    """The backward kernel against the autograd of the plain version and
+    against the chunked oracle (the kernel's decomposition), both on the
+    same inputs run in fp64: each gradient within the dtype's tolerance
+    of its max |grad|, one launch on the mma route, and a rerun
+    bit-equal.  (In fp32 the plain version's dlw is the difference of
+    O(1) terms, whose rounding is most of a strong decay's dlw of e^-20
+    size.)"""
+    from repro_torch.kernels.wkv import (wkv_bwd_chunked, wkv_bwd_cuda,
+                                         wkv_bwd_plain)
+    from repro_torch.kernels.wkv.wkv import bwd_chunk
     args = _wkv_inputs(card, dtype, *shape, seed=seed, strong=strong)
     gen = torch.Generator(device=card).manual_seed(seed + 1)
     do = torch.randn(shape, generator=gen, device=card)
-    before = wkv_bwd_cuda.launches
+    before = wkv_bwd_cuda.launches, wkv_bwd_cuda.routes["mma"]
     got = wkv_bwd_cuda(*args, do)
-    assert wkv_bwd_cuda.launches == before + 1
-    want = wkv_bwd_plain(*(t.double() for t in args), do.double(),
-                         chunk=64)
-    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du"), got, want):
-        assert g.dtype == torch.float32 and g.shape == w.shape, name
-        err = _rel_err(g.double(), w)
-        assert err <= TOLS[dtype], (name, shape, strong, err)
+    assert (wkv_bwd_cuda.launches, wkv_bwd_cuda.routes["mma"]) == (
+        before[0] + 1, before[1] + 1)
+    wide = [t.double() for t in (*args, do)]
+    for want in (wkv_bwd_plain(*wide[:5], wide[5], chunk=64),
+                 wkv_bwd_chunked(*wide, chunk=bwd_chunk(shape[3]))):
+        for name, g, w in zip(("dr", "dk", "dv", "dlw", "du"), got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape, name
+            err = _rel_err(g.double(), w)
+            assert err <= TOLS[dtype], (name, shape, strong, err)
     again = wkv_bwd_cuda(*args, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -1102,10 +1108,12 @@ def _wkv_bwd_check(card, dtype, shape, *, strong=False, seed=0):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 128, 3, 64), (1, 100, 2, 64),
                                    (2, 130, 2, 128), (1, 7, 2, 128),
-                                   (3, 64, 1, 32)])
+                                   (3, 64, 1, 32), (1, 1024, 2, 64),
+                                   (2, 193, 1, 64), (1, 193, 2, 32)])
 def test_wkv_bwd_kernel_matches_plain(card, dtype, shape):
-    """Head widths 32, 64 and 128, whole segments of 64 steps and S not
-    a multiple of 64 (100, 130, 7), batches summed into du."""
+    """Head widths 32, 64 and 128, whole chunks (64 rows, 32 at hd 128)
+    and S not a multiple of them (100, 130, 7, 193 = 3 * 64 + 1), many
+    chunks (1024), batches summed into du."""
     _wkv_bwd_check(card, dtype, shape, seed=sum(shape))
 
 
@@ -1137,14 +1145,18 @@ def test_wkv_bwd_wrapper_rejects_bad_inputs(card):
         wkv_bwd_cuda(r, k, v, lw, u, strided)
     with pytest.raises(ValueError, match="CUDA"):
         wkv_bwd_cuda(r.cpu(), k, v, lw, u, do)
+    odd = torch.zeros(8 * 64 + 1, device=card)[1:].view(1, 8, 1, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_bwd_cuda(r, k, v, lw, u, odd)
     assert wkv_bwd_cuda.launches == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dispatch_wkv_gradients_on_card_match_the_cpu_route(card, dtype):
     """The model's WKV op: forward on B8, backward on the backward kernel
-    (one launch each, kernel routes), against the CPU route (the chunked
-    form and its autograd) on the same inputs."""
+    (one launch each, kernel routes: B8 and its backward on mma), against
+    the CPU route (the chunked form and its autograd) on the same
+    inputs."""
     shape = (2, 96, 2, 64)
     args = _wkv_inputs(card, dtype, *shape, seed=11)
     do = torch.randn(shape, generator=torch.Generator(device=card)
@@ -1152,12 +1164,16 @@ def test_dispatch_wkv_gradients_on_card_match_the_cpu_route(card, dtype):
     results = []
     for dev in (card, "cpu"):
         leaves = [t.detach().to(dev).requires_grad_(True) for t in args]
+        dispatch.reset_launch_counts()
         with dispatch.stats_scope() as stats:
             out = dispatch.wkv(*leaves, chunk=64, subchunk=16)
             grads = torch.autograd.grad(out, leaves, do.to(dev))
             routes = stats()
         route = "kernel" if dev == card else "plain"
         assert routes == {("wkv", route): 1, ("wkv_bwd", route): 1}
+        if dev == card:
+            counts = dispatch.route_counts()
+            assert (counts["wkv/mma"], counts["wkv_bwd/mma"]) == (1, 1)
         assert [g.dtype for g in grads] == [t.dtype for t in args]
         results.append((out, grads))
     (out_k, grads_k), (out_p, grads_p) = results

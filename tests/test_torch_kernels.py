@@ -868,4 +868,4 @@ def test_route_counts_reset_with_the_launch_counts():
                                          "flash_attention",
                                          "flash_attention_bwd")
            for route in ("wgmma", "simt")},
-        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/simt": 0}
+        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/mma": 0}

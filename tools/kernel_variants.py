@@ -60,6 +60,19 @@ called through its C entry with ctypes.  One JSON line per measurement:
   (``wkv_strip_*``: the diagonal sub-blocks, the scaled tiles, the
   off-diagonal products, the chunk products, the next piece's loads;
   timing only); with ``--baseline DIR`` that commit's ``repro_wkv``.
+- wkv_bwd: B8's backward (``wkv_bwd_cuda``) at chip_smoke.py's three
+  rows (rwkv6-7b's training shape B=2 S=512 H=64 hd=64 in bf16 and fp32,
+  fp32 under strong decay at S=4096) and at heads of 128 in bf16: the
+  shipped kernel's device time in all and by launch (the chunk products,
+  the scans, the gradient kernel, the du sum); copies without one launch
+  (``wkv_bwd_strip_chunk``, ``_scan``, ``_grad``) and without one phase
+  of the gradient kernel (``wkv_bwd_strip_diag``: A's diagonal
+  sub-blocks; ``_er``: the boundary rowsum; ``_mm``: M and A's other
+  sub-blocks; ``_products``: the dv, dr, dk tiles; ``_rows``: the
+  per-channel diagonal form and the rows' assembly), timing only; with
+  ``--baseline DIR`` that commit's ``repro_wkv_bwd`` through its own C
+  entry and scratch (the serial design, which stored each row's state
+  every 64 steps), its max |diff| from the shipped gradients.
 - nbody: B10 at N = 16128 and 65536: every split count of
   ``NBODY_SPLITS`` at 2 targets a thread (shipped) and at 1 and 4
   (``nbody_t1``, ``nbody_t4``), the SM clock beside; with ``--baseline``
@@ -71,10 +84,10 @@ called through its C entry with ctypes.  One JSON line per measurement:
 Times are the profiler's device time per call (``device_ms``; CUDA events
 read the host's launch pace below ~0.1 ms) and, for B11, CUDA events too.
 ``--only`` runs some of the sections (hist, b5, decode, host, prefill,
-wkv, nbody, sass).  ``--baseline`` with the decode and prefill sections
-takes a commit whose decode and prefill C entries have no split
-arguments; with wkv, nbody and sass any earlier commit.  Exits non-zero
-without a CUDA device.
+wkv, wkv_bwd, nbody, sass).  ``--baseline`` with the decode and prefill
+sections takes a commit whose decode and prefill C entries have no split
+arguments; with wkv, wkv_bwd, nbody and sass any earlier commit.  Exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -207,6 +220,40 @@ VARIANTS.update({
         ("wkv.cu", "if (s >= P / 16) break;", "if (s >= 0) break;")]),
     "wkv_strip_loads": ("wkv.cu", [
         ("wkv.cu", "if (s0 + P < S) issue(s0 + P, vb ^ 1);", "")]),
+    # timing only (their results are wrong)
+    "wkv_bwd_strip_chunk": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "  wkv_bwd_chunk_kernel<T, HD><<<",
+         "  if (blocks < 0) wkv_bwd_chunk_kernel<T, HD><<<")]),
+    "wkv_bwd_strip_scan": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "  wkv_bwd_scan_kernel<HD><<<",
+         "  if (blocks < 0) wkv_bwd_scan_kernel<HD><<<")]),
+    "wkv_bwd_strip_grad": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "  wkv_bwd_grad_kernel<T, HD><<<",
+         "  if (blocks < 0) wkv_bwd_grad_kernel<T, HD><<<")]),
+    "wkv_bwd_strip_chunk_products": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "for (int u = warp; u < 2 * MT; u += NWARP) {",
+         "for (int u = warp; u < 0; u += NWARP) {")]),
+    "wkv_bwd_strip_diag": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "for (int e = tid; e < NSC * TRI; e += NTHR) {",
+         "for (int e = tid; e < 0; e += NTHR) {")]),
+    "wkv_bwd_strip_er": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu",
+         "for (int e0 = tid * 16; e0 < HD * HD; e0 += NTHR * 16) {",
+         "for (int e0 = tid * 16; e0 < 0; e0 += NTHR * 16) {")]),
+    "wkv_bwd_strip_mm": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "for (int idx = warp; idx < NM + NA; idx += NW) {",
+         "for (int idx = warp; idx < 0; idx += NW) {")]),
+    "wkv_bwd_strip_products": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "    if (warp < 3 * MP * NG) {",
+         "    if (warp < 0) {")]),
+    "wkv_bwd_strip_pairs": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "    if (half == 0)\n      diag_pairs",
+         "    if (half < 0)\n      diag_pairs"),
+        ("wkv_bwd.cu", "    else\n      diag_pairs<1, SPLIT>",
+         "    else if (half < 0)\n      diag_pairs<1, SPLIT>")]),
+    "wkv_bwd_strip_rows": ("wkv_bwd.cu", [
+        ("wkv_bwd.cu", "  if (half < 2) {", "  if (half < 0) {"),
+        ("wkv_bwd.cu", "  if (half == 0) {", "  if (half < 0) {")]),
     "nbody_t1": ("nbody.cu", [
         ("nbody.cu", "constexpr int TPT = 2;", "constexpr int TPT = 1;")]),
     "nbody_t4": ("nbody.cu", [
@@ -236,12 +283,14 @@ BASELINE_SIGNATURES = {"repro_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
                        "repro_prefill_attention_int8":
                            [_P] * 8 + [_I] * 10 + [_P]}
 BASELINE_SIGNATURES.update({"repro_wkv": [_P] * 6 + [_I] * 8 + [_P],
+                            "repro_wkv_bwd": [_P] * 12 + [_I] * 5 + [_P],
                             "repro_nbody": [_P] * 3 + [_I, ctypes.c_float,
                                                        _P]})
 # the sources of each section's baseline kernels
 BASELINE_SOURCES = {"decode": ("decode_attention.cu",),
                     "prefill": ("prefill_attention.cu",),
-                    "wkv": ("wkv.cu",), "nbody": ("nbody.cu",),
+                    "wkv": ("wkv.cu",), "wkv_bwd": ("wkv_bwd.cu",),
+                    "nbody": ("nbody.cu",),
                     "sass": ("wkv.cu", "nbody.cu")}
 # (label, dtype, strong decay, B, S, H, hd): chip_smoke.py's WKV rows
 WKV_CASES = (("init", "bfloat16", False, 4, 4096, 64, 64),
@@ -250,13 +299,29 @@ WKV_CASES = (("init", "bfloat16", False, 4, 4096, 64, 64),
              ("init", "bfloat16", False, 4, 4096, 32, 128))
 WKV_SUBCHUNKS = (8, 16, 32)
 LIB_TOL = 1e-4
+# (label, dtype, strong decay, B, S, H, hd): chip_smoke.py's WKV backward
+# rows and heads of 128
+WKV_BWD_CASES = (("init", "bfloat16", False, 2, 512, 64, 64),
+                 ("init", "float32", False, 2, 512, 64, 64),
+                 ("strong", "float32", True, 2, 4096, 64, 64),
+                 ("init", "bfloat16", False, 2, 512, 32, 128))
+# the launches of the shipped backward, by kernel name
+WKV_BWD_KERNELS = ("wkv_bwd_chunk_kernel", "wkv_bwd_scan_kernel",
+                   "wkv_bwd_grad_kernel", "wkv_bwd_du_kernel")
 NBODY_SIZES = (16128, 65536)
 NBODY_SPLITS = (1, 2, 4, 8, 16, 21, 32, 64)
 SASS_OPS = ("HMMA", "MUFU.EX2", "MUFU.RSQ", "FFMA", "FMUL", "FADD",
             "FMNMX", "FSETP", "CALL", "BRA", "LDS", "LDGSTS")
-SECTIONS = ("hist", "b5", "decode", "host", "prefill", "wkv", "nbody",
-            "sass")
+SECTIONS = ("hist", "b5", "decode", "host", "prefill", "wkv", "wkv_bwd",
+            "nbody", "sass")
 HIST_N, HIST_BINS = 1 << 26, 1 << 20
+
+
+def section_of(variant: str) -> str:
+    """The section a variant belongs to: the longest section name its
+    name starts with (``wkv_bwd_strip_scan`` is wkv_bwd's, not wkv's)."""
+    return max((sec for sec in SECTIONS if variant.startswith(sec + "_")),
+               key=len)
 
 
 def emit(obj) -> None:
@@ -698,6 +763,85 @@ def wkv_rows(torch, cuda, built, baseline) -> list:
     return rows
 
 
+def wkv_bwd_rows(torch, cuda, built, baseline) -> list:
+    """B8's backward, its launches and stripped copies, and an earlier
+    commit's kernel, at chip_smoke.py's rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.wkv import wkv_bwd_cuda
+    from repro_torch.kernels.wkv.wkv import wkv_bwd_scratch_floats
+    rows = []
+    for label, dtype_name, strong, b, s, h, hd in WKV_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(11 + strong)
+        shape = (b, s, h, hd)
+        r, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        if strong:
+            lw = -torch.randint(80, 201, shape, generator=gen,
+                                device="cuda").float() / 4
+        else:
+            lw = -torch.exp(torch.randn(shape, generator=gen,
+                                        device="cuda") - 2)
+        u = torch.randn(h, hd, generator=gen, device="cuda")
+        do = torch.randn(shape, generator=gen, device="cuda")
+        want = wkv_bwd_cuda(r, k, v, lw, u, do)
+        grads = [torch.empty(shape, device="cuda") for _ in range(4)]
+        du = torch.zeros(h, hd, device="cuda")
+
+        def run(fn, floats):
+            scratch = torch.empty(floats, device="cuda")
+            ptrs = [x.data_ptr() for x in (r, k, v, lw, u, do, *grads, du,
+                                           scratch)]
+            return lambda: fn(*ptrs, b, s, h, hd, cuda.dtype_code(r),
+                              cuda.stream_of(r))
+
+        def diff():
+            torch.cuda.synchronize()
+            return max((g - w).abs().max().item()
+                       / max(w.abs().max().item(), 1e-300)
+                       for g, w in zip((*grads, du), want))
+        call = lambda: wkv_bwd_cuda(r, k, v, lw, u, do)  # noqa: E731
+        row = {"kernel": "wkv_bwd", "case": f"B={b} S={s} H={h} hd={hd} "
+               f"decay={label}", "dtype": dtype_name, "strip_device_ms": {}}
+        old = None
+        if baseline is not None:
+            # timed parent, shipped, shipped, parent; the serial kernel's
+            # scratch: each (batch, head)'s state every 64 steps and its
+            # du partial
+            old = run(baseline.repro_wkv_bwd,
+                      b * h * (-(-s // 64) * hd * hd + hd))
+            if old():
+                raise RuntimeError("wkv_bwd baseline: CUDA error")
+            row["baseline_rel_diff"] = diff()
+            row["baseline_device_ms"] = [device_ms(torch, old, 3)]
+        row["device_ms"] = device_ms(torch, call, 5)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        row["launch_device_ms"] = {
+            name: sum(e.self_device_time_total for e in prof.key_averages()
+                      if name in e.key) / 1e3 / 5
+            for name in WKV_BWD_KERNELS}
+        floats = wkv_bwd_scratch_floats(b, s, h, hd)
+        for name, so in built.items():
+            fn = run(entry(so, "repro_wkv_bwd", cuda), floats)
+            if fn():
+                raise RuntimeError(f"{name}: CUDA error")
+            row["strip_device_ms"][name] = device_ms(torch, fn, 5)
+        row["shipped_device_ms_after"] = device_ms(torch, call, 5)
+        if old is not None:
+            row["baseline_device_ms"].append(device_ms(torch, old, 3))
+        emit(row)
+        rows.append(row)
+        del r, k, v, lw, u, do, want, grads, du
+        torch.cuda.empty_cache()
+    return rows
+
+
 def sm_clock() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -841,7 +985,7 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     # the variants of the sections that run (b5_*, hist_*, decode_*, ...)
-    wanted = [v for v in VARIANTS if v.split("_")[0] in only]
+    wanted = [v for v in VARIANTS if section_of(v) in only]
     with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:
         lib = pool.submit(cuda.library)
         built = dict(zip(wanted, pool.map(lambda v: build(v, cuda), wanted)))
@@ -885,7 +1029,11 @@ def main(argv=None) -> int:
                          "repro_prefill_attention_int8")), baseline)
     if "wkv" in only:
         rows += wkv_rows(torch, cuda, {n: so for n, so in built.items()
-                                       if n.startswith("wkv_")}, baseline)
+                                       if section_of(n) == "wkv"}, baseline)
+    if "wkv_bwd" in only:
+        rows += wkv_bwd_rows(torch, cuda, {
+            n: so for n, so in built.items() if section_of(n) == "wkv_bwd"},
+            baseline)
     if "nbody" in only:
         rows += nbody_rows(torch, cuda, {n: so for n, so in built.items()
                                          if n.startswith("nbody_")},
