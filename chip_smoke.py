@@ -47,7 +47,13 @@ Phases, one output line or more each:
               two GEMMs, and at a training step's capacity (C = 88) the
               bf16 up and down and the fp32 backward's two, each against
               its plain version, rerun bit-equal, beside one
-              ``torch.bmm`` and the per-group B1 loop; B1 fp32 at the
+              ``torch.bmm`` and the per-group B1 loop; the bf16 VJP as
+              the train step runs it (dx and dw of the up and down at
+              C = 88, dw at C = 8; both on the short tile, reading w^T
+              and x^T through their strides) beside the fp32 upcast route it
+              replaced, timed in turns in the same call
+              (``upcast_device_ms``), and ``torch.bmm`` on the bf16
+              operands; B1 fp32 at the
               router (N = 60; M = 4, 256 and the training step's 1024)
               and bf16 at the untied head (N = 151936); B2/B4a and B3/B4b
               (and the verify window) at 16 kv heads of 128, group 1.
@@ -155,14 +161,19 @@ Phases, one output line or more each:
               B6 8, B7 4, every flash call on wgmma at hd 128), kernel
               routes only, each MoE layer's remat recompute choosing the
               forward's experts bit for bit (``moe.route`` recorded), peak
-              memory under 80 GB; a profiled step (failing if it sees
-              device time but none in the grouped bf16 or fp32 kernels
-              or the wgmma B6/B7 kernels); and ``moe_train_parity``: one
+              memory under 80 GB, the grouped route's launches by route
+              (forward and recompute on the tile route, dx and dw on the
+              short tile, none on the fp32 FMA tile: the bf16 VJP takes
+              its operands as they are); a profiled step (failing if it
+              sees device time but none in the grouped bf16 tile or
+              short-tile kernels or the wgmma B6/B7 kernels, or any in
+              the grouped fp32 kernel); and ``moe_train_parity``: one
               fp32 loss and backward, kernels against plain versions, the
-              plain run replaying the kernel run's expert choices, loss
-              within 1e-5 relative and every leaf within 1e-3 of its max
-              |grad|, with a free-running plain loss, its differing
-              choices and the smallest top-k gaps reported.
+              plain run replaying the kernel run's expert choices, its
+              grouped calls on the fp32 FMA tile only, loss within 1e-5
+              relative and every leaf within 1e-3 of its max |grad|, with
+              a free-running plain loss, its differing choices and the
+              smallest top-k gaps reported.
 6c. embed train -- the entry point on the embedding-input archs at full
               width and depth: musicgen-large (hd 64, a non-gated GELU
               MLP; B1 4 x 296 per step, B6 96, B7 48) and qwen2-vl-2b (hd
@@ -401,33 +412,52 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def launch_device_ms(torch, fn, reps: int = 10) -> dict:
-    """Device milliseconds per call of each kernel ``fn`` launches, over
-    ``reps`` calls under ``torch.profiler`` (after one warm-up call),
-    keyed by the kernel's name without namespace, template arguments or
-    parameters."""
+def kernel_events(torch, fn, calls: int) -> dict:
+    """{kernel name: [events, device ms]} of ``calls`` calls of ``fn``
+    under ``torch.profiler``, the name without namespace, template
+    arguments or parameters."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.key.split("(")[0].split("<")[0].split("::")[-1]
-            ms = e.self_device_time_total / 1e3 / reps
-            out[name] = out.get(name, 0.0) + ms
+            seen = out.setdefault(name, [0, 0.0])
+            seen[0] += e.count
+            seen[1] += e.self_device_time_total / 1e3
     return out
 
 
-def device_ms(torch, fn, reps: int = 10):
+def launch_device_ms(torch, fn, reps: int = 10, tries: int = 3) -> dict:
+    """Device milliseconds per call of each kernel ``fn`` launches, over
+    ``reps`` calls under the profiler (after one warm-up call), keyed as
+    ``kernel_events`` names them.  A try profiles one call and then the
+    ``reps``; it stands only if the profile saw every kernel exactly
+    ``reps`` times as often as in the one call (a profile that lost
+    events once gave a row less than its bound).  Up to ``tries`` tries;
+    raises if none stands."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        one = {k: n for k, (n, _) in kernel_events(torch, fn, 1).items()}
+        many = kernel_events(torch, fn, reps)
+        counts = {k: n for k, (n, _) in many.items()}
+        if one and counts == {k: n * reps for k, n in one.items()}:
+            return {k: ms / reps for k, (_, ms) in many.items()}
+    raise AssertionError(
+        f"device time: no profile of {tries} saw every kernel {reps} times "
+        f"as often as one call (last: one call {one}, {reps} calls "
+        f"{counts})")
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
     """Mean device milliseconds of the kernels ``fn`` launches, per call
     (``launch_device_ms`` summed): the card's own time where a short
-    kernel's CUDA-event time is paced by the host's launches.  None if
-    the profiler sees no device time."""
-    return sum(launch_device_ms(torch, fn, reps).values()) or None
+    kernel's CUDA-event time is paced by the host's launches."""
+    return sum(launch_device_ms(torch, fn, reps).values())
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -622,23 +652,43 @@ def moe_spec():
     return _moe_spec(get_arch(MOE_ARCH))
 
 
+def gemm_bound(g: int, m: int, k: int, n: int, dtype_name: str):
+    """The bound of (G, M, K) @ (G, K, N) -> (G, M, N): each operand read
+    once, the output written once, in the row's type."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    return bound((g * m * k + g * k * n + g * m * n) * size,
+                 2.0 * g * m * k * n, dtype_name)
+
+
+def grouped_call(case: str, a, b):
+    """``grouped_matmul_cuda(a, b)`` and the route it launched: the one
+    whose count went up."""
+    from repro_torch.kernels.matmul import grouped_matmul_cuda
+    before = dict(grouped_matmul_cuda.routes)
+    out = grouped_matmul_cuda(a, b)
+    taken = [r for r, n in grouped_matmul_cuda.routes.items()
+             if n != before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"grouped_matmul {case}: routes {taken}")
+    return out, taken[0]
+
+
 def grouped_row(torch, case: str, dtype_name: str, a, b):
-    """One grouped-route row: against the plain version, a rerun bit-equal,
-    the bound, one ``torch.bmm`` (cuBLAS) as the library time, and the
-    per-group B1 launches the JAX lowering's form would take
+    """One grouped-route row: its route, against the plain version, a
+    rerun bit-equal, the bound, one ``torch.bmm`` (cuBLAS) as the library
+    time, and the per-group B1 launches the JAX lowering's form would take
     (``b1_loop_ms``)."""
     from repro_torch.kernels.matmul import (grouped_matmul_cuda,
                                             grouped_matmul_plain, matmul_cuda)
     from repro_torch.kernels.matmul.matmul import split_plan
-    out = grouped_matmul_cuda(a, b)
+    out, route = grouped_call(case, a, b)
     err = compare(torch, "grouped_matmul " + case, out,
                   grouped_matmul_plain(a, b), dtype_name)
     if not torch.equal(grouped_matmul_cuda(a, b), out):
         raise AssertionError(f"grouped_matmul {case}: a rerun changed bits")
     g, c, k = a.shape
     n = b.shape[2]
-    bnd = bound((g * c * k + g * k * n + g * c * n) * a.element_size(),
-                2.0 * g * c * k * n, dtype_name)
+    bnd = gemm_bound(g, c, k, n, dtype_name)
 
     def call():
         return grouped_matmul_cuda(a, b)
@@ -651,9 +701,97 @@ def grouped_row(torch, case: str, dtype_name: str, a, b):
                device_ms=device_ms(torch, call),
                library_device_ms=device_ms(torch, lambda: torch.bmm(a, b)),
                b1_loop_ms=time_ms(torch, loop),
-               b1_loop_device_ms=device_ms(torch, loop),
-               split=list(split_plan(k, n, a.dtype, groups=g)),
+               b1_loop_device_ms=device_ms(torch, loop), route=route,
+               split=(None if route == "wgmma_short"    # it never splits
+                      else list(split_plan(k, n, a.dtype, groups=g))),
                rerun_bit_equal=True)
+
+
+def grouped_vjp_row(torch, case: str, a, b, upcast):
+    """One of the bf16 VJP's grouped GEMMs as the train step runs it (a @ b
+    on bf16 operands, x^T or w^T read through its strides, on the short
+    tile: the route whose launch count went up, checked) beside
+    ``upcast``, the fp32 route it replaced (fp32 copies of the operands,
+    the FMA tile, the cast back), device times in turns (upcast, new,
+    new, upcast), against the plain version, a rerun bit-equal, the
+    upcast route's answer within one bf16 rounding, and one ``torch.bmm``
+    on the bf16 operands."""
+    from repro_torch.kernels.matmul import (grouped_matmul_cuda,
+                                            grouped_matmul_plain)
+
+    def new():
+        return grouped_matmul_cuda(a, b)
+
+    def bmm():
+        return torch.bmm(a, b)
+    out, route = grouped_call(case, a, b)
+    if route != "wgmma_short":
+        raise AssertionError(f"grouped_matmul {case}: route {route}, "
+                             f"expected the short tile")
+    err = compare(torch, "grouped_matmul " + case, out,
+                  grouped_matmul_plain(a, b), "bfloat16")
+    if not torch.equal(new(), out):
+        raise AssertionError(f"grouped_matmul {case}: a rerun changed bits")
+    before = upcast()
+    up_diff = (before.float() - out.float()).abs().max().item()
+    step = (2.0 ** -7) * out.float().abs().max().item()
+    if not up_diff <= step:
+        raise AssertionError(f"grouped_matmul {case}: {up_diff:.3e} from "
+                             f"the fp32 route, over one bf16 step {step:.3e}")
+    del before
+    turns = [device_ms(torch, fn) for fn in (upcast, new, new, upcast)]
+    g, m, k = a.shape
+    n = b.shape[2]
+    speedup = (turns[0] + turns[3]) / (turns[1] + turns[2])
+    return row("grouped_matmul", case, "bfloat16", err, time_ms(torch, new),
+               time_ms(torch, lambda: grouped_matmul_plain(a, b)),
+               gemm_bound(g, m, k, n, "bfloat16"), time_ms(torch, bmm),
+               route=route,
+               device_ms=turns[1], device_ms_turns=[turns[1], turns[2]],
+               upcast_ms=time_ms(torch, upcast),
+               upcast_device_ms=[turns[0], turns[3]],
+               upcast_over_new_device=speedup,
+               upcast_max_abs_diff=up_diff,
+               library_device_ms=device_ms(torch, bmm),
+               rerun_bit_equal=True)
+
+
+def check_grouped_vjp(torch, gen, spec):
+    """The bf16 VJP of the experts' contractions at a training step's
+    capacity (dx = g @ w^T and dw = x^T @ g of the up and the down) and dw
+    at a decode step's, each beside the fp32 route it replaced as that
+    route ran (``_GroupedMatmul.backward`` before bf16 operands: g, w and
+    x upcast, x^T made contiguous; each row makes the copies its GEMM
+    reads, where that backward shared g's)."""
+    from repro_torch.kernels.matmul import grouped_matmul_cuda
+    bf16 = torch.bfloat16
+    g = spec.e_pad
+    rows = []
+    for tokens in (TRAIN_BATCH * TRAIN_SEQ, GROUPED_TOKENS[0]):
+        c = spec.capacity(tokens)
+        for k, n in GROUPED_SHAPES:
+            if tokens != TRAIN_BATCH * TRAIN_SEQ and k != 2048:
+                continue
+            x = torch.randn(g, c, k, generator=gen, device="cuda").to(bf16)
+            w = (torch.randn(g, k, n, generator=gen, device="cuda")
+                 / math.sqrt(k)).to(bf16)
+            gout = torch.randn(g, c, n, generator=gen,
+                               device="cuda").to(bf16)
+            case = f"G={g} C={c} K={k} N={n} bf16 VJP"
+            if tokens == TRAIN_BATCH * TRAIN_SEQ:
+                rows.append(grouped_vjp_row(
+                    torch, case + " dx = g @ w^T", gout, w.transpose(1, 2),
+                    lambda: grouped_matmul_cuda(
+                        gout.float().contiguous(),
+                        w.float().transpose(1, 2)).to(bf16)))
+            rows.append(grouped_vjp_row(
+                torch, case + " dw = x^T @ g", x.transpose(1, 2), gout,
+                lambda: grouped_matmul_cuda(
+                    x.float().transpose(1, 2).contiguous(),
+                    gout.float().contiguous()).to(bf16)))
+            del x, w, gout
+            torch.cuda.empty_cache()
+    return rows
 
 
 def check_grouped(torch, dtype_name: str):
@@ -701,6 +839,8 @@ def check_grouped(torch, dtype_name: str):
             del gout
         del x, w
     torch.cuda.empty_cache()
+    if dtype_name == "bfloat16":
+        rows += check_grouped_vjp(torch, gen, spec)
     return rows
 
 
@@ -2800,7 +2940,8 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
         torch.cuda.synchronize()
         launches = dispatch.launch_counts()
         kernel_routes = {k: n for k, n in dispatch.route_counts().items()
-                         if k.startswith(("flash_attention", "wkv"))}
+                         if k.startswith(("flash_attention", "wkv",
+                                          "grouped_matmul"))}
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     routes = {f"{op}/{route}": n for (op, route), n in report[
@@ -2841,6 +2982,13 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
                                     ("wkv", "mma"))
                    for route in (fast, "simt")}
     want_routes["wkv_bwd/mma"] = want.get("wkv_bwd", 0)
+    # the experts (bf16): the forward and its recompute on B1's tile, dx =
+    # g @ w^T and dw = x^T @ g on the short tile, nothing on the fp32 FMA
+    # tile
+    grouped = want.get("grouped_matmul", 0) // 2
+    want_routes.update({"grouped_matmul/wgmma": grouped,
+                        "grouped_matmul/wgmma_short": grouped,
+                        "grouped_matmul/simt": 0})
     if kernel_routes != want_routes:
         raise AssertionError(f"{phase}: kernel routes {kernel_routes}, "
                              f"expected {want_routes}")
@@ -2866,6 +3014,8 @@ KERNEL_GROUPS = (("quantized_wgmma_kernel", "B5 int8 matmul bf16 (wgmma)"),
                  ("matmul_bf16_wgmma_kernel<true, true>",
                   "B1 grouped bf16 (wgmma)"),
                  ("matmul_bf16_wgmma_kernel", "B1 matmul bf16 (wgmma)"),
+                 ("matmul_bf16_grouped_short_kernel",
+                  "B1 grouped bf16 short (wgmma)"),
                  ("matmul_f32_simt_kernel<true,", "B1 grouped fp32 (SIMT)"),
                  ("matmul_f32_simt_kernel", "B1 matmul fp32 (SIMT)"),
                  ("matmul_splitk_reduce_kernel", "B1 split-K sum"),
@@ -2895,9 +3045,11 @@ OTHER_GROUP = "other (PyTorch ops)"
 TRAIN_WGMMA_GROUPS = ("B6 flash forward bf16 (wgmma)",
                       "B7 dQ sweep bf16 (wgmma)",
                       "B7 dK/dV sweep bf16 (wgmma)")
-# and a MoE step's experts: the bf16 forward and the fp32 backward
+# and a MoE step's experts: the bf16 forward on B1's tile, dx and dw on
+# the short tile; none of it on the fp32 FMA tile
 MOE_TRAIN_GROUPS = TRAIN_WGMMA_GROUPS + ("B1 grouped bf16 (wgmma)",
-                                         "B1 grouped fp32 (SIMT)")
+                                         "B1 grouped bf16 short (wgmma)")
+MOE_TRAIN_FORBIDDEN = ("B1 grouped fp32 (SIMT)",)
 # and an RWKV step's time mixes: B8 forward and the WKV backward
 RWKV_TRAIN_GROUPS = ("B8 WKV (mma)", "B8 backward (WKV gradient)")
 
@@ -2906,13 +3058,14 @@ def kernel_group(name: str) -> str:
     return next((g for key, g in KERNEL_GROUPS if key in name), OTHER_GROUP)
 
 
-def train_profile(torch, phase: str, cfg, required):
+def train_profile(torch, phase: str, cfg, required, forbidden=()):
     """Where one train step of ``cfg`` spends the card's time, by kernel,
     from ``torch.profiler`` over one step after a warm-up step (the same
     step function, settings and batch as the train phases, without the
     supervisor and checkpoint).  If the profiler sees no device time,
     says so instead of failing: it is a breakdown, not a check; if it sees
-    device time, every group of ``required`` must have some."""
+    device time, every group of ``required`` must have some and no group
+    of ``forbidden`` any."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.transformer import Model
@@ -2946,6 +3099,7 @@ def train_profile(torch, phase: str, cfg, required):
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
     missing = [g for g in required if busy and not groups.get(g)]
+    present = [g for g in forbidden if groups.get(g)]
     emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
           "profiled_step_wall_ms": wall_ms,
           "device_ms": groups if busy else "not measured",
@@ -2955,6 +3109,8 @@ def train_profile(torch, phase: str, cfg, required):
                         for ms, n, name in sorted(other, reverse=True)[:8]]})
     if missing:
         raise AssertionError(f"{phase}: no device time in {missing}")
+    if present:
+        raise AssertionError(f"{phase}: device time in {present}")
     del params, opt, metrics
 
 
@@ -3233,10 +3389,19 @@ def train_parity_phase(torch, phase: str, cfg, seed: int = 7):
             grads = torch.autograd.grad(loss, flat) if backward else None
         return float(loss.detach()), grads
 
+    dispatch.reset_launch_counts()
     loss_k, grads_k = run(recording(chosen[0]))
+    grouped_routes = {k: n for k, n in dispatch.route_counts().items()
+                      if k.startswith("grouped_matmul/")}
     moe_layers = len(chosen[0])
     line = {}
     if moe_layers:
+        # fp32 operands: every grouped call on the FMA tile
+        if grouped_routes["grouped_matmul/simt"] != sum(
+                grouped_routes.values()) or not grouped_routes[
+                    "grouped_matmul/simt"]:
+            raise AssertionError(f"{phase}: grouped routes {grouped_routes}")
+        line.update(grouped_routes=grouped_routes)
         loss_free, _ = run(recording(chosen[1]), on_card=False,
                            backward=False)
         loss_p, grads_p = run(replaying, on_card=False)
@@ -3351,13 +3516,14 @@ def main(argv=None) -> int:
         moe_model_phase(torch, int8)
         torch.cuda.empty_cache()
     from repro_torch.configs import get_arch
-    for phase, cfg, groups in (
-            ("train", get_arch("gemma-2b"), TRAIN_WGMMA_GROUPS),
-            ("moe_train", moe_train_config(), MOE_TRAIN_GROUPS)):
+    for phase, cfg, groups, forbidden in (
+            ("train", get_arch("gemma-2b"), TRAIN_WGMMA_GROUPS, ()),
+            ("moe_train", moe_train_config(), MOE_TRAIN_GROUPS,
+             MOE_TRAIN_FORBIDDEN)):
         for op, n in train_run(torch, phase, cfg).items():
             launches[op] = launches.get(op, 0) + n
         release(torch)
-        train_profile(torch, phase + "_profile", cfg, groups)
+        train_profile(torch, phase + "_profile", cfg, groups, forbidden)
         release(torch)
         train_parity_phase(torch, phase + "_parity", cfg)
         release(torch)

@@ -1,7 +1,8 @@
 // Hopper building blocks of B1 (matmul.cu) and B5 (quantized_matmul.cu):
-// mbarriers, TMA tile loads, wgmma descriptors and the m64n128k16 bf16
-// product, cp.async copies (also decode_attention.cu's), and on the host
-// tensor-map encoding and the launch with a dynamic shared-memory opt-in.
+// mbarriers, TMA tile loads and stores, wgmma descriptors and the
+// m64n128k16 bf16 product, cp.async copies (also decode_attention.cu's),
+// and on the host tensor-map encoding and the launch with a dynamic
+// shared-memory opt-in.
 //
 // Shared-memory layout of the bf16 tiles.  Every 16-bit tile is stored as
 // rows of 128 bytes in TMA's 128-byte swizzle: the 16-byte chunk c of row r
@@ -106,6 +107,38 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a 2-D tile of shared memory stored into a 3-D tensor at element
+// coordinates (c0 innermost, c1, c2), as one bulk async-group of this
+// thread once committed; elements past the tensor's edges are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// this thread's uncommitted bulk stores as one group (an empty group if
+// there are none)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// returns once at most N of this thread's bulk groups still read their
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// returns once at most N of this thread's bulk groups are unfinished
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor, 128-byte swizzle.  lbo and sbo in bytes:
 // sbo is the stride between groups of 8 rows of 128 bytes; lbo the stride
@@ -141,9 +174,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),         \
       "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
 
-// d (64 rows x 128 columns, fp32) += A (64 x 16, K-major) @ B (16 x 128);
-// TRANS_B = 1 when B's tile is N-contiguous (MN-major), 0 when K-major
-template <int TRANS_B>
+// d (64 rows x 128 columns, fp32) += A (64 x 16) @ B (16 x 128);
+// TRANS_B = 1 when B's tile is N-contiguous (MN-major), 0 when K-major;
+// TRANS_A likewise for A (M-contiguous: 1)
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b) {
@@ -155,10 +189,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}"
+      "%64, %65, p, 1, 1, %68, %67;\n}"
       : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
         SM90_R8(40), SM90_R8(48), SM90_R8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 #undef SM90_R8

@@ -18,10 +18,12 @@ for the prefill the GQA group), count them by route too
 ``torch.autograd.Function``s (a ctypes launch is invisible to autograd):
 their backwards route by the device of the incoming gradient in the same
 way (``matmul_bwd``: both gradient GEMMs through B1 in fp32;
-``grouped_matmul_bwd``: both through B1's grouped route in fp32;
+``grouped_matmul_bwd``: both through B1's grouped route, on bf16 operands
+as they are when x, w and the gradient are all bf16, else in fp32;
 ``attention_bwd``: the fused recompute backward; ``wkv_bwd``: the WKV
 backward kernel), so the CPU tests walk the control flow and counters
-the card does.
+the card does.  B1's grouped route also counts its launches by route
+(``wgmma``, ``wgmma_short``, ``simt``).
 """
 from __future__ import annotations
 
@@ -100,7 +102,7 @@ def reset_launch_counts() -> None:
 def route_counts() -> Dict[str, int]:
     """Launches by route (``op/route``) of the kernels that have more than
     one (the flash forward and backward and the paged prefill: ``wgmma``
-    and ``simt``)."""
+    and ``simt``; B1's grouped route also ``wgmma_short``)."""
     return {f"{op}/{route}": n for op, fn in KERNELS.items()
             for route, n in getattr(fn, "routes", {}).items()}
 
@@ -155,19 +157,31 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _grouped_grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One fp32 grouped gradient GEMM, routed and counted as
-    ``grouped_matmul_bwd``."""
+    """One grouped gradient GEMM, routed and counted as
+    ``grouped_matmul_bwd``.  The plain route takes A contiguous, as the
+    fp32 route always passes it, so its bits do not depend on A's layout
+    (the card's bf16 route reads x^T through its strides)."""
     if _on_card("grouped_matmul_bwd", a):
         return grouped_matmul_cuda(a, b)
-    return grouped_matmul_plain(a, b)
+    return grouped_matmul_plain(a.contiguous(), b)
 
 
 class _GroupedMatmul(torch.autograd.Function):
     """x (G, C, K) @ w (G, K, N) with the JAX op's custom VJP
     (``repro/kernels/matmul/ops.py::_grouped_vjp_bwd``): per group, dx =
-    g @ w^T (w^T read through its strides) and dw = x^T @ g (x^T made
-    contiguous), both in fp32 through the device's grouped route, each
-    cast back to its primal dtype."""
+    g @ w^T (w^T read through its strides) and dw = x^T @ g, each
+    accumulated in fp32 and rounded once to its primal dtype.
+
+    The JAX VJP upcasts x, w and g to fp32 and runs fp32 GEMMs.  Where all
+    three are bf16 (the bf16 compute policy), the GEMMs take them as they
+    are: a product of two bf16 values is exact in fp32, so bf16 operands
+    with fp32 accumulation compute JAX's function up to the order of the
+    fp32 sums, with no fp32 copies of w (a (60, 2048, 1408) expert weight
+    is 692 MB in fp32) and no fp32 gradient to cast back; on the card
+    both run on B1's short tile, which reads w^T and x^T through their
+    strides.  Otherwise (the fp32 policy, mixed dtypes) the operands are
+    upcast as in JAX and x^T made contiguous.  The choice depends on the
+    dtypes alone; each route raises on what it does not take."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -179,13 +193,18 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g = g.float().contiguous()
+        x_dtype, w_dtype = x.dtype, w.dtype
+        bf16 = x_dtype == w_dtype == g.dtype == torch.bfloat16
+        if not bf16:
+            x, w, g = x.float(), w.float(), g.float()
+        g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _grouped_grad_gemm(g, w.float().transpose(1, 2)).to(x.dtype)
+            dx = _grouped_grad_gemm(g, w.transpose(1, 2)).to(x_dtype)
         if ctx.needs_input_grad[1]:
-            dw = _grouped_grad_gemm(x.float().transpose(1, 2).contiguous(),
-                                    g).to(w.dtype)
+            xt = x.transpose(1, 2)
+            dw = _grouped_grad_gemm(xt if bf16 else xt.contiguous(),
+                                    g).to(w_dtype)
         return dx, dw
 
 

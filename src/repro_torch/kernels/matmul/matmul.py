@@ -10,7 +10,7 @@ is B1's grouped route (``repro_grouped_matmul`` in ``matmul.cu``): the MoE
 experts' (G, C, K) @ (G, K, N), which the JAX op lowers to one
 ``matmul_pallas`` call per group
 (``repro/kernels/matmul/ops.py::_grouped_kernel_lowering``), in one
-launch.
+launch, on the CUDA route ``grouped_route`` names.
 """
 from __future__ import annotations
 
@@ -147,13 +147,33 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gck,gkn->gcn", x.float(), w.float()).to(out_dtype)
 
 
+def grouped_route(dtype: torch.dtype, x_kmajor: bool = True,
+                  w_kmajor: bool = False) -> str:
+    """The CUDA route of a grouped call, a function of (dtype, the
+    operands' layout) only, never of the rows a group holds: fp32
+    ``simt`` (B1's FMA tile); bf16 ``wgmma``, B1's tile with split K, for
+    the forward's layout (x contiguous, w N-contiguous), and
+    ``wgmma_short``, the persistent short tile, for the two layouts only
+    the backward sends: x read C-major with w N-contiguous (dw = x^T @ g)
+    and x contiguous with w K-contiguous (dx = g @ w^T).  A bf16 x read
+    C-major with a K-contiguous w takes no route."""
+    if dtype == torch.float32:
+        return "simt"
+    if not x_kmajor and w_kmajor:
+        raise ValueError("grouped_matmul: a bf16 x read C-major needs w "
+                         "N-contiguous")
+    return "wgmma" if x_kmajor and not w_kmajor else "wgmma_short"
+
+
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch ``repro_grouped_matmul`` once for all groups: x (G, C, K)
-    contiguous, w (G, K, N) with a unit stride along K or N in each group
-    (the experts' weights are N-contiguous; the backward's w^T is
-    K-contiguous), both bf16 or both fp32, on one CUDA device; K split by
-    ``split_plan(k, n, dtype, groups=g)``.  Returns a new (G, C, N) tensor
-    of x's dtype."""
+    contiguous (in bf16 also the transpose of a contiguous (G, K, C)
+    tensor, the backward's x^T), w (G, K, N) with a unit stride along K or
+    N in each group (the experts' weights are N-contiguous; the
+    backward's w^T is K-contiguous), both bf16 or both fp32, on one CUDA
+    device, on the route ``grouped_route`` names for their layouts; the
+    tile route splits K by ``split_plan(k, n, dtype, groups=g)``, the
+    short tile never.  Returns a new (G, C, N) tensor of x's dtype."""
     cuda.require_cuda("grouped_matmul", x, w, contiguous=False)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
@@ -162,8 +182,11 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype != w.dtype:
         raise TypeError(f"grouped_matmul: operand dtypes differ ({x.dtype}, "
                         f"{w.dtype})")
-    if not x.is_contiguous():
-        raise ValueError("grouped_matmul: x must be contiguous")
+    x_kmajor = x.is_contiguous()
+    if not x_kmajor and not (x.dtype == torch.bfloat16
+                             and x.transpose(1, 2).is_contiguous()):
+        raise ValueError("grouped_matmul: x must be contiguous (bf16 also "
+                         "the transpose of a contiguous (G, K, C) tensor)")
     if 1 not in w.stride()[1:]:
         raise ValueError(f"grouped_matmul: w needs a unit stride along K or "
                          f"N, got strides {w.stride()}")
@@ -174,7 +197,10 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     _check_rows("grouped_matmul", c, TILE_M)
-    split, per = split_plan(k, n, x.dtype, groups=g)
+    route = grouped_route(x.dtype, x_kmajor, w.stride(2) != 1)
+    short = route == "wgmma_short"
+    split, per = ((1, -(-k // TILE_K[x.dtype])) if short
+                  else split_plan(k, n, x.dtype, groups=g))
     if g * split > 65535:                      # the grid's group axis
         raise ValueError(f"grouped_matmul: {g} groups x split {split} "
                          f"exceed 65535")
@@ -184,15 +210,18 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rc = cuda.library().repro_grouped_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        *cuda.c_ints("grouped_matmul", g, c, n, k, k, c * k, w.stride(0),
-                     w.stride(1), w.stride(2), split, per), code,
+        *cuda.c_ints("grouped_matmul", g, c, n, k, k if x_kmajor else c,
+                     c * k, w.stride(0), w.stride(1), w.stride(2), split,
+                     per, int(not x_kmajor), int(short)), code,
         cuda.stream_of(x))
     cuda.check(rc, "grouped_matmul")
     grouped_matmul_cuda.launches += 1
+    grouped_matmul_cuda.routes[route] += 1
     return out
 
 
 grouped_matmul_cuda.launches = 0
+grouped_matmul_cuda.routes = {"wgmma": 0, "wgmma_short": 0, "simt": 0}
 
 
 def quantized_matmul_plain(a: torch.Tensor, b_q: torch.Tensor,

@@ -9,7 +9,9 @@ machine that has only PyTorch:
 
 Small shapes cover what the full-width chip_smoke.py does not: ragged
 GEMM edges (also of B1's grouped route for the MoE experts, at 1 and 60
-groups, both weight layouts, split K and its backward), GQA groups
+groups, both weight layouts, split K and its backward; its short tile at
+the capacities the backward's dw contracts over, x^T read C-major, and
+dx's w^T read K-major), GQA groups
 1/4/8, tiny pages, windows and empty slots, for the float kernels and for
 the int8 ones (the int8-weight GEMM and the
 int8 branches of the attention kernels); the paged prefill's wgmma route
@@ -224,8 +226,10 @@ def test_grouped_matmul_misaligned_groups_give_the_aligned_bits(card, dtype):
 
 def test_grouped_matmul_autograd_on_the_card(card):
     """dispatch.grouped_matmul's backward: dx = g @ w^T (K-major B) and
-    dw = x^T @ g through the grouped route in fp32, against the plain
-    route's gradients; three launches, no plain route."""
+    dw = x^T @ g through the grouped route (bf16 operands as they are when
+    x, w and the gradient are bf16, on the short tile; fp32 otherwise),
+    against the plain route's gradients; three launches,
+    no plain route."""
     gen = torch.Generator(device=card).manual_seed(7)
     for dtype in DTYPES:
         x, w = _grouped_operands(card, dtype, gen, 60, 8, 72, 40, False)
@@ -258,8 +262,9 @@ def test_grouped_matmul_autograd_on_the_card(card):
 def test_grouped_matmul_backward_at_training_capacity(card, dtype, k, n):
     """The grouped VJP at a training step's capacity (C = 88: 2 x 512
     tokens, top 4, factor 1.25, 60 experts): dx (K-major B) and dw (the
-    capacity its contraction) in fp32 through the grouped route at ragged
-    K and N edges, against the plain version's gradients, and a rerun
+    capacity its contraction) through the grouped route (bf16 operands on
+    the short tile, fp32 on the FMA tile) at ragged K
+    and N edges, against the plain version's gradients, and a rerun
     bit-equal."""
     gen = torch.Generator(device=card).manual_seed(k + n)
     x, w = _grouped_operands(card, dtype, gen, 60, 88, k, n, False)
@@ -282,7 +287,8 @@ def test_grouped_matmul_backward_at_training_capacity(card, dtype, k, n):
                               ("grouped_matmul_bwd", "kernel"): 2}
     for got, want, again in zip(*grads):
         assert got.dtype == dtype
-        # the backward's GEMMs run in fp32; a bf16 primal rounds once
+        # the backward's GEMMs accumulate in fp32 (bf16 operands, whose
+        # products are exact, or fp32 ones); a bf16 gradient rounds once
         _close(got, want, dtype)
         assert torch.equal(got, again)
 
@@ -306,6 +312,106 @@ def test_grouped_matmul_rejects_what_it_does_not_take(card):
         grouped_matmul_cuda(x, torch.ones(2, 8, 3, device=card,
                                           dtype=torch.bfloat16))
     assert grouped_matmul_cuda.launches == before
+
+
+# the short tile's capacities: one row, a decode step's (8), a prefill
+# chunk's (24), a training step's (88), one K step and a half past two
+SHORT_CAPACITIES = [1, 8, 24, 88, 96, 130]
+
+
+@pytest.mark.parametrize("kin,n", [(130, 67), (72, 1409), (256, 128)])
+@pytest.mark.parametrize("c", SHORT_CAPACITIES)
+def test_grouped_short_tile_reads_x_transposed(card, c, kin, n):
+    """dw = x^T @ g on the short tile, x^T read C-major through wgmma's
+    transpose bit (at C > 1): against the plain version, a rerun
+    bit-equal, the bits of the same product on a contiguous copy of x^T
+    (the tile route) and of B1 on each group, and misaligned x or g (the
+    masked path, element-wise stores where c's rows are not 16-byte
+    multiples) giving the aligned bits."""
+    gen = torch.Generator(device=card).manual_seed(c * 1000 + kin + n)
+    x = torch.randn(4, c, kin, generator=gen, device=card).to(torch.bfloat16)
+    g = torch.randn(4, c, n, generator=gen, device=card).to(torch.bfloat16)
+    xt = x.transpose(1, 2)
+    # x^T of a one-row x is contiguous as well: the tile route takes it
+    route = "wgmma" if xt.is_contiguous() else "wgmma_short"
+    before = dict(grouped_matmul_cuda.routes)
+    dw = grouped_matmul_cuda(xt, g)
+    assert grouped_matmul_cuda.routes == {**before,
+                                          route: before[route] + 1}
+    assert dw.dtype == torch.bfloat16 and dw.shape == (4, kin, n)
+    _close(dw, grouped_matmul_plain(xt, g), torch.bfloat16)
+    assert torch.equal(grouped_matmul_cuda(xt, g), dw)
+    copy = xt.contiguous()
+    before = dict(grouped_matmul_cuda.routes)
+    assert torch.equal(grouped_matmul_cuda(copy, g), dw)
+    assert grouped_matmul_cuda.routes == {**before,
+                                          "wgmma": before["wgmma"] + 1}
+    for i in (0, 3):
+        assert torch.equal(matmul_cuda(copy[i], g[i]), dw[i])
+    assert torch.equal(
+        grouped_matmul_cuda(_misaligned(x).transpose(1, 2), g), dw)
+    assert torch.equal(grouped_matmul_cuda(xt, _misaligned(g)), dw)
+
+
+@pytest.mark.parametrize("kin,n", [(130, 67), (72, 1409), (2048, 1408)])
+@pytest.mark.parametrize("c", SHORT_CAPACITIES)
+def test_grouped_short_tile_reads_w_transposed(card, c, kin, n):
+    """dx = g @ w^T on the short tile, w^T read K-major: against the
+    plain version, a rerun bit-equal, the bits of B1 on each group, and
+    misaligned g or w^T (the masked path) giving the aligned bits; a bf16
+    x read C-major with a K-major w is refused before a launch."""
+    gen = torch.Generator(device=card).manual_seed(c * 1000 + kin + n)
+    g = torch.randn(4, c, n, generator=gen, device=card).to(torch.bfloat16)
+    w = (torch.randn(4, kin, n, generator=gen, device=card)
+         / math.sqrt(n)).to(torch.bfloat16)
+    wt = w.transpose(1, 2)
+    before = dict(grouped_matmul_cuda.routes)
+    dx = grouped_matmul_cuda(g, wt)
+    assert grouped_matmul_cuda.routes == {
+        **before, "wgmma_short": before["wgmma_short"] + 1}
+    assert dx.dtype == torch.bfloat16 and dx.shape == (4, c, kin)
+    _close(dx, grouped_matmul_plain(g, wt), torch.bfloat16)
+    assert torch.equal(grouped_matmul_cuda(g, wt), dx)
+    for i in (0, 3):
+        assert torch.equal(matmul_cuda(g[i], wt[i]), dx[i])
+    assert torch.equal(grouped_matmul_cuda(_misaligned(g), wt), dx)
+    assert torch.equal(grouped_matmul_cuda(g, _misaligned(w).transpose(1, 2)),
+                       dx)
+    launches = grouped_matmul_cuda.launches
+    x_cmajor = torch.zeros(4, n, 2, dtype=torch.bfloat16,
+                           device=card).transpose(1, 2)
+    with pytest.raises(ValueError, match="C-major"):
+        grouped_matmul_cuda(x_cmajor, wt)
+    assert grouped_matmul_cuda.launches == launches
+
+
+def test_grouped_matmul_bf16_backward_routes(card):
+    """The bf16 VJP at a training step's capacity: dx and dw on the short
+    tile, reading w^T and x^T through their strides, with bf16 operands
+    (no fp32 copy, no SIMT launch), equal to the fp32 upcast path's
+    gradients within one bf16 rounding; the fp32 VJP stays on the FMA
+    tile."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    for dtype in DTYPES:
+        x, w = _grouped_operands(card, dtype, gen, 60, 88, 256, 200, False)
+        cot = torch.randn(60, 88, 200, generator=gen, device=card).to(dtype)
+        xr = x.detach().clone().requires_grad_(True)
+        wr = w.detach().clone().requires_grad_(True)
+        out = dispatch.grouped_matmul(xr, wr)
+        dispatch.reset_launch_counts()
+        dx, dw = torch.autograd.grad(out, (xr, wr), cot)
+        counts = dispatch.route_counts()
+        want = ({"wgmma": 0, "wgmma_short": 2, "simt": 0}
+                if dtype == torch.bfloat16
+                else {"wgmma": 0, "wgmma_short": 0, "simt": 2})
+        assert {r: counts[f"grouped_matmul/{r}"] for r in want} == want
+        up_dx = grouped_matmul_cuda(cot.float(), w.float().transpose(1, 2))
+        up_dw = grouped_matmul_cuda(x.float().transpose(1, 2).contiguous(),
+                                    cot.float())
+        assert (dx.dtype, dw.dtype) == (dtype, dtype)
+        # one rounding of each side's fp32 sum: a bf16 step at most
+        _close(dx, up_dx.to(dtype), dtype)
+        _close(dw, up_dw.to(dtype), dtype)
 
 
 def _int8_weight(card, gen, k, n):
@@ -868,7 +974,9 @@ def test_flash_calls_take_the_route_of_dtype_and_head_width(card, dtype, hd,
         **{f"{op}/{r}": 0 for op in ("prefill_attention",
                                      "prefill_attention_int8")
            for r in ("wgmma", "simt")},
-        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/mma": 0}
+        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/mma": 0,
+        "grouped_matmul/wgmma": 0, "grouped_matmul/wgmma_short": 0,
+        "grouped_matmul/simt": 0}
     assert dispatch.launch_counts()["flash_attention"] == 1
     assert dispatch.launch_counts()["flash_attention_bwd"] == 1
 

@@ -868,4 +868,6 @@ def test_route_counts_reset_with_the_launch_counts():
                                          "flash_attention",
                                          "flash_attention_bwd")
            for route in ("wgmma", "simt")},
-        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/mma": 0}
+        "wkv/mma": 0, "wkv/simt": 0, "wkv_bwd/mma": 0,
+        "grouped_matmul/wgmma": 0, "grouped_matmul/wgmma_short": 0,
+        "grouped_matmul/simt": 0}

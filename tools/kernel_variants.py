@@ -77,6 +77,10 @@ called through its C entry with ctypes.  One JSON line per measurement:
   ``NBODY_SPLITS`` at 2 targets a thread (shipped) and at 1 and 4
   (``nbody_t1``, ``nbody_t4``), the SM clock beside; with ``--baseline``
   that commit's ``repro_nbody``.
+- grouped: the bf16 VJP's dx = g @ w^T (w^T K-major) at qwen2-moe's
+  expert shapes, C = 8 and 88, 60 groups, on the short tile (the
+  shipped route) and on the tile route through the shipped C entry, in
+  turns (tile, short, short, tile), with their bits compared.
 - sass: opcode counts (HMMA, MUFU.EX2, MUFU.RSQ, FFMA, ...) of the WKV and
   N-body kernels in the shipped library's SASS (``cuobjdump -sass``) and,
   with ``--baseline``, in that commit's.
@@ -84,10 +88,10 @@ called through its C entry with ctypes.  One JSON line per measurement:
 Times are the profiler's device time per call (``device_ms``; CUDA events
 read the host's launch pace below ~0.1 ms) and, for B11, CUDA events too.
 ``--only`` runs some of the sections (hist, b5, decode, host, prefill,
-wkv, wkv_bwd, nbody, sass).  ``--baseline`` with the decode and prefill
-sections takes a commit whose decode and prefill C entries have no split
-arguments; with wkv, wkv_bwd, nbody and sass any earlier commit.  Exits
-non-zero without a CUDA device.
+wkv, wkv_bwd, nbody, grouped, sass).  ``--baseline`` with the decode and
+prefill sections takes a commit whose decode and prefill C entries have
+no split arguments; with wkv, wkv_bwd, nbody and sass any earlier commit.
+Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -313,7 +317,11 @@ NBODY_SPLITS = (1, 2, 4, 8, 16, 21, 32, 64)
 SASS_OPS = ("HMMA", "MUFU.EX2", "MUFU.RSQ", "FFMA", "FMUL", "FADD",
             "FMNMX", "FSETP", "CALL", "BRA", "LDS", "LDGSTS")
 SECTIONS = ("hist", "b5", "decode", "host", "prefill", "wkv", "wkv_bwd",
-            "nbody", "sass")
+            "nbody", "grouped", "sass")
+# the VJP's dx = g @ w^T (K-major B) at qwen2-moe's expert shapes: (C,
+# the contraction K = the forward's N, the output's N = the forward's K)
+GROUPED_CASES = tuple((c, k, n) for c in (8, 88)
+                      for k, n in ((1408, 2048), (2048, 1408)))
 HIST_N, HIST_BINS = 1 << 26, 1 << 20
 
 
@@ -386,15 +394,10 @@ def load_baseline(so: Path) -> ctypes.CDLL:
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    """chip_smoke.py's ``device_ms``: the profiler's kernel time per call,
+    taken again where the profile lost kernel events."""
+    import chip_smoke
+    return chip_smoke.device_ms(torch, fn, reps)
 
 
 def event_ms(torch, fn, reps: int = 5) -> float:
@@ -842,6 +845,45 @@ def wkv_bwd_rows(torch, cuda, built, baseline) -> list:
     return rows
 
 
+def grouped_rows(torch, cuda, shipped) -> list:
+    """dx = g @ w^T on the short tile against the tile route, through
+    ``repro_grouped_matmul`` with its route argument set (no split at
+    these shapes, so the two compute the same products in the same K
+    order)."""
+    from repro_torch.kernels.matmul.matmul import split_plan
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+
+    def call(a, b, short):
+        g, c, k = a.shape
+        n = b.shape[2]
+        out = torch.empty((g, c, n), dtype=a.dtype, device="cuda")
+        split, per = split_plan(k, n, a.dtype, groups=g)
+        assert split == 1
+        rc = shipped.repro_grouped_matmul(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), None, g, c, n, k, k,
+            c * k, b.stride(0), b.stride(1), b.stride(2), 1, per, 0,
+            int(short), 1, cuda.stream_of(a))
+        if rc:
+            raise RuntimeError(f"repro_grouped_matmul: CUDA error {rc}")
+        return out
+    for c, k, n in GROUPED_CASES:
+        a = torch.randn(60, c, k, generator=gen, device="cuda")
+        w = torch.randn(60, n, k, generator=gen, device="cuda") / math.sqrt(k)
+        a, b = a.to(torch.bfloat16), w.to(torch.bfloat16).transpose(1, 2)
+        turns = [device_ms(torch, lambda s=s: call(a, b, s))
+                 for s in (0, 1, 1, 0)]
+        row = {"section": "grouped", "case": f"dx C={c} K={k} N={n} G=60",
+               "dtype": "bfloat16",
+               "bits_equal": torch.equal(call(a, b, 0), call(a, b, 1)),
+               "tile_device_ms": [turns[0], turns[3]],
+               "short_device_ms": [turns[1], turns[2]]}
+        emit(row)
+        rows.append(row)
+        del a, b, w
+    return rows
+
+
 def sm_clock() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
@@ -979,6 +1021,7 @@ def main(argv=None) -> int:
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(1, str(ROOT))
     from repro_torch.kernels import cuda
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1038,6 +1081,8 @@ def main(argv=None) -> int:
         rows += nbody_rows(torch, cuda, {n: so for n, so in built.items()
                                          if n.startswith("nbody_")},
                            baseline)
+    if "grouped" in only:
+        rows += grouped_rows(torch, cuda, shipped)
     if "sass" in only:
         libraries = {"shipped": cuda.library_path()}
         if baseline_so is not None:
