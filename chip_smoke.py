@@ -105,6 +105,32 @@ Phases, one output line or more each:
               steps by kernel group with the idle share; recurrentgemma's
               logits finite (rwkv6-7b's decode diverges, as the JAX
               package's does: its first non-finite step is reported).
+3f. tp serve -- tensor-parallel paged serving and the expert-parallel
+              MoE.  ``serve.main --mesh 1`` (a one-rank NCCL group in
+              this process) on phase 3's float continuous run, in turns
+              with the unsharded run (u1, m1, m2, u2): streams and
+              launches equal phase 3's, every call inside the sharded
+              step on its kernel, decode ms a step of both.
+              ``moe_apply_sharded`` at qwen2-moe-a2.7b's width on the
+              (1, 1) mesh, forward and backward, against ``moe_apply``.
+              Then two ranks (``torch.multiprocessing.spawn``, both on
+              cuda:0 over gloo, every collective through host memory;
+              the kernels built here first): ``serve.main --mesh 2`` on
+              gemma-2b float and int8 weights and codeqwen1.5-7b float
+              and int8 pools at full width and depth in bf16, streams
+              equal across ranks (gemma-2b float's also phase 3's;
+              codeqwen's compared with one process's and reported: bf16
+              near-ties), no plain route, prefill on wgmma;
+              codeqwen1.5-7b in fp32 at 2 layers: streams (float and
+              int8 pools) equal to one process's, logits within 1e-4 of
+              max |logit|; the MoE layer on a (1, 2) mesh within 1e-5
+              (fp32) and 5e-2 (bf16) of max |value| of ``moe_apply``,
+              gradients included, 9 grouped launches.  With phase 2's
+              rows: kernel rows at the tp = 2 shards' shapes
+              (``check_tp_shapes``: B1 column and row shards, B5 at
+              K = 8192 with the shard's scales, B2/B4a and B3/B4b at 4
+              q heads over 1 kv head and 16 over 16).  Two ranks sharing
+              one card time-share it: no speed claim.
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
               full-width model in fp32, once through the kernels and once
               through the plain versions, both on the card, with float and
@@ -1908,6 +1934,7 @@ def serve_phase(torch):
 
     kv_bytes = {}
     base_streams = {}
+    base_runs = {}
     for name, extra, path in (("float", [], FLOAT_PATH),
                               ("int8+prefix", INT8_ARGS + PREFIX_ARGS,
                                INT8_PATH)):
@@ -1919,6 +1946,7 @@ def serve_phase(torch):
                 SERVE_ARGS + extra + ["--schedule", schedule] + sched_args,
                 path)
             add(counts)
+            base_runs[f"{name} {schedule}"] = (counts, rep["phases"])
             if len(rep["done"]) != 6 or any(len(r.out) != 16
                                             for r in rep["done"]):
                 raise AssertionError(f"{name} {schedule}: not every request "
@@ -1953,7 +1981,7 @@ def serve_phase(torch):
     emit({"phase": "serve", "run": "int8 fully-covered",
           "cow_copies": rep["prefix"]["cow_copies"],
           "streams_equal_unshared": True})
-    return launches, base_streams
+    return launches, base_streams, base_runs
 
 
 # ------------------------------------------------------------ phase 3b
@@ -2052,6 +2080,462 @@ def spec_serve_phase(torch, base_streams):
               "streams_equal_non_speculative": True})
     emit({"phase": "spec_serve", "seconds": time.time() - t0})
     return launches
+
+
+# ------------------------------------------------------------ phase 3f
+# tensor-parallel paged serving (runtime/tp.py, serve --mesh) and the
+# expert-parallel MoE (models/moe_sharded.py).  One card runs one rank of
+# its own, so a mesh of N >= 2 runs here as N ranks sharing cuda:0 over
+# gloo (NCCL refuses two ranks on one device), every collective staged
+# through host memory: a check of the sharded path at shard shapes, not a
+# speed result.
+QWEN_ARCH = "codeqwen1.5-7b"
+TP_QWEN_ARGS = ["--arch", QWEN_ARCH] + SERVE_ARGS[2:]
+KV8_PATH = ("matmul", "decode_attention_int8", "prefill_attention_int8")
+W8_PATH = ("matmul", "quantized_matmul", "decode_attention",
+           "prefill_attention")
+# (label, arguments, path, streams held equal to the one-process run's).
+# gemma-2b's random weights echo the input (ROADMAP Queue 3), so its
+# streams hold; codeqwen1.5-7b's untied random head leaves near-ties that
+# bf16 roundings decide, and a shard's row-parallel sum rounds otherwise
+# than one GEMM does: its bf16 streams are compared with the one-process
+# run's and reported (first divergence), and the exact comparison is made
+# in fp32 (TP_FP32_LAYERS layers: tp_fp32_streams); int8 weights carry
+# their shard's own scales, so that run is held to its ranks only
+TP_RUNS = (
+    ("gemma-2b float", SERVE_ARGS, FLOAT_PATH, True),
+    ("codeqwen1.5-7b float", TP_QWEN_ARGS, FLOAT_PATH, False),
+    ("codeqwen1.5-7b int8 pools", TP_QWEN_ARGS + ["--kv-dtype", "int8"],
+     KV8_PATH, False),
+    ("gemma-2b int8 weights", SERVE_ARGS + ["--weights-dtype", "int8"],
+     W8_PATH, False))
+TP_FP32_LAYERS = 2
+# every tp run on the continuous engine's tick clock, as phase 3's
+# continuous runs: its decode steps are timed
+TP_SCHEDULE = ["--schedule", "continuous", "--clock", "tick"]
+TP_RANKS = 2
+TP_LOGITS_LAYERS = 2
+TP_LOGITS_LIMIT = 1e-4
+# the MoE layer at qwen2-moe-a2.7b's width: 2 x 128 tokens, capacity
+# factor E / k = 15, so a capacity of every token an expert could get
+# (no drop on either path); fp32 within 1e-5 of max |out|, bf16 5e-2
+TP_MOE_TOKENS = (2, 128)
+TP_MOE_LIMIT = {"float32": 1e-5, "bfloat16": 5e-2}
+# B1 at the tp = 2 shards' shapes: gemma-2b's column-parallel wq (N = 4
+# heads of 256) and up projections (N = 8192), its row-parallel wd (K =
+# 8192); codeqwen1.5-7b's wq (N = 16 heads of 128), up projections (N =
+# 6720) and wd (K = 6720)
+TP_WEIGHT_SHAPES = ((2048, 1024), (2048, 8192), (8192, 2048),
+                    (4096, 2048), (4096, 6720), (6720, 4096))
+# B2/B3 at gemma-2b's 4 q heads over 1 kv head and codeqwen1.5-7b's 16
+# over 16, on the serve runs' 256-key table
+DECODE_TP = [dict(DECODE_SERVE, h=4, windows=(0,)),
+             dict(DECODE_SERVE, h=16, hkv=16, hd=128, windows=(0,))]
+PREFILL_TP = [dict(PREFILL_SERVE, h=4, windows=(0,), route="wgmma"),
+              dict(PREFILL_SERVE, h=16, hkv=16, hd=128, windows=(0,),
+                   route="wgmma")]
+
+
+def check_tp_shapes(torch):
+    """Phase 3f's kernel rows: B1 (bf16) at the shards' weight shapes and
+    B5 at gemma-2b's row-parallel wd (K = 8192) with scales of that K
+    slice, M = 4 and 256, each against its plain version with the
+    profiler's device time and ``torch.matmul``; B2/B4a and B3/B4b at the
+    shards' heads."""
+    from repro_torch.core.quant import quantize_channelwise
+    from repro_torch.kernels.matmul import (matmul_cuda, matmul_plain,
+                                            quantized_matmul_cuda,
+                                            quantized_matmul_plain)
+    from repro_torch.kernels.matmul.matmul import (quantized_split_plan,
+                                                   split_plan)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    rows = []
+    for m in (4, 256):
+        for k, n in TP_WEIGHT_SHAPES:
+            a = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+            b = (torch.randn(k, n, generator=gen, device="cuda")
+                 / math.sqrt(k)).to(bf16)
+            case = f"M={m} K={k} N={n} tp shard"
+            err = compare(torch, "matmul " + case, matmul_cuda(a, b),
+                          matmul_plain(a, b), "bfloat16")
+            extra = {"device_ms": device_ms(torch,
+                                            lambda: matmul_cuda(a, b)),
+                     "library_device_ms": device_ms(
+                         torch, lambda: torch.matmul(a, b)),
+                     "split": list(split_plan(k, n, bf16))}
+            rows.append(row(
+                "matmul", case, "bfloat16", err,
+                time_ms(torch, lambda: matmul_cuda(a, b)),
+                time_ms(torch, lambda: matmul_plain(a, b)),
+                bound((m * k + k * n + m * n) * 2, 2.0 * m * n * k,
+                      "bfloat16"),
+                time_ms(torch, lambda: torch.matmul(a, b)), **extra))
+            if (k, n) == (8192, 2048):
+                b_q, scale = quantize_channelwise(b)
+                case = f"M={m} K={k} N={n} tp shard, scales of the shard"
+                err = compare(torch, "quantized_matmul " + case,
+                              quantized_matmul_cuda(a, b_q, scale),
+                              quantized_matmul_plain(a, b_q, scale),
+                              "float32")
+                extra = {"device_ms": device_ms(
+                    torch, lambda: quantized_matmul_cuda(a, b_q, scale)),
+                         "split": list(quantized_split_plan(k, n, bf16))}
+                rows.append(row(
+                    "quantized_matmul", case, "bfloat16", err,
+                    time_ms(torch, lambda: quantized_matmul_cuda(a, b_q,
+                                                                 scale)),
+                    time_ms(torch, lambda: quantized_matmul_plain(
+                        a, b_q, scale)),
+                    bound(k * n + n * 4 + m * k * 2 + m * n * 4,
+                          2.0 * m * n * k, "bfloat16"), None, **extra))
+                del b_q, scale
+            del a, b
+    for shape in DECODE_TP:
+        for int8 in (False, True):
+            rows += decode_rows(torch, "bfloat16", shape, int8, 50)
+    for shape in PREFILL_TP:
+        for int8 in (False, True):
+            rows += prefill_rows(torch, "bfloat16", shape, int8, 20)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_serve_run(torch, label, argv, path):
+    """One ``serve.main`` run on a mesh, the launch counts set to 0 just
+    before it and read just after: the report's numbers, and a raise on a
+    plain route, on a kernel off ``path``, on a prefill call off wgmma, or
+    on a call inside the sharded step that took no kernel route."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    dispatch.reset_launch_counts()
+    rep = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    routes = dispatch.route_counts()
+    plain = {k: n for k, n in rep["routes"].items() if k[1] == "plain"}
+    tp_plain = {k: n for k, n in rep["tp_routes"].items()
+                if k[1] != "kernel"}
+    wrong = [op for op, n in launches.items() if (n > 0) != (op in path)]
+    off = {k: n for k, n in routes.items()
+           if k.startswith("prefill_attention") and k.endswith("/simt")
+           and n}
+    if plain or tp_plain or wrong or off:
+        raise AssertionError(f"{label}: plain routes {plain}, in the scope "
+                             f"{tp_plain}, launches {launches} (path "
+                             f"{path}), prefill off wgmma {off}")
+    ops = {op.replace("_int8", "") for op, _ in rep["tp_routes"]}
+    if not {"decode_attention", "prefill_attention"} <= ops \
+            or not ops & {"matmul", "quantized_matmul"}:
+        raise AssertionError(f"{label}: the serving ops did not run inside "
+                             f"the sharded step: {rep['tp_routes']}")
+    return {"label": label, "tp": rep["tp"],
+            "streams": {r.rid: list(r.out) for r in rep["done"]},
+            "launches": launches, "seconds": rep["seconds"],
+            "new_tokens": rep["new_tokens"],
+            "decode_ms_per_step": decode_ms(rep["phases"]),
+            "tp_routes": {f"{op}/{route}": n
+                          for (op, route), n in rep["tp_routes"].items()}}
+
+
+def decode_ms(phases: dict) -> float:
+    """A continuous run's decode milliseconds a step."""
+    return 1e3 * phases["decode_seconds"] / phases["decode_steps"]
+
+
+def tp_fp32_streams(torch, kv_dtype: str, mesh=None) -> dict:
+    """codeqwen1.5-7b at full width and TP_FP32_LAYERS layers in fp32,
+    float or int8 pools: the greedy streams of phase 3's traffic through
+    ``PagedScheduler`` and the continuous engine on the tick clock, on a
+    mesh's shards or in one process."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.launch.engine import ContinuousEngine
+    from repro_torch.launch.loadgen import poisson_stream
+    from repro_torch.launch.serve import PagedScheduler
+    from repro_torch.models.transformer import Model
+    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    cfg = dataclasses.replace(get_arch(QWEN_ARCH), n_layers=TP_FP32_LAYERS,
+                              kv_dtype=kv_dtype)
+    model = Model(cfg, dt=f32, device="cuda")
+    sched = PagedScheduler(model, model.init(seed=2), slots=4, max_len=256,
+                           page_size=64, mesh=mesh, log=None)
+    reqs = poisson_stream(6, rate=0.0, vocab_size=cfg.vocab_size,
+                          prompt_len=100, max_new=16, seed=0)
+    done = ContinuousEngine(sched, clock="tick", log=None).run(reqs)
+    return {r.rid: list(r.out) for r in done}
+
+
+def tp_logits(torch, mesh=None):
+    """codeqwen1.5-7b at full width and TP_LOGITS_LAYERS layers in fp32:
+    ``prefill_decode_runner``'s 5 rows of logits, on a mesh's shards or in
+    one process."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.models.transformer import Model
+    f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    cfg = dataclasses.replace(get_arch(QWEN_ARCH), n_layers=TP_LOGITS_LAYERS)
+    model = Model(cfg, dt=f32, device="cuda")
+    run = prefill_decode_runner(torch, model, model.init(seed=1), seed=3,
+                                mesh=mesh)
+    return run()
+
+
+def tp_moe_layer(torch, mesh, dtype_name: str) -> dict:
+    """``moe_apply_sharded`` on ``mesh`` (data, model) at qwen2-moe-a2.7b's
+    width against the port's ``moe_apply`` on the same inputs, forward and
+    the backward of sum(out^2): the output, the input's and the router's
+    gradients and this rank's expert shards' within TP_MOE_LIMIT of their
+    max |value|; B1 grouped launches of the sharded pass counted."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.models.moe_sharded import moe_apply_sharded, moe_pspecs
+    from repro_torch.models.transformer import _moe_spec
+    from repro_torch.runtime import tp
+    dtype = getattr(torch, dtype_name)
+    dt = DtypePolicy(param=dtype, compute=dtype)
+    n_ep = mesh.shape["model"]
+    spec = _moe_spec(get_arch(MOE_ARCH), pad_to=n_ep)
+    spec = dataclasses.replace(spec,
+                               capacity_factor=spec.n_experts / spec.top_k)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    full = moe_init(gen, spec, dtype=dtype)
+    x = torch.randn(*TP_MOE_TOKENS, spec.d_model, generator=gen,
+                    device="cuda").to(dtype)
+
+    def pass_(p, run):
+        p = {k: (v.detach().requires_grad_(True) if torch.is_tensor(v)
+                 else {kk: vv.detach().requires_grad_(True)
+                       for kk, vv in v.items()}) for k, v in p.items()}
+        xx = x.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = run(p, xx)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), aux.detach(), xx.grad, p, \
+            time.perf_counter() - t0
+
+    want = pass_(full, lambda p, xx: moe_apply(p, spec, xx, dt))
+    local = tp.shard_tree(full, moe_pspecs({"moe": full})["moe"], mesh)
+    dispatch.reset_launch_counts()
+    got = pass_(local, lambda p, xx: moe_apply_sharded(
+        p, spec, xx, dt, mesh=mesh, dp_axes=("data",)))
+    grouped = dispatch.launch_counts()["grouped_matmul"]
+    routes = {k: n for k, n in dispatch.route_counts().items()
+              if k.startswith("grouped_matmul/")}
+    limit = TP_MOE_LIMIT[dtype_name]
+    errs = {}
+
+    def check(name, a, b):
+        a, b = a.float(), b.float()
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        errs[name] = err / scale if scale else err
+        if not (bool(torch.isfinite(a).all()) and err <= limit * scale):
+            raise AssertionError(f"moe {dtype_name} {name}: max |err| "
+                                 f"{err:.3e} over {limit} x {scale:.3e}")
+    check("out", got[0], want[0])
+    check("aux", got[1], want[1])
+    check("dx", got[2], want[2])
+    specs = moe_pspecs({"moe": full})["moe"]
+    for name in ("router", "wg", "wu", "wd"):
+        check("d" + name, got[3][name].grad,
+              tp.shard_leaf(want[3][name].grad, specs[name], mesh))
+    if grouped != 9:     # 3 forward, 2 x 3 backward
+        raise AssertionError(f"moe {dtype_name}: {grouped} grouped launches")
+    return {"dtype": dtype_name, "mesh": dict(mesh.shape),
+            "tokens": list(TP_MOE_TOKENS), "rel_err": errs,
+            "grouped_launches": grouped, "grouped_routes": routes,
+            "sharded_s": got[4], "global_s": want[4]}
+
+
+def tp_one_rank(rank: int, out_dir: str) -> None:
+    """Phase 3f (a) in a process of its own, so this script's process
+    never starts NCCL (a profiler used before a process's first NCCL
+    group saw no device events after it): phase 3's float continuous run
+    unsharded and on ``--mesh 1`` (a one-rank NCCL group) in turns (u1,
+    m1, m2, u2), then the MoE layer on the (1, 1) mesh; results to
+    ``out_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for turn in ("u1", "m1", "m2", "u2"):
+        argv = SERVE_ARGS + TP_SCHEDULE
+        if turn[0] == "m":
+            out[turn] = tp_serve_run(torch, "gemma-2b float --mesh 1",
+                                     argv + ["--mesh", "1"], FLOAT_PATH)
+            continue
+        dispatch.reset_launch_counts()
+        rep = serve.main(argv)
+        torch.cuda.synchronize()
+        out[turn] = {"streams": {r.rid: list(r.out) for r in rep["done"]},
+                     "launches": dispatch.launch_counts(),
+                     "decode_ms_per_step": decode_ms(rep["phases"]),
+                     "plain": [k for k in rep["routes"] if k[1] == "plain"]}
+        torch.cuda.empty_cache()
+    out["moe"] = [tp_moe_layer(torch, make_mesh((1, 1), ("data", "model")),
+                               d) for d in ("float32", "bfloat16")]
+    torch.save(out, Path(out_dir) / "one_rank.pt")
+    dist.destroy_process_group()
+
+
+def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of the TP_RANKS processes sharing cuda:0 over gloo: every
+    TP_RUNS run through ``serve.main --mesh``, the fp32 logits and the MoE
+    layer on a (1, TP_RANKS) mesh; results to ``out_dir``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=3))
+    from repro_torch.launch.mesh import make_mesh, make_serving_mesh
+    out = {"runs": []}
+    for label, argv, path, _ in TP_RUNS:
+        out["runs"].append(tp_serve_run(
+            torch, label, argv + TP_SCHEDULE + ["--mesh", str(world)],
+            path))
+        torch.cuda.empty_cache()
+    mesh = make_serving_mesh(world)
+    out["backend"] = mesh.backend
+    out["fp32_streams"] = [tp_fp32_streams(torch, kv, mesh)
+                           for kv in ("", "int8")]
+    torch.cuda.empty_cache()
+    out["logits"] = tp_logits(torch, mesh).cpu()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, world), ("data", "model"))
+    out["moe"] = [tp_moe_layer(torch, mesh, d)
+                  for d in ("float32", "bfloat16")]
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_serve_phase(torch, base_streams, base_run):
+    """Phase 3f (its kernel rows, ``check_tp_shapes``, run with phase
+    2's).  (a) ``serve.main --mesh 1`` on phase 3's float continuous run
+    (``base_run``: its launches and phases), in turns with the unsharded
+    run: streams and launches equal that run's, every op in the sharded
+    step on its kernel, decode ms a step of both; the MoE layer on the
+    degenerate (1, 1) mesh (``tp_one_rank``).
+    (b, c) TP_RANKS ranks on the one card: every TP_RUNS run with the
+    ranks' streams equal (gemma-2b float's also equal to phase 3's; the
+    codeqwen1.5-7b runs compared with the same run in one process, run
+    first here, and reported), codeqwen1.5-7b's fp32 streams at
+    TP_FP32_LAYERS layers (float and int8 pools) equal to one process's,
+    its fp32 logits within TP_LOGITS_LIMIT of max |logit| of one
+    process's, and the MoE layer on a (1, TP_RANKS) mesh.  This process
+    starts no process group.  Returns the launches of the runs."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.time()
+    launches = Counter()
+    base_launches, base_phases = base_run
+    # (a), in a process of its own (``tp_one_rank``)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mp.spawn(tp_one_rank, args=(tmp,), nprocs=1, join=True)
+        one_rank = torch.load(Path(tmp) / "one_rank.pt", weights_only=False)
+    for turn in ("u1", "m1", "m2", "u2"):
+        rep = one_rank[turn]
+        launches.update(rep["launches"])
+        if rep["streams"] != base_streams["float"] \
+                or rep["launches"] != base_launches \
+                or rep.get("plain"):
+            raise AssertionError(f"{turn}: streams {rep['streams']}, "
+                                 f"launches {rep['launches']} or plain "
+                                 f"routes {rep.get('plain')} differ from "
+                                 f"phase 3's run ({base_launches})")
+        if turn[0] == "m":
+            emit({"phase": "tp_serve", "run": rep["label"], "turn": turn,
+                  "tp": 1, "seconds": rep["seconds"],
+                  "decode_ms_per_step": rep["decode_ms_per_step"],
+                  "tp_routes": rep["tp_routes"], "launches": rep["launches"],
+                  "streams_equal_unsharded": True,
+                  "launches_equal_unsharded": True})
+    emit({"phase": "tp_serve", "decode_ms_per_step_turns": {
+              turn: one_rank[turn]["decode_ms_per_step"]
+              for turn in ("u1", "m1", "m2", "u2")},
+          "phase3_decode_ms_per_step": decode_ms(base_phases)})
+    emit({"phase": "tp_serve", "moe_layer": one_rank["moe"]})
+
+    # the one-process runs the ranks are held to
+    one = {TP_RUNS[0][0]: base_streams["float"]}
+    for label, argv, path, _ in TP_RUNS[1:3]:
+        _, one[label], counts = serve_run(
+            torch, label + " one process", argv + TP_SCHEDULE, path)
+        launches.update(counts)
+    want_fp32 = [tp_fp32_streams(torch, kv) for kv in ("", "int8")]
+    want_logits = tp_logits(torch).cpu()
+    release(torch)
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mp.spawn(tp_rank, args=(TP_RANKS, str(Path(tmp) / "store"), tmp),
+                 nprocs=TP_RANKS, join=True)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP_RANKS)]
+    failed = []     # every comparison is reported before any raises
+    for i, (label, _, _, equal) in enumerate(TP_RUNS):
+        runs = [r["runs"][i] for r in ranks]
+        for r in runs:
+            launches.update(r["launches"])
+        across = all(r["streams"] == runs[0]["streams"] for r in runs)
+        same = runs[0]["streams"] == one[label] if label in one else None
+        # per request, the first token the two-rank run chose otherwise
+        diverge = None if label not in one else {
+            rid: next((i for i, (a, b) in enumerate(zip(s, one[label][rid]))
+                       if a != b), None)
+            for rid, s in runs[0]["streams"].items()}
+        emit({"phase": "tp_serve", "run": label, "tp": TP_RANKS,
+              "ranks_share": "cuda:0 over gloo, collectives through host",
+              "seconds": runs[0]["seconds"],
+              "decode_ms_per_step": runs[0]["decode_ms_per_step"],
+              "new_tokens": runs[0]["new_tokens"],
+              "tp_routes": runs[0]["tp_routes"],
+              "launches": [r["launches"] for r in runs],
+              "streams_equal_across_ranks": across,
+              "streams_equal_one_process": same,
+              "held_to_one_process": equal,
+              "first_divergence": diverge})
+        if not across or (equal and not same):
+            failed.append(f"{label}: streams equal across ranks {across}, "
+                          f"to one process {same}")
+    for kv, want in zip(("float", "int8"), want_fp32):
+        got = [r["fp32_streams"][kv == "int8"] for r in ranks]
+        equal = all(g == want for g in got)
+        emit({"phase": "tp_serve", "run": f"{QWEN_ARCH} fp32 "
+              f"{TP_FP32_LAYERS} layers {kv} pools", "tp": TP_RANKS,
+              "streams_equal_across_ranks": all(g == got[0] for g in got),
+              "streams_equal_one_process": equal,
+              "distinct_tokens": len({t for s in want.values() for t in s})})
+        if not equal:
+            failed.append(f"fp32 {kv} pools: streams {got} differ from one "
+                          f"process's {want}")
+    scale = want_logits.abs().max().item()
+    err = (ranks[0]["logits"] - want_logits).abs().max().item()
+    emit({"phase": "tp_serve", "logits": QWEN_ARCH, "dtype": "float32",
+          "layers": TP_LOGITS_LAYERS, "backend": ranks[0]["backend"],
+          "max_abs_err": err, "max_abs_logit": scale,
+          "rel_err": err / scale})
+    if not err <= TP_LOGITS_LIMIT * scale:
+        failed.append(f"tp fp32 logits: max |err| {err:.3e} > "
+                      f"{TP_LOGITS_LIMIT} x {scale:.3e}")
+    emit({"phase": "tp_serve", "moe_layer": [r["moe"] for r in ranks]})
+    emit({"phase": "tp_serve", "seconds": time.time() - t0})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return dict(launches)
 
 
 # ------------------------------------------------------------ phase 3d
@@ -2348,10 +2832,12 @@ def recurrent_serve_phase(torch):
 
 
 # ------------------------------------------------------------ phase 4
-def prefill_decode_runner(torch, model, params, seed: int):
+def prefill_decode_runner(torch, model, params, seed: int, mesh=None):
     """A function that runs one 64-token prefill chunk (50 prompt tokens)
     and 4 teacher-forced decode steps of one slot from a fresh paged cache
-    and returns the 5 rows of logits; the tokens come from ``seed``."""
+    and returns the 5 rows of logits; the tokens come from ``seed``.  With
+    a ``mesh``, the tensor-parallel steps on this rank's shards of
+    ``params`` and of the cache (``runtime/tp.py``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     page, prompt_len = 64, 50
     toks = torch.zeros(1, page, dtype=torch.int32, device="cuda")
@@ -2364,15 +2850,22 @@ def prefill_decode_runner(torch, model, params, seed: int):
     def i32(values):
         return torch.tensor(values, dtype=torch.int32, device="cuda")
 
+    prefill, decode = model.prefill_step_paged, model.decode_step
+    if mesh is not None:
+        from repro_torch.runtime import tp
+        params = tp.shard_params(params, model.cfg, mesh)
+        decode, prefill = tp.sharded_paged_fns(model, mesh)
+
     def run():
         cache = model.init_paged_cache(1, 2 * page, page)
+        if mesh is not None:
+            cache = tp.shard_cache(cache, model.cfg, mesh)
         table = i32([[1, 2]])
-        out = [model.prefill_step_paged(params, cache, toks, i32([0]), table,
-                                        i32([prompt_len - 1]))]
+        out = [prefill(params, cache, toks, i32([0]), table,
+                       i32([prompt_len - 1]))]
         for step, tok in enumerate(forced):
-            out.append(model.decode_step(
-                params, cache, tok.reshape(1, 1),
-                paged=(i32([prompt_len + step]), table)))
+            out.append(decode(params, cache, tok.reshape(1, 1),
+                              paged=(i32([prompt_len + step]), table)))
         return torch.cat(out)
     return run
 
@@ -3481,19 +3974,25 @@ def main(argv=None) -> int:
         rows += check_prefill(torch, dtype_name)
         rows += check_flash(torch, dtype_name)
         rows += check_matmul_backward(torch, dtype_name)
+    rows += check_tp_shapes(torch)
     torch.cuda.empty_cache()
     for check in (check_wkv, check_wkv_bwd, check_stencil, check_nbody,
                   check_histogram):
         rows += check(torch)
         torch.cuda.empty_cache()
 
-    launches, base_streams = serve_phase(torch)
+    launches, base_streams, base_runs = serve_phase(torch)
     torch.cuda.empty_cache()
     for phase_launches in (dense_serve_phase(torch),
                            spec_serve_phase(torch, base_streams)):
         for op, n in phase_launches.items():
             launches[op] = launches.get(op, 0) + n
         torch.cuda.empty_cache()
+    tp_launches = tp_serve_phase(torch, base_streams,
+                                 base_runs["float continuous"])
+    for op, n in tp_launches.items():
+        launches[op] = launches.get(op, 0) + n
+    release(torch)
     for op, n in moe_serve_phase(torch).items():
         launches[op] = launches.get(op, 0) + n
     torch.cuda.empty_cache()

@@ -4,7 +4,9 @@ The JAX tree (``repro/models/transformer.py::Model.init``), handed over
 as numpy arrays, maps one to one: same keys, same ``prefix``/``stack``/
 ``tail`` nesting, same leading period axis on stacked layers (a MoE
 layer's ``moe`` subtree, its ``router``, stacked experts ``wg``/``wu``/
-``wd`` and ``shared`` MLP, included).
+``wd`` and ``shared`` MLP, included, also with its experts padded by
+``ExecOptions.expert_pad``).  The JAX tree is mesh-free (global arrays);
+``shards_from_jax`` slices it into one rank's shards.
 """
 from __future__ import annotations
 
@@ -65,3 +67,14 @@ def dense_cache_from_jax(tree: Any, device: DeviceLike,
 # channel mix); RG-LRU
 _DENSE_LAYERS = ({"k", "v"}, {"state", "xprev", "cm_xprev"}, {"h", "conv"})
 _FP32_STATE = ("state", "h")
+
+
+def shards_from_jax(tree: Any, specs_of, mesh, dtype: torch.dtype) -> Any:
+    """This rank's shards of a global JAX tree (numpy arrays): the tree
+    converted, then each leaf sliced onto the mesh's device by the spec
+    tree ``specs_of(converted tree)`` gives (``runtime/tp.py``'s
+    ``param_pspecs`` / ``cache_pspecs``, ``models/moe_sharded.py``'s
+    ``moe_pspecs``), so both packages run on the same weights."""
+    from .runtime.tp import shard_tree
+    full = params_from_jax(tree, "cpu", dtype)
+    return shard_tree(full, specs_of(full), mesh)

@@ -14,6 +14,16 @@ CUDA routes (``wgmma`` and ``simt``, chosen by dtype and head width, and
 for the prefill the GQA group), count them by route too
 (``route_counts``).
 
+Tensor parallelism (``runtime/tp.py``): inside ``tp_scope(group)``,
+``matmul`` and ``quantized_matmul`` called with ``tp="col"`` or
+``tp="row"`` and the paged attention ops (which tag themselves
+``"heads"``) complete themselves with the collective their contract
+declares over ``group`` (``runtime.collectives.Group``), on the op's
+output, as the JAX registry's ``OpSpec.tp`` tables do: ``col`` none,
+``row`` a psum (in rank order), ``heads`` an all_gather of the heads
+(dim 1 of decode's output, dim 2 of prefill's).  ``tp_stats`` counts
+the routes taken inside a scope.  Outside a scope the tags are inert.
+
 ``matmul``, ``grouped_matmul``, ``attention`` and ``wkv`` are
 ``torch.autograd.Function``s (a ctypes launch is invisible to autograd):
 their backwards route by the device of the incoming gradient in the same
@@ -48,6 +58,20 @@ from .wkv.wkv import (aligned, wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda,
                       wkv_plain)
 
 _stats: Counter = Counter()
+# (op, route) counters ticked only inside a tp_scope: the probe that the
+# ops ran inside the sharded step
+_tp_stats: Counter = Counter()
+_tp_group = None
+
+# the collective that completes each op under each tp tag (the JAX
+# registry's TPContract tables: matmul/ops.py:406-429,
+# attention/ops.py:845-871): None, "psum", or ("all_gather", dim)
+TP_CONTRACTS = {
+    "matmul": {"col": None, "row": "psum"},
+    "quantized_matmul": {"col": None, "row": "psum"},
+    "decode_attention": {"heads": ("all_gather", 1)},
+    "prefill_attention": {"heads": ("all_gather", 2)},
+}
 
 # every kernel wrapper, by op name; each carries its launch count.  The
 # int8 attention branches count under their own names, so a run shows
@@ -70,22 +94,69 @@ KERNELS = {"matmul": matmul_cuda,
 
 def reset_stats() -> None:
     _stats.clear()
+    _tp_stats.clear()
 
 
 def stats() -> Dict[Tuple[str, str], int]:
     return dict(_stats)
 
 
+def tp_stats() -> Dict[Tuple[str, str], int]:
+    """The (op, route) counts of calls made inside a ``tp_scope``."""
+    return dict(_tp_stats)
+
+
 @contextlib.contextmanager
 def stats_scope():
     """Isolated counter scope: zeroed on entry, restored on exit."""
-    saved = Counter(_stats)
+    saved, saved_tp = Counter(_stats), Counter(_tp_stats)
     reset_stats()
     try:
         yield stats
     finally:
-        _stats.clear()
+        reset_stats()
         _stats.update(saved)
+        _tp_stats.update(saved_tp)
+
+
+def tp_group():
+    """The group of the active ``tp_scope``, or None outside one."""
+    return _tp_group
+
+
+@contextlib.contextmanager
+def tp_scope(group):
+    """Run the ops called inside as one tensor-parallel shard over
+    ``group`` (a ``runtime.collectives.Group``): tagged calls complete
+    themselves with their contract's collective, and every call ticks
+    ``tp_stats``."""
+    global _tp_group
+    prev = _tp_group
+    _tp_group = group
+    try:
+        yield
+    finally:
+        _tp_group = prev
+
+
+def _tp_complete(op: str, out: torch.Tensor,
+                 tp: Optional[str]) -> torch.Tensor:
+    """Apply the collective ``op``'s contract ``tp`` declares, inside a
+    scope; outside one the tag is inert."""
+    if tp is None or _tp_group is None:
+        return out
+    contracts = TP_CONTRACTS.get(op, {})
+    if tp not in contracts:
+        raise ValueError(
+            f"op {op!r} declares no tp contract {tp!r} (has: "
+            f"{sorted(contracts)}); sharded serving cannot complete this "
+            "call inside the tensor-parallel step")
+    how = contracts[tp]
+    if how == "psum":
+        return _tp_group.psum(out)
+    if how is not None:
+        return _tp_group.all_gather(out, how[1])
+    return out
 
 
 def launch_counts() -> Dict[str, int]:
@@ -109,7 +180,10 @@ def route_counts() -> Dict[str, int]:
 
 def _on_card(op: str, t: torch.Tensor) -> bool:
     kernel = t.is_cuda
-    _stats[(op, "kernel" if kernel else "plain")] += 1
+    key = (op, "kernel" if kernel else "plain")
+    _stats[key] += 1
+    if _tp_group is not None:
+        _tp_stats[key] += 1
     return kernel
 
 
@@ -146,14 +220,18 @@ class _Matmul(torch.autograd.Function):
         return da, db
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, *,
+           tp: Optional[str] = None) -> torch.Tensor:
     """Contract the last axis of ``x`` with the first axis of ``w``.
 
     x: (..., K); w: (K, N1[, N2, ...]).  Returns x.shape[:-1] + w.shape[1:]
-    in the promoted input dtype; differentiable in both."""
+    in the promoted input dtype; differentiable in both.  ``tp`` tags the
+    call's tensor-parallel contract ("col": output channels local, no
+    collective; "row": contraction sharded, psum of the output)."""
     k = x.shape[-1]
     out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1))
-    return out.reshape(x.shape[:-1] + w.shape[1:])
+    return _tp_complete("matmul", out.reshape(x.shape[:-1] + w.shape[1:]),
+                        tp)
 
 
 def _grouped_grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -308,16 +386,20 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
 
 
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
-                     w_scale: torch.Tensor) -> torch.Tensor:
+                     w_scale: torch.Tensor, *,
+                     tp: Optional[str] = None) -> torch.Tensor:
     """Int8-weight matmul with per-output-channel dequant (§4.4 type
     demotion).  x: (..., K) float; w_q: (K, N) int8; w_scale: (N,) fp32
     (``core.quant.quantize_channelwise``).  Returns x.shape[:-1] + (N,)
-    fp32."""
+    fp32; ``tp`` as in ``matmul`` (a "row" shard's fp32 partials are
+    summed)."""
     k = x.shape[-1]
     a = x.reshape(-1, k)
     fn = quantized_matmul_cuda if _on_card("quantized_matmul", x) \
         else quantized_matmul_plain
-    return fn(a, w_q, w_scale).reshape(x.shape[:-1] + w_q.shape[1:])
+    return _tp_complete("quantized_matmul",
+                        fn(a, w_q, w_scale).reshape(x.shape[:-1]
+                                                    + w_q.shape[1:]), tp)
 
 
 def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -332,7 +414,8 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``attention/decode.py``).  int8 pools pass their (P, Hkv) fp32
     ``k_scale`` / ``v_scale`` (both or neither) and take the int8 branch,
     op ``decode_attention_int8``.  Returns (B, H, hd) in ``out_dtype``
-    (default q's dtype)."""
+    (default q's dtype).  Inside a ``tp_scope`` q and the pools hold this
+    shard's heads and the output is all-gathered to every head."""
     if k_scale is None:
         fn = decode_attention_cuda if _on_card("decode_attention", q) \
             else decode_attention_plain
@@ -343,7 +426,9 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     else:
         out = decode_attention_plain(q, k_pages, v_pages, table, lengths,
                                      k_scale, v_scale, window=window)
-    return out.to(q.dtype if out_dtype is None else out_dtype)
+    return _tp_complete("decode_attention",
+                        out.to(q.dtype if out_dtype is None else out_dtype),
+                        "heads")
 
 
 def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -357,7 +442,8 @@ def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Ragged multi-token prefill attention over a paged KV cache (layout
     in ``attention/prefill.py``); int8 pools as in ``decode_attention``
     (op ``prefill_attention_int8``).  Returns (B, C, H, hd) in
-    ``out_dtype`` (default q's dtype)."""
+    ``out_dtype`` (default q's dtype), all-gathered over the heads inside
+    a ``tp_scope``."""
     if k_scale is None:
         fn = prefill_attention_cuda if _on_card("prefill_attention", q) \
             else prefill_attention_plain
@@ -368,4 +454,6 @@ def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     else:
         out = prefill_attention_plain(q, k_pages, v_pages, table, starts,
                                       k_scale, v_scale, window=window)
-    return out.to(q.dtype if out_dtype is None else out_dtype)
+    return _tp_complete("prefill_attention",
+                        out.to(q.dtype if out_dtype is None else out_dtype),
+                        "heads")

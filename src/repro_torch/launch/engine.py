@@ -131,9 +131,8 @@ class StepExecutor:
         last = np.asarray([min(states[s].ln, st + page) - 1 - st
                            for s, st in chunks], np.int32)
         t0 = time.perf_counter()
-        logits = sched.model.prefill_step_paged(
-            sched.params, sched.cache, sched._dev(toks), sched._dev(starts),
-            sched._dev(tables), sched._dev(last))
+        logits = sched.prefill_forward(sched._dev(toks), sched._dev(starts),
+                                       sched._dev(tables), sched._dev(last))
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.t_prefill += time.perf_counter() - t0
         self.prefill_calls += 1
@@ -218,9 +217,11 @@ class ContinuousEngine:
         timed region (the kernel library loads on first use); all warmup
         writes land on the trash page, so live state is untouched."""
         sched = self.sched
+        if sched.tp > 1:
+            self.log(f"[engine] warmup on a tp={sched.tp} mesh "
+                     f"(sharded decode/prefill steps)")
         for b in range(1, sched.slots + 1):
-            sched.model.prefill_step_paged(
-                sched.params, sched.cache,
+            sched.prefill_forward(
                 sched._dev(np.zeros((b, sched.page))),
                 sched._dev(np.zeros((b,))),
                 sched._dev(np.zeros((b, sched.n_slot_pages))),
@@ -350,7 +351,10 @@ class ContinuousEngine:
                                              plan.verify, self.verify_width)
             else:
                 nxt_tok = self.executor.decode(self.cur, plan.decode)
-        self.clock += ((time.perf_counter() - t0)
+        # under a mesh every rank takes rank 0's step time, so all ranks
+        # admit on the same iterations (the JAX package has one process
+        # and one clock)
+        self.clock += (sched.step_seconds(time.perf_counter() - t0)
                        if self.clock_mode == "wall" else self.tick)
         self.iterations += 1
         t = self.clock

@@ -57,11 +57,30 @@ from ..configs import get_arch
 from ..core.memory import DtypePolicy
 from ..kernels import dispatch
 from ..models.transformer import Model, paged_supported
+from ..runtime import tp as tp_mod
 from .loadgen import Request, poisson_stream
 from .prefix import PrefixCache
 from .speculative import accept_longest_prefix, make_drafter
 
 DEFAULT_PAGE_SIZE = 64
+
+
+def _silent(*args, **kwargs) -> None:
+    """The report printer of ranks other than 0."""
+
+
+def _in_turn(mesh) -> Iterator[None]:
+    """Yield once: on ranks that share a card, one rank at a time (each
+    waits at the mesh's barrier for the ones before it)."""
+    if mesh is None or not mesh.shares_device:
+        yield
+        return
+    group = mesh.group("model")
+    for rank in range(mesh.size):
+        if rank == group.index:
+            yield
+            torch.cuda.empty_cache()    # the whole model's blocks, freed
+        group.barrier()
 
 
 class Server:
@@ -277,14 +296,31 @@ class PagedScheduler:
 
     def __init__(self, model: Model, params, *, slots: int, max_len: int,
                  page_size: int = 0, total_pages: int = 0,
-                 prefix_cache: bool = False, log=print):
+                 prefix_cache: bool = False, mesh=None, log=print):
         if not paged_supported(model.cfg):
             raise ValueError(
                 f"arch {model.cfg.name} has recurrent/stateful layers; "
                 "paged serving requires attention-family stacks "
                 "(use --cache dense)")
         self.model = model
-        # int8 weights are quantized here, once (Model.bind_params)
+        # ---- tensor parallelism (runtime/tp.py): a mesh shards the params
+        # and the pools over its "model" axis and swaps the step functions
+        # for their sharded twins; the host metadata (tables, lengths,
+        # allocator, trie) is the same on every rank, so nothing else
+        # changes
+        self.mesh = mesh
+        self.tp = mesh.shape["model"] if mesh is not None else 1
+        self._sharded = None
+        if mesh is not None:
+            err = tp_mod.tp_error(model.cfg, self.tp)
+            if err:
+                raise ValueError(err)
+            params = tp_mod.shard_params(params, model.cfg, mesh)
+            self._sharded = tp_mod.sharded_paged_fns(model, mesh)
+        # int8 weights are quantized here, once (Model.bind_params); under
+        # a mesh from each rank's own shard, as the JAX package quantizes
+        # inside its shard_map body (a row-parallel wd shard carries the
+        # scales of its own K slice)
         self.params = model.bind_params(params)
         self.device = model.device
         self.slots = slots
@@ -296,9 +332,15 @@ class PagedScheduler:
         self.alloc = PageAllocator(total)
         self.cache = model.init_paged_cache(slots, max_len, self.page,
                                             total_pages=total)
-        # int8 pools carry per-page scale rows; their lifecycle is slaved
-        # to the allocator via on_alloc (reset on reuse)
+        # bytes of one page over the whole mesh, as the JAX package counts
+        # them on its global arrays
         self._page_bytes = _page_bytes(self.cache)
+        if mesh is not None:
+            self.cache = tp_mod.shard_cache(self.cache, model.cfg, mesh)
+        # int8 pools carry per-page scale rows; their lifecycle is slaved
+        # to the allocator via on_alloc (reset on reuse); copy-on-write
+        # copies and resets index the page axis, so under a mesh they act
+        # on each rank's own slice
         if any(name.endswith("_scale")
                for name, _ in _cache_leaves(self.cache)):
             self.alloc.on_alloc = self._reset_scales
@@ -340,6 +382,28 @@ class PagedScheduler:
         """A host array as an int32 tensor on the model's device."""
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             self.device)
+
+    def decode_forward(self, tokens: torch.Tensor, paged) -> torch.Tensor:
+        """``Model.decode_step`` over the paged cache, or its sharded twin
+        under a mesh: logits (slots, V)."""
+        fn = self._sharded[0] if self._sharded else self.model.decode_step
+        return fn(self.params, self.cache, tokens, paged=paged)
+
+    def prefill_forward(self, *args: torch.Tensor) -> torch.Tensor:
+        """``Model.prefill_step_paged(params, cache, tokens, starts,
+        tables, last)``, or its sharded twin under a mesh."""
+        fn = self._sharded[1] if self._sharded \
+            else self.model.prefill_step_paged
+        return fn(self.params, self.cache, *args)
+
+    def step_seconds(self, seconds: float) -> float:
+        """The step time every rank's clock advances by: rank 0's under a
+        mesh of several ranks (each rank measures its own; a clock of its
+        own would admit requests on other iterations than its peers')."""
+        if self.mesh is None or self.mesh.size == 1:
+            return seconds
+        return self.mesh.group("model").broadcast_float(seconds,
+                                                        self.device)
 
     # ------------------------------------------------------------ admission
     def pages_needed(self, r: Request) -> int:
@@ -438,9 +502,9 @@ class PagedScheduler:
         logits = None
         for t0 in range(start, ln, self.page):
             last = min(ln, t0 + self.page) - 1 - t0
-            logits = self.model.prefill_step_paged(
-                self.params, self.cache, self._dev(toks[None, t0:t0 + self.page]),
-                self._dev([t0]), table_row, self._dev([last]))
+            logits = self.prefill_forward(
+                self._dev(toks[None, t0:t0 + self.page]), self._dev([t0]),
+                table_row, self._dev([last]))
         self.prefill_tokens += ln - start
         return int(torch.argmax(logits[0]).item())
 
@@ -627,9 +691,9 @@ class PagedScheduler:
         """
         lengths, table = view if view is not None \
             else (self.lengths, self.table)
-        logits = self.model.decode_step(
-            self.params, self.cache, self._dev(tokens)[:, None],
-            paged=(self._dev(lengths), self._dev(table)))
+        logits = self.decode_forward(
+            self._dev(tokens)[:, None],
+            (self._dev(lengths), self._dev(table)))
         self.decode_steps += 1
         self.decode_tokens += int(np.count_nonzero(lengths))
         return torch.argmax(logits, dim=-1).cpu().numpy()
@@ -666,6 +730,9 @@ class PagedScheduler:
         The forward writes all W candidates' K/V into the pools; the host
         rolls a rejected suffix back by never advancing ``lengths`` over
         it."""
+        if self.mesh is not None:
+            raise ValueError("speculative verify has no sharded twin: "
+                             "serve a mesh without a drafter")
         lengths, table = view if view is not None \
             else (self.lengths, self.table)
         t0 = time.perf_counter()
@@ -904,6 +971,13 @@ def main(argv=None) -> Dict:
                          "tick mode")
     ap.add_argument("--seed", type=int, default=0,
                     help="load-generator seed (arrivals + prompt tokens)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="tensor-parallel degree: shard attention heads "
+                         "and KV page pools over an N-rank ('model',) "
+                         "mesh (launch/mesh.make_serving_mesh). 0 = "
+                         "unsharded; 1 = degenerate mesh (bit-identical "
+                         "streams); N >= 2 needs N ranks "
+                         "(torchrun --nproc-per-node N)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their "
                          "plain PyTorch versions)")
@@ -912,6 +986,20 @@ def main(argv=None) -> Dict:
         raise SystemExit("--speculate requires --cache paged")
     if args.schedule == "continuous" and args.cache != "paged":
         raise SystemExit("--schedule continuous requires --cache paged")
+    mesh = None
+    say = print
+    if args.mesh:
+        if args.cache != "paged":
+            raise SystemExit("--mesh requires --cache paged")
+        if args.speculate:
+            raise SystemExit("--speculate is not supported with --mesh "
+                             "(no sharded verify twin yet)")
+        from .mesh import make_serving_mesh
+        mesh = make_serving_mesh(args.mesh, device=args.device)
+        if mesh.rank:     # only rank 0 prints the report
+            say = _silent
+        say(f"[mesh] model={args.mesh} ranks={mesh.size} "
+            f"backend={mesh.backend} device={mesh.device}")
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -923,8 +1011,10 @@ def main(argv=None) -> Dict:
     if cfg.input_mode == "embeddings":
         raise SystemExit("serving demo drives token-mode archs")
     model = Model(cfg, dt=DtypePolicy(param=torch.bfloat16),
-                  device=args.device)
-    params = model.init(seed=0)
+                  device=mesh.device if mesh is not None else args.device)
+    # a mesh draws the whole model on each rank and keeps its shards (in
+    # PagedScheduler, below)
+    params = model.init(seed=0) if mesh is None else None
     drafter = None
     if args.speculate:
         # the model drafter is the target's leading layers (early-exit
@@ -937,18 +1027,25 @@ def main(argv=None) -> Dict:
         print(f"[spec] drafter={args.speculate} "
               f"draft_tokens={args.draft_tokens}")
     if args.cache == "paged":
-        server = PagedScheduler(model, params, slots=args.slots,
-                                max_len=args.max_len,
-                                page_size=args.page_size,
-                                total_pages=args.total_pages,
-                                prefix_cache=args.prefix_cache)
-        print(f"[paged] arch={cfg.name} device={model.device} "
-              f"page_size={server.page} pool={server.alloc.total} pages "
-              f"({server.n_slot_pages}/slot max, "
-              f"kv_dtype={args.kv_dtype or 'compute'}, "
-              f"weights_dtype={args.weights_dtype or 'compute'}, "
-              f"page_bytes={server._page_bytes}, "
-              f"prefix_cache={'on' if args.prefix_cache else 'off'})")
+        # ranks sharing a card build their shards in turn: each holds the
+        # whole model (drawn in fp32, a stack at a time) only while it
+        # shards it
+        for _ in _in_turn(mesh):
+            server = PagedScheduler(model, params if mesh is None
+                                    else model.init(seed=0),
+                                    slots=args.slots, max_len=args.max_len,
+                                    page_size=args.page_size,
+                                    total_pages=args.total_pages,
+                                    prefix_cache=args.prefix_cache,
+                                    mesh=mesh, log=say)
+        say(f"[paged] arch={cfg.name} device={model.device} "
+            f"page_size={server.page} pool={server.alloc.total} pages "
+            f"({server.n_slot_pages}/slot max, "
+            f"kv_dtype={args.kv_dtype or 'compute'}, "
+            f"weights_dtype={args.weights_dtype or 'compute'}, "
+            f"page_bytes={server._page_bytes}, "
+            f"prefix_cache={'on' if args.prefix_cache else 'off'}, "
+            f"tp={server.tp})")
     else:
         server = Server(model, params, slots=args.slots,
                         max_len=args.max_len)
@@ -974,7 +1071,7 @@ def main(argv=None) -> Dict:
         from .engine import ContinuousEngine
         engine = ContinuousEngine(server, token_budget=args.token_budget,
                                   clock=args.clock, tick=args.tick,
-                                  drafter=drafter)
+                                  drafter=drafter, log=say)
         engine.warmup()
         t0 = time.time()
         done = engine.run(reqs)      # ends in a host read of the tokens
@@ -986,10 +1083,10 @@ def main(argv=None) -> Dict:
                   "prefill_seconds": ex.t_prefill,
                   "decode_steps": server.decode_steps,
                   "decode_seconds": ex.t_decode}
-        print(f"[engine] iterations={engine.iterations} "
-              f"prefill_calls={ex.prefill_calls} "
-              f"max_prefill_batch={ex.max_prefill_batch} "
-              f"rejected={server.rejected}")
+        say(f"[engine] iterations={engine.iterations} "
+            f"prefill_calls={ex.prefill_calls} "
+            f"max_prefill_batch={ex.max_prefill_batch} "
+            f"rejected={server.rejected}")
     else:
         t0 = time.time()
         if drafter is not None:
@@ -1000,30 +1097,37 @@ def main(argv=None) -> Dict:
         if args.cache == "dense":
             phases = {"decode_steps": server.decode_steps,
                       "decode_seconds": server.decode_seconds}
+    if mesh is not None and mesh.size > 1:
+        # every rank must have reached the same greedy tokens
+        mine = sorted((r.rid, list(r.out)) for r in done)
+        ranks = mesh.group("model").all_gather_object(mine)
+        if any(other != mine for other in ranks):
+            raise AssertionError(f"rank {mesh.rank}: the ranks' streams "
+                                 f"differ: {ranks}")
     total_new = sum(len(r.out) for r in done)
-    print(f"served {len(done)} requests, {total_new} new tokens in "
-          f"{dt:.2f}s ({total_new / dt:.1f} tok/s, {args.slots} slots, "
-          f"cache={args.cache}, schedule={args.schedule})")
+    say(f"served {len(done)} requests, {total_new} new tokens in "
+        f"{dt:.2f}s ({total_new / dt:.1f} tok/s, {args.slots} slots, "
+        f"cache={args.cache}, schedule={args.schedule})")
     fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
-    print(f"[serve] ttft p50={fmt(summary.get('ttft_p50'))} "
-          f"p99={fmt(summary.get('ttft_p99'))}  tok_latency "
-          f"p50={fmt(summary.get('tok_latency_p50'))} "
-          f"p99={fmt(summary.get('tok_latency_p99'))} "
-          f"({args.clock if args.schedule == 'continuous' else 'n/a'} clock)")
+    say(f"[serve] ttft p50={fmt(summary.get('ttft_p50'))} "
+        f"p99={fmt(summary.get('ttft_p99'))}  tok_latency "
+        f"p50={fmt(summary.get('tok_latency_p50'))} "
+        f"p99={fmt(summary.get('tok_latency_p99'))} "
+        f"({args.clock if args.schedule == 'continuous' else 'n/a'} clock)")
     dense = spec = prefix = None
     if args.cache == "dense":
         dense = {"truncated": server.truncated, "rejected": server.rejected,
                  "pos": server.pos}
         if server.truncated or server.rejected:
-            print(f"[dense] truncated={server.truncated} "
-                  f"rejected={server.rejected}")
+            say(f"[dense] truncated={server.truncated} "
+                f"rejected={server.rejected}")
     else:
         if server.window:
-            print(f"[paged] reclaimed {server.pages_reclaimed} window-dead "
-                  f"page(s) (window={server.window})")
+            say(f"[paged] reclaimed {server.pages_reclaimed} window-dead "
+                f"page(s) (window={server.window})")
         if server.truncated or server.rejected:
-            print(f"[paged] truncated={server.truncated} "
-                  f"rejected={server.rejected}")
+            say(f"[paged] truncated={server.truncated} "
+                f"rejected={server.rejected}")
         if server.prefix is not None:
             prefix = {"hits": server.prefix.hits,
                       "misses": server.prefix.misses,
@@ -1031,8 +1135,8 @@ def main(argv=None) -> Dict:
                       "cow_copies": server.cow_copies,
                       "evictions": server.prefix.evictions,
                       "cached_pages": server.prefix.n_pages()}
-            print("[prefix] " + " ".join(f"{k}={v}"
-                                         for k, v in prefix.items()))
+            say("[prefix] " + " ".join(f"{k}={v}"
+                                       for k, v in prefix.items()))
     if drafter is not None and server.verify_steps:
         spec = {"verify_steps": server.verify_steps,
                 "drafted": server.spec_drafted,
@@ -1043,21 +1147,23 @@ def main(argv=None) -> Dict:
                 "tokens_per_step": server.spec_emitted / server.verify_steps,
                 "verify_seconds": server.verify_seconds,
                 "draft_seconds": server.draft_seconds}
-        print(f"[spec] verify_steps={spec['verify_steps']} "
-              f"drafted={spec['drafted']} accepted={spec['accepted']} "
-              f"accept_rate={spec['accept_rate']:.3f} "
-              f"emitted={spec['emitted']} "
-              f"tokens_per_step={spec['tokens_per_step']:.2f}")
+        say(f"[spec] verify_steps={spec['verify_steps']} "
+            f"drafted={spec['drafted']} accepted={spec['accepted']} "
+            f"accept_rate={spec['accept_rate']:.3f} "
+            f"emitted={spec['emitted']} "
+            f"tokens_per_step={spec['tokens_per_step']:.2f}")
     if max_kv_bytes is not None:
-        print(f"[paged] max_resident_kv_bytes={max_kv_bytes}")
+        say(f"[paged] max_resident_kv_bytes={max_kv_bytes}")
     routes = dispatch.stats()
     for (op, route), n in sorted(routes.items()):
-        print(f"[dispatch] {op:>22s} -> {route:<6s} x{n}")
+        say(f"[dispatch] {op:>22s} -> {route:<6s} x{n}")
     return {"done": done, "new_tokens": total_new, "seconds": dt,
             "tok_s": total_new / dt, "ttft_p50": summary.get("ttft_p50"),
             "ttft_p99": summary.get("ttft_p99"), "routes": routes,
             "phases": phases, "prefix": prefix, "dense": dense,
-            "spec": spec, "max_resident_kv_bytes": max_kv_bytes}
+            "spec": spec, "max_resident_kv_bytes": max_kv_bytes,
+            "tp": server.tp if args.cache == "paged" else 0,
+            "tp_routes": dispatch.tp_stats()}
 
 
 if __name__ == "__main__":

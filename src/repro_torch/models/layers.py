@@ -147,24 +147,27 @@ def quantize_weight(w: torch.Tensor, n_lead: int,
     return {"q": q.reshape(w.shape), "scale": scale.reshape(lead + out_dims)}
 
 
-def project(x: torch.Tensor, w: Weight,
-            weights_dtype: str = "") -> torch.Tensor:
+def project(x: torch.Tensor, w: Weight, weights_dtype: str = "", *,
+            tp: Optional[str] = None) -> torch.Tensor:
     """Contract x (..., K) with a weight (K, ...) at the configured weight
     dtype.  ``"int8"`` takes a ``quantize_weight`` dict and routes through
     ``dispatch.quantized_matmul`` (the fp32 result cast back to x's
-    dtype, as the JAX package does); "" takes a float weight."""
+    dtype, as the JAX package does); "" takes a float weight.  ``tp``
+    names the op's tensor-parallel contract ("col"/"row"), inert outside
+    a ``dispatch.tp_scope``; a "row" shard's int8 partials are summed in
+    fp32, before the cast."""
     if weights_dtype == "int8":
         if not isinstance(w, dict):
             raise TypeError("weights_dtype='int8' needs weights quantized "
                             "by Model.bind_params (quantize_weight)")
         k = x.shape[-1]
         out = dispatch.quantized_matmul(x, w["q"].reshape(k, -1),
-                                        w["scale"].reshape(-1))
+                                        w["scale"].reshape(-1), tp=tp)
         return out.reshape(x.shape[:-1] + w["scale"].shape).to(x.dtype)
     if weights_dtype:
         raise ValueError(f"weights_dtype {weights_dtype!r} is not supported "
                          "(float '' or 'int8')")
-    return dispatch.matmul(x, w)
+    return dispatch.matmul(x, w, tp=tp)
 
 
 def _cast(w: Weight, dtype: torch.dtype) -> Weight:
@@ -196,10 +199,12 @@ def attention_init(gen: torch.Generator, s: AttnSpec, lead=()) -> Params:
 def _qkv(p: Params, s: AttnSpec, x: torch.Tensor, positions: torch.Tensor,
          dt: DtypePolicy):
     cdt = dt.compute
-    # (b,s,d) x (d,h,k) -> (b,s,h,k): dispatch contracts last-vs-first
-    q = project(x, _cast(p["wq"], cdt), s.weights_dtype)
-    k = project(x, _cast(p["wk"], cdt), s.weights_dtype)
-    v = project(x, _cast(p["wv"], cdt), s.weights_dtype)
+    # (b,s,d) x (d,h,k) -> (b,s,h,k): dispatch contracts last-vs-first.
+    # q/k/v are column-parallel under tensor parallelism (a shard's heads;
+    # MQA's replicated k/v take the same tag and need no collective)
+    q = project(x, _cast(p["wq"], cdt), s.weights_dtype, tp="col")
+    k = project(x, _cast(p["wk"], cdt), s.weights_dtype, tp="col")
+    v = project(x, _cast(p["wv"], cdt), s.weights_dtype, tp="col")
     if s.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -487,20 +492,28 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, activation: str,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, activation: str,
-              dt: DtypePolicy, weights_dtype: str = "") -> torch.Tensor:
+              dt: DtypePolicy, weights_dtype: str = "", *,
+              tagged: bool = True) -> torch.Tensor:
+    """The dense MLP.  Its projections carry Megatron's tensor-parallel
+    tags: the up projections column-parallel (no collective), the down
+    projection row-parallel (the block's psum).  A MoE layer's shared MLP
+    stays replicated under tensor parallelism and passes ``tagged=False``
+    (the JAX package tags it too, so its sharded serving would sum the
+    replicated shared MLP once a shard)."""
     cdt = dt.compute
 
-    def mm(h, name):
-        return project(h, _cast(p[name], cdt), weights_dtype)
+    def mm(h, name, tp="col"):
+        return project(h, _cast(p[name], cdt), weights_dtype,
+                       tp=tp if tagged else None)
     if activation in ("swiglu", "geglu"):
         g = mm(x, "wg")
         u = mm(x, "wu")
         act = F.silu(g) if activation == "swiglu" \
             else F.gelu(g, approximate="tanh")
-        return mm(act * u, "wd")
+        return mm(act * u, "wd", "row")
     h = mm(x, "wi")
     h = F.relu(h) if activation == "relu" else F.gelu(h, approximate="tanh")
-    return mm(h, "wd")
+    return mm(h, "wd", "row")
 
 
 # output axes of each projection weight: q/k/v (d, heads, hd) end in

@@ -159,7 +159,8 @@ def moe_apply(p: Params, s: MoESpec, x: torch.Tensor, dt: DtypePolicy
         out = out + mine[:, j]
 
     if s.n_shared_experts:
-        out = out + mlp_apply(p["shared"], tokens.to(cdt), s.activation, dt)
+        out = out + mlp_apply(p["shared"], tokens.to(cdt), s.activation, dt,
+                              tagged=False)
     return out.reshape(b, sq, d), aux
 
 

@@ -36,14 +36,14 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.memory import BF16_POLICY, DtypePolicy
 from ..core.quant import kv_dtype_of
 from ..kernels import dispatch
-from . import griffin, layers, moe, rwkv
+from . import griffin, layers, moe, moe_sharded, rwkv
 from .layers import Params
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecOptions:
-    """How the training forward runs (the JAX ``ExecOptions`` fields that
-    a single device uses)."""
+    """How the forwards run (the JAX ``ExecOptions`` fields the port
+    has)."""
     block_q: int = 512
     block_kv: int = 512
     remat: bool = True
@@ -53,6 +53,14 @@ class ExecOptions:
     attn_impl: str = "blockwise"   # blockwise | naive
     # sequence tiles for the head matmul + xent (§3.4)
     xent_chunks: int = 8
+    # expert-parallel MoE: a mesh (launch/mesh.Mesh) and its data axes
+    # route every MoE layer through moe_sharded.moe_apply_sharded, whose
+    # params hold this rank's expert shards; the experts pad to a
+    # multiple of expert_pad (the EP axes' size)
+    moe_mesh: Optional[Any] = None
+    moe_dp_axes: Tuple[str, ...] = ()
+    moe_ep_axes: Tuple[str, ...] = ("model",)
+    expert_pad: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +93,13 @@ def _attn_spec(cfg: ArchConfig, mixer: str) -> layers.AttnSpec:
         mrope_sections=cfg.mrope_sections)
 
 
-def _moe_spec(cfg: ArchConfig) -> moe.MoESpec:
-    """The JAX ``_moe_spec`` on one device: experts are not padded
-    (``pad_to=1``) until an expert-parallel mesh is ported."""
+def _moe_spec(cfg: ArchConfig, pad_to: int = 1) -> moe.MoESpec:
     return moe.MoESpec(
         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
         d_expert=cfg.d_expert, n_shared_experts=cfg.n_shared_experts,
         shared_d_expert=cfg.shared_d_expert,
         capacity_factor=cfg.capacity_factor, activation=cfg.activation,
-        pad_to=1)
+        pad_to=pad_to)
 
 
 def _rwkv_spec(cfg: ArchConfig) -> rwkv.RwkvSpec:
@@ -131,9 +137,11 @@ def _require_paged(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
-               lead=(), dtype: torch.dtype = torch.float32) -> Params:
+               lead=(), dtype: torch.dtype = torch.float32,
+               expert_pad: int = 1) -> Params:
     """One layer's params in ``dtype``, the mixer cast before the FFN is
-    drawn; ``lead`` = (n_periods,) stacks a period."""
+    drawn; ``lead`` = (n_periods,) stacks a period; a MoE layer's experts
+    pad to a multiple of ``expert_pad``."""
     mixer, ffn = kind
     p = {"ln1": layers.rmsnorm_init(cfg.d_model, lead, gen.device),
          "ln2": layers.rmsnorm_init(cfg.d_model, lead, gen.device)}
@@ -151,7 +159,8 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
                                    cfg.activation, lead)
     elif ffn == "moe":
         # cast leaf by leaf: the experts are most of a MoE model
-        p["moe"] = moe.moe_init(gen, _moe_spec(cfg), lead, dtype)
+        p["moe"] = moe.moe_init(gen, _moe_spec(cfg, expert_pad), lead,
+                                dtype)
     elif ffn == "rwkv_cm":
         p["cm"] = rwkv.channel_mix_init(gen, _rwkv_spec(cfg), lead)
     else:
@@ -160,13 +169,20 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig, kind: LayerKind,
 
 
 def _ffn(p: Params, cfg: ArchConfig, kind: LayerKind, h: torch.Tensor,
-         dt: DtypePolicy) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+         dt: DtypePolicy, opts: Optional[ExecOptions] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A layer's FFN on h (B, S, d): (out, aux loss, None for an MLP).
     MoE layers route every token of the (B, S) they are given and keep
     float weights under ``weights_dtype="int8"``, as the JAX package's
-    do."""
+    do; with ``opts.moe_mesh`` set they run expert-parallel
+    (``moe_sharded.moe_apply_sharded``) on this rank's expert shards."""
     if kind[1] == "moe":
-        return moe.moe_apply(p["moe"], _moe_spec(cfg), h, dt)
+        spec = _moe_spec(cfg, opts.expert_pad if opts else 1)
+        if opts is not None and opts.moe_mesh is not None:
+            return moe_sharded.moe_apply_sharded(
+                p["moe"], spec, h, dt, mesh=opts.moe_mesh,
+                dp_axes=opts.moe_dp_axes, ep_axes=opts.moe_ep_axes)
+        return moe.moe_apply(p["moe"], spec, h, dt)
     return layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
                             cfg.weights_dtype), None
 
@@ -193,7 +209,8 @@ def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
                         x: torch.Tensor, cache: Dict[str, torch.Tensor],
                         starts: torch.Tensor, tables: torch.Tensor,
                         dt: DtypePolicy,
-                        positions: Optional[torch.Tensor] = None
+                        positions: Optional[torch.Tensor] = None,
+                        opts: Optional[ExecOptions] = None
                         ) -> torch.Tensor:
     """One page-aligned prompt chunk each of B distinct slots through one
     layer (x (B, C, d), starts (B,), tables (B, n_pages); ``positions``
@@ -204,7 +221,7 @@ def layer_prefill_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
         cache.get("v_scale"), positions=positions)
     x = x + h
-    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
+    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt, opts)[0]
 
 
 def layer_cache_init(cfg: ArchConfig, kind: LayerKind, batch: int,
@@ -241,7 +258,8 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
                  dt: DtypePolicy, *, pos: Optional[int] = None,
                  paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 opts: Optional[ExecOptions] = None) -> torch.Tensor:
     """One decode token per slot through one layer.  ``paged`` = (lengths,
     table) takes the paged ragged path (every slot at its own length);
     otherwise every slot decodes at the shared ``pos`` against its dense
@@ -277,14 +295,15 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
                                    x_prev=cache["cm_xprev"])
         cache["cm_xprev"].copy_(x[:, 0])
         return x + h
-    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
+    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt, opts)[0]
 
 
 def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
                        x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        lengths: torch.Tensor, tables: torch.Tensor,
                        dt: DtypePolicy,
-                       positions: Optional[torch.Tensor] = None
+                       positions: Optional[torch.Tensor] = None,
+                       opts: Optional[ExecOptions] = None
                        ) -> torch.Tensor:
     """One speculative verify window of B distinct slots through one layer
     (x (B, W, d), lengths (B,), tables (B, n_pages); ``positions`` (B, W,
@@ -295,7 +314,7 @@ def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
         cache["k_pages"], cache["v_pages"], dt, cache.get("k_scale"),
         cache.get("v_scale"), positions=positions)
     x = x + h
-    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt)[0]
+    return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt, opts)[0]
 
 
 def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
@@ -325,7 +344,7 @@ def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
     if ffn == "rwkv_cm":
         return x + rwkv.channel_mix_apply(p["cm"], _rwkv_spec(cfg), h,
                                           cdt), None
-    h, aux = _ffn(p, cfg, kind, h, dt)
+    h, aux = _ffn(p, cfg, kind, h, dt, opts)
     return x + h, aux
 
 
@@ -405,7 +424,8 @@ class Model:
         params = _cast(params, pdt)
 
         def init(kind, lead=()):
-            return layer_init(gen, cfg, kind, lead, pdt)
+            return layer_init(gen, cfg, kind, lead, pdt,
+                              self.opts.expert_pad)
         params["prefix"] = [init(k) for k in lay.prefix]
         params["stack"] = [init(k, (lay.n_periods,))
                            for k in lay.period] if lay.n_periods else []
@@ -626,7 +646,7 @@ class Model:
         positions = self._mrope_override(starts, tokens.shape[1])
         for p, kind, c in self._layers(params, cache):
             x = layer_prefill_paged(p, self.cfg, kind, x, c, starts, tables,
-                                    self.dt, positions)
+                                    self.dt, positions, self.opts)
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, last_idx.long()][:, None]
         return self._logits(params, x_last)[:, 0]
@@ -680,7 +700,8 @@ class Model:
                 pages = views[cap]
             x = layer_decode(p, cfg, kind, x, c, self.dt,
                              pos=None if pos is None else int(pos),
-                             paged=paged, pages=pages, positions=positions)
+                             paged=paged, pages=pages, positions=positions,
+                             opts=self.opts)
         return self._logits(params, x)[:, 0]
 
     def verify_step_paged(self, params: Params, cache, tokens: torch.Tensor,
@@ -702,7 +723,7 @@ class Model:
         positions = self._mrope_override(lengths, tokens.shape[1])
         for p, kind, c in self._layers(params, cache):
             x = layer_verify_paged(p, self.cfg, kind, x, c, lengths, tables,
-                                   self.dt, positions)
+                                   self.dt, positions, self.opts)
         return self._logits(params, x)
 
     # ------------------------------ dense serving ---------------------

@@ -1,0 +1,236 @@
+"""The collectives of the port's meshes, on ``torch.distributed``.
+
+A :class:`Group` is one process group of a mesh (``launch/mesh.py``): the
+ranks along one axis, or along several, that hold this rank.  Its
+collectives are deterministic and give every member the same bits:
+
+* ``all_gather`` concatenates the members' tensors in rank order;
+* ``psum`` gathers and adds them one by one in rank order (the order of
+  the sum is fixed, so a replicated result is equal on every rank and a
+  one-rank group returns its input's bits);
+* ``all_to_all`` sends block r of dim 0 to member r;
+* ``broadcast_float`` and ``all_gather_object`` carry host values.
+
+Which backend a group runs on is the mesh's rule (NCCL when every rank
+has a card of its own, gloo on the CPU or when ranks share a card), and
+one more rule follows from it: under gloo a CUDA tensor is staged
+through host memory, a copy each way, for every collective.
+
+The autograd Functions are the transposes a sharded layer needs
+(``models/moe_sharded.py``), written for a loss that every rank computes
+alike from replicated values:
+
+* ``all_gather`` of a sharded weight whose users each hold a part of
+  its cotangent <-> reduce-scatter (``gather_shards``);
+* ``all_to_all`` <-> the reverse all_to_all (``exchange``);
+* a replicated tensor cut to this rank's slice <-> all_gather of the
+  slices' cotangents (``split``), and the slices' results gathered back
+  to a replicated tensor <-> this rank's slice of the cotangent
+  (``unsplit``);
+* a replicated tensor used on rank-local data <-> psum of the
+  cotangent (``broadcast``), and a replicated value every rank computed
+  alike <-> the cotangent over the group size (``identical``);
+* the mean of the members' values <-> the cotangent over the group size
+  (``pmean``).
+"""
+from __future__ import annotations
+
+from typing import Any, List
+
+import torch
+import torch.distributed as dist
+
+
+class Group:
+    """The members of one process group, seen from this rank: ``size``
+    ranks, this one at ``index`` (its place in the group's rank order)."""
+
+    def __init__(self, pg, ranks: List[int], index: int, backend: str):
+        self.pg = pg
+        self.ranks = list(ranks)
+        self.size = len(ranks)
+        self.index = index
+        self.backend = backend
+
+    def __repr__(self) -> str:
+        return (f"Group(ranks={self.ranks}, index={self.index}, "
+                f"backend={self.backend})")
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """gloo takes host tensors: a CUDA tensor goes through the host."""
+        return self.backend == "gloo" and t.is_cuda
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The members' ``t`` (equal shapes) concatenated on ``dim`` in
+        rank order."""
+        return torch.cat(self._gather(t), dim=dim)
+
+    def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        src = t.detach().contiguous()
+        if self._staged(src):
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.pg)
+        return [p.to(t.device) for p in parts]
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The members' ``t`` added in rank order, in ``t``'s dtype."""
+        parts = self._gather(t)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Block r of ``t``'s dim 0 (of ``size`` equal blocks) goes to
+        member r; block s of the result came from member s."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
+                             f"not split into {self.size} blocks")
+        src = t.detach().contiguous()
+        if self._staged(src):
+            src = src.cpu()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.pg)
+        return out.to(t.device)
+
+    def chunk(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This member's block of ``t``'s ``dim`` (``size`` equal blocks),
+        as a contiguous tensor."""
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"into {self.size} blocks")
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n).contiguous()
+
+    def broadcast_float(self, x: float, device: torch.device) -> float:
+        """Member 0's ``x`` on every member (a host float; NCCL groups
+        carry it through ``device``)."""
+        on = torch.device("cpu") if self.backend == "gloo" else device
+        t = torch.tensor([x], dtype=torch.float64, device=on)
+        dist.broadcast(t, self.ranks[0], group=self.pg)
+        return float(t.item())
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.pg)
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        """Every member's picklable ``obj``, in rank order."""
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.pg)
+        return out
+
+
+# --------------------------------------------------------------------------
+# differentiable collectives
+# --------------------------------------------------------------------------
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.chunk(ctx.group.psum(g), ctx.dim), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_to_all(g), None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.chunk(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+class _Unsplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.chunk(g, ctx.dim), None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.psum(g), None
+
+
+class _Scaled(torch.autograd.Function):
+    """Forward: the identity (``identical``) or the members' mean
+    (``pmean``); backward: the cotangent over the group size."""
+
+    @staticmethod
+    def forward(ctx, t, group, mean):
+        ctx.size = group.size
+        return group.psum(t) / group.size if mean else t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None, None
+
+
+def gather_shards(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """all_gather of a sharded tensor on ``dim``; the backward
+    reduce-scatters (each member's cotangent is a part of the whole)."""
+    return _GatherShards.apply(t, group, dim)
+
+
+def exchange(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """all_to_all on dim 0; the backward is the reverse all_to_all."""
+    return _Exchange.apply(t, group)
+
+
+def split(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """This member's block of a replicated ``t`` on ``dim``; the backward
+    all-gathers the blocks' cotangents."""
+    return _Split.apply(t, group, dim)
+
+
+def unsplit(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The members' blocks gathered back to a replicated tensor; the
+    backward takes this member's block of the (replicated) cotangent."""
+    return _Unsplit.apply(t, group, dim)
+
+
+def broadcast(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """A replicated ``t`` used on this member's own data: the identity,
+    whose backward adds the members' cotangents (``psum``)."""
+    return _Broadcast.apply(t, group)
+
+
+def identical(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """A value every member computed alike, used as one replicated value:
+    the identity, whose backward divides the cotangent by the group
+    size (each member's copy carries its share)."""
+    return _Scaled.apply(t, group, False)
+
+
+def pmean(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The mean of the members' ``t`` (added in rank order); the backward
+    gives each member the cotangent over the group size."""
+    return _Scaled.apply(t, group, True)

@@ -1804,3 +1804,91 @@ def test_mrope_embedding_decode_kernels_match_plain(card, layout):
     with mock.patch.object(dispatch, "_on_card", lambda op, t: False):
         plain = run()
     torch.testing.assert_close(kernel, plain, rtol=1e-4, atol=1e-4)
+
+
+# tensor-parallel serving's shard shapes at tp = 2 (runtime/tp.py):
+# gemma-2b's column-parallel wq (N = 4 heads of 256) and up projections
+# (N = 8192), its row-parallel wd (K = 8192); codeqwen1.5-7b's wq (N = 16
+# heads of 128), up projections (N = 6720) and wd (K = 6720)
+TP_SHARD_SHAPES = [(2048, 1024), (2048, 8192), (8192, 2048), (4096, 2048),
+                   (4096, 6720), (6720, 4096)]
+
+
+@pytest.mark.parametrize("k,n", TP_SHARD_SHAPES,
+                         ids=lambda v: str(v))
+def test_matmul_at_tp_shard_shapes(card, k, n):
+    """B1 (bf16) at the shards' weight shapes: rows equal to the plain
+    version, a decode-sized call's rows equal to a prefill-sized call's,
+    a rerun the same bits."""
+    gen = torch.Generator(device=card).manual_seed(k + n)
+    a, b = _gemma_operands(card, torch.bfloat16, gen, 256, k, n, False)
+    full = matmul_cuda(a, b)
+    _close(full, matmul_plain(a, b), torch.bfloat16)
+    assert torch.equal(matmul_cuda(a, b), full)
+    assert torch.equal(matmul_cuda(a[:4].contiguous(), b), full[:4])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantized_matmul_at_the_row_parallel_shard(card, dtype):
+    """B5 at gemma-2b's row-parallel wd shard (K = 8192 of 16384, N =
+    2048), its int8 weight and scales quantized from that K slice alone
+    (as a rank quantizes its shard): equal to the plain version, rows
+    independent of M, and the two shards' partial sums equal to the
+    plain sum of the two."""
+    from repro_torch.kernels.matmul import matmul as mm
+    gen = torch.Generator(device=card).manual_seed(8192)
+    w = torch.randn(16384, 2048, generator=gen, device=card) / 128.0
+    a = torch.randn(70, 16384, generator=gen, device=card).to(dtype)
+    parts = []
+    for r in range(2):
+        q, s = quant.quantize_channelwise(w[r * 8192:(r + 1) * 8192])
+        x = a[:, r * 8192:(r + 1) * 8192].contiguous()
+        out = quantized_matmul_cuda(x, q, s)
+        want = quantized_matmul_plain(x, q, s)
+        _close(out, want, torch.float32)
+        assert torch.equal(quantized_matmul_cuda(x[:4].contiguous(), q, s),
+                           out[:4])
+        parts.append((out, want))
+    _close(parts[0][0] + parts[1][0], parts[0][1] + parts[1][1],
+           torch.float32)
+    assert mm.quantized_split_plan(8192, 2048, dtype)[0] > 1
+
+
+# the shards' heads: gemma-2b's 4 q heads over its one kv head (hd 256)
+# and codeqwen1.5-7b's 16 over 16 (hd 128), on pages of 64
+TP_SHARD_HEADS = [(4, 1, 256), (16, 16, 128)]
+
+
+@pytest.mark.parametrize("h,hkv,hd", TP_SHARD_HEADS,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_attention_at_tp_shard_heads(card, h, hkv, hd, int8):
+    """B2/B4a and B3/B4b (bf16 q) at the shards' heads against their plain
+    versions, slot by slot; the prefill on its wgmma route."""
+    from repro_torch.kernels.attention.prefill import prefill_route
+    dtype = torch.bfloat16
+    gen, kp, vp, table = _pools(torch.float32 if int8 else dtype, card,
+                                slots=4, h=h, hkv=hkv, hd=hd, page=64,
+                                n_pages=4)
+    scales = ()
+    if int8:
+        kp, vp, ks, vs = _int8(kp, vp)
+        scales = (ks, vs)
+    dec = decode_attention_int8_cuda if int8 else decode_attention_cuda
+    pre = prefill_attention_int8_cuda if int8 else prefill_attention_cuda
+    tol = torch.float32 if int8 else dtype
+    q = torch.randn(4, h, hd, generator=gen, device=card).to(dtype)
+    lengths = torch.tensor([0, 65, 117, 256], dtype=torch.int32, device=card)
+    out = dec(q, kp, vp, table, lengths, *scales)
+    want = decode_attention_plain(q, kp, vp, table, lengths, *scales)
+    _close(out, want, tol)
+    _slots_close(out, want)
+    q = torch.randn(4, 64, h, hd, generator=gen, device=card).to(dtype)
+    starts = torch.tensor([0, 64, 128, 192], dtype=torch.int32, device=card)
+    assert prefill_route(dtype, hd, h // hkv) == "wgmma"
+    before = pre.routes["wgmma"]
+    out = pre(q, kp, vp, table, starts, *scales)
+    assert pre.routes["wgmma"] == before + 1
+    want = prefill_attention_plain(q, kp, vp, table, starts, *scales)
+    _close(out, want, tol)
+    _slots_close(out, want)
