@@ -204,8 +204,9 @@ Phases, one output line or more each:
               width and depth: musicgen-large (hd 64, a non-gated GELU
               MLP; B1 4 x 296 per step, B6 96, B7 48) and qwen2-vl-2b (hd
               128, GQA 6:1, a tied 151936-wide head, M-RoPE; B1 4 x 204,
-              B6 56, B7 28), held as phase 5, each with a profiled
-              step; then ``embed_train_parity``: qwen2-vl-2b's fp32
+              B6 56, B7 28), held as phase 5 without the final
+              checkpoint (since PR 29, for phase 6e's time), each with a
+              profiled step; then ``embed_train_parity``: qwen2-vl-2b's fp32
               loss and backward, kernels against plain versions, on a
               batch whose three M-RoPE position streams differ.
 6d. recurrent -- ``recurrent_prefill``: ``Model.prefill`` of rwkv6-7b
@@ -226,6 +227,27 @@ Phases, one output line or more each:
               kernels); ``recurrent_train_parity``: each arch's fp32
               loss and backward, kernels against plain versions, at
               less depth (rwkv6-7b 2 layers, recurrentgemma-9b 3).
+6e. sharded train -- two ranks (``torch.multiprocessing.spawn``) sharing
+              cuda:0 over gloo, every collective through host memory, so
+              a check and not a speed result: ``launch.train.main`` on
+              its own host mesh, (data 1, model 2), at gemma-2b's width
+              cut to SHARDED_CLI_LAYERS layers, 2 steps of 2 x 512 in
+              bf16, each rank with exactly one process's B1/B6/B7
+              launches (every flash call on wgmma, no plain route), its
+              peak memory, stored state bytes and step seconds; fp32 at
+              2 layers, without remat, on (1, 2) and (2, 1) against one
+              process: the
+              loss (1e-5), every gradient leaf (1e-3 of its max |grad|),
+              two steps' losses and grad norms (1e-5), the ranks'
+              replicated leaves and metrics bit-equal; elastic: the
+              (2, 1) state saved whole, ``restore_on_mesh`` onto (1, 2)
+              equal to ``reshard_state`` shard for shard and to the plain
+              manager's whole leaves, one more step on each layout
+              within 1e-5; ``pipeline_apply`` of tanh(x @ w) on B1 over 2
+              stages and 4 microbatches of 512 x 2048 in fp32 within
+              2e-4 of the sequential product, 5 launches a rank.  The
+              older train phases run on the CLI's one-rank mesh: no
+              collective.
 7. library -- the kernel library's public ops
               (``repro_torch.kernels.{wkv,stencil,nbody,histogram}``) on
               CUDA tensors at phase 2b's sizes, the launch counts set to
@@ -302,6 +324,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -3295,6 +3318,19 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def one_rank_state(model, ts, seed: int):
+    """``init_train_state`` on the train CLI's host mesh of this one
+    process (a local mesh: every spec replicates), as the CLI lays it
+    out: ((params, opt), the params' ``TrainSharding``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import sharded_train_state
+    from repro_torch.runtime.sharding import make_rules
+    rules = make_rules(make_host_mesh(device="cuda"), fsdp=True)
+    state, _, shd, _ = sharded_train_state(model, ts, rules, TRAIN_BATCH,
+                                           seed=seed)
+    return state, shd
+
+
 def moe_train_config():
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
@@ -3324,9 +3360,10 @@ def layer_launches(cfg) -> Counter:
     return want
 
 
-def expected_train_launches(cfg):
-    """Launches per kernel that ``TRAIN_STEPS`` steps of ``cfg`` imply:
-    every layer's forward and its remat recompute make the layers'
+def expected_train_launches(cfg, steps: int = TRAIN_STEPS):
+    """Launches per kernel that ``steps`` steps of ``cfg`` imply (on one
+    process, or on each rank of a mesh that gathers every leaf at its
+    use): every layer's forward and its remat recompute make the layers'
     ``layer_launches`` once each, and each of the 8 xent chunks (also
     recomputed) one head GEMM.  Every GEMM backward is two launches of
     its route, every attention layer's backward one B7 call, every time
@@ -3334,15 +3371,14 @@ def expected_train_launches(cfg):
     from repro_torch.models.transformer import ExecOptions
     fwd = layer_launches(cfg)
     gemms = fwd["matmul"] + min(ExecOptions().xent_chunks, TRAIN_SEQ)
-    want = {"matmul": TRAIN_STEPS * 4 * gemms}
+    want = {"matmul": steps * 4 * gemms}
     if fwd["flash_attention"]:
-        want.update(flash_attention=TRAIN_STEPS * 2 * fwd["flash_attention"],
-                    flash_attention_bwd=TRAIN_STEPS * fwd["flash_attention"])
+        want.update(flash_attention=steps * 2 * fwd["flash_attention"],
+                    flash_attention_bwd=steps * fwd["flash_attention"])
     if fwd["wkv"]:
-        want.update(wkv=TRAIN_STEPS * 2 * fwd["wkv"],
-                    wkv_bwd=TRAIN_STEPS * fwd["wkv"])
+        want.update(wkv=steps * 2 * fwd["wkv"], wkv_bwd=steps * fwd["wkv"])
     if fwd["grouped_matmul"]:
-        want["grouped_matmul"] = TRAIN_STEPS * 4 * fwd["grouped_matmul"]
+        want["grouped_matmul"] = steps * 4 * fwd["grouped_matmul"]
     return want
 
 
@@ -3409,11 +3445,13 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
     from repro_torch.kernels import dispatch
     from repro_torch.launch import train
     from repro_torch.models import moe
+    from repro_torch.runtime import collectives
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     release(torch)
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_counts()
+    collectives.reset_collective_counts()
     moe_layers = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
     remat = RemattedRoutes(moe.route)
     report = {}
@@ -3436,6 +3474,7 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
                          if k.startswith(("flash_attention", "wkv",
                                           "grouped_matmul"))}
     peak = torch.cuda.max_memory_allocated()
+    issued = collectives.collective_counts()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     routes = {f"{op}/{route}": n for (op, route), n in report[
         "routes"].items()}
@@ -3450,7 +3489,8 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
             "checkpoint_bytes": report["checkpoint_bytes"],
             "checkpoint_seconds": report["checkpoint_seconds"],
             "routes": routes, "launches": launches,
-            "kernel_routes": kernel_routes}
+            "kernel_routes": kernel_routes, "mesh": report["mesh"],
+            "collectives": issued}
     if moe_layers:
         line.update(aux=report["aux"],
                     remat_route_pairs=len(remat.pairs),
@@ -3458,6 +3498,10 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
     emit(line)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{phase}: losses {losses}")
+    # the CLI's one-rank host mesh shards nothing and runs no collective
+    if report["mesh"] != {"data": 1, "model": 1} or issued:
+        raise AssertionError(f"{phase}: mesh {report['mesh']}, "
+                             f"collectives {issued}")
     off = {k: n for k, n in report["routes"].items() if k[1] != "kernel"}
     missing = [op for op in train_ops(cfg)
                if report["routes"].get((op, "kernel"), 0) == 0]
@@ -3563,14 +3607,16 @@ def train_profile(torch, phase: str, cfg, required, forbidden=()):
 
     from repro_torch.models.transformer import Model
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.steps import (TrainStepConfig, init_train_state,
-                                         make_train_step)
+    from repro_torch.runtime import collectives
+    from repro_torch.train.steps import TrainStepConfig, make_train_step
     model = Model(cfg, device="cuda")
     ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
                                          total_steps=TRAIN_STEPS))
-    step_fn = make_train_step(model, ts)
-    params, opt = init_train_state(model, ts, seed=0)
+    (params, opt), shd = one_rank_state(model, ts, seed=0)
+    step_fn = make_train_step(model, dataclasses.replace(
+        ts, grad_shardings=shd))
     batch = train_batch(torch, cfg, seed=0)
+    collectives.reset_collective_counts()
     params, opt, metrics = step_fn(params, opt, batch)
     float(metrics["loss"])
     with profile(activities=[ProfilerActivity.CPU,
@@ -3604,6 +3650,9 @@ def train_profile(torch, phase: str, cfg, required, forbidden=()):
         raise AssertionError(f"{phase}: no device time in {missing}")
     if present:
         raise AssertionError(f"{phase}: device time in {present}")
+    if collectives.collective_counts():
+        raise AssertionError(f"{phase}: collectives "
+                             f"{collectives.collective_counts()}")
     del params, opt, metrics
 
 
@@ -3841,10 +3890,22 @@ def train_parity_phase(torch, phase: str, cfg, seed: int = 7):
     from repro_torch.core.memory import DtypePolicy
     from repro_torch.kernels import dispatch
     from repro_torch.models import moe
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import Model
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.sharding import (make_rules, shard_state,
+                                              train_sharding)
     f32 = DtypePolicy(param=torch.float32, compute=torch.float32)
     model = Model(cfg, dt=f32, device="cuda")
+    # the params as the train CLI lays them out on its one-rank host mesh,
+    # the loss gathering each leaf at its use (nothing to gather there)
+    rules = make_rules(make_host_mesh(device="cuda"), fsdp=True)
     params = model.init(seed=2)
+    shd = train_sharding(rules, params, TRAIN_BATCH)
+    params = shard_state(params, shd.specs, rules.mesh)
+    model = Model(cfg, dt=f32, device="cuda", opts=dataclasses.replace(
+        model.opts, sharding=shd))
+    collectives.reset_collective_counts()
     flat, rebuild = tree.flatten(params)
     for t in flat:
         t.requires_grad_(True)
@@ -3929,7 +3990,450 @@ def train_parity_phase(torch, phase: str, cfg, seed: int = 7):
     if not worst[0] <= 1e-3:
         raise AssertionError(f"{phase}: {worst[1]} off by "
                              f"{worst[0]:.3e} of its max |grad|")
+    if collectives.collective_counts():
+        raise AssertionError(f"{phase}: collectives "
+                             f"{collectives.collective_counts()}")
     del params, flat, grads_k, grads_p
+
+
+# ------------------------------------------------------------ phase 6e
+# sharded training on two ranks sharing cuda:0 over gloo (a check, not a
+# speed result: the ranks time-share the card and every collective goes
+# through host memory)
+SHARDED_RANKS = 2
+# make_host_mesh's (1, 2) for two ranks, and the data-parallel (2, 1)
+SHARDED_MESHES = ((1, 2), (2, 1))
+SHARDED_PARITY_LAYERS, SHARDED_PARITY_BATCH, SHARDED_PARITY_SEQ = 2, 2, 128
+SHARDED_STEPS = 2
+# the CLI's run: gemma-2b at full width, its depth cut from 18 layers to
+# fit the phase's time (6 layers: 46 s of a 304 s phase; PR 29 call 1)
+SHARDED_CLI_LAYERS = 2
+# the stage pipeline: 2 stages of tanh(x @ w) at gemma-2b's width, M = 4
+# microbatches of 512 rows, fp32
+SHARDED_PIPE = dict(m=4, mb=512, d=2048)
+SHARDED_LIMITS = {"loss": 1e-5, "grad": 1e-3, "grad_norm": 1e-5}
+
+
+def _fp32_opts():
+    # the fp32 runs without remat: each leaf gathered once a forward
+    # through the host, not again in the backward (the CLI's bf16 run
+    # keeps remat and its gathers inside the recompute)
+    from repro_torch.models.transformer import ExecOptions
+    return ExecOptions(remat=False)
+
+
+def sharded_config(layers: int):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("gemma-2b"), n_layers=layers)
+
+
+def sharded_batches(torch, cfg, n: int, seed: int):
+    """``n`` whole batches of the synthetic stream, on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=SHARDED_PARITY_SEQ,
+                                  global_batch=SHARDED_PARITY_BATCH,
+                                  seed=seed))
+    return [{k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(i).items()} for i in range(n)]
+
+
+def sharded_fp32(torch, rules, seed: int):
+    """The fp32 model at SHARDED_PARITY_LAYERS and its train step on
+    ``rules.mesh``: (model, step config, state, spec tree, sharding)."""
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.launch.train import sharded_train_state
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainStepConfig
+    cfg = sharded_config(SHARDED_PARITY_LAYERS)
+    model = Model(cfg, dt=DtypePolicy(compute=torch.float32), device="cuda",
+                  opts=_fp32_opts())
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                         total_steps=SHARDED_STEPS))
+    state, specs, shd, _ = sharded_train_state(model, ts, rules,
+                                               SHARDED_PARITY_BATCH, seed)
+    return model, ts, state, specs, shd
+
+
+def digest(torch, t) -> str:
+    import hashlib
+    return hashlib.sha1(t.detach().cpu().reshape(-1).view(torch.uint8)
+                        .numpy().tobytes()).hexdigest()
+
+
+def one_process_grads_and_steps(torch, batches):
+    """The fp32 gemma-2b at SHARDED_PARITY_LAYERS in this process alone:
+    the loss and the gradient at the drawn params (on the card), and the
+    metrics of SHARDED_STEPS train steps."""
+    from repro_torch.core import tree
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import (TrainStepConfig, init_train_state,
+                                         make_train_step)
+    model = Model(sharded_config(SHARDED_PARITY_LAYERS),
+                  dt=DtypePolicy(compute=torch.float32), device="cuda",
+                  opts=_fp32_opts())
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                         total_steps=SHARDED_STEPS))
+    params, opt = init_train_state(model, ts, seed=2)
+    flat, rebuild = tree.flatten(params)
+    for t in flat:
+        t.requires_grad_(True)
+    loss, _ = model.loss_fn(rebuild(flat), batches[0])
+    grads = torch.autograd.grad(loss, flat)
+    for t in flat:
+        t.requires_grad_(False)
+    step = make_train_step(model, ts)
+    metrics = []
+    for batch in batches:
+        params, opt, met = step(params, opt, batch)
+        metrics.append({k: float(v) for k, v in met.items()})
+    return {"loss": float(loss.detach()), "grads": grads,
+            "metrics": metrics}
+
+
+def sharded_grads_and_steps(torch, mesh, batches, one):
+    """On this rank, the fp32 gemma-2b at SHARDED_PARITY_LAYERS laid out
+    on ``mesh``: the loss and the gradient at the drawn params, each
+    leaf's shard held to the same block of one process's gradient
+    (``one``; over the ranks, the gathered leaf), then SHARDED_STEPS
+    train steps.  Returns the row (loss, the worst gradient error over
+    its leaf's max |grad| and that leaf, the metrics, a digest of every
+    leaf no axis splits) and the run (model, step config, state, spec
+    tree, sharding)."""
+    from repro_torch.core import tree
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import sharding
+    from repro_torch.train.steps import make_train_step
+    rules = sharding.make_rules(mesh, fsdp=True)
+    model, ts, (params, opt), specs, shd = sharded_fp32(torch, rules, 2)
+    view = Model(model.cfg, model.dt, model.device,
+                 dataclasses.replace(model.opts, sharding=shd))
+    flat, rebuild = tree.flatten(params)
+    for t in flat:
+        t.requires_grad_(True)
+    loss, _ = view.loss_fn(rebuild(flat), shd.split_batch(batches[0]))
+    grads = torch.autograd.grad(loss, flat)
+    for t in flat:
+        t.requires_grad_(False)
+    worst = (0.0, -1)
+    for i, (g, spec, want) in enumerate(zip(grads, shd.leaf_specs,
+                                            one["grads"])):
+        scale = want.abs().max().item()
+        err = (g - sharding.shard_leaf(want, spec, mesh)).abs().max().item()
+        worst = max(worst, (err / scale if scale > 0 else err, i))
+    del grads
+    step = make_train_step(model, dataclasses.replace(ts,
+                                                      grad_shardings=shd))
+    metrics = []
+    for batch in batches:
+        params, opt, met = step(params, opt, shd.split_batch(batch))
+        metrics.append({k: float(v) for k, v in met.items()})
+    digests = [digest(torch, t) for t, spec in zip(
+        tree.leaves((params, opt)), sharding.spec_leaves(specs))
+        if not sharding.sharded_axes(spec, mesh)]
+    row = {"loss": float(loss.detach()), "grad_worst": worst,
+           "metrics": metrics, "digests": digests}
+    return row, (model, ts, (params, opt), specs, shd)
+
+
+def sharded_elastic(torch, mesh_a, run_a, batch, ckpt_dir: Path) -> dict:
+    """The fp32 run ``run_a`` on ``mesh_a`` (2, 1) after its steps: its
+    state saved whole; ``restore_on_mesh`` onto (1, 2) against
+    ``reshard_state`` from (2, 1) to (1, 2), shard for shard; the plain
+    manager's whole leaves in one process (on every rank), cut by the new
+    specs, against the resharded shards; one more step on the resharded
+    state and on the (2, 1) one."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import elastic, sharding
+    from repro_torch.train.steps import make_train_step
+    model, ts, state, specs_a, shd_a = run_a
+    t0 = time.time()
+    CheckpointManager(str(ckpt_dir), specs=specs_a, mesh=mesh_a).save(
+        SHARDED_STEPS, state)
+    saved = time.time()
+    mesh_b = make_mesh((1, 2), ("data", "model"), device="cuda")
+    rules_b = sharding.make_rules(mesh_b, fsdp=True)
+    like = sharding.global_like(state, specs_a, mesh_a)
+    restored, step, _ = elastic.restore_on_mesh(
+        CheckpointManager(str(ckpt_dir)), like, rules_b)
+    moved, specs_m = elastic.reshard_state(state, rules_b, specs=specs_a,
+                                           mesh=mesh_a)
+    flat_m = tree.leaves(moved)
+    new = sharding.spec_leaves(specs_m)
+    out = {"step_restored": step,
+           "specs_equal": new == sharding.spec_leaves(
+               sharding.tree_specs(rules_b, like)),
+           "restored_equal": all(torch.equal(r, m) for r, m in zip(
+               tree.leaves(restored), flat_m))}
+    del restored
+    whole = CheckpointManager(str(ckpt_dir)).restore(tree.tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="cpu"),
+        like))[0]
+    out["one_process_equal"] = all(
+        torch.equal(sharding.shard_leaf(w, s, mesh_b), m)
+        for w, s, m in zip(tree.leaves(whole), new, flat_m))
+    del whole
+    shd_b = sharding.train_sharding(rules_b, like[0], SHARDED_PARITY_BATCH)
+    step_b = make_train_step(model, dataclasses.replace(
+        ts, grad_shardings=shd_b))
+    step_a = make_train_step(model, dataclasses.replace(
+        ts, grad_shardings=shd_a))
+    _, _, met_b = step_b(*moved, shd_b.split_batch(batch))
+    _, _, met_a = step_a(*state, shd_a.split_batch(batch))
+    out["metrics_resharded"] = {k: float(v) for k, v in met_b.items()}
+    out["metrics_kept"] = {k: float(v) for k, v in met_a.items()}
+    out["save_seconds"] = saved - t0
+    out["seconds"] = time.time() - t0
+    out["state_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree.leaves(like))
+    return out
+
+
+def sharded_pipeline(torch) -> dict:
+    """``pipeline_apply`` of tanh(x @ w_s) through ``dispatch.matmul``
+    (B1, fp32) over 2 stages on a ("pod",) mesh, M = SHARDED_PIPE["m"]:
+    the output against the sequential product in plain PyTorch, the
+    launches, ``bubble_fraction``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.pipeline_parallel import (bubble_fraction,
+                                                       pipeline_apply)
+    m, mb, d = SHARDED_PIPE["m"], SHARDED_PIPE["mb"], SHARDED_PIPE["d"]
+    mesh = make_mesh((SHARDED_RANKS,), ("pod",), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn((SHARDED_RANKS, d, d), generator=gen, device="cuda") \
+        / d ** 0.5
+    x = torch.randn((m, mb, d), generator=gen, device="cuda")
+    stage = sharding.shard_leaf(w, sharding.P("pod"), mesh)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipeline_apply(
+        lambda p, h: torch.tanh(dispatch.matmul(h, p["w"])), {"w": stage},
+        x, mesh=mesh, stage_axis="pod")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    want = x
+    for i in range(SHARDED_RANKS):
+        want = torch.tanh(torch.matmul(want, w[i]))
+    return {"max_abs_err": (out - want).abs().max().item(),
+            "launches": {k: n for k, n in launches.items() if n},
+            "bubble_fraction": bubble_fraction(SHARDED_RANKS, m),
+            "seconds": seconds}
+
+
+def sharded_cli(torch) -> dict:
+    """``launch.train.main`` on this rank: gemma-2b at full width cut to
+    SHARDED_CLI_LAYERS, bf16 compute, SHARDED_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ on the CLI's own host mesh, its checkpoint
+    patched out."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    from repro_torch.runtime import collectives
+    cfg = sharded_config(SHARDED_CLI_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    collectives.reset_collective_counts()
+    report = {}
+    with mock.patch.object(train, "get_arch", lambda name: cfg), \
+            mock.patch.object(CheckpointManager, "save",
+                              lambda *args, **kwargs: None):
+        losses = train.main(
+            ["--arch", cfg.name, "--steps", str(SHARDED_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+             "--ckpt-dir", str(ROOT / "build" / "chip_smoke_sharded_ckpt")],
+            report=report)
+    torch.cuda.synchronize()
+    return {"losses": losses, "mesh": report["mesh"],
+            "launches": dispatch.launch_counts(),
+            "flash_routes": {k: n for k, n in dispatch.route_counts().items()
+                             if k.startswith("flash_attention")},
+            "plain": [f"{op}/{r}" for (op, r) in report["routes"]
+                      if r != "kernel"],
+            "peak": torch.cuda.max_memory_allocated(),
+            "state_bytes": report["state_bytes"],
+            "params": report["params"],
+            "step_seconds": report["step_seconds"],
+            "collectives": collectives.collective_counts()}
+
+
+def sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of the SHARDED_RANKS processes sharing cuda:0 over gloo: the
+    CLI; one process's fp32 gradient and steps, then the same on each of
+    SHARDED_MESHES held to them; the elastic run from the last mesh's
+    state; the pipeline.  Results to ``out_dir``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=3))
+    from repro_torch.launch.mesh import make_mesh
+    out = {"t": {}}
+    t0 = time.time()
+    out["cli"] = sharded_cli(torch)
+    out["t"]["cli"] = time.time() - t0
+    torch.cuda.empty_cache()
+    cfg = sharded_config(SHARDED_PARITY_LAYERS)
+    batches = sharded_batches(torch, cfg, SHARDED_STEPS, seed=11)
+    # one process's run, on each rank alone, to hold its shards to
+    one = one_process_grads_and_steps(torch, batches)
+    out["one_process"] = {"loss": one["loss"], "metrics": one["metrics"]}
+    out["t"]["one process"] = time.time() - t0
+    out["meshes"] = {}
+    for shape in SHARDED_MESHES:
+        mesh = make_mesh(shape, ("data", "model"), device="cuda")
+        out["meshes"][shape], run = sharded_grads_and_steps(
+            torch, mesh, batches, one)
+        out["t"][f"parity {shape}"] = time.time() - t0
+    del one
+    torch.cuda.empty_cache()
+    # the elastic check on the last mesh's run, (2, 1)
+    out["elastic"] = sharded_elastic(
+        torch, mesh, run, sharded_batches(torch, cfg, 1, seed=12)[0],
+        Path(out_dir) / "elastic_ckpt")
+    del run
+    dist.barrier()
+    torch.cuda.empty_cache()
+    out["t"]["elastic"] = time.time() - t0
+    out["pipeline"] = sharded_pipeline(torch)
+    out["t"]["pipeline"] = time.time() - t0
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_train_phase(torch) -> dict:
+    """Phase 6e: SHARDED_RANKS ranks sharing cuda:0 over gloo
+    (``torch.multiprocessing.spawn``, a ``file://`` store; the kernels
+    built here first).  The CLI on both ranks (its (1, 2) host mesh):
+    finite losses, per rank exactly the B1/B6/B7 launches one process of
+    that config makes, every flash call on wgmma, no plain route; each
+    rank's peak memory, stored state bytes and step seconds.  fp32 at
+    SHARDED_PARITY_LAYERS on (1, 2) and (2, 1): the loss and every
+    gradient leaf (each rank's shard against the same block of one
+    process's gradient: over the ranks, the gathered leaf) against one
+    process's (1e-5 relative, 1e-3 of the leaf's max |grad|),
+    SHARDED_STEPS steps' losses and grad norms (1e-5), the ranks'
+    replicated leaves and metrics equal bit for bit.  Elastic (from the
+    (2, 1) run): restore onto (1, 2) equal to the live reshard shard for
+    shard, the plain manager's whole leaves equal to both, one more step
+    on each layout within the fp32 gate.  The pipeline within TOL's fp32
+    limit of the sequential product.  Returns the ranks' launches."""
+    import torch.multiprocessing as mp
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mp.spawn(sharded_rank, args=(SHARDED_RANKS, str(Path(tmp) / "store"),
+                                     tmp), nprocs=SHARDED_RANKS, join=True)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(SHARDED_RANKS)]
+    failed = []
+    launches = Counter()
+    cli_cfg = sharded_config(SHARDED_CLI_LAYERS)
+    want = expected_train_launches(cli_cfg, SHARDED_STEPS)
+    one_process_bytes = ranks[0]["cli"]["params"] * 4 * 3
+    for rank, r in enumerate(ranks):
+        cli = r["cli"]
+        launches.update(cli["launches"])
+        got = {op: n for op, n in cli["launches"].items() if n or op in want}
+        emit({"phase": "sharded_train", "run": "cli", "rank": rank,
+              "arch": cli_cfg.name, "layers": SHARDED_CLI_LAYERS,
+              "mesh": cli["mesh"], "ranks_share": "cuda:0 over gloo, "
+              "collectives through host", "steps": SHARDED_STEPS,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "losses": cli["losses"], "step_seconds": cli["step_seconds"],
+              "max_memory_allocated": cli["peak"],
+              "state_bytes": cli["state_bytes"],
+              "one_process_state_bytes": one_process_bytes,
+              "launches": got, "expected_launches": want,
+              "flash_routes": cli["flash_routes"],
+              "collectives": cli["collectives"], "seconds": r["t"]})
+        flash = want["flash_attention"] + want["flash_attention_bwd"]
+        if got != want or cli["plain"] \
+                or not all(map(math.isfinite, cli["losses"])) \
+                or cli["flash_routes"].get("flash_attention/wgmma", 0) \
+                + cli["flash_routes"].get("flash_attention_bwd/wgmma", 0) \
+                != flash or cli["mesh"] != {"data": 1, "model": 2} \
+                or not cli["state_bytes"] < one_process_bytes:
+            failed.append(f"cli rank {rank}: launches {got} (want {want}), "
+                          f"plain {cli['plain']}, losses {cli['losses']}, "
+                          f"flash {cli['flash_routes']}, mesh "
+                          f"{cli['mesh']}, bytes {cli['state_bytes']}")
+    one = ranks[0]["one_process"]
+    for shape in SHARDED_MESHES:
+        got = [r["meshes"][shape] for r in ranks]
+        ratio, leaf = max(g["grad_worst"] for g in got)
+        loss_rel = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
+        steps = [(abs(g["loss"] - w["loss"]) / abs(w["loss"]),
+                  abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
+                 for g, w in zip(got[0]["metrics"], one["metrics"])]
+        equal = all(g["metrics"] == got[0]["metrics"]
+                    and g["digests"] == got[0]["digests"] for g in got) \
+            and all(r["one_process"] == one for r in ranks)
+        emit({"phase": "sharded_train", "run": "fp32 parity",
+              "mesh": dict(zip(("data", "model"), shape)),
+              "layers": SHARDED_PARITY_LAYERS,
+              "batch": SHARDED_PARITY_BATCH, "seq": SHARDED_PARITY_SEQ,
+              "loss": got[0]["loss"], "loss_one_process": one["loss"],
+              "loss_rel_err": loss_rel,
+              "worst_grad_err_over_max_grad": ratio, "worst_leaf": leaf,
+              "steps_loss_and_grad_norm_rel_err": steps,
+              "replicated_leaves": len(got[0]["digests"]),
+              "ranks_bit_equal": equal})
+        if not (loss_rel <= SHARDED_LIMITS["loss"]
+                and ratio <= SHARDED_LIMITS["grad"] and equal
+                and all(a <= SHARDED_LIMITS["loss"]
+                        and b <= SHARDED_LIMITS["grad_norm"]
+                        for a, b in steps)):
+            failed.append(f"fp32 parity on {shape}: loss {loss_rel:.3e}, "
+                          f"grad {ratio:.3e} (leaf {leaf}), steps {steps}, "
+                          f"ranks equal {equal}")
+    el = [r["elastic"] for r in ranks]
+    kept, moved = el[0]["metrics_kept"], el[0]["metrics_resharded"]
+    more = (abs(moved["loss"] - kept["loss"]) / abs(kept["loss"]),
+            abs(moved["grad_norm"] - kept["grad_norm"]) / kept["grad_norm"])
+    emit({"phase": "sharded_train", "run": "elastic (2, 1) -> (1, 2)",
+          "layers": SHARDED_PARITY_LAYERS,
+          "restored_equal_resharded": [e["restored_equal"] for e in el],
+          "one_process_equal_resharded": [e["one_process_equal"]
+                                          for e in el],
+          "specs_equal": [e["specs_equal"] for e in el],
+          "step_restored": [e["step_restored"] for e in el],
+          "next_step_rel_err": more, "state_bytes": el[0]["state_bytes"],
+          "save_seconds": el[0]["save_seconds"],
+          "seconds": el[0]["seconds"]})
+    if not (all(e["restored_equal"] and e["one_process_equal"]
+                and e["specs_equal"] and e["step_restored"] == SHARDED_STEPS
+                for e in el)
+            and more[0] <= SHARDED_LIMITS["loss"]
+            and more[1] <= SHARDED_LIMITS["grad_norm"]):
+        failed.append(f"elastic: {el}")
+    pipe = [r["pipeline"] for r in ranks]
+    for p in pipe:
+        launches.update(p["launches"])
+    emit({"phase": "sharded_train", "run": "pipeline", **SHARDED_PIPE,
+          "stages": SHARDED_RANKS, "per_rank": pipe})
+    ticks = SHARDED_PIPE["m"] + SHARDED_RANKS - 1
+    if any(p["max_abs_err"] > TOL["float32"] or p["launches"]
+           != {"matmul": ticks} for p in pipe) or abs(
+               pipe[0]["bubble_fraction"] - (SHARDED_RANKS - 1) / ticks) \
+            > 1e-12:
+        failed.append(f"pipeline: {pipe}")
+    emit({"phase": "sharded_train", "seconds": time.time() - t0})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return dict(launches)
 
 
 # ------------------------------------------------------------ main
@@ -4027,7 +4531,10 @@ def main(argv=None) -> int:
         train_parity_phase(torch, phase + "_parity", cfg)
         release(torch)
     for arch in EMBED_TRAIN_ARCHS:
-        for op, n in train_run(torch, "embed_train", get_arch(arch)).items():
+        # their checkpoints patched out for phase 6e's time (gemma-2b's
+        # and qwen2-moe's runs still write one each)
+        for op, n in train_run(torch, "embed_train", get_arch(arch),
+                               checkpoint=False).items():
             launches[op] = launches.get(op, 0) + n
         release(torch)
         train_profile(torch, "embed_train_profile", get_arch(arch),
@@ -4050,6 +4557,9 @@ def main(argv=None) -> int:
         train_parity_phase(torch, "recurrent_train_parity",
                            recurrent_train_config(arch, parity=True))
         release(torch)
+    for op, n in sharded_train_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
+    release(torch)
     for op, n in library_phase(torch).items():
         launches[op] = launches.get(op, 0) + n
     torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
 """Atomic, async-capable checkpoints: the port of
-``repro/checkpoint/checkpoint.py`` for one process.
+``repro/checkpoint/checkpoint.py``.
 
 * every save is ATOMIC: written to ``step_XXXXXXXX.tmp/`` and renamed
   only after the directory is fsynced, so a crash mid-save never corrupts
@@ -13,6 +13,13 @@
 State trees are flattened by ``core.tree`` (dicts, lists, NamedTuples,
 ``QuantizedBlock``s); the leaves, tensors of any dtype, go into one
 ``torch.save`` file.
+
+A manager given a mesh and the spec tree of the states it saves
+(``runtime/sharding.tree_specs``) holds sharded states: ``save`` writes
+whole leaves, as one process would (each gathered to host memory in
+turn, written by rank 0 while the others wait at a barrier), and
+``restore`` gives every rank its shards of the step rank 0 names.  So a
+checkpoint written on a mesh restores in one process, and the reverse.
 """
 from __future__ import annotations
 
@@ -28,15 +35,27 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..core import tree
+from ..runtime.sharding import gather_leaf, shard_leaf, spec_leaves
+
+
+def _spread(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
 
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
-                 async_save: bool = False):
+                 async_save: bool = False, specs: Any = None,
+                 mesh=None):
+        """``specs`` and ``mesh``: the layout of the states this manager
+        saves and restores (None: whole leaves in one process)."""
+        if async_save and _spread(mesh):
+            raise ValueError("a sharded save gathers and writes in turn; "
+                             "async_save is for one process")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.async_save = async_save
+        self.specs, self.mesh = specs, mesh
         self._pending: Optional[threading.Thread] = None
         # size and host seconds of the last completed write
         self.last_bytes = 0
@@ -47,6 +66,8 @@ class CheckpointManager:
              extra: Optional[Dict[str, Any]] = None) -> Path:
         self.wait()
         t0 = time.perf_counter()
+        if _spread(self.mesh):
+            return self._save_sharded(step, state, extra, t0)
         # a host copy of every leaf (also of CPU leaves: the optimizer
         # updates in place while an async write may still be running)
         host = [t.detach().to("cpu", copy=True)
@@ -59,6 +80,20 @@ class CheckpointManager:
             self._pending = th
             return self.dir / f"step_{step:08d}"
         return self._write(step, host, extra, t0)
+
+    def _save_sharded(self, step: int, state: Any, extra, t0: float
+                      ) -> Path:
+        mesh = self.mesh
+        host = []
+        for t, spec in zip(tree.leaves(state), spec_leaves(self.specs)):
+            whole = gather_leaf(t.detach(), spec, mesh, "cpu")
+            if mesh.rank == 0:
+                host.append(whole)
+        path = self.dir / f"step_{step:08d}"
+        if mesh.rank == 0:
+            path = self._write(step, host, extra, t0)
+        mesh.group(mesh.axes).barrier()
+        return path
 
     def _write(self, step: int, host_leaves, extra, t0: float) -> Path:
         final = self.dir / f"step_{step:08d}"
@@ -103,14 +138,21 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, state_like: Any, step: Optional[int] = None
-                ) -> Tuple[Any, int, Dict]:
+    def restore(self, state_like: Any, step: Optional[int] = None, *,
+                specs: Any = None, mesh=None) -> Tuple[Any, int, Dict]:
         """Restore into the structure of ``state_like``: each leaf comes
-        back with the dtype and on the device of its counterpart there.
-        Returns (state, step, extra)."""
+        back with the dtype and on the device of its counterpart there,
+        or, with a layout (``specs`` and ``mesh``, default the
+        manager's), as this rank's shard on the mesh's device.  Returns
+        (state, step, extra)."""
         self.wait()
+        if specs is None:
+            specs, mesh = self.specs, self.mesh
         if step is None:
             step = self.latest_step()
+        if _spread(mesh):
+            # every rank restores the step rank 0 sees
+            step = mesh.group(mesh.axes).all_gather_object(step)[0]
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = self.dir / f"step_{step:08d}"
@@ -122,9 +164,13 @@ class CheckpointManager:
                 f"state expects {len(like)}")
         data = torch.load(path / "leaves.pt", weights_only=True)
         leaves = []
+        flat_specs = spec_leaves(specs) if specs is not None else None
         for i, ref in enumerate(like):
-            leaf = data[f"leaf_{i}"]
-            if isinstance(ref, torch.Tensor):
+            leaf = data.pop(f"leaf_{i}")
+            if isinstance(ref, torch.Tensor) and flat_specs is not None:
+                leaf = shard_leaf(leaf.to(dtype=ref.dtype), flat_specs[i],
+                                  mesh)
+            elif isinstance(ref, torch.Tensor):
                 leaf = leaf.to(device=ref.device, dtype=ref.dtype)
             leaves.append(leaf)
         return rebuild(leaves), step, manifest.get("extra", {})

@@ -20,7 +20,10 @@ initializes the default process group from the environment), or
 initialize the default group yourself before building a mesh.  A mesh of
 one rank with no process group builds a one-rank group of its own, so
 ``--mesh 1`` runs alone and still goes through the collectives, as JAX's
-one-device ``shard_map`` does.
+one-device ``shard_map`` does.  ``make_host_mesh`` alone, in a process
+that runs alone, builds no process group at all: its groups are local
+(``Group.local``) and shard nothing, which is what the train CLI runs
+on one process.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import datetime
 import itertools
 import math
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -78,6 +81,7 @@ class Mesh:
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
                  device: torch.device, backend: str):
+        """``backend`` "local": one rank and no process group."""
         self.axes: Tuple[str, ...] = tuple(axes)
         self.shape: Dict[str, int] = dict(zip(self.axes, shape))
         self.size = math.prod(shape)
@@ -86,6 +90,16 @@ class Mesh:
         # ranks on one card (gloo over CUDA tensors): what each builds at
         # once must fit beside the others'
         self.shares_device = device.type == "cuda" and backend == "gloo"
+        self._groups: Dict[Tuple[str, ...], Group] = {}
+        if backend == "local":
+            if self.size != 1:
+                raise ValueError(f"a local mesh has one rank, not {shape}")
+            self.rank = 0
+            self.coords = {a: 0 for a in self.axes}
+            for k in range(1, len(self.axes) + 1):
+                for sub in itertools.combinations(self.axes, k):
+                    self._groups[sub] = Group(None, [0], 0, backend)
+            return
         self.rank = dist.get_rank()
         idx = self.rank
         coords = []
@@ -93,7 +107,6 @@ class Mesh:
             coords.append(idx % n)
             idx //= n
         self.coords: Dict[str, int] = dict(zip(self.axes, reversed(coords)))
-        self._groups: Dict[Tuple[str, ...], Group] = {}
         # every subset of the axes, each slice of it: all ranks walk the
         # same subsets and slices in the same order
         all_ranks = torch.arange(self.size).reshape(tuple(shape))
@@ -161,11 +174,37 @@ def make_serving_mesh(tp: int, *, device: DeviceLike = None) -> Mesh:
 
 def make_host_mesh(shape=None, axes=("data", "model"), *,
                    device: DeviceLike = None) -> Mesh:
-    """A small mesh over whatever ranks run (tests): by default the
-    largest model axis of 4, 2 or 1 that divides the rank count."""
+    """A mesh over whatever ranks run (the train CLI, tests): by default
+    the largest model axis of 4, 2 or 1 that divides the rank count.  A
+    process that runs alone (no process group, no ``torchrun``) gets a
+    local one-rank mesh with no process group."""
     n = (dist.get_world_size() if dist.is_initialized()
          else int(os.environ.get("WORLD_SIZE", 1)))
     if shape is None:
         model = next(c for c in (4, 2, 1) if n % c == 0)
         shape = (n // model, model)
+    if n == 1 and not dist.is_initialized() \
+            and "MASTER_ADDR" not in os.environ:
+        shape = tuple(int(c) for c in shape)
+        if math.prod(shape) != 1 or len(shape) != len(tuple(axes)):
+            raise ValueError(f"mesh shape {shape} over axes {tuple(axes)} "
+                             "on the one rank running")
+        dev = rank_device(device, 0)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        return Mesh(shape, axes, dev, "local")
     return make_mesh(shape, axes, device=device)
+
+
+def in_turn(mesh) -> Iterator[None]:
+    """Yield once: on ranks that share a card, one rank at a time (each
+    waits at the mesh's barrier for the ones before it)."""
+    if mesh is None or not mesh.shares_device:
+        yield
+        return
+    group = mesh.group(mesh.axes)
+    for rank in range(mesh.size):
+        if rank == group.index:
+            yield
+            torch.cuda.empty_cache()    # the whole model's blocks, freed
+        group.barrier()

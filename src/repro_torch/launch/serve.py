@@ -69,20 +69,6 @@ def _silent(*args, **kwargs) -> None:
     """The report printer of ranks other than 0."""
 
 
-def _in_turn(mesh) -> Iterator[None]:
-    """Yield once: on ranks that share a card, one rank at a time (each
-    waits at the mesh's barrier for the ones before it)."""
-    if mesh is None or not mesh.shares_device:
-        yield
-        return
-    group = mesh.group("model")
-    for rank in range(mesh.size):
-        if rank == group.index:
-            yield
-            torch.cuda.empty_cache()    # the whole model's blocks, freed
-        group.barrier()
-
-
 class Server:
     """Fixed-slot continuous-batching decoder over a dense rectangular
     cache (``--cache dense``): prompts are teacher-forced through the
@@ -1030,7 +1016,8 @@ def main(argv=None) -> Dict:
         # ranks sharing a card build their shards in turn: each holds the
         # whole model (drawn in fp32, a stack at a time) only while it
         # shards it
-        for _ in _in_turn(mesh):
+        from .mesh import in_turn
+        for _ in in_turn(mesh):
             server = PagedScheduler(model, params if mesh is None
                                     else model.init(seed=0),
                                     slots=args.slots, max_len=args.max_len,

@@ -109,14 +109,21 @@ def _local_dispatch(tokens: torch.Tensor, logits: torch.Tensor, s: MoESpec,
 def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
                       dt: DtypePolicy, *, mesh, dp_axes: Tuple[str, ...],
                       model_axis: str = "model",
-                      ep_axes: Tuple[str, ...] = ("model",)
+                      ep_axes: Tuple[str, ...] = ("model",),
+                      batch_local: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d), replicated on every rank -> (out (B, S, d)
     replicated, aux loss fp32 scalar).  ``p`` holds this rank's shards:
     ``wg``/``wu`` (E_pad / n_ep, d, f / n_data), ``wd`` (E_pad / n_ep,
     f / n_data, d); the router (d, E or E_pad) and the
     shared MLP whole (``moe_pspecs``).  Every rank of ``mesh`` must call
-    it, on the same x."""
+    it, on the same x.
+
+    ``batch_local`` (the sharded train step): x is already this rank's
+    rows of a batch split over ``dp_axes``, and so is the output; the aux
+    loss still comes from the means over every rank's tokens, and the
+    router's gradient is added over the other axes only (the caller adds
+    it over ``dp_axes``)."""
     cdt = dt.compute
     n_model = mesh.shape[model_axis]
     ep = mesh.group(ep_axes)
@@ -127,10 +134,10 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
     e_loc = e_pad // n_ep
     b, sq, d = x.shape
     dp_size = math.prod(mesh.shape[a] for a in dp_axes)
-    batch_split = bool(dp_axes) and b % dp_size == 0
+    batch_split = bool(dp_axes) and (batch_local or b % dp_size == 0)
     seq_split = sq % n_model == 0 and sq > 1
-    t_dev = (b * sq) // ((dp_size if batch_split else 1)
-                         * (n_model if seq_split else 1))
+    t_dev = (b * sq) // ((dp_size if batch_split and not batch_local
+                          else 1) * (n_model if seq_split else 1))
     cap = math.ceil(t_dev * s.top_k * s.capacity_factor / s.n_experts)
     cap = max(8, -(-cap // 8) * 8)
 
@@ -144,12 +151,17 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
         split.append(((model_axis,), 1))
     dup = [a for a in mesh.axes
            if not any(a in axes for axes, _ in split)]
+    # the axes whose split happens here (not already the caller's)
+    here = split[1:] if batch_local and batch_split else split
     xl = x
-    for axes, dim in split:
+    for axes, dim in here:
         xl = coll.split(xl, mesh.group(axes), dim)
     if dup:
         xl = coll.broadcast(xl, mesh.group(dup))
-    router = coll.broadcast(p["router"], mesh.group(mesh.axes))
+    inner = [a for a in mesh.axes
+             if not (batch_local and a in dp_axes)]
+    router = coll.broadcast(p["router"], mesh.group(inner)) if inner \
+        else p["router"]
 
     # ZeRO-3: gather the f-striped expert weights over data for the
     # layer; their gradients reduce-scatter back
@@ -213,7 +225,7 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
 
     if dup:
         combined = coll.identical(combined, mesh.group(dup))
-    for axes, dim in reversed(split):
+    for axes, dim in reversed(here):
         combined = coll.unsplit(combined, mesh.group(axes), dim)
     if s.n_shared_experts:
         combined = combined + mlp_apply(p["shared"], x.to(cdt),

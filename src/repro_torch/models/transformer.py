@@ -61,6 +61,12 @@ class ExecOptions:
     moe_dp_axes: Tuple[str, ...] = ()
     moe_ep_axes: Tuple[str, ...] = ("model",)
     expert_pad: int = 1
+    # sharded training (runtime/sharding.TrainSharding): the params are
+    # this rank's shards and the batch its rows; every leaf is gathered
+    # at its use (a layer's inside its remat recompute), the loss is the
+    # mean over the batch axes, and a MoE layer (with moe_mesh) routes
+    # the rank's own tokens, its experts kept as shards
+    sharding: Optional[Any] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,9 +185,11 @@ def _ffn(p: Params, cfg: ArchConfig, kind: LayerKind, h: torch.Tensor,
     if kind[1] == "moe":
         spec = _moe_spec(cfg, opts.expert_pad if opts else 1)
         if opts is not None and opts.moe_mesh is not None:
+            local = opts.sharding is not None
             return moe_sharded.moe_apply_sharded(
                 p["moe"], spec, h, dt, mesh=opts.moe_mesh,
-                dp_axes=opts.moe_dp_axes, ep_axes=opts.moe_ep_axes)
+                dp_axes=opts.sharding.batch if local else opts.moe_dp_axes,
+                ep_axes=opts.moe_ep_axes, batch_local=local)
         return moe.moe_apply(p["moe"], spec, h, dt)
     return layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
                             cfg.weights_dtype), None
@@ -346,6 +354,25 @@ def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
                                           cdt), None
     h, aux = _ffn(p, cfg, kind, h, dt, opts)
     return x + h, aux
+
+
+def _gathered_layer(p: Params, specs, cfg: ArchConfig, kind: LayerKind,
+                    x: torch.Tensor, positions: torch.Tensor,
+                    dt: DtypePolicy, opts: ExecOptions
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``layer_apply`` on a layer's shards, gathered here (so a remat
+    recompute gathers them again, and the whole weights live only while
+    the layer runs)."""
+    p = opts.sharding.gather_tree(p, specs,
+                                  keep_experts=opts.moe_mesh is not None)
+    return layer_apply(p, cfg, kind, x, positions, dt, opts)
+
+
+def _unstacked(specs):
+    """A stacked subtree's specs without the period axis."""
+    if isinstance(specs, dict):
+        return {k: _unstacked(v) for k, v in specs.items()}
+    return type(specs)(*specs[1:])
 
 
 def _unbind(tree) -> List[Any]:
@@ -535,31 +562,55 @@ class Model:
                 "ported yet; use 'full'")
 
         auxes = []
+        sharded = opts.sharding is not None
+        specs = opts.sharding.specs if sharded else None
 
-        def one(p, kind, x):
+        def one(p, kind, x, spec):
+            fn, args = layer_apply, (p, cfg, kind, x, positions, dt, opts)
+            if sharded:
+                fn, args = _gathered_layer, (p, spec) + args[1:]
             if opts.remat:
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    layer_apply, p, cfg, kind, x, positions, dt, opts,
-                    use_reentrant=False)
+                    fn, *args, use_reentrant=False)
             else:
-                x, aux = layer_apply(p, cfg, kind, x, positions, dt, opts)
+                x, aux = fn(*args)
             if aux is not None:
                 auxes.append(aux)
             return x
 
-        for p, kind in zip(params["prefix"], lay.prefix):
-            x = one(p, kind, x)
+        def spec_of(group, i, stacked=False):
+            if not sharded:
+                return None
+            return _unstacked(specs[group][i]) if stacked \
+                else specs[group][i]
+
+        for i, (p, kind) in enumerate(zip(params["prefix"], lay.prefix)):
+            x = one(p, kind, x, spec_of("prefix", i))
         if lay.n_periods:
             periods = [_unbind(sub) for sub in params["stack"]]
             for i in range(lay.n_periods):
                 for j, kind in enumerate(lay.period):
-                    x = one(periods[j][i], kind, x)
-        for p, kind in zip(params["tail"], lay.tail):
-            x = one(p, kind, x)
+                    x = one(periods[j][i], kind, x,
+                            spec_of("stack", j, stacked=True))
+        for i, (p, kind) in enumerate(zip(params["tail"], lay.tail)):
+            x = one(p, kind, x, spec_of("tail", i))
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for aux in auxes:
             aux_total = aux_total + aux
         return x, aux_total
+
+    def _gather_top(self, params: Params) -> Params:
+        """Under ``opts.sharding``: ``params`` with ``embed``, ``head`` and
+        ``final_norm`` gathered, once (the tied ``embed`` serves the input
+        and the head); the layers are gathered at their use."""
+        shd = self.opts.sharding
+        if shd is None:
+            return params
+        out = dict(params)
+        for k in ("embed", "head", "final_norm"):
+            if k in params:
+                out[k] = shd.gather_tree(params[k], shd.specs[k])
+        return out
 
     def _head(self, params: Params) -> torch.Tensor:
         head = params["embed"].T if self.cfg.tie_embeddings \
@@ -571,13 +622,18 @@ class Model:
         """Mean next-token cross entropy of ``batch`` ("tokens" or
         "embeddings", "positions" for an M-RoPE arch, and "labels" (B, S)
         int) plus the MoE layers' load-balancing aux loss (0 without MoE
-        layers).  Returns (loss, {"loss", "xent", "aux"})."""
+        layers).  Returns (loss, {"loss", "xent", "aux"}).  Under
+        ``opts.sharding`` the xent is the mean over the ranks' rows, equal
+        on every rank."""
+        params = self._gather_top(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux = self._run_stack(params, x, self._positions(batch, b, s))
         x = layers.rmsnorm(params["final_norm"], x)
         xent = layers.chunked_xent(x, self._head(params), batch["labels"],
                                    n_chunks=min(self.opts.xent_chunks, s))
+        if self.opts.sharding is not None:
+            xent = self.opts.sharding.mean(xent)
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
 
@@ -586,6 +642,7 @@ class Model:
         """Full logits (B, S, V) of ``batch`` (its "tokens" or
         "embeddings", and "positions" for an M-RoPE arch; small-scale eval
         and tests)."""
+        params = self._gather_top(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, _ = self._run_stack(params, x, self._positions(batch, b, s))
@@ -597,6 +654,7 @@ class Model:
         position's logits (B, V), or with ``last_idx`` (B,) those of
         position ``last_idx[b]`` of each row (the final norm and the head
         run on those rows alone)."""
+        params = self._gather_top(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, _ = self._run_stack(params, x, self._positions(batch, b, s))

@@ -10,6 +10,11 @@ moments in place (under ``torch.no_grad``) and returns the same tensors:
 at full width a second copy of params and moments (30 GB for gemma-2b)
 would not fit beside the first on one card.  The arithmetic is the JAX
 package's, operation for operation.
+
+With ``sharding`` (``runtime/sharding.TrainSharding``) every leaf is this
+rank's shard: the global norm adds each leaf's squares over the ranks
+that hold its parts (a replicated leaf counted once), and int8 moments
+hold the whole leaf's blocks (``TrainSharding.quantize``).
 """
 from __future__ import annotations
 
@@ -76,9 +81,13 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * scale
 
 
-def global_norm(grads: Params) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree.leaves(grads)))
+def global_norm(grads: Params, sharding=None) -> torch.Tensor:
+    """The norm of the whole gradient; with ``sharding``, of the leaves
+    whose shards ``grads`` holds (the same bits on every rank)."""
+    if sharding is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in tree.leaves(grads)))
+    return torch.sqrt(sum(sharding.norm_sq(tree.leaves(grads))))
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -94,23 +103,33 @@ def clip_by_global_norm(grads: Params, max_norm: float
 
 @torch.no_grad()
 def adamw_update(grads: Params, state: AdamWState, params: Params,
-                 cfg: AdamWConfig) -> Tuple[Params, AdamWState, Dict]:
+                 cfg: AdamWConfig, sharding=None
+                 ) -> Tuple[Params, AdamWState, Dict]:
     """One clipped AdamW step.  Float params and fp32 moments are updated
     in place; int8 moments are re-quantized into new blocks.  Returns
-    (params, state, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    (params, state, {"grad_norm", "lr"}).  ``sharding``: the leaves are
+    shards laid out by it."""
+    gnorm = global_norm(grads, sharding)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     count = state.count + 1
     lr = lr_schedule(cfg, count)
     c1 = 1.0 - cfg.b1 ** count.to(torch.float32)
     c2 = 1.0 - cfg.b2 ** count.to(torch.float32)
 
-    def upd(p, g, m, v):
+    def deq(i, qb):
+        return dequantize_block(qb) if sharding is None \
+            else sharding.dequantize(i, qb)
+
+    def req(i, x):
+        return _q(x, cfg) if sharding is None \
+            else sharding.quantize(i, x, cfg.moment_block)
+
+    def upd(i, p, g, m, v):
         # the clip of clip_by_global_norm, one leaf at a time
         g = (g * scale.to(g.dtype)).float()
         quantized = isinstance(m, QuantizedBlock)
-        mf = dequantize_block(m) if quantized else m
-        vf = dequantize_block(v) if quantized else v
+        mf = deq(i, m) if quantized else m
+        vf = deq(i, v) if quantized else v
         mf.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         vf.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
         step_ = (mf / c1).div_((vf / c2).sqrt_().add_(cfg.eps))
@@ -121,15 +140,15 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
         if pf is not p:
             p.copy_(pf)
         if quantized:
-            return p, _q(mf, cfg), _q(vf, cfg)
+            return p, req(i, mf), req(i, vf)
         return p, mf, vf
 
     flat_p, rebuild = tree.flatten(params)
     flat_g = tree.leaves(grads)
     flat_m, rebuild_m = tree.flatten(state.m, _is_qb)
     flat_v, rebuild_v = tree.flatten(state.v, _is_qb)
-    out = [upd(p, g, m, v)
-           for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
+    out = [upd(i, p, g, m, v) for i, (p, g, m, v)
+           in enumerate(zip(flat_p, flat_g, flat_m, flat_v))]
     return (rebuild([o[0] for o in out]),
             AdamWState(count, rebuild_m([o[1] for o in out]),
                        rebuild_v([o[2] for o in out])),

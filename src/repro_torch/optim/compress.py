@@ -6,6 +6,9 @@ residual of the previous step, block-quantized to int8 and dequantized;
 what the quantization lost becomes the next residual, so the bias does not
 accumulate.  On one device nothing crosses a wire: this is the numerics
 of the compressed all-reduce, and ``compressed_wire_bytes`` its volume.
+With ``sharding`` (``runtime/sharding.TrainSharding``) the leaves are
+shards: ``min_size`` judges the whole leaf, and the blocks are the whole
+leaf's.
 """
 from __future__ import annotations
 
@@ -35,20 +38,26 @@ def init_residual(params: Params) -> Params:
 
 @torch.no_grad()
 def compress_gradients(grads: Params, residual: Params,
-                       cfg: CompressorConfig) -> Tuple[Params, Params]:
+                       cfg: CompressorConfig, sharding=None
+                       ) -> Tuple[Params, Params]:
     """Returns (decompressed-after-compression grads, new residual)."""
     if not cfg.enabled:
         return grads, residual
     flat_g, rebuild = tree.flatten(grads)
     comp, res = [], []
-    for g, r in zip(flat_g, tree.leaves(residual)):
+    for i, (g, r) in enumerate(zip(flat_g, tree.leaves(residual))):
         g = g.float()
-        if g.numel() < cfg.min_size:
+        size = g.numel() if sharding is None else sharding.numel(i, g)
+        if size < cfg.min_size:
             comp.append(g)
             res.append(torch.zeros_like(g))
             continue
         corrected = g + r
-        deq = dequantize_block(quantize_block(corrected, cfg.block))
+        if sharding is None:
+            deq = dequantize_block(quantize_block(corrected, cfg.block))
+        else:
+            deq = sharding.dequantize(i, sharding.quantize(i, corrected,
+                                                           cfg.block))
         comp.append(deq)
         res.append(corrected - deq)
     return rebuild(comp), rebuild(res)

@@ -8,8 +8,16 @@ collectives are deterministic and give every member the same bits:
 * ``psum`` gathers and adds them one by one in rank order (the order of
   the sum is fixed, so a replicated result is equal on every rank and a
   one-rank group returns its input's bits);
+* ``reduce_scatter`` gives member r block r of the members' sum, added
+  in rank order (the bits of ``chunk(psum(t))``);
 * ``all_to_all`` sends block r of dim 0 to member r;
+* ``ppermute`` sends to the next member (``(index + shift) % size``);
 * ``broadcast_float`` and ``all_gather_object`` carry host values.
+
+A group without a process group (``pg`` None: the one-rank mesh that
+``launch/mesh.make_host_mesh`` builds when one process runs alone) has
+one member, and its collectives return their input.  Every collective
+that reaches ``torch.distributed`` is counted (``collective_counts``).
 
 Which backend a group runs on is the mesh's rule (NCCL when every rank
 has a card of its own, gloo on the CPU or when ranks share a card), and
@@ -31,14 +39,30 @@ alike from replicated values:
   cotangent (``broadcast``), and a replicated value every rank computed
   alike <-> the cotangent over the group size (``identical``);
 * the mean of the members' values <-> the cotangent over the group size
-  (``pmean``).
+  (``pmean``), and their sum, one replicated value <-> the cotangent
+  itself (``psum``);
+* a send to the next member <-> a send of the cotangent back
+  (``ppermute``).
 """
 from __future__ import annotations
 
-from typing import Any, List
+from collections import Counter
+from typing import Any, Dict, List
 
 import torch
 import torch.distributed as dist
+
+# collectives that reached torch.distributed, by name, since the last
+# reset_collective_counts()
+_COUNTS: Counter = Counter()
+
+
+def collective_counts() -> Dict[str, int]:
+    return dict(_COUNTS)
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
 
 
 class Group:
@@ -56,6 +80,12 @@ class Group:
         return (f"Group(ranks={self.ranks}, index={self.index}, "
                 f"backend={self.backend})")
 
+    @property
+    def local(self) -> bool:
+        """One member and no process group: every collective is the
+        identity."""
+        return self.pg is None
+
     def _staged(self, t: torch.Tensor) -> bool:
         """gloo takes host tensors: a CUDA tensor goes through the host."""
         return self.backend == "gloo" and t.is_cuda
@@ -66,6 +96,9 @@ class Group:
         return torch.cat(self._gather(t), dim=dim)
 
     def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        if self.local:
+            return [t.detach()]
+        _COUNTS["all_gather"] += 1
         src = t.detach().contiguous()
         if self._staged(src):
             src = src.cpu()
@@ -87,11 +120,49 @@ class Group:
         if t.shape[0] % self.size:
             raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
                              f"not split into {self.size} blocks")
+        if self.local:
+            return t.detach()
+        _COUNTS["all_to_all"] += 1
         src = t.detach().contiguous()
         if self._staged(src):
             src = src.cpu()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.pg)
+        return out.to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Block ``index`` of ``dim`` of the members' ``t`` added in rank
+        order: an all_to_all of the blocks, then the sum of the ``size``
+        blocks received, in rank order (``chunk(psum(t), dim)``'s bits,
+        without every member holding the whole sum)."""
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"into {self.size} blocks")
+        if self.local:
+            return t.detach()
+        blocks = self.all_to_all(t.movedim(dim, 0)).chunk(self.size, 0)
+        out = blocks[0]
+        for b in blocks[1:]:
+            out = out + b
+        return out.movedim(0, dim).contiguous()
+
+    def ppermute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Member ``(index + shift) % size`` receives this member's ``t``
+        (equal shapes); returns what member ``(index - shift) % size``
+        sent.  One send and one receive a member, posted together."""
+        if self.local or self.size == 1:
+            return t.detach()
+        _COUNTS["ppermute"] += 1
+        src = t.detach().contiguous()
+        if self._staged(src):
+            src = src.cpu()
+        out = torch.empty_like(src)
+        to = self.ranks[(self.index + shift) % self.size]
+        frm = self.ranks[(self.index - shift) % self.size]
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, src, to, group=self.pg),
+                 dist.P2POp(dist.irecv, out, frm, group=self.pg)]):
+            req.wait()
         return out.to(t.device)
 
     def chunk(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -106,16 +177,24 @@ class Group:
     def broadcast_float(self, x: float, device: torch.device) -> float:
         """Member 0's ``x`` on every member (a host float; NCCL groups
         carry it through ``device``)."""
+        if self.local:
+            return float(x)
+        _COUNTS["broadcast"] += 1
         on = torch.device("cpu") if self.backend == "gloo" else device
         t = torch.tensor([x], dtype=torch.float64, device=on)
         dist.broadcast(t, self.ranks[0], group=self.pg)
         return float(t.item())
 
     def barrier(self) -> None:
-        dist.barrier(group=self.pg)
+        if not self.local:
+            _COUNTS["barrier"] += 1
+            dist.barrier(group=self.pg)
 
     def all_gather_object(self, obj: Any) -> List[Any]:
         """Every member's picklable ``obj``, in rank order."""
+        if self.local:
+            return [obj]
+        _COUNTS["all_gather_object"] += 1
         out: List[Any] = [None] * self.size
         dist.all_gather_object(out, obj, group=self.pg)
         return out
@@ -133,7 +212,7 @@ class _GatherShards(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.group.chunk(ctx.group.psum(g), ctx.dim), None, None
+        return ctx.group.reduce_scatter(g, ctx.dim), None, None
 
 
 class _Exchange(torch.autograd.Function):
@@ -194,6 +273,27 @@ class _Scaled(torch.autograd.Function):
         return g / ctx.size, None, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return group.psum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return group.ppermute(t, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.ppermute(g, -ctx.shift), None, None
+
+
 def gather_shards(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     """all_gather of a sharded tensor on ``dim``; the backward
     reduce-scatters (each member's cotangent is a part of the whole)."""
@@ -234,3 +334,17 @@ def pmean(t: torch.Tensor, group: Group) -> torch.Tensor:
     """The mean of the members' ``t`` (added in rank order); the backward
     gives each member the cotangent over the group size."""
     return _Scaled.apply(t, group, True)
+
+
+def psum(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The members' ``t`` added in rank order, used as one replicated
+    value; the backward gives each member the cotangent (its part enters
+    the sum once)."""
+    return _Psum.apply(t, group)
+
+
+def ppermute(t: torch.Tensor, group: Group, shift: int = 1
+             ) -> torch.Tensor:
+    """``t`` sent to member ``(index + shift) % size``; the backward sends
+    the cotangent back the other way."""
+    return _Permute.apply(t, group, shift)

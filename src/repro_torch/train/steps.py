@@ -1,10 +1,16 @@
 """The training step: gradients of the loss, optional microbatch
 accumulation and gradient compression, and the clipped AdamW update --
-the port of ``repro/train/steps.py`` for one device.
+the port of ``repro/train/steps.py``.
 
 JAX fuses the step into one jit; here it is eager.  Gradients come from
 ``torch.autograd.grad`` over the param leaves, and the update writes the
 params and fp32 moments in place (``optim/adamw.py``).
+
+With ``grad_shardings`` (``runtime/sharding.TrainSharding``) the params,
+moments and residual are this rank's shards and the batch its rows: the
+loss runs gather-at-use (``ExecOptions.sharding``), so every
+microbatch's gradients arrive in the stored layout, as JAX constrains
+them; the norm, the compression and the int8 moments see whole leaves.
 """
 from __future__ import annotations
 
@@ -25,13 +31,26 @@ class TrainStepConfig:
     opt: AdamWConfig = AdamWConfig()
     microbatches: int = 1
     compress: Optional[CompressorConfig] = None
+    # the params' layout on a mesh (runtime/sharding.train_sharding);
+    # the gradients come back in it
+    grad_shardings: Optional[Any] = None
 
 
 def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig()
                     ) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt,
     metrics).  With compression on, opt_state is (AdamWState, residual).
+    With ``cfg.grad_shardings`` the step runs ``model`` gather-at-use on
+    this rank's shards and rows (``TrainSharding.split_batch``).
     """
+    shd = cfg.grad_shardings
+    if shd is not None:
+        if shd.mesh.size > 1 and model.opts.moe_mesh is None and any(
+                ffn == "moe" for _, ffn in model.cfg.layer_kinds()):
+            raise ValueError("a sharded MoE model runs expert-parallel: "
+                             "set ExecOptions.moe_mesh (and expert_pad)")
+        model = Model(model.cfg, model.dt, model.device,
+                      dataclasses.replace(model.opts, sharding=shd))
 
     def grads_of(flat, rebuild, batch):
         loss, metrics = model.loss_fn(rebuild(flat), batch)
@@ -72,9 +91,9 @@ def make_train_step(model: Model, cfg: TrainStepConfig = TrainStepConfig()
         grads = rebuild(grads)
         if cfg.compress is not None:
             grads, residual = compress_gradients(grads, residual,
-                                                 cfg.compress)
+                                                 cfg.compress, shd)
         new_params, new_opt, opt_metrics = adamw_update(
-            grads, opt_state, params, cfg.opt)
+            grads, opt_state, params, cfg.opt, shd)
         metrics = {**metrics, **opt_metrics}
         if cfg.compress is not None:
             new_opt = (new_opt, residual)

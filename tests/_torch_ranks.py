@@ -1,4 +1,5 @@
-"""Rank processes for the port's tensor- and expert-parallel tests.
+"""Rank processes for the port's tensor- and expert-parallel, sharded
+training and pipeline tests.
 
 ``torch.multiprocessing.spawn`` imports the module of the function it
 starts in every child, so the rank functions live here, in a module that
@@ -161,3 +162,243 @@ def moe_worker(rank, world, store, out_dir, shape, spec_kw, np_p, np_x,
         results["model_routes"] = dispatch.stats()
     _leave(rank, out_dir, results)
 
+
+
+# --------------------------------------------------------------------------
+# sharded training (runtime/sharding.py, train/steps.py, launch/train.py)
+# --------------------------------------------------------------------------
+
+def sharded_setup(case, mesh):
+    """The sharded train step of ``case`` on ``mesh``: fp32 policy, AdamW
+    at ``case["lr"]``, ``microbatches``, ``compress`` and ``int8`` as the
+    case says, a MoE arch expert-parallel with ``expert_pad``; the state
+    drawn from the numpy params ``case["params"]`` and sharded.  Returns
+    (step, state, specs, sharding)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.models.transformer import ExecOptions, Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.compress import CompressorConfig, init_residual
+    from repro_torch.runtime import sharding
+    from repro_torch.train.steps import TrainStepConfig, make_train_step
+    rules = sharding.make_rules(mesh, fsdp=True)
+    cfg = case["cfg"]
+    opts = ExecOptions(block_q=16, block_kv=16)
+    if any(f == "moe" for _, f in cfg.layer_kinds()):
+        opts = dataclasses.replace(opts, moe_mesh=mesh,
+                                   moe_dp_axes=rules.dp_axes,
+                                   expert_pad=case.get("expert_pad", 1))
+    model = Model(cfg, dt=DtypePolicy(compute=torch.float32), device="cpu",
+                  opts=opts)
+    mb = case.get("microbatches", 1)
+    ts = TrainStepConfig(
+        opt=AdamWConfig(lr=case["lr"], int8_moments=case.get("int8", False)),
+        microbatches=mb,
+        compress=CompressorConfig() if case.get("compress") else None)
+    params = params_from_jax(case["params"], "cpu", torch.float32)
+    opt = adamw_init(params, ts.opt)
+    if ts.compress is not None:
+        opt = (opt, init_residual(params))
+    rows = len(next(iter(case["batches"][0].values())))
+    shd = sharding.train_sharding(rules, params, rows // mb)
+    specs = (shd.specs, sharding.tree_specs(rules, opt))
+    state = sharding.shard_state((params, opt), specs, mesh)
+    step = make_train_step(model, dataclasses.replace(ts,
+                                                      grad_shardings=shd))
+    return step, state, specs, shd
+
+
+def run_steps(step, state, shd, batches, microbatches=1):
+    """``step`` over whole ``batches`` (numpy), each split to this rank's
+    rows; returns (state, per-step metrics)."""
+    metrics = []
+    for batch in batches:
+        local = shd.split_batch({k: torch.from_numpy(np.asarray(v))
+                                 for k, v in batch.items()}, microbatches)
+        params, opt, met = step(*state, local)
+        state = (params, opt)
+        metrics.append({k: float(v) for k, v in met.items()})
+    return state, metrics
+
+
+def sharded_steps(case):
+    """Every batch of ``case["batches"]`` through ``sharded_setup``'s step
+    on a ``case["shape"]`` mesh over ``case["axes"]``: the per-step
+    metrics, the collectives the steps ran and the whole state, gathered
+    (on every rank)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import collectives, sharding
+    mesh = make_mesh(case["shape"], case["axes"], device="cpu")
+    step, state, specs, shd = sharded_setup(case, mesh)
+    collectives.reset_collective_counts()
+    state, metrics = run_steps(step, state, shd, case["batches"],
+                               case.get("microbatches", 1))
+    return {"metrics": metrics, "batch_axes": shd.batch,
+            "collectives": collectives.collective_counts(),
+            "state": sharding.gather_state(state, specs, mesh)}
+
+
+def cli_run(argv):
+    """``train.main`` on ``argv``: its losses, restarts and routes."""
+    from repro_torch.launch import train
+    rep = {}
+    losses = train.main(argv, report=rep)
+    return {"losses": losses, "restarts": rep["restarts"],
+            "routes": rep["routes"]}
+
+
+def train_worker(rank, world, store, out_dir, cases, cli_argvs, elastic):
+    """The sharded-training tests' ranks: every case of ``sharded_steps``,
+    ``train.main`` on each argv of ``cli_argvs`` (the CLI's own host mesh)
+    and the ``elastic_job``, if any."""
+    _join(rank, world, store)
+    results = {"cases": [sharded_steps(c) for c in cases],
+               "cli": [cli_run(a) for a in cli_argvs]}
+    if elastic is not None:
+        results["elastic"] = elastic_job(elastic)
+    _leave(rank, out_dir, results)
+
+
+def elastic_job(job):
+    """With ``job["save"]``: ``job["case"]``'s steps on a ``job["shape"]``
+    (data, model) mesh, the state saved whole in ``job["dir"]``, then
+    ``reshard_state`` onto ``job["reshard"]`` (a mesh over the same ranks)
+    and ``job["case"]["more"]`` further steps on both layouts.  Else
+    ``restore_on_mesh`` of the newest checkpoint in ``job["dir"]`` onto a
+    ``job["shape"]`` mesh.  Whole states come back gathered."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import elastic, sharding
+    mesh = make_mesh(job["shape"], ("data", "model"), device="cpu")
+    case = job["case"]
+    step, state, specs, shd = sharded_setup(case, mesh)
+    if not job.get("save"):
+        like = sharding.gather_state(state, specs, mesh)
+        restored, at, _ = elastic.restore_on_mesh(
+            CheckpointManager(job["dir"]), like,
+            sharding.make_rules(mesh, fsdp=True))
+        return {"step": at,
+                "state": sharding.gather_state(restored, specs, mesh)}
+    state, _ = run_steps(step, state, shd, case["batches"])
+    CheckpointManager(job["dir"], specs=specs, mesh=mesh).save(
+        len(case["batches"]), state)
+    out = {"saved": sharding.gather_state(state, specs, mesh)}
+    new_mesh = make_mesh(job["reshard"], ("data", "model"), device="cpu")
+    moved, new_specs = elastic.reshard_state(
+        state, sharding.make_rules(new_mesh, fsdp=True), specs=specs,
+        mesh=mesh)
+    out["resharded"] = sharding.gather_state(moved, new_specs, new_mesh)
+    out["reshard_specs"] = new_specs
+    # one more step on each layout, the new one's step built on its mesh
+    new_step, _, _, new_shd = sharded_setup(case, new_mesh)
+    _, out["more_old"] = run_steps(step, state, shd, case["more"])
+    _, out["more_new"] = run_steps(new_step, moved, new_shd, case["more"])
+    return out
+
+
+def pipeline_worker(rank, world, store, out_dir, w, x, cot):
+    """``pipeline_apply`` of tanh(x @ w_s) over ``world`` stages on a
+    ("pod",) mesh (this rank's stage of ``w`` (S, d, d), the microbatches
+    ``x`` (M, mb, d)): its output and the gradient of sum(out * cot) in
+    the stage's weights; and the collectives' own checks: reduce_scatter
+    against chunk(psum), ppermute, the transposes of gather_shards and
+    psum, and ``quantize_shard`` against ``quantize_block`` of the whole
+    leaf."""
+    _join(rank, world, store)
+    from repro_torch.core.memory import dequantize_block, quantize_block
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.pipeline_parallel import (bubble_fraction,
+                                                       pipeline_apply)
+    mesh = make_mesh((world,), ("pod",), device="cpu")
+    group = mesh.group("pod")
+    stage = sharding.shard_leaf(torch.from_numpy(w), sharding.P("pod"),
+                                mesh).requires_grad_(True)
+    xs = torch.from_numpy(x)
+    out = pipeline_apply(
+        lambda p, h: torch.tanh(dispatch.matmul(h, p["w"])), {"w": stage},
+        xs, mesh=mesh, stage_axis="pod")
+    (out * torch.from_numpy(cot)).sum().backward()
+    results = {"out": out.detach().numpy(), "dw": stage.grad.numpy(),
+               "bubble": bubble_fraction(world, x.shape[0])}
+
+    gen = torch.Generator().manual_seed(rank)
+    t = torch.randn((4 * world, 6), generator=gen)
+    results["reduce_scatter_bits"] = torch.equal(
+        group.reduce_scatter(t, 0), group.chunk(group.psum(t), 0))
+    results["ppermute_from"] = group.ppermute(
+        torch.full((2,), float(rank)), 1)[0].item()
+    shard = torch.randn((3, 5), generator=gen).requires_grad_(True)
+    c = torch.randn((3 * world, 5), generator=gen)
+    (coll.gather_shards(shard, group, 0) * c).sum().backward()
+    results["gather_shards_grad_bits"] = torch.equal(
+        shard.grad, group.chunk(group.psum(c), 0))
+    s = torch.randn((3,), generator=gen).requires_grad_(True)
+    (coll.psum(s, group) * 2).sum().backward()
+    results["psum_grad"] = s.grad.numpy()
+
+    whole = torch.randn((6, 96 * world), generator=torch.Generator()
+                        .manual_seed(7))
+    results["quantize"] = []
+    for width in (96, 256):          # off and on the 128-wide block edge
+        leaf = whole[:, :width * world].contiguous()
+        spec = sharding.P(None, "pod")
+        want = quantize_block(leaf, 128)
+        scale_spec = sharding.P(None, "pod" if want.scale.shape[-1]
+                                % world == 0 else None)
+        qb = sharding.quantize_shard(group.chunk(leaf, 1), 128, spec,
+                                     scale_spec, mesh)
+        back = sharding.dequantize_shard(qb, spec, scale_spec, mesh)
+        results["quantize"].append({
+            "q": torch.equal(qb.q, group.chunk(want.q, 1)),
+            "scale": torch.equal(qb.scale, sharding.shard_leaf(
+                want.scale, scale_spec, mesh)),
+            "dequantized": torch.equal(back, group.chunk(
+                dequantize_block(want), 1))})
+    _leave(rank, out_dir, results)
+
+
+def card_train_step(mesh=None):
+    """One train step of a 2-layer smoke gemma-2b (bf16 compute) on the
+    card, batch 2 x 64, sharded on ``mesh`` (None: one process): its
+    loss, the launches per kernel and the dispatch routes that were not
+    a kernel's."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import sharded_train_state
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import sharding
+    from repro_torch.train.steps import (TrainStepConfig, init_train_state,
+                                         make_train_step)
+    model = Model(ARCHS["gemma-2b"].smoke(), device="cuda")
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3))
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, 512, (2, 64)).astype(
+        np.int32)).cuda() for k in ("tokens", "labels")}
+    if mesh is None:
+        state = init_train_state(model, ts, seed=0)
+    else:
+        rules = sharding.make_rules(mesh, fsdp=True)
+        state, _, shd, _ = sharded_train_state(model, ts, rules, 2)
+        ts = dataclasses.replace(ts, grad_shardings=shd)
+        batch = shd.split_batch(batch)
+    step = make_train_step(model, ts)
+    dispatch.reset_stats()
+    dispatch.reset_launch_counts()
+    _, _, metrics = step(*state, batch)
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]),
+            "launches": dispatch.launch_counts(),
+            "plain": [k for k in dispatch.stats() if k[1] != "kernel"]}
+
+
+def card_train_worker(rank, world, store, out_dir, shape):
+    """``card_train_step`` on a ``shape`` (data, model) mesh of ranks
+    sharing cuda:0 over gloo."""
+    _join(rank, world, store)
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"), device="cuda")
+    _leave(rank, out_dir, card_train_step(mesh))

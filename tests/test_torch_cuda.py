@@ -1892,3 +1892,20 @@ def test_attention_at_tp_shard_heads(card, h, hkv, hd, int8):
     want = prefill_attention_plain(q, kp, vp, table, starts, *scales)
     _close(out, want, tol)
     _slots_close(out, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=str)
+def test_sharded_train_step_on_two_ranks_launches_as_one_process(
+        card, tmp_path, shape):
+    """Two ranks sharing the card over gloo run a sharded train step of a
+    2-layer smoke gemma-2b (each leaf gathered at its use): each rank
+    launches B1, B6 and B7 exactly as often as one process does, and no
+    op takes a plain route."""
+    import _torch_ranks as ranks
+    want = ranks.card_train_step()
+    got = ranks.spawn(ranks.card_train_worker, 2, tmp_path, shape)
+    assert not want["plain"]
+    for r in got:
+        assert r["launches"] == want["launches"] and not r["plain"], r
+        assert math.isfinite(r["loss"])
+        assert abs(r["loss"] - want["loss"]) <= 5e-2 * abs(want["loss"])
