@@ -74,14 +74,18 @@ def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _check_paged(name: str, q, k_pages, v_pages, table, lengths,
-                 q_heads_dim: int, k_scale=None, v_scale=None) -> None:
-    """Shapes, dtypes and devices the attention kernels take: float pools
-    of q's dtype, or int8 pools with their (P, Hkv) fp32 scales."""
+                 q_heads_dim: int, k_scale=None, v_scale=None,
+                 device: bool = True) -> None:
+    """Shapes, dtypes and (with ``device``) devices the attention kernels
+    take: float pools of q's dtype, or int8 pools with their (P, Hkv)
+    fp32 scales."""
     scales = () if k_scale is None and v_scale is None else (k_scale,
                                                              v_scale)
     if any(s is None for s in scales):
         raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
-    cuda.require_cuda(name, q, k_pages, v_pages, table, lengths, *scales)
+    if device:
+        cuda.require_cuda(name, q, k_pages, v_pages, table, lengths,
+                          *scales)
     if q.dim() != q_heads_dim + 2:
         raise ValueError(f"{name}: q has shape {tuple(q.shape)}")
     if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
@@ -138,8 +142,34 @@ def decode_split_plan(n_pages: int, page: int, hkv: int) -> tuple:
     return per * page, max(1, -(-n_pages // per))
 
 
+def split_keys_range(page: int) -> tuple:
+    """The split sizes the kernel takes at ``page``: whole pages from
+    ``MIN_SPLIT_KEYS`` to ``MAX_SPLIT_KEYS`` (each rounded up to a page),
+    the range ``decode_split_plan`` chooses in.  The upper end bounds the
+    key offsets a block keeps in shared memory, the lower the splits'
+    fp32 partials."""
+    page = max(1, page)
+    return (page * max(1, -(-MIN_SPLIT_KEYS // page)),
+            page * max(1, -(-MAX_SPLIT_KEYS // page)))
+
+
+def planned_split(name: str, n_pages: int, page: int, hkv: int,
+                  plan) -> tuple:
+    """(split_keys, splits) of a call: ``decode_split_plan``'s without a
+    plan, else the plan's ``{"split_keys": n}`` (a whole number of pages
+    within ``split_keys_range``) applied to the call's table."""
+    if not plan:
+        return decode_split_plan(n_pages, page, hkv)
+    n = plan["split_keys"]
+    lo, hi = split_keys_range(page)
+    if n % page or not lo <= n <= hi:
+        raise ValueError(f"{name}: plan split_keys {n} is not a whole "
+                         f"number of {page}-key pages in [{lo}, {hi}]")
+    return n, max(1, -(-n_pages // (n // page)))
+
+
 def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
-            window: int) -> torch.Tensor:
+            window: int, plan) -> torch.Tensor:
     """Launch ``repro_decode_attention`` (float pools) or its int8 entry
     (the split kernel, then the rank-order combine) and count the call on
     ``wrapper``."""
@@ -152,7 +182,7 @@ def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
         raise ValueError(f"{name}: head width {hd} is past the kernel's "
                          f"{MAX_HEAD_DIM} (32 columns a lane)")
     n_pages = table.shape[1]
-    split_keys, splits = decode_split_plan(n_pages, page, hkv)
+    split_keys, splits = planned_split(name, n_pages, page, hkv, plan)
     # one allocation on the host's hot path: the output, then the splits'
     # fp32 partials (acc, then m and l), merged by the combine kernel
     n_out = b * h * hd
@@ -184,26 +214,27 @@ def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
 
 def decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, table: torch.Tensor,
-                          lengths: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
-    """Launch the float-pool kernel; raises on anything it does not
+                          lengths: torch.Tensor, *, window: int = 0,
+                          plan=None) -> torch.Tensor:
+    """Launch the float-pool kernel, its keys split by
+    ``decode_split_plan`` or ``plan``; raises on anything it does not
     take."""
     return _launch(decode_attention_cuda, q, k_pages, v_pages, table,
-                   lengths, None, None, window)
+                   lengths, None, None, window, plan)
 
 
 def decode_attention_int8_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, table: torch.Tensor,
                                lengths: torch.Tensor, k_scale: torch.Tensor,
                                v_scale: torch.Tensor, *,
-                               window: int = 0) -> torch.Tensor:
+                               window: int = 0, plan=None) -> torch.Tensor:
     """Launch the int8-pool kernel (B4a): int8 pools with their (P, Hkv)
     fp32 scales, a bf16 or fp32 q; raises on anything it does not take."""
     if k_scale is None or v_scale is None:
         raise ValueError("decode_attention_int8: k_scale and v_scale are "
                          "required")
     return _launch(decode_attention_int8_cuda, q, k_pages, v_pages, table,
-                   lengths, k_scale, v_scale, window)
+                   lengths, k_scale, v_scale, window, plan)
 
 
 decode_attention_cuda.launches = 0

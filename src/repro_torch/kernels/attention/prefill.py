@@ -77,6 +77,12 @@ def prefill_route(dtype: torch.dtype, hd: int, grp: int) -> str:
             and 64 % grp == 0 else "simt")
 
 
+def split_keys_unit(page: int) -> int:
+    """A wgmma split's keys come in multiples of this: whole pages and
+    whole 64-key tiles."""
+    return math.lcm(max(1, page), 64)
+
+
 def prefill_split_plan(n_pages: int, page: int, hkv: int, grp: int, c: int,
                        hd: int) -> tuple:
     """(split_keys, splits) of the wgmma route: block r of a (slot, kv
@@ -85,7 +91,7 @@ def prefill_split_plan(n_pages: int, page: int, hkv: int, grp: int, c: int,
     keys.  A function of the table's, the pools' and the chunk's shapes
     only, never of the batch or the starts, so a slot's bits do not depend
     on which slots share its call."""
-    unit = math.lcm(max(1, page), 64)
+    unit = split_keys_unit(page)
     keys = n_pages * page
     if keys <= 0:
         return unit, 1
@@ -97,8 +103,25 @@ def prefill_split_plan(n_pages: int, page: int, hkv: int, grp: int, c: int,
     return split, -(-keys // split)
 
 
+def planned_split(name: str, n_pages: int, page: int, hkv: int, grp: int,
+                  c: int, hd: int, plan) -> tuple:
+    """(split_keys, splits) of a call on the wgmma route:
+    ``prefill_split_plan``'s without a plan, else the plan's
+    ``{"split_keys": n}``, a multiple of ``split_keys_unit(page)`` no
+    longer than ``MAX_SPLIT_PAGES`` pages (the page list a block keeps in
+    shared memory), applied to the call's table."""
+    if not plan:
+        return prefill_split_plan(n_pages, page, hkv, grp, c, hd)
+    n = plan["split_keys"]
+    if n <= 0 or n % split_keys_unit(page) or n > MAX_SPLIT_PAGES * page:
+        raise ValueError(f"{name}: plan split_keys {n} is not a multiple "
+                         f"of {split_keys_unit(page)} up to "
+                         f"{MAX_SPLIT_PAGES} pages of {page}")
+    return n, max(1, -(-n_pages * page // n))
+
+
 def _launch(wrapper, q, k_pages, v_pages, table, starts, k_scale, v_scale,
-            window: int) -> torch.Tensor:
+            window: int, plan) -> torch.Tensor:
     """Launch ``repro_prefill_attention`` (float pools) or its int8 entry
     on the route ``prefill_route`` names (wgmma: the split kernel, then the
     rank-order combine where the plan splits; simt: grid slot x kv head x
@@ -113,8 +136,10 @@ def _launch(wrapper, q, k_pages, v_pages, table, starts, k_scale, v_scale,
     route = prefill_route(q.dtype, hd, h // hkv)
     if route == "wgmma":
         flash.check_aligned16(name, q, k_pages, v_pages)
-        split_keys, splits = prefill_split_plan(n_pages, page, hkv, h // hkv,
-                                                c, hd)
+        split_keys, splits = planned_split(name, n_pages, page, hkv,
+                                           h // hkv, c, hd, plan)
+    elif plan:
+        raise ValueError(f"{name}: the simt route takes no split plan")
     elif flash.simt_smem_bytes(hd) > cuda.MAX_SMEM_BYTES:
         # the simt kernel keeps the tiles of flash.py's simt forward
         raise ValueError(f"{name}: head width {hd} needs "
@@ -155,20 +180,21 @@ def _launch(wrapper, q, k_pages, v_pages, table, starts, k_scale, v_scale,
 
 def prefill_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, table: torch.Tensor,
-                           starts: torch.Tensor, *,
-                           window: int = 0) -> torch.Tensor:
-    """Launch the float-pool kernel (B3); counts one launch per call, and
-    one on its route in ``.routes``; raises on anything it does not
-    take."""
+                           starts: torch.Tensor, *, window: int = 0,
+                           plan=None) -> torch.Tensor:
+    """Launch the float-pool kernel (B3), on the wgmma route its keys
+    split by ``prefill_split_plan`` or ``plan``; counts one launch per
+    call, and one on its route in ``.routes``; raises on anything it does
+    not take."""
     return _launch(prefill_attention_cuda, q, k_pages, v_pages, table,
-                   starts, None, None, window)
+                   starts, None, None, window, plan)
 
 
 def prefill_attention_int8_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor, table: torch.Tensor,
                                 starts: torch.Tensor, k_scale: torch.Tensor,
                                 v_scale: torch.Tensor, *,
-                                window: int = 0) -> torch.Tensor:
+                                window: int = 0, plan=None) -> torch.Tensor:
     """Launch the int8-pool kernel (B4b): int8 pools with their (P, Hkv)
     fp32 scales, a bf16 or fp32 q; counts as ``prefill_attention_cuda``
     does; raises on anything it does not take."""
@@ -176,7 +202,7 @@ def prefill_attention_int8_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("prefill_attention_int8: k_scale and v_scale are "
                          "required")
     return _launch(prefill_attention_int8_cuda, q, k_pages, v_pages, table,
-                   starts, k_scale, v_scale, window)
+                   starts, k_scale, v_scale, window, plan)
 
 
 prefill_attention_cuda.launches = 0

@@ -14,6 +14,18 @@ CUDA routes (``wgmma`` and ``simt``, chosen by dtype and head width, and
 for the prefill the GQA group), count them by route too
 (``route_counts``).
 
+On the kernel route (only there) the split-planned ops -- ``matmul``
+and both of its gradient GEMMs (``matmul_bwd``), ``grouped_matmul``'s
+forward (B1's namespace), ``quantized_matmul``, ``decode_attention`` and
+``prefill_attention`` (float and int8 pools) -- resolve their plan
+through the tuned-plan cache (``tune.cache.tuned_plan``: exact key, then
+the nearest feasible shape, then the heuristic) and pass it to the
+kernel's wrapper; ``plan_source_stats()`` counts each such call by (op,
+route, source).  An empty cache runs every kernel at its heuristic plan,
+as before the cache existed.  The ops, their kernels, plain versions,
+plan keys and tensor-parallel contracts are declared once, in
+``kernels/registry.py``, which also holds the counters.
+
 Tensor parallelism (``runtime/tp.py``): inside ``tp_scope(group)``,
 ``matmul`` and ``quantized_matmul`` called with ``tp="col"`` or
 ``tp="row"`` and the paged attention ops (which tag themselves
@@ -37,113 +49,43 @@ the card does.  B1's grouped route also counts its launches by route
 """
 from __future__ import annotations
 
-import contextlib
-from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
+from ..tune import cache as tune_cache
+from . import registry
 from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
                         decode_attention_plain, flash_attention_bwd_cuda,
                         flash_attention_bwd_plain, flash_attention_cuda,
                         flash_attention_plain, prefill_attention_cuda,
                         prefill_attention_int8_cuda, prefill_attention_plain)
-from .histogram.histogram import histogram_cuda
 from .matmul import (grouped_matmul_cuda, grouped_matmul_plain, matmul_cuda,
                      matmul_plain, quantized_matmul_cuda,
                      quantized_matmul_plain)
-from .nbody.nbody import nbody_accel_cuda
-from .stencil.stencil import jacobi4_cuda
 from .wkv.wkv import (aligned, wkv_bwd_cuda, wkv_bwd_plain, wkv_cuda,
                       wkv_plain)
+from .registry import (plan_source_stats, reset_stats,  # noqa: F401
+                       stats, stats_scope, tp_group, tp_scope, tp_stats)
 
-_stats: Counter = Counter()
-# (op, route) counters ticked only inside a tp_scope: the probe that the
-# ops ran inside the sharded step
-_tp_stats: Counter = Counter()
-_tp_group = None
-
-# the collective that completes each op under each tp tag (the JAX
-# registry's TPContract tables: matmul/ops.py:406-429,
-# attention/ops.py:845-871): None, "psum", or ("all_gather", dim)
-TP_CONTRACTS = {
-    "matmul": {"col": None, "row": "psum"},
-    "quantized_matmul": {"col": None, "row": "psum"},
-    "decode_attention": {"heads": ("all_gather", 1)},
-    "prefill_attention": {"heads": ("all_gather", 2)},
-}
+# the collective that completes each op under each tp tag, from the
+# registry's TPContracts (the JAX registry's tables:
+# matmul/ops.py:406-429, attention/ops.py:845-871): None, "psum", or
+# ("all_gather", dim)
+TP_CONTRACTS = registry.tp_contracts()
 
 # every kernel wrapper, by op name; each carries its launch count.  The
 # int8 attention branches count under their own names, so a run shows
 # which branch launched.
-KERNELS = {"matmul": matmul_cuda,
-           "grouped_matmul": grouped_matmul_cuda,
-           "quantized_matmul": quantized_matmul_cuda,
-           "decode_attention": decode_attention_cuda,
-           "decode_attention_int8": decode_attention_int8_cuda,
-           "prefill_attention": prefill_attention_cuda,
-           "prefill_attention_int8": prefill_attention_int8_cuda,
-           "flash_attention": flash_attention_cuda,
-           "flash_attention_bwd": flash_attention_bwd_cuda,
-           "wkv": wkv_cuda,
-           "wkv_bwd": wkv_bwd_cuda,
-           "stencil": jacobi4_cuda,
-           "nbody": nbody_accel_cuda,
-           "histogram": histogram_cuda}
-
-
-def reset_stats() -> None:
-    _stats.clear()
-    _tp_stats.clear()
-
-
-def stats() -> Dict[Tuple[str, str], int]:
-    return dict(_stats)
-
-
-def tp_stats() -> Dict[Tuple[str, str], int]:
-    """The (op, route) counts of calls made inside a ``tp_scope``."""
-    return dict(_tp_stats)
-
-
-@contextlib.contextmanager
-def stats_scope():
-    """Isolated counter scope: zeroed on entry, restored on exit."""
-    saved, saved_tp = Counter(_stats), Counter(_tp_stats)
-    reset_stats()
-    try:
-        yield stats
-    finally:
-        reset_stats()
-        _stats.update(saved)
-        _tp_stats.update(saved_tp)
-
-
-def tp_group():
-    """The group of the active ``tp_scope``, or None outside one."""
-    return _tp_group
-
-
-@contextlib.contextmanager
-def tp_scope(group):
-    """Run the ops called inside as one tensor-parallel shard over
-    ``group`` (a ``runtime.collectives.Group``): tagged calls complete
-    themselves with their contract's collective, and every call ticks
-    ``tp_stats``."""
-    global _tp_group
-    prev = _tp_group
-    _tp_group = group
-    try:
-        yield
-    finally:
-        _tp_group = prev
+KERNELS = {name: spec.kernel for name, spec in registry.ops().items()}
 
 
 def _tp_complete(op: str, out: torch.Tensor,
                  tp: Optional[str]) -> torch.Tensor:
     """Apply the collective ``op``'s contract ``tp`` declares, inside a
     scope; outside one the tag is inert."""
-    if tp is None or _tp_group is None:
+    group = registry.tp_group()
+    if tp is None or group is None:
         return out
     contracts = TP_CONTRACTS.get(op, {})
     if tp not in contracts:
@@ -153,9 +95,9 @@ def _tp_complete(op: str, out: torch.Tensor,
             "call inside the tensor-parallel step")
     how = contracts[tp]
     if how == "psum":
-        return _tp_group.psum(out)
+        return group.psum(out)
     if how is not None:
-        return _tp_group.all_gather(out, how[1])
+        return group.all_gather(out, how[1])
     return out
 
 
@@ -180,17 +122,36 @@ def route_counts() -> Dict[str, int]:
 
 def _on_card(op: str, t: torch.Tensor) -> bool:
     kernel = t.is_cuda
-    key = (op, "kernel" if kernel else "plain")
-    _stats[key] += 1
-    if _tp_group is not None:
-        _tp_stats[key] += 1
+    registry.count_route(op, "kernel" if kernel else "plain")
     return kernel
+
+
+def _plan(op: str, namespace: str, key: tuple, dtype: torch.dtype):
+    """The tuned plan of one kernel-route call (None: the heuristic's),
+    counted in ``plan_source_stats`` by its source."""
+    plan, source = tune_cache.tuned_plan(namespace, key, dtype)
+    registry.count_plan_source(op, "kernel", source)
+    return plan
+
+
+def _kernel_plan(op: str, *args, spec: Optional[str] = None):
+    """The tuned plan of a kernel-route call of registry op ``spec``
+    (default ``op``), counted under ``op``, at the key its
+    ``plan_shape`` reads (None where the call's route takes no plan)."""
+    spec = registry.get(spec or op)
+    key = spec.key(*args)
+    return None if key is None else _plan(op, spec.namespace, *key)
+
+
+def _b1(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One GEMM on B1 at the tuned plan of its (K, N, dtype)."""
+    return matmul_cuda(a, b, plan=_kernel_plan(op, a, b, spec="matmul"))
 
 
 def _grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One fp32 gradient GEMM, routed and counted as ``matmul_bwd``."""
     if _on_card("matmul_bwd", a):
-        return matmul_cuda(a, b)
+        return _b1("matmul_bwd", a, b)
     return matmul_plain(a, b)
 
 
@@ -205,7 +166,7 @@ class _Matmul(torch.autograd.Function):
     def forward(ctx, a, b):
         a = a.contiguous()
         ctx.save_for_backward(a, b)
-        return matmul_cuda(a, b) if _on_card("matmul", a) \
+        return _b1("matmul", a, b) if _on_card("matmul", a) \
             else matmul_plain(a, b)
 
     @staticmethod
@@ -265,8 +226,10 @@ class _GroupedMatmul(torch.autograd.Function):
     def forward(ctx, x, w):
         x = x.contiguous()
         ctx.save_for_backward(x, w)
-        return grouped_matmul_cuda(x, w) if _on_card("grouped_matmul", x) \
-            else grouped_matmul_plain(x, w)
+        if not _on_card("grouped_matmul", x):
+            return grouped_matmul_plain(x, w)
+        return grouped_matmul_cuda(
+            x, w, plan=_kernel_plan("grouped_matmul", x, w))
 
     @staticmethod
     def backward(ctx, g):
@@ -395,11 +358,14 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
     summed)."""
     k = x.shape[-1]
     a = x.reshape(-1, k)
-    fn = quantized_matmul_cuda if _on_card("quantized_matmul", x) \
-        else quantized_matmul_plain
+    if _on_card("quantized_matmul", x):
+        out = quantized_matmul_cuda(a, w_q, w_scale, plan=_plan(
+            "quantized_matmul", "quantized_matmul", (k, w_q.shape[1]),
+            a.dtype))
+    else:
+        out = quantized_matmul_plain(a, w_q, w_scale)
     return _tp_complete("quantized_matmul",
-                        fn(a, w_q, w_scale).reshape(x.shape[:-1]
-                                                    + w_q.shape[1:]), tp)
+                        out.reshape(x.shape[:-1] + w_q.shape[1:]), tp)
 
 
 def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -416,13 +382,16 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     op ``decode_attention_int8``.  Returns (B, H, hd) in ``out_dtype``
     (default q's dtype).  Inside a ``tp_scope`` q and the pools hold this
     shard's heads and the output is all-gathered to every head."""
-    if k_scale is None:
-        fn = decode_attention_cuda if _on_card("decode_attention", q) \
-            else decode_attention_plain
-        out = fn(q, k_pages, v_pages, table, lengths, window=window)
-    elif _on_card("decode_attention_int8", q):
-        out = decode_attention_int8_cuda(q, k_pages, v_pages, table, lengths,
-                                         k_scale, v_scale, window=window)
+    op = "decode_attention" if k_scale is None else "decode_attention_int8"
+    if _on_card(op, q):
+        plan = _kernel_plan(op, q, k_pages, v_pages, table, lengths)
+        if k_scale is None:
+            out = decode_attention_cuda(q, k_pages, v_pages, table, lengths,
+                                        window=window, plan=plan)
+        else:
+            out = decode_attention_int8_cuda(q, k_pages, v_pages, table,
+                                             lengths, k_scale, v_scale,
+                                             window=window, plan=plan)
     else:
         out = decode_attention_plain(q, k_pages, v_pages, table, lengths,
                                      k_scale, v_scale, window=window)
@@ -444,13 +413,17 @@ def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (op ``prefill_attention_int8``).  Returns (B, C, H, hd) in
     ``out_dtype`` (default q's dtype), all-gathered over the heads inside
     a ``tp_scope``."""
-    if k_scale is None:
-        fn = prefill_attention_cuda if _on_card("prefill_attention", q) \
-            else prefill_attention_plain
-        out = fn(q, k_pages, v_pages, table, starts, window=window)
-    elif _on_card("prefill_attention_int8", q):
-        out = prefill_attention_int8_cuda(q, k_pages, v_pages, table, starts,
-                                          k_scale, v_scale, window=window)
+    op = "prefill_attention" if k_scale is None \
+        else "prefill_attention_int8"
+    if _on_card(op, q):
+        plan = _kernel_plan(op, q, k_pages, v_pages, table, starts)
+        if k_scale is None:
+            out = prefill_attention_cuda(q, k_pages, v_pages, table, starts,
+                                         window=window, plan=plan)
+        else:
+            out = prefill_attention_int8_cuda(q, k_pages, v_pages, table,
+                                              starts, k_scale, v_scale,
+                                              window=window, plan=plan)
     else:
         out = prefill_attention_plain(q, k_pages, v_pages, table, starts,
                                       k_scale, v_scale, window=window)

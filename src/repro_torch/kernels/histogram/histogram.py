@@ -46,18 +46,34 @@ def histogram_route(n_bins: int) -> str:
     return "shared" if bin_window(n_bins) == n_bins else "global"
 
 
-def histogram_cuda(values: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
+def planned_route(n_bins: int, plan) -> str:
+    """The route of a call: ``histogram_route``'s without a plan, else the
+    plan's ``{"route": r}``, ``shared`` only where every bin fits one
+    block's shared memory."""
+    if not plan:
+        return histogram_route(n_bins)
+    route = plan["route"]
+    if route not in ROUTES or (route == "shared"
+                               and bin_window(n_bins) != n_bins):
+        raise ValueError(f"histogram: route {route!r} does not take "
+                         f"{n_bins} bins")
+    return route
+
+
+def histogram_cuda(values: torch.Tensor, n_bins: int = 256, *,
+                   plan=None) -> torch.Tensor:
     """Launch ``repro_histogram`` on the route ``histogram_route(n_bins)``
-    names: values (N,) contiguous int32 on a CUDA device, any
-    ``n_bins >= 1``.  Returns a new (n_bins,) int32 tensor; raises on
-    anything the kernel does not take."""
+    names, or ``plan``'s ``{"route": r}`` (``shared`` only where
+    ``bin_window`` holds every bin): values (N,) contiguous int32 on a
+    CUDA device, any ``n_bins >= 1``.  Returns a new (n_bins,) int32
+    tensor; raises on anything the kernel does not take."""
     cuda.require_cuda("histogram", values)
     if values.dim() != 1:
         raise ValueError(f"histogram: want values (N,), got "
                          f"{tuple(values.shape)}")
     if values.dtype != torch.int32:
         raise TypeError(f"histogram: want int32 values, got {values.dtype}")
-    route = ROUTES[histogram_route(n_bins)]
+    route = ROUTES[planned_route(n_bins, plan)]
     n, bins = cuda.c_ints("histogram", values.shape[0], n_bins)
     out = torch.zeros(bins, dtype=torch.int32, device=values.device)
     if n == 0:

@@ -44,17 +44,27 @@ def _check_rows(name: str, m: int, tile_m: int) -> None:
                          f"{tile_m}")
 
 
+def split_at(k: int, tile_k: int, split: int) -> tuple:
+    """(split, slice_steps) of K in units of ``tile_k`` for a wanted
+    ``split``: slices of ``slice_steps`` units, the split cut to the K
+    steps there are and to the slices the rounding leaves non-empty.  A
+    plan's ``{"split": s}`` (``tune/space.py``) is applied here, at the
+    call's own K, so no slice is ever empty."""
+    steps = -(-k // tile_k)
+    split = max(1, min(split, steps))
+    per = -(-steps // split)
+    if per:
+        split = -(-steps // per)      # drop slices the rounding left empty
+    return split, per
+
+
 def _split(k: int, tile_k: int, tiles_n: int, max_split: int,
            min_slice: int) -> tuple:
     """(split, slice_steps) of K in units of ``tile_k``: split while the N
     tiles alone leave SMs idle, at most ``max_split`` ways, each slice at
     least ``min_slice`` deep and no slice empty."""
-    steps = -(-k // tile_k)
-    split = max(1, min(max_split, SMS // tiles_n, k // min_slice, steps))
-    per = -(-steps // split)
-    if per:
-        split = -(-steps // per)      # drop slices the rounding left empty
-    return split, per
+    return split_at(k, tile_k, min(max_split, SMS // tiles_n,
+                                   k // min_slice))
 
 
 def split_plan(k: int, n: int, dtype: torch.dtype, groups: int = 1) -> tuple:
@@ -93,6 +103,20 @@ def quantized_split_plan(k: int, n: int, dtype: torch.dtype) -> tuple:
                   Q_MIN_SLICE)
 
 
+def planned_split(name: str, k: int, tile_k: int, max_split: int,
+                  plan, heuristic) -> tuple:
+    """(split, slice_steps) of a call: the heuristic's (``heuristic()``)
+    without a plan, else the plan's ``{"split": s}`` applied at the call's
+    K; a split past ``max_split`` (the heuristic's own limit, which bounds
+    the fp32 scratch) raises."""
+    if not plan:
+        return heuristic()
+    s = plan["split"]
+    if not 1 <= s <= max_split:
+        raise ValueError(f"{name}: plan split {s} outside 1..{max_split}")
+    return split_at(k, tile_k, s)
+
+
 def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
     """What ``repro_matmul`` takes: a (M, K) contiguous @ b (K, N) at two
     strides of which one is 1, of one dtype."""
@@ -109,11 +133,14 @@ def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"strides {b.stride()}")
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                plan=None) -> torch.Tensor:
     """Launch ``repro_matmul``: a (M, K) contiguous, b (K, N) at two
     strides of which one is 1 (weights are N-contiguous, the tied head
     passes the K-contiguous ``embed.T``), both bf16 or both fp32, on one
-    CUDA device.  Returns a new (M, N) tensor of a's dtype."""
+    CUDA device.  K splits by ``split_plan``, or by ``plan``'s
+    ``{"split": s}`` (a tuned plan).  Returns a new (M, N) tensor of a's
+    dtype."""
     cuda.require_cuda("matmul", a, b, contiguous=False)
     check_operands(a, b)
     m, k = a.shape
@@ -123,7 +150,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0:
         return c
     _check_rows("matmul", m, TILE_M)
-    split, per = split_plan(k, n, a.dtype)
+    split, per = planned_split("matmul", k, TILE_K[a.dtype], MAX_SPLIT,
+                               plan, lambda: split_plan(k, n, a.dtype))
     # the split's partial products, summed in rank order by a second pass
     scratch = (torch.empty((split, m, n), dtype=torch.float32,
                            device=a.device) if split > 1 else None)
@@ -165,7 +193,8 @@ def grouped_route(dtype: torch.dtype, x_kmajor: bool = True,
     return "wgmma" if x_kmajor and not w_kmajor else "wgmma_short"
 
 
-def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                        plan=None) -> torch.Tensor:
     """Launch ``repro_grouped_matmul`` once for all groups: x (G, C, K)
     contiguous (in bf16 also the transpose of a contiguous (G, K, C)
     tensor, the backward's x^T), w (G, K, N) with a unit stride along K or
@@ -173,7 +202,9 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     backward's w^T is K-contiguous), both bf16 or both fp32, on one CUDA
     device, on the route ``grouped_route`` names for their layouts; the
     tile route splits K by ``split_plan(k, n, dtype, groups=g)``, the
-    short tile never.  Returns a new (G, C, N) tensor of x's dtype."""
+    short tile never (``plan``'s ``{"split": s}`` replaces the heuristic
+    on the tile route, and the short tile takes only split 1).  Returns a
+    new (G, C, N) tensor of x's dtype."""
     cuda.require_cuda("grouped_matmul", x, w, contiguous=False)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
@@ -199,8 +230,10 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_rows("grouped_matmul", c, TILE_M)
     route = grouped_route(x.dtype, x_kmajor, w.stride(2) != 1)
     short = route == "wgmma_short"
-    split, per = ((1, -(-k // TILE_K[x.dtype])) if short
-                  else split_plan(k, n, x.dtype, groups=g))
+    split, per = planned_split(
+        "grouped_matmul", k, TILE_K[x.dtype], 1 if short else MAX_SPLIT,
+        plan, lambda: ((1, -(-k // TILE_K[x.dtype])) if short
+                       else split_plan(k, n, x.dtype, groups=g)))
     if g * split > 65535:                      # the grid's group axis
         raise ValueError(f"grouped_matmul: {g} groups x split {split} "
                          f"exceed 65535")
@@ -235,10 +268,11 @@ def quantized_matmul_plain(a: torch.Tensor, b_q: torch.Tensor,
 
 
 def quantized_matmul_cuda(a: torch.Tensor, b_q: torch.Tensor,
-                          b_scale: torch.Tensor) -> torch.Tensor:
+                          b_scale: torch.Tensor, *,
+                          plan=None) -> torch.Tensor:
     """Launch ``repro_quantized_matmul``: a (M, K) bf16 or fp32, b_q
     (K, N) int8, b_scale (N,) fp32, all contiguous on one CUDA device;
-    K split by ``quantized_split_plan``.  The scale multiplies each
+    K split by ``quantized_split_plan`` or ``plan``'s ``{"split": s}``.  The scale multiplies each
     column's fp32 sum once, at the flush, so the result agrees with the
     plain version at fp32 tolerance, not bit for bit.  Returns a new
     (M, N) fp32 tensor, contiguous (the head of its buffer)."""
@@ -254,7 +288,9 @@ def quantized_matmul_cuda(a: torch.Tensor, b_q: torch.Tensor,
     m, k = a.shape
     n = b_q.shape[1]
     code = cuda.dtype_code(a)
-    split, per = quantized_split_plan(k, n, a.dtype)
+    split, per = planned_split("quantized_matmul", k, Q_TILE_K,
+                               Q_MAX_SPLIT, plan,
+                               lambda: quantized_split_plan(k, n, a.dtype))
     # one allocation on the host's hot path: the output, then the split's
     # fp32 partial products (summed in rank order by a second pass), which
     # the output's storage holds until it is freed

@@ -33,6 +33,20 @@ PLAN_BLOCKS = 8448
 MIN_SPLIT_TILES = 2
 
 
+def splits_at(n: int, splits: int) -> tuple:
+    """(splits, sources a split) for a wanted number of splits: splits of
+    a whole number of ``SOURCE_TILE`` tiles, cut to the tiles there are
+    and to the splits the rounding leaves non-empty (so
+    ``splits * per >= n > (splits - 1) * per``, as ``repro_nbody``
+    requires).  A plan's ``{"splits": s}`` is applied here, at the call's
+    own N."""
+    if n < 1:
+        return 1, max(n, 1)
+    tiles = -(-n // SOURCE_TILE)
+    per = -(-tiles // max(1, min(splits, tiles))) * SOURCE_TILE
+    return -(-n // per), per
+
+
 def nbody_split_plan(n: int) -> tuple:
     """(splits, sources a split) for N bodies, from N alone: enough
     splits of the source range that target blocks x splits reach about
@@ -44,10 +58,21 @@ def nbody_split_plan(n: int) -> tuple:
         return 1, max(n, 1)
     target_blocks = -(-n // TARGETS_PER_BLOCK)
     tiles = -(-n // SOURCE_TILE)
-    splits = max(1, min(-(-PLAN_BLOCKS // target_blocks),
-                        tiles // MIN_SPLIT_TILES))
-    per = -(-tiles // splits) * SOURCE_TILE
-    return -(-n // per), per
+    return splits_at(n, max(1, min(-(-PLAN_BLOCKS // target_blocks),
+                                   tiles // MIN_SPLIT_TILES)))
+
+
+def planned_splits(n: int, plan) -> tuple:
+    """(splits, sources a split) of a call: ``nbody_split_plan``'s without
+    a plan, else the plan's ``{"splits": s}`` (1 <= s <= the source tiles)
+    applied at the call's N."""
+    if not plan:
+        return nbody_split_plan(n)
+    tiles = max(1, -(-n // SOURCE_TILE))
+    if not 1 <= plan["splits"] <= tiles:
+        raise ValueError(f"nbody_accel: plan splits {plan['splits']} "
+                         f"outside 1..{tiles} source tiles")
+    return splits_at(n, plan["splits"])
 
 
 def nbody_accel_plain(pos: torch.Tensor, mass: torch.Tensor, *,
@@ -66,9 +91,10 @@ def nbody_accel_plain(pos: torch.Tensor, mass: torch.Tensor, *,
 
 
 def nbody_accel_cuda(pos: torch.Tensor, mass: torch.Tensor, *,
-                     eps: float = SOFTENING) -> torch.Tensor:
+                     eps: float = SOFTENING, plan=None) -> torch.Tensor:
     """Launch ``repro_nbody`` (2 targets a thread, source tiles through
-    shared memory, the sources split by ``nbody_split_plan`` into an fp32
+    shared memory, the sources split by ``nbody_split_plan``, or by
+    ``plan``'s ``{"splits": s}`` (1 <= s <= the source tiles), into an fp32
     scratch that a second kernel sums in rank order; one launch counted a
     call): pos (3, N) and mass (N,) contiguous fp32 on one CUDA device,
     any N.  Returns a new (3, N) fp32 tensor; raises on anything the
@@ -84,7 +110,7 @@ def nbody_accel_cuda(pos: torch.Tensor, mass: torch.Tensor, *,
     out = torch.empty(3, n, dtype=torch.float32, device=pos.device)
     if n == 0:
         return out
-    splits, per = nbody_split_plan(n)
+    splits, per = planned_splits(n, plan)
     part = (torch.empty(splits, 3, n, dtype=torch.float32,
                         device=pos.device) if splits > 1 else None)
     rc = cuda.library().repro_nbody(

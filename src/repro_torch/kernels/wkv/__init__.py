@@ -2,7 +2,6 @@
 the model's differentiable WKV is ``kernels.dispatch.wkv``."""
 import torch
 
-from .. import dispatch
 from .wkv import (aligned, wkv_bwd_chunked, wkv_bwd_cuda, wkv_bwd_plain,
                   wkv_cuda, wkv_plain)
 
@@ -21,6 +20,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
     simt route do not read it."""
     if subchunk < 1:
         raise ValueError(f"wkv: subchunk {subchunk} < 1")
+    # imported here: dispatch imports the registry, which imports this
+    # package's kernel
+    from .. import dispatch
     if dispatch._on_card("wkv", r):
         # the kernel reads dense rows, and its mma route copies them with
         # cp.async: views are made contiguous, data off a 16-byte boundary

@@ -26,9 +26,6 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
-# the module, not its names: models.rwkv imports dispatch, which imports
-# this module, so its functions are looked up when called
-from ...models import rwkv
 
 # csrc/wkv.cu's tile edges: row pieces and value-column blocks of at most
 # 64, key-side channels staged 64 at a time
@@ -59,6 +56,9 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The chunked WKV from a zero state (``models.rwkv.wkv_chunked``,
     its final state dropped): o (B, S, H, hd) fp32 (fp64 for fp64
     inputs)."""
+    # imported here: models.rwkv imports dispatch, which imports the
+    # registry, which imports this module
+    from ...models import rwkv
     return rwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk, intra=intra,
                             subchunk=subchunk)[0]
 
@@ -152,6 +152,7 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if out.numel() == 0:
         return out
+    from ...models import rwkv
     c = rwkv.chunk_len(s, chunk)
     sc = subchunk_len(c, subchunk)
     route = wkv_route(c, sc, hd, r.dtype)

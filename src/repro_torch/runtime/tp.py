@@ -14,8 +14,9 @@ The split is Megatron's, on the paged decode and prefill steps:
 * MQA (``n_kv_heads == 1``): the pools and ``wk``/``wv`` replicate and
   only the q heads shard.
 
-The ops declare these contracts in ``kernels/dispatch.py``
-(``TP_CONTRACTS``); the layers tag their calls, and the tags act only
+The ops declare these contracts in ``kernels/registry.py`` (their
+``OpSpec.tp``, which ``dispatch.TP_CONTRACTS`` reads); the layers tag
+their calls, and the tags act only
 inside ``dispatch.tp_scope``, which ``sharded_paged_fns`` opens around
 the model's steps.  JAX runs the step under ``shard_map`` (through its
 ``runtime/compat.py`` shim); here each rank runs it on its own shards,

@@ -1909,3 +1909,89 @@ def test_sharded_train_step_on_two_ranks_launches_as_one_process(
         assert r["launches"] == want["launches"] and not r["plain"], r
         assert math.isfinite(r["loss"])
         assert abs(r["loss"] - want["loss"]) <= 5e-2 * abs(want["loss"])
+
+
+# ------------------------------------------------- tuned plans (the tune path)
+# small cells of every tunable op (kernels/registry.py): each plan of its
+# space reaches the kernel (one launch) and stays within tolerance of the
+# plain version; the int8-weight GEMM and the int8 attention branches
+# compute in fp32 and are held at 2e-4
+TUNE_CELLS = [
+    ("matmul", (5, 4096, 256), torch.bfloat16),
+    ("matmul", (5, 4096, 256), torch.float32),
+    ("grouped_matmul", (3, 4, 2048, 96), torch.bfloat16),
+    ("grouped_matmul", (3, 4, 2048, 96), torch.float32),
+    ("quantized_matmul", (5, 4096, 256), torch.bfloat16),
+    ("quantized_matmul", (5, 4096, 256), torch.float32),
+    ("decode_attention", (3, 8, 2, 128, 16, 40), torch.bfloat16),
+    ("decode_attention", (3, 8, 2, 128, 16, 40), torch.float32),
+    ("decode_attention_int8", (3, 8, 2, 128, 16, 40), torch.bfloat16),
+    ("prefill_attention", (2, 16, 8, 2, 128, 64, 12), torch.bfloat16),
+    ("prefill_attention_int8", (2, 16, 8, 2, 128, 64, 12), torch.bfloat16),
+    ("flash_attention", (2, 2, 130, 64), torch.bfloat16),
+    ("flash_attention_bwd", (2, 2, 130, 64), torch.bfloat16),
+    ("stencil", (130, 250), torch.float32),
+    ("nbody", (3000,), torch.float32),
+    ("histogram", (100_000, 300), torch.int32),
+]
+
+
+def _tune_tol(op, dtype):
+    if op in ("quantized_matmul", "nbody") or "int8" in op:
+        return 2e-4
+    return TOLS.get(dtype, 0.0)
+
+
+@pytest.mark.parametrize("op, cell, dtype", TUNE_CELLS,
+                         ids=[f"{o}-{c}-{str(d)[6:]}"
+                              for o, c, d in TUNE_CELLS])
+def test_every_plan_of_a_space_reaches_its_kernel(card, op, cell, dtype):
+    from repro_torch.kernels import registry
+    spec = registry.get(op)
+    args = spec.tune.make_inputs(cell, dtype, card)
+    key, key_dtype = spec.key(*args)
+    want = spec.plain(*args)
+    want = want[0] if isinstance(want, tuple) else want
+    tol = _tune_tol(op, dtype)
+    space = spec.tune.space(key, key_dtype)
+    assert len(space) > (op not in ("flash_attention", "flash_attention_bwd",
+                                    "stencil"))
+    for plan in space:
+        before = spec.kernel.launches
+        out = spec.tune.call(args, plan)
+        out = out[0] if isinstance(out, tuple) else out
+        assert spec.kernel.launches == before + 1, plan
+        if dtype == torch.int32:
+            assert torch.equal(out, want), plan
+        elif op == "nbody":
+            torch.cuda.synchronize()
+            assert (out - want).abs().max() <= tol * want.abs().max(), plan
+        else:
+            _close(out, want, torch.float32 if tol == 2e-4 else dtype)
+
+
+@pytest.mark.parametrize("op, cell, dtype", TUNE_CELLS,
+                         ids=[f"{o}-{c}-{str(d)[6:]}"
+                              for o, c, d in TUNE_CELLS])
+def test_the_heuristic_plan_gives_the_heuristics_bits(card, op, cell, dtype):
+    """Candidate 0 passed as a plan runs what no plan runs, bit for bit."""
+    from repro_torch.kernels import registry
+    spec = registry.get(op)
+    args = spec.tune.make_inputs(cell, dtype, card)
+    key, key_dtype = spec.key(*args)
+    heuristic = spec.tune.space(key, key_dtype)[0]
+    got, want = spec.tune.call(args, heuristic), spec.tune.call(args, None)
+    for g, w in zip(*(t if isinstance(t, tuple) else (t,)
+                      for t in (got, want))):
+        assert torch.equal(g, w)
+
+
+def test_a_cards_cache_refuses_the_plain_level(card, tmp_path):
+    from repro_torch.tune import PlanCache
+    cache = PlanCache(tmp_path / "plans.json")
+    name = torch.cuda.get_device_name()
+    with pytest.raises(ValueError, match="level 1"):
+        cache.put("matmul", (2048, 1024), torch.bfloat16,
+                  {"level": 1, "split": 2})
+    key = cache.put("matmul", (2048, 1024), torch.bfloat16, {"split": 2})
+    assert key.endswith("|" + name)

@@ -21,8 +21,12 @@ called through its C entry with ctypes.  One JSON line per measurement:
   without the widening or the products (timing only: their results are
   wrong); B1 bf16 at the same shape beside.
 - host: microseconds of host time per call of the B1 and B5 wrappers
-  (``matmul_cuda``, ``quantized_matmul_cuda``) at the four shapes at
-  M = 4, the card keeping up (a decode step is paced by the host).
+  (``matmul_cuda``, ``quantized_matmul_cuda``) and of the model's entry
+  to them (``dispatch.matmul``, ``dispatch.quantized_matmul``, which
+  resolve the tuned plan, here from an empty plan cache) at the four
+  shapes at M = 4, the card keeping up (a decode step is paced by the
+  host).  ``--src DIR`` times the port of another checkout's ``src``
+  instead (``--only host``: an earlier commit beside this one).
 - decode: B2 (bf16 pools) and B4a (int8 pools, bf16 q) at chip_smoke.py's
   rows (gemma-2b's heads on the 256-key serving table and at 8192 keys,
   codeqwen1.5-7b's heads at 8192 keys): every split size of
@@ -99,6 +103,7 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -974,18 +979,24 @@ def host_rows(torch) -> list:
     import time
 
     from repro_torch.core.quant import quantize_channelwise
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.matmul import matmul_cuda, quantized_matmul_cuda
 
-    def host_us(fn, calls: int = 300) -> float:
+    def host_us(fn, calls: int = 200, batches: int = 7) -> float:
+        """The median over ``batches`` of the host's microseconds a call
+        over ``calls`` calls (the host is shared: one batch moves by a
+        third between runs)."""
         for _ in range(20):
             fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        seconds = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return seconds / calls * 1e6
+        per_call = []
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per_call.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return sorted(per_call)[batches // 2]
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
@@ -995,9 +1006,13 @@ def host_rows(torch) -> list:
         q, scale = quantize_channelwise(w)
         b1 = w.to(torch.bfloat16)
         r = {"kernel": "host", "case": f"M=4 K={k} N={n}",
+             "src": str(Path(dispatch.__file__).parents[2]),
              "matmul_us": host_us(lambda: matmul_cuda(a, b1)),
              "quantized_matmul_us": host_us(
-                 lambda: quantized_matmul_cuda(a, q, scale))}
+                 lambda: quantized_matmul_cuda(a, q, scale)),
+             "dispatch_matmul_us": host_us(lambda: dispatch.matmul(a, b1)),
+             "dispatch_quantized_matmul_us": host_us(
+                 lambda: dispatch.quantized_matmul(a, q, scale))}
         emit(r)
         rows.append(r)
     return rows
@@ -1009,6 +1024,9 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", default="",
                     help="a checkout of an earlier commit whose decode "
                          "and prefill kernels to time beside the variants")
+    ap.add_argument("--src", default="",
+                    help="import the port from this src directory (of "
+                         "another checkout) instead of this one's")
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="comma-separated sections to run, of "
                          f"{','.join(SECTIONS)}")
@@ -1020,8 +1038,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()) if args.src
+                    else str(ROOT / "src"))
     sys.path.insert(1, str(ROOT))
+    # the model's entries resolve plans from an empty cache: a file that
+    # is never written
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(
+        ROOT / "build" / "variants" / "no_tuned_plans.json")
     from repro_torch.kernels import cuda
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
