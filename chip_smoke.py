@@ -8,6 +8,14 @@ Phases, one output line or more each:
 1. build   -- compile the hand-written kernels (src/repro_torch/kernels/
               csrc) with nvcc for sm_90a; print the seconds and the card's
               name and power limit.
+1b. dryrun -- the dry run (``repro_torch.launch.dryrun.run_cell``) on
+              ``meta``: no kernel runs and nothing is allocated; gemma-2b
+              x train_4k and decode_32k and rwkv6-7b x long_500k on the
+              production meshes (data 16 x model 16, and pod 2 x data 16
+              x model 16, abstract): each cell's params, model FLOPs,
+              per-device argument and peak bytes, fit in 80 GB,
+              collectives and the roofline terms of the H100 SXM's data
+              sheet (a model, not a measurement).
 2. kernels -- each kernel against its plain PyTorch version on the card, at
               the serving path's full-width gemma-2b shapes, in bf16 and
               fp32 (rtol = atol = 5e-2 and 2e-4; the int8 kernels compute
@@ -149,6 +157,13 @@ Phases, one output line or more each:
               K = 8192 with the shard's scales, B2/B4a and B3/B4b at 4
               q heads over 1 kv head and 16 over 16).  Two ranks sharing
               one card time-share it: no speed claim.
+3g. page pick -- a plan file written by hand with ``decode_attention``
+              entries under this card's key at pages 32 and 64, the
+              page-32 one the faster; ``serve.main --page-size 0`` under
+              it (full-width gemma-2b at 2 layers, paged, phase 3's
+              traffic) must run at page 32 on B1/B2/B3 alone, with the
+              streams of a ``--page-size 32`` run under the empty cache;
+              under the empty cache ``--page-size 0`` runs at 64.
 4. model   -- one prefill chunk plus 4 teacher-forced decode steps of the
               full-width model in fp32, once through the kernels and once
               through the plain versions, both on the card, with float and
@@ -194,6 +209,13 @@ Phases, one output line or more each:
    under the profiler, in a window of 4 requests of 8 new tokens
    (``PROFILE_WINDOW``), device time by kernel group and the idle share
    over their decode steps and, apart, over their prefill calls.
+5b. train accounting -- ``roofline.analysis.analyze_step`` on ``meta``
+              for phase 5's gemma-2b configuration (one rank, 2 x 512
+              tokens, its policy and remat): its argument bytes must be
+              phase 5's state (params and AdamW moments) to the byte plus
+              the batch's, its peak within 25% of phase 5's measured
+              ``max_memory_allocated``, and its FLOPs over the profiled
+              step's busy time give the step's achieved FLOP/s.
 6. train parity -- one loss and backward of full-width gemma-2b in fp32,
               through the kernels and through the plain versions on the
               card: loss within 1e-5 relative, every gradient leaf within
@@ -267,6 +289,13 @@ Phases, one output line or more each:
               2e-4 of the sequential product, 5 launches a rank.  The
               older train phases run on the CLI's one-rank mesh: no
               collective.
+6f. remat dots -- full-width gemma-2b at 2 layers, one loss and
+              backward under ``remat_policy="full"`` and one under
+              ``"dots"`` (each layer's forward keeps the products its
+              backward reads; the recompute takes them from there): loss
+              and every gradient bit-identical, B1's launches fewer by
+              exactly the saved products (6 a layer), B6's and B7's
+              unchanged; both peaks printed.
 7. library -- the kernel library's public ops
               (``repro_torch.kernels.{wkv,stencil,nbody,histogram}``) on
               CUDA tensors at phase 2b's sizes, the launch counts set to
@@ -279,10 +308,14 @@ Phases, one output line or more each:
               odd-offset view and int64 histogram values past 2^32: the
               kernel routes, and the plain route's answers (exact for the
               stencil and histogram, LIB_TOL for WKV and N-body).
+7b. examples -- ``examples_torch/quickstart.py`` and
+              ``stencil_pipeline.py`` in this process on the card: B1 once
+              (the T3 matmul) and B9 once a sweep, within the kernels'
+              tolerances.
 8. summary -- one JSON line ``{"kernels": [...]}``, then as the last line
               ``{"ok": true, "device": {...}}``.
 
-Every phase but 2c runs under an empty plan cache
+Every phase but 2c and 3g runs under an empty plan cache
 (``$REPRO_TORCH_TUNE_CACHE`` points at an empty file in a temporary
 directory under ``build/``, removed at the end): the kernels take their
 heuristic plans, so the launch, route and stream checks hold whatever
@@ -3345,6 +3378,11 @@ EMBED_TRAIN_ARCHS = ("musicgen-large", "qwen2-vl-2b")
 MEMORY_LIMIT_BYTES = 80e9
 
 
+# what train_run and train_profile measured, by (phase, arch): phase 5b
+# holds the dry run's accounting against it
+MEASURED: dict = {}
+
+
 def release(torch) -> None:
     """Free what earlier phases left before a phase that measures or needs
     the card's memory: the first ``torch.utils.checkpoint`` call in a
@@ -3532,6 +3570,8 @@ def train_run(torch, phase: str, cfg, checkpoint: bool = True):
         line.update(aux=report["aux"],
                     remat_route_pairs=len(remat.pairs),
                     remat_choices_differ_per_layer=differ)
+    line["state_bytes"] = report["state_bytes"]
+    MEASURED[phase, cfg.name] = line
     emit(line)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{phase}: losses {losses}")
@@ -3674,6 +3714,8 @@ def train_profile(torch, phase: str, cfg, required, forbidden=()):
             other.append((ms, evt.count, evt.key[:90]))
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
+    MEASURED[phase, cfg.name] = {"device_busy_ms": busy,
+                                 "profiled_step_wall_ms": wall_ms}
     missing = [g for g in required if busy and not groups.get(g)]
     present = [g for g in forbidden if groups.get(g)]
     emit({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
@@ -4647,6 +4689,312 @@ def tune_phase(torch, empty_cache: Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# the dry run and the accounting (ROADMAP items 15b, 15c, 16)
+# --------------------------------------------------------------------------
+
+# the dry run's cells (``launch/dryrun.run_cell``, on meta, on the
+# production meshes)
+DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("gemma-2b", "decode_32k"),
+                ("rwkv6-7b", "long_500k"))
+# phase 5b: the meta run's peak against train_run's measured one
+ACCOUNT_PEAK_LIMIT = 0.25
+REMAT_LAYERS = 2
+PAGE_PICK_LAYERS = 2
+# phase 3g's hand-written plan file: page -> microseconds a call, the
+# page-32 entry the faster
+PAGE_PICK_US = {32: 10.0, 64: 20.0}
+
+
+def dryrun_phase(torch, smi: str) -> None:
+    """Phase 1b.  ``dryrun.run_cell`` on ``meta`` (no kernel, nothing
+    allocated) for ``DRYRUN_CELLS`` on the production meshes: each
+    cell's params, model FLOPs, per-device arguments and peak, fit,
+    collectives and the roofline terms of the H100 SXM's data sheet (a
+    model)."""
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    out_dir = ROOT / "build" / "dryrun"
+    for arch, shape in DRYRUN_CELLS:
+        c0 = time.time()
+        res = dryrun.run_cell(arch, shape, out_dir=out_dir,
+                              log=lambda *a: None)
+        if "skipped" in res or "error" in res:
+            raise AssertionError(f"dryrun: {arch} x {shape}: {res}")
+        meshes = {name: {k: m[k] for k in (
+            "argument_bytes_per_device", "peak_bytes_per_device",
+            "fits_hbm", "collective_count", "collective_bytes_per_chip",
+            "flops_per_device", "compile_seconds")}
+            for name, m in res["mesh"].items()}
+        rl = res["roofline"]
+        emit({"phase": "dryrun", "arch": arch, "shape": shape,
+              "device": smi, "params": res["params"],
+              "model_flops": res["model_flops"], "mesh": meshes,
+              "roofline": {k: rl[k] for k in (
+                  "compute_s", "memory_s", "collective_s", "dominant",
+                  "step_s", "roofline_fraction")},
+              "roofline_model": res["hardware_model"],
+              "model_axis": res["model_axis"],
+              "seconds": time.time() - c0})
+        if set(meshes) != {"pod", "multipod"} or not all(
+                m["argument_bytes_per_device"] > 0
+                and m["peak_bytes_per_device"]
+                >= m["argument_bytes_per_device"]
+                and m["flops_per_device"] > 0 for m in meshes.values()):
+            raise AssertionError(f"dryrun: {arch} x {shape}: {meshes}")
+        if not all(math.isfinite(rl[k]) and rl[k] > 0 for k in (
+                "compute_s", "memory_s", "step_s")):
+            raise AssertionError(f"dryrun: {arch} x {shape}: roofline {rl}")
+    emit({"phase": "dryrun", "cells": len(DRYRUN_CELLS),
+          "seconds": time.time() - t0})
+
+
+def train_accounting_phase(torch, smi: str) -> None:
+    """Phase 5b.  ``roofline.analysis.analyze_step`` on ``meta`` for phase
+    5's gemma-2b configuration (one rank, TRAIN_BATCH x TRAIN_SEQ, fp32
+    master weights, bf16 compute, per-layer remat, AdamW), held to what
+    phase 5 measured on the card: its argument bytes less the batch's
+    must equal the state ``train_run`` allocated, to the byte; its peak
+    must land within ACCOUNT_PEAK_LIMIT of the measured
+    ``max_memory_allocated``; its FLOPs over the profiled step's busy
+    time are the step's achieved FLOP/s."""
+    from repro_torch.configs import get_arch, input_specs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.transformer import ExecOptions, Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.analysis import analyze_step, argument_bytes
+    from repro_torch.runtime.sharding import make_rules, train_sharding
+    from repro_torch.train.steps import (TrainStepConfig,
+                                         abstract_train_state,
+                                         make_train_step)
+    t0 = time.time()
+    cfg = get_arch("gemma-2b")
+    run, prof = MEASURED["train", cfg.name], \
+        MEASURED["train_profile", cfg.name]
+    block = min(512, TRAIN_SEQ)
+    model = Model(cfg, dt=DtypePolicy(), device="meta",
+                  opts=ExecOptions(block_q=block, block_kv=block,
+                                   remat=True))
+    ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                         total_steps=TRAIN_STEPS))
+    params, opt = abstract_train_state(model, ts)
+    rules = make_rules(AbstractMesh((1, 1), ("data", "model")), fsdp=True)
+    shd = train_sharding(rules, params, TRAIN_BATCH)
+    batch = input_specs(cfg, ShapeSpec("train_phase", TRAIN_SEQ,
+                                       TRAIN_BATCH, "train"))
+    step = make_train_step(model, dataclasses.replace(ts,
+                                                      grad_shardings=shd))
+    res = analyze_step(step, params, opt, batch)
+    state = argument_bytes(params, opt)
+    busy = prof["device_busy_ms"]
+    peak_err = abs(res["peak_bytes_per_device"]
+                   - run["max_memory_allocated"]) / run["max_memory_allocated"]
+    emit({"phase": "train_accounting", "arch": cfg.name, "device": smi,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "flops_per_step": res["flops_per_device"],
+          "hbm_bytes_per_step": res["hbm_bytes_per_device"],
+          "argument_bytes": res["argument_bytes_per_device"],
+          "state_bytes_meta": state, "state_bytes_card": run["state_bytes"],
+          "peak_bytes_meta": res["peak_bytes_per_device"],
+          "peak_bytes_card": run["max_memory_allocated"],
+          "peak_rel_err": peak_err,
+          "profiled_busy_ms": busy or "not measured",
+          "achieved_flop_s": res["flops_per_device"] / (busy / 1e3)
+          if busy else "not measured",
+          "collective_count": res["collective_count"],
+          "seconds": time.time() - t0})
+    if state != run["state_bytes"] or res["argument_bytes_per_device"] \
+            != state + argument_bytes(batch):
+        raise AssertionError(f"train_accounting: meta state {state} bytes, "
+                             f"the card's {run['state_bytes']}")
+    if not peak_err <= ACCOUNT_PEAK_LIMIT:
+        raise AssertionError(f"train_accounting: meta peak "
+                             f"{res['peak_bytes_per_device']} against the "
+                             f"card's {run['max_memory_allocated']}")
+    if res["collective_count"]:
+        raise AssertionError("train_accounting: a one-rank step recorded "
+                             "collectives")
+
+
+def saved_products(cfg) -> int:
+    """The products a ``dots`` remat keeps a forward of ``cfg``'s layers
+    (``layer_launches``' B1 GEMMs less each MLP's down projection, whose
+    output only enters the residual sum)."""
+    downs = sum(1 for _, ffn in cfg.layer_kinds()
+                if ffn == "mlp" or (ffn == "moe" and cfg.n_shared_experts))
+    return layer_launches(cfg)["matmul"] - downs
+
+
+def remat_dots_phase(torch) -> dict:
+    """Phase 6f.  Full-width gemma-2b at REMAT_LAYERS layers, one loss and
+    backward under ``remat_policy="full"`` and one under ``"dots"`` on
+    the same params and batch: the loss and every gradient bit-identical
+    (no kernel on the path uses atomics, every split is merged in rank
+    order), B1's launches fewer by exactly ``saved_products`` (the
+    recompute takes those outputs from the layer's tape), B6's and B7's
+    unchanged; both peaks printed (each run's gradients go to the host
+    before the next).  Returns the dots run's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import ExecOptions, Model
+    t0 = time.time()
+    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=REMAT_LAYERS)
+    batch = train_batch(torch, cfg, seed=0)
+    params = Model(cfg, device="cuda").init(seed=0)
+    flat, rebuild = tree.flatten(params)
+    runs = {}
+    for policy in ("full", "dots"):
+        model = Model(cfg, device="cuda",
+                      opts=ExecOptions(block_q=TRAIN_SEQ, block_kv=TRAIN_SEQ,
+                                       remat_policy=policy))
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for p in flat:
+            p.requires_grad_(True)
+        dispatch.reset_launch_counts()
+        with dispatch.stats_scope() as stats:
+            loss, _ = model.loss_fn(rebuild(flat), batch)
+            grads = torch.autograd.grad(loss, flat)
+            torch.cuda.synchronize()
+            routes = stats()
+        for p in flat:
+            p.requires_grad_(False)
+        peak = torch.cuda.max_memory_allocated()
+        # on the host, so the next run's peak holds none of them
+        runs[policy] = (loss.detach().cpu(), [g.cpu() for g in grads],
+                        dispatch.launch_counts(), routes, peak)
+        del loss, grads
+    (loss_f, grads_f, launch_f, routes_f, peak_f), \
+        (loss_d, grads_d, launch_d, routes_d, peak_d) = \
+        runs["full"], runs["dots"]
+    differ = [i for i, (a, b) in enumerate(zip(grads_f, grads_d))
+              if not torch.equal(a, b)]
+    saved = saved_products(cfg)
+    emit({"phase": "remat_dots", "arch": cfg.name, "layers": cfg.n_layers,
+          "loss_full": float(loss_f), "loss_dots": float(loss_d),
+          "grad_leaves": len(grads_f), "grad_leaves_differ": differ,
+          "launches_full": launch_f, "launches_dots": launch_d,
+          "saved_products": saved,
+          "routes_dots": {f"{op}/{r}": n for (op, r), n in routes_d.items()},
+          "peak_full": peak_f, "peak_dots": peak_d,
+          "seconds": time.time() - t0})
+    if not torch.equal(loss_f, loss_d) or differ:
+        raise AssertionError(f"remat_dots: loss {float(loss_f)} / "
+                             f"{float(loss_d)}, gradient leaves {differ} "
+                             "differ")
+    if launch_f["matmul"] - launch_d["matmul"] != saved or any(
+            launch_f[op] != launch_d[op] for op in
+            ("flash_attention", "flash_attention_bwd")):
+        raise AssertionError(f"remat_dots: launches {launch_f} (full), "
+                             f"{launch_d} (dots); {saved} saved products")
+    if routes_d.get(("matmul", "saved")) != saved or any(
+            r == "plain" for _, r in routes_d) or any(
+            r == "plain" for _, r in routes_f):
+        raise AssertionError(f"remat_dots: routes {routes_d}")
+    del params, flat, grads_f, grads_d, runs
+    release(torch)
+    return launch_d
+
+
+def page_pick_phase(torch, empty_cache: Path) -> dict:
+    """Phase 3g (item 15c).  A plan file written by hand with two
+    ``decode_attention`` entries under this card's key at pages 32 and 64
+    (gemma-2b's decode table at 256 positions, each with the plan its
+    heuristic gives), the page-32 entry the faster; the serve CLI at
+    ``--page-size 0`` under it, on full-width gemma-2b cut to
+    PAGE_PICK_LAYERS layers, paged, phase 3's traffic: it must run at
+    page 32 on B1, B2 and B3 alone (no plain route), with streams
+    bit-equal to a ``--page-size 32`` run under the empty cache; under
+    the empty cache ``--page-size 0`` runs at 64.  The empty cache is
+    restored (and preloaded) afterwards.  Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.attention.decode import decode_split_plan
+    from repro_torch.launch import serve
+    from repro_torch.tune import PlanCache, cache as tune_cache, preload
+    t0 = time.time()
+    cfg = dataclasses.replace(get_arch("gemma-2b"),
+                              n_layers=PAGE_PICK_LAYERS)
+    max_len = int(SERVE_ARGS[SERVE_ARGS.index("--max-len") + 1])
+    plans = PlanCache(empty_cache.parent / "page_pick_plans.json")
+    card = torch.cuda.get_device_name(0)
+    for page, us in PAGE_PICK_US.items():
+        shape = (max_len // page, page, cfg.n_kv_heads)
+        plans.put("decode_attention", shape, torch.bfloat16,
+                  {"split_keys": decode_split_plan(*shape)[0]},
+                  backend=card, us=us)
+    plans.save()
+    launches = Counter()
+    runs = {}
+    try:
+        with mock.patch.object(serve, "get_arch", lambda name: cfg):
+            for label, path, page in (("picked", plans.path, "0"),
+                                      ("explicit", empty_cache, "32"),
+                                      ("default", empty_cache, "0")):
+                os.environ[tune_cache.ENV] = str(path)
+                preload()
+                rep, streams, got = serve_run(
+                    torch, f"page_pick {label}",
+                    SERVE_ARGS + ["--page-size", page], FLOAT_PATH)
+                runs[label] = (rep["page_size"], streams)
+                launches.update(got)
+    finally:
+        os.environ[tune_cache.ENV] = str(empty_cache)
+        preload()
+    picked = tune_cache.default_cache().path == empty_cache
+    emit({"phase": "page_pick", "arch": cfg.name, "layers": cfg.n_layers,
+          "card_key": card, "plan_us": PAGE_PICK_US,
+          "page_sizes": {k: v[0] for k, v in runs.items()},
+          "streams_equal": runs["picked"][1] == runs["explicit"][1],
+          "empty_cache_restored": picked, "seconds": time.time() - t0})
+    if (runs["picked"][0], runs["explicit"][0], runs["default"][0]) \
+            != (32, 32, serve.DEFAULT_PAGE_SIZE):
+        raise AssertionError(f"page_pick: page sizes "
+                             f"{[v[0] for v in runs.values()]}")
+    if runs["picked"][1] != runs["explicit"][1]:
+        raise AssertionError("page_pick: streams at the picked page differ "
+                             "from the explicit --page-size 32 run")
+    if not picked:
+        raise AssertionError("page_pick: the empty cache was not restored")
+    return dict(launches)
+
+
+def examples_phase(torch) -> dict:
+    """Phase 7b (item 16).  ``examples_torch/quickstart.py`` and
+    ``stencil_pipeline.py`` in this process on the card, their launch
+    counts set to 0 just before: B1 launches (quickstart's T3 matmul),
+    B9 too (one launch a sweep), every error within the kernels'
+    tolerances.  Returns the launches."""
+    import importlib.util
+    from repro_torch.kernels import dispatch
+    t0 = time.time()
+    out = {}
+    dispatch.reset_launch_counts()
+    for name in ("quickstart", "stencil_pipeline"):
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        out[name] = module.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in dispatch.launch_counts().items() if n}
+    emit({"phase": "examples", "quickstart_errors":
+          out["quickstart"]["errors"], "stencil_errors": {
+              str(k): v for k, v in out["stencil_pipeline"]["errors"].items()},
+          "launches": launches, "seconds": time.time() - t0})
+    if launches != {"matmul": 1, "stencil": 5}:
+        raise AssertionError(f"examples: launches {launches}")
+    # T3 is B1 in bf16 against the fp32 product of 256 terms; the stencil
+    # against its plain version in fp32
+    if out["quickstart"]["errors"]["T3_REPLICATED"] > TOL["bfloat16"] * 16 \
+            or max(out["stencil_pipeline"]["errors"].values()) \
+            > TOL["float32"]:
+        raise AssertionError(f"examples: errors {out}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -4713,11 +5061,13 @@ def run_phases(torch, args, smi: str, empty_cache: Path) -> int:
         rows += check(torch)
         torch.cuda.empty_cache()
     tune_launches = tune_phase(torch, empty_cache)
+    dryrun_phase(torch, smi)
 
     launches, base_streams, base_runs = serve_phase(torch)
     torch.cuda.empty_cache()
     for phase_launches in (dense_serve_phase(torch),
-                           spec_serve_phase(torch, base_streams)):
+                           spec_serve_phase(torch, base_streams),
+                           page_pick_phase(torch, empty_cache)):
         for op, n in phase_launches.items():
             launches[op] = launches.get(op, 0) + n
         torch.cuda.empty_cache()
@@ -4759,6 +5109,9 @@ def run_phases(torch, args, smi: str, empty_cache: Path) -> int:
         release(torch)
         train_parity_phase(torch, phase + "_parity", cfg)
         release(torch)
+    train_accounting_phase(torch, smi)
+    for op, n in remat_dots_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
     for arch in EMBED_TRAIN_ARCHS:
         # their checkpoints patched out for phase 6e's time (gemma-2b's
         # and qwen2-moe's runs still write one each)
@@ -4794,6 +5147,8 @@ def run_phases(torch, args, smi: str, empty_cache: Path) -> int:
     torch.cuda.empty_cache()
     library_inputs_phase(torch)
     torch.cuda.empty_cache()
+    for op, n in examples_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
     for op, n in tune_launches.items():
         launches[op] = launches.get(op, 0) + n
 

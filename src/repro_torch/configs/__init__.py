@@ -1,4 +1,5 @@
-from .base import ArchConfig, LayerKind  # noqa: F401
+from .base import (ArchConfig, LayerKind, SHAPES, ShapeSpec,  # noqa: F401
+                   input_specs, shape_applicable)
 from .archs import ARCHS  # noqa: F401
 
 

@@ -1,13 +1,17 @@
 """ArchConfig: one declarative description drives model build, smoke
-reduction and serving-cache layout.
+reduction and serving-cache layout; ShapeSpec: the dry run's input
+shapes.
 
-A field-for-field copy of ``repro.configs.base.ArchConfig``: that module
-imports JAX, and this package must import without it.
+A field-for-field copy of ``repro.configs.base``: that module imports
+JAX, and this package must import without it.  ``input_specs`` returns
+``meta`` tensors where JAX returns ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
+
+import torch
 
 # layer descriptor: (mixer, ffn)
 #   mixer in {"attn", "swa", "rwkv", "rglru"}
@@ -112,3 +116,67 @@ class ArchConfig:
             mrope_sections=(4, 6, 6) if self.mrope_sections else (),
         )
         return cfg.with_layers(small_kinds + small_kinds[:1])  # >=2 layers
+
+    # ------------------------------------------------------------------
+    # parameter accounting (exact; from the meta param tree)
+    # ------------------------------------------------------------------
+    def param_counts(self) -> Dict[str, float]:
+        from ..models import transformer as tfm  # lazy, avoids the cycle
+        return tfm.param_counts(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch          # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """The dry run's skips: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: 500k-token KV footprint is "
+                       "quadratic-history; skipped per assignment "
+                       "(see DESIGN.md §Arch-applicability)")
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                compute_dtype: torch.dtype = torch.bfloat16
+                ) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input (nothing is allocated).
+
+    train/prefill -> token (or stub-embedding) batch + labels;
+    decode        -> one new token per sequence (the cache's specs come
+                     from the model, ``Model.cache_specs``).
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    n = s if shape.kind in ("train", "prefill") else 1
+    if cfg.input_mode == "embeddings":
+        batch = {"embeddings": meta((b, n, cfg.d_model), compute_dtype)}
+    else:
+        batch = {"tokens": meta((b, n), torch.int32)}
+    if shape.kind == "train":
+        batch["labels"] = meta((b, s), torch.int32)
+    if cfg.mrope_sections:
+        batch["positions"] = meta((b, n, len(cfg.mrope_sections)),
+                                  torch.int32)
+    return batch

@@ -2,7 +2,8 @@
 
 Everything runs on the CUDA card unless the caller asks for the CPU by
 name.  With no card and no explicit CPU request the entry points raise:
-they never fall back to the CPU quietly.
+they never fall back to the CPU quietly.  ``meta`` holds shapes and
+dtypes only: the dry run (``launch/dryrun.py``) runs the step there.
 """
 from __future__ import annotations
 
@@ -19,6 +20,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (or --device "
             "cpu) to run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -5,7 +5,9 @@ library's public ops (``kernels.{wkv,stencil,nbody,histogram}``) share.
 The route is chosen by the device of the tensors and by nothing else: a
 CPU tensor takes the kernel's plain PyTorch version, a CUDA tensor takes
 the hand-written CUDA kernel (whose wrapper raises on what it does not
-take; there is no fallback).  Each call ticks an ``(op, route)`` counter,
+take; there is no fallback).  A ``meta`` tensor (the dry run) takes the
+plain route too, but flash attention's there is ``attention.meta``'s
+ops, which hold what the kernels hold.  Each call ticks an ``(op, route)`` counter,
 route "kernel" or "plain", so a run can show which path it took;
 ``stats_scope`` isolates the counters for a probe.  Every kernel wrapper
 also counts its launches (``launch_counts``); the flash forward and
@@ -46,10 +48,22 @@ as they are when x, w and the gradient are all bf16, else in fp32;
 backward kernel), so the CPU tests walk the control flow and counters
 the card does.  B1's grouped route also counts its launches by route
 (``wgmma``, ``wgmma_short``, ``simt``).
+
+A layer rematerialized under ``remat_policy="dots"`` (JAX's
+``dots_with_no_batch_dims_saveable``) runs inside a :class:`RematTape`
+(``remat_contexts``): the layer's forward keeps the output of every
+``matmul`` call whose output its backward reads (``saveable``: all but
+a down projection, whose output only enters the residual sum), and its
+recompute returns those outputs in call order instead of launching the
+product again, counted as route ``saved``.  The grouped expert
+contraction (a batch dimension) and attention are recomputed, as in
+JAX.  ``torch.utils.checkpoint``'s selective policy cannot do this: it
+sees ATen ops, not the ctypes launch inside ``_Matmul``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -60,6 +74,7 @@ from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
                         flash_attention_bwd_plain, flash_attention_cuda,
                         flash_attention_plain, prefill_attention_cuda,
                         prefill_attention_int8_cuda, prefill_attention_plain)
+from .attention.meta import flash_attention_bwd_meta, flash_attention_meta
 from .matmul import (grouped_matmul_cuda, grouped_matmul_plain, matmul_cuda,
                      matmul_plain, quantized_matmul_cuda,
                      quantized_matmul_plain)
@@ -155,19 +170,69 @@ def _grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return matmul_plain(a, b)
 
 
+class RematTape:
+    """The saved ``matmul`` outputs of one layer call under
+    ``remat_policy="dots"``, in call order: filled by the layer's
+    forward, read back by its recompute."""
+
+    def __init__(self):
+        self.outputs: List[torch.Tensor] = []
+        self.replaying = False
+        self.next = 0
+
+    def take(self) -> torch.Tensor:
+        out = self.outputs[self.next]
+        self.next += 1
+        return out
+
+
+_tape: Optional[RematTape] = None
+
+
+@contextlib.contextmanager
+def _taping(tape: RematTape, replay: bool) -> Iterator[None]:
+    global _tape
+    prev, _tape = _tape, tape
+    tape.replaying, tape.next = replay, 0
+    try:
+        yield
+    finally:
+        _tape = prev
+
+
+def remat_contexts(tape: Optional[RematTape] = None
+                   ) -> Tuple[contextlib.AbstractContextManager,
+                              contextlib.AbstractContextManager]:
+    """``torch.utils.checkpoint``'s ``context_fn`` for one layer call
+    under ``remat_policy="dots"``: (the forward's context, which keeps
+    the saveable ``matmul`` outputs in ``tape`` (default a new one); the
+    recompute's, which returns them)."""
+    tape = RematTape() if tape is None else tape
+    return _taping(tape, False), _taping(tape, True)
+
+
 class _Matmul(torch.autograd.Function):
     """a (M, K) @ b (K, N) with the JAX op's custom VJP
     (``repro/kernels/matmul/ops.py::_matmul_vjp_bwd``): both gradient
     GEMMs run in fp32 through the device's route, dx = g @ b.T (b.T read
     through its strides) and db = a.T @ g (a.T made contiguous, as B1's
-    A operand must be), each cast back to its primal dtype."""
+    A operand must be), each cast back to its primal dtype.  Inside a
+    ``RematTape`` a ``saveable`` call's output is kept by the forward and
+    returned by the recompute (route ``saved``: no launch)."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, saveable):
         a = a.contiguous()
         ctx.save_for_backward(a, b)
-        return _b1("matmul", a, b) if _on_card("matmul", a) \
+        tape = _tape if saveable else None
+        if tape is not None and tape.replaying:
+            registry.count_route("matmul", "saved")
+            return tape.take()
+        out = _b1("matmul", a, b) if _on_card("matmul", a) \
             else matmul_plain(a, b)
+        if tape is not None:
+            tape.outputs.append(out.detach())
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -178,19 +243,21 @@ class _Matmul(torch.autograd.Function):
             da = _grad_gemm(g, b.float().T).to(a.dtype)
         if ctx.needs_input_grad[1]:
             db = _grad_gemm(a.float().T.contiguous(), g).to(b.dtype)
-        return da, db
+        return da, db, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
-           tp: Optional[str] = None) -> torch.Tensor:
+           tp: Optional[str] = None, saveable: bool = True) -> torch.Tensor:
     """Contract the last axis of ``x`` with the first axis of ``w``.
 
     x: (..., K); w: (K, N1[, N2, ...]).  Returns x.shape[:-1] + w.shape[1:]
     in the promoted input dtype; differentiable in both.  ``tp`` tags the
     call's tensor-parallel contract ("col": output channels local, no
-    collective; "row": contraction sharded, psum of the output)."""
+    collective; "row": contraction sharded, psum of the output).
+    ``saveable``: whether a ``dots`` remat keeps the output (False for a
+    product whose output the backward never reads)."""
     k = x.shape[-1]
-    out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1))
+    out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1), saveable)
     return _tp_complete("matmul", out.reshape(x.shape[:-1] + w.shape[1:]),
                         tp)
 
@@ -261,13 +328,15 @@ class _Attention(torch.autograd.Function):
     (``repro/kernels/attention/ops.py::_attention_vjp_fwd`` / ``_bwd``):
     the forward keeps (q, k, v, o, lse) in (B, H, S, hd) layout, the
     backward recomputes P tiles from lse in the fused backward on the
-    fp32 cotangent and casts the gradients to the primal dtypes."""
+    fp32 cotangent and casts the gradients to the primal dtypes.  On
+    ``meta`` (the dry run) both take ``attention.meta``'s ops, which hold
+    what the kernels hold, not the plain versions' dense scores."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, out_dtype):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         fn = flash_attention_cuda if _on_card("attention", q) \
-            else flash_attention_plain
+            else flash_attention_meta if q.is_meta else flash_attention_plain
         o, lse = fn(qt, kt, vt, causal=causal, window=window,
                     return_lse=True)
         ctx.save_for_backward(qt, kt, vt, o, lse)
@@ -281,6 +350,7 @@ class _Attention(torch.autograd.Function):
         causal, window = ctx.mask
         gt = g.transpose(1, 2).float().contiguous()
         fn = flash_attention_bwd_cuda if _on_card("attention_bwd", g) \
+            else flash_attention_bwd_meta if g.is_meta \
             else flash_attention_bwd_plain
         grads = fn(qt, kt, vt, o, lse, gt, causal=causal, window=window)
         dq, dk, dv = (d.transpose(1, 2).to(t.dtype)

@@ -24,6 +24,12 @@ one-device ``shard_map`` does.  ``make_host_mesh`` alone, in a process
 that runs alone, builds no process group at all: its groups are local
 (``Group.local``) and shard nothing, which is what the train CLI runs
 on one process.
+
+``make_production_mesh`` gives the dry run's meshes (JAX's shapes:
+data 16 x model 16, or pod 2 x data 16 x model 16) as an
+:class:`AbstractMesh`: axes and sizes seen from rank 0, with no process
+group; its groups record their collectives
+(``runtime.collectives.RecordingGroup``) and its device is ``meta``.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import DeviceLike, resolve_device
-from ..runtime.collectives import Group
+from ..runtime.collectives import Group, RecordingGroup
 
 TIMEOUT = datetime.timedelta(minutes=3)
 
@@ -135,6 +141,41 @@ class Mesh:
         return (f"Mesh(shape={self.shape}, rank={self.rank}, "
                 f"coords={self.coords}, device={self.device}, "
                 f"backend={self.backend})")
+
+
+class AbstractMesh(Mesh):
+    """A mesh of ``shape`` over ``axes`` with no ranks behind it, seen
+    from rank 0 (every coordinate 0): ``MeshRules`` read its sizes, and
+    its groups (``RecordingGroup``s over rank 0's slices) record the
+    collectives a step asks for.  Its device is ``meta``."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        shape = tuple(int(n) for n in shape)
+        self.axes = tuple(axes)
+        self.shape = dict(zip(self.axes, shape))
+        self.size = math.prod(shape)
+        self.device = torch.device("meta")
+        self.backend = "abstract"
+        self.shares_device = False
+        self.rank = 0
+        self.coords = {a: 0 for a in self.axes}
+        self._groups = {}
+        all_ranks = torch.arange(self.size).reshape(shape)
+        for k in range(1, len(self.axes) + 1):
+            for sub in itertools.combinations(range(len(self.axes)), k):
+                rest = [i for i in range(len(self.axes)) if i not in sub]
+                ranks = all_ranks.permute(*rest, *sub).reshape(
+                    -1, math.prod(shape[i] for i in sub))[0].tolist()
+                self._groups[tuple(self.axes[i] for i in sub)] = \
+                    RecordingGroup(ranks)
+
+
+def make_production_mesh(multi_pod: bool = False) -> AbstractMesh:
+    """The dry run's production mesh, JAX's shapes: (data 16, model 16),
+    or with ``multi_pod`` (pod 2, data 16, model 16)."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,

@@ -48,13 +48,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import get_arch
 from ..core.memory import DtypePolicy
+from ..core.quant import kv_dtype_of
 from ..kernels import dispatch
 from ..models.transformer import Model, paged_supported
 from ..runtime import tp as tp_mod
@@ -63,6 +64,43 @@ from .prefix import PrefixCache
 from .speculative import accept_longest_prefix, make_drafter
 
 DEFAULT_PAGE_SIZE = 64
+
+
+def pick_page_size(backend: Optional[str] = None, *,
+                   hkv: Optional[int] = None, dtype: Any = None,
+                   max_len: Optional[int] = None) -> int:
+    """The pool layout from the tuned decode plans (the layout is a
+    tunable, §3.4): among the plan cache's ``decode_attention`` entries
+    for this card (``backend``: its name, as the cache keys hold it;
+    default the current card, or ``cpu``), the page size of the lowest
+    ``us``; ``DEFAULT_PAGE_SIZE`` when nothing was tuned.  The port's
+    decode key holds the page in its shape (n_pages, page, Hkv), so the
+    page is read from the key.  ``hkv``, ``dtype`` (the pools') and
+    ``max_len`` (a table of ``ceil(max_len / page)`` pages) keep only the
+    entries of the problem being served, so that timings of different
+    sizes are not compared; the JAX package's pick, with none of them
+    given, compares every entry."""
+    from ..tune import cache as tune_cache
+    cache = tune_cache.default_cache()
+    backend = tune_cache._backend_name(backend)
+    dtype = None if dtype is None else tune_cache._dtype_name(dtype)
+    best_us, best_page = float("inf"), 0
+    for key, entry in cache.entries.items():
+        try:
+            kernel, shape, kd, kb = tune_cache.parse_key(key)
+        except ValueError:
+            continue
+        if kernel != "decode_attention" or kb != backend or len(shape) != 3:
+            continue
+        n_pages, page, key_hkv = shape
+        if not page or (hkv is not None and key_hkv != hkv) \
+                or (dtype is not None and kd != dtype) \
+                or (max_len is not None and n_pages != -(-max_len // page)):
+            continue
+        us = entry.get("us", float("inf"))
+        if us < best_us:
+            best_us, best_page = us, page
+    return best_page or DEFAULT_PAGE_SIZE
 
 
 def _silent(*args, **kwargs) -> None:
@@ -312,7 +350,12 @@ class PagedScheduler:
         self.slots = slots
         self.max_len = max_len
         self.log = log or (lambda *a, **k: None)
-        self.page = page_size or model.cfg.kv_page_size or DEFAULT_PAGE_SIZE
+        # the rank's pools: Hkv / tp heads where they shard
+        hkv = model.cfg.n_kv_heads // (
+            self.tp if tp_mod.kv_sharded(model.cfg, self.tp) else 1)
+        self.page = page_size or model.cfg.kv_page_size or pick_page_size(
+            hkv=hkv, dtype=kv_dtype_of(model.cfg.kv_dtype, model.dt.compute),
+            max_len=max_len)
         self.n_slot_pages = -(-max_len // self.page)
         total = total_pages or 1 + slots * self.n_slot_pages
         self.alloc = PageAllocator(total)
@@ -904,7 +947,9 @@ def main(argv=None) -> Dict:
                     help="KV-cache layout: a dense rectangle (prompts "
                          "teacher-forced through decode at one shared "
                          "position) or the paged pool")
-    ap.add_argument("--page-size", type=int, default=DEFAULT_PAGE_SIZE)
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="paged layout page size; 0 = pick from the tuned "
+                         "decode plans (fallback %d)" % DEFAULT_PAGE_SIZE)
     ap.add_argument("--total-pages", type=int, default=0,
                     help="page-pool size; 0 = full capacity "
                          "(slots x max_len); smaller oversubscribes")
@@ -987,6 +1032,8 @@ def main(argv=None) -> Dict:
         say(f"[mesh] model={args.mesh} ranks={mesh.size} "
             f"backend={mesh.backend} device={mesh.device}")
 
+    from ..tune.cache import preload as preload_tuned
+    preload_tuned(log=say)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -1150,6 +1197,7 @@ def main(argv=None) -> Dict:
             "phases": phases, "prefix": prefix, "dense": dense,
             "spec": spec, "max_resident_kv_bytes": max_kv_bytes,
             "tp": server.tp if args.cache == "paged" else 0,
+            "page_size": server.page if args.cache == "paged" else 0,
             "tp_routes": dispatch.tp_stats()}
 
 

@@ -13,7 +13,9 @@ fused recompute backward; every projection, MoE router and the head run
 the matmul kernel forward and backward, and the MoE experts its grouped
 route; every RWKV time mix runs the WKV kernel forward and the WKV
 backward kernel.  Routing is by device (``--device``, default
-``cuda``): there is no ``--dispatch`` mode and no tuned-plan preload.
+``cuda``): there is no ``--dispatch`` mode.  At start the CLI reloads
+the tuned-plan cache (``tune.cache.preload``), so the first step already
+runs the kernels at their tuned plans.
 
 The state is laid out on the host mesh as the JAX CLI lays it out:
 ``make_host_mesh()`` over the ranks that run (one by default; ``torchrun
@@ -61,6 +63,7 @@ from ..runtime.fault_tolerance import FailureInjector, Supervisor
 from ..runtime.sharding import (make_rules, shard_state, train_sharding,
                                 tree_specs)
 from ..train.steps import TrainStepConfig, init_train_state, make_train_step
+from ..tune.cache import preload as preload_tuned
 from .mesh import in_turn, make_host_mesh
 
 
@@ -118,6 +121,7 @@ def main(argv=None, report: Optional[Dict] = None) -> List[float]:
     rules = make_rules(mesh, fsdp=True)
     device = mesh.device
     say = print if mesh.rank == 0 else _silent
+    preload_tuned(log=say)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()

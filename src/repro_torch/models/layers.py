@@ -148,14 +148,15 @@ def quantize_weight(w: torch.Tensor, n_lead: int,
 
 
 def project(x: torch.Tensor, w: Weight, weights_dtype: str = "", *,
-            tp: Optional[str] = None) -> torch.Tensor:
+            tp: Optional[str] = None, saveable: bool = True
+            ) -> torch.Tensor:
     """Contract x (..., K) with a weight (K, ...) at the configured weight
     dtype.  ``"int8"`` takes a ``quantize_weight`` dict and routes through
     ``dispatch.quantized_matmul`` (the fp32 result cast back to x's
     dtype, as the JAX package does); "" takes a float weight.  ``tp``
     names the op's tensor-parallel contract ("col"/"row"), inert outside
     a ``dispatch.tp_scope``; a "row" shard's int8 partials are summed in
-    fp32, before the cast."""
+    fp32, before the cast.  ``saveable`` as in ``dispatch.matmul``."""
     if weights_dtype == "int8":
         if not isinstance(w, dict):
             raise TypeError("weights_dtype='int8' needs weights quantized "
@@ -167,7 +168,7 @@ def project(x: torch.Tensor, w: Weight, weights_dtype: str = "", *,
     if weights_dtype:
         raise ValueError(f"weights_dtype {weights_dtype!r} is not supported "
                          "(float '' or 'int8')")
-    return dispatch.matmul(x, w, tp=tp)
+    return dispatch.matmul(x, w, tp=tp, saveable=saveable)
 
 
 def _cast(w: Weight, dtype: torch.dtype) -> Weight:
@@ -499,12 +500,13 @@ def mlp_apply(p: Params, x: torch.Tensor, activation: str,
     projection row-parallel (the block's psum).  A MoE layer's shared MLP
     stays replicated under tensor parallelism and passes ``tagged=False``
     (the JAX package tags it too, so its sharded serving would sum the
-    replicated shared MLP once a shard)."""
+    replicated shared MLP once a shard).  The down projection's output
+    only enters a sum, so a ``dots`` remat does not keep it."""
     cdt = dt.compute
 
     def mm(h, name, tp="col"):
         return project(h, _cast(p[name], cdt), weights_dtype,
-                       tp=tp if tagged else None)
+                       tp=tp if tagged else None, saveable=name != "wd")
     if activation in ("swiglu", "geglu"):
         g = mm(x, "wg")
         u = mm(x, "wu")

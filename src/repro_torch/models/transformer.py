@@ -25,13 +25,16 @@ Params are a nested dict with the JAX tree's keys and nesting
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
+import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig, LayerKind
+from ..core import tree as tree_mod
 from ..core.device import DeviceLike, resolve_device
 from ..core.memory import BF16_POLICY, DtypePolicy
 from ..core.quant import kv_dtype_of
@@ -48,7 +51,9 @@ class ExecOptions:
     block_kv: int = 512
     remat: bool = True
     # "full" recomputes every layer in the backward (JAX's
-    # nothing_saveable); "dots" (save matmul outputs) is not ported yet
+    # nothing_saveable); "dots" keeps the outputs of the layer's
+    # dispatch.matmul products that its backward reads and recomputes the
+    # rest (JAX's dots_with_no_batch_dims_saveable; dispatch.RematTape)
     remat_policy: str = "full"
     attn_impl: str = "blockwise"   # blockwise | naive
     # sequence tiles for the head matmul + xent (§3.4)
@@ -438,17 +443,28 @@ class Model:
     def init(self, seed: int) -> Params:
         """Random params from a seeded ``torch.Generator`` on the model's
         device, in the policy's param dtype (each layer cast as it is
-        drawn, so the fp32 draws of a whole model never coexist)."""
+        drawn, so the fp32 draws of a whole model never coexist); the
+        final norm stays fp32, as in the JAX package."""
+        return self._init_tree(
+            torch.Generator(device=self.device).manual_seed(seed))
+
+    def param_specs(self) -> Params:
+        """The params tree on ``meta``: ``init``'s keys, nesting, shapes
+        and dtypes, with nothing allocated and nothing drawn (JAX's
+        ``jax.eval_shape(init)``)."""
+        return Model(self.cfg, self.dt, "meta", self.opts)._init_tree(
+            _ShapeGenerator())
+
+    def _init_tree(self, gen: torch.Generator) -> Params:
         cfg, lay, pdt = self.cfg, self.layout, self.dt.param
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         params: Params = {
-            "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model)),
-            "final_norm": layers.rmsnorm_init(cfg.d_model, (), self.device),
+            "embed": layers.embed_init(
+                gen, (cfg.vocab_size, cfg.d_model)).to(pdt),
+            "final_norm": layers.rmsnorm_init(cfg.d_model, (), gen.device),
         }
         if not cfg.tie_embeddings:
             params["head"] = layers.dense_init(
-                gen, (cfg.d_model, cfg.vocab_size), cfg.d_model)
-        params = _cast(params, pdt)
+                gen, (cfg.d_model, cfg.vocab_size), cfg.d_model).to(pdt)
 
         def init(kind, lead=()):
             return layer_init(gen, cfg, kind, lead, pdt,
@@ -518,6 +534,20 @@ class Model:
         return zip(self._walk(params), self.cfg.layer_kinds(),
                    self._walk(cache))
 
+    def _layer_specs(self) -> Iterator[Any]:
+        """Under ``opts.sharding``, each layer's spec tree in execution
+        order (a stacked period's without its period axis); else None
+        for every layer."""
+        shd, lay = self.opts.sharding, self.layout
+        if shd is None:
+            yield from itertools.repeat(None, self.cfg.n_layers)
+            return
+        yield from shd.specs["prefix"]
+        for _ in range(lay.n_periods):
+            for j in range(len(lay.period)):
+                yield _unstacked(shd.specs["stack"][j])
+        yield from shd.specs["tail"]
+
     def _require_tokens(self, what: str) -> None:
         """The paged prefill and verify forwards' refusal of
         embedding-input archs: the JAX package embeds their tokens."""
@@ -553,17 +583,17 @@ class Model:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every layer in order; with ``opts.remat`` each layer is
         recomputed in the backward (``torch.utils.checkpoint``, as the
-        JAX package's per-layer ``jax.checkpoint``).  Returns (x, the
+        JAX package's per-layer ``jax.checkpoint``); under
+        ``remat_policy="dots"`` the recompute takes the layer's saved
+        products from its ``dispatch.RematTape``.  Returns (x, the
         layers' aux losses summed in layer order)."""
         cfg, dt, opts, lay = self.cfg, self.dt, self.opts, self.layout
-        if opts.remat and opts.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' (save the matmul outputs) is not "
-                "ported yet; use 'full'")
 
         auxes = []
         sharded = opts.sharding is not None
         specs = opts.sharding.specs if sharded else None
+        extra = {"context_fn": dispatch.remat_contexts} \
+            if opts.remat_policy == "dots" else {}
 
         def one(p, kind, x, spec):
             fn, args = layer_apply, (p, cfg, kind, x, positions, dt, opts)
@@ -571,7 +601,7 @@ class Model:
                 fn, args = _gathered_layer, (p, spec) + args[1:]
             if opts.remat:
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    fn, *args, use_reentrant=False)
+                    fn, *args, use_reentrant=False, **extra)
             else:
                 x, aux = fn(*args)
             if aux is not None:
@@ -729,7 +759,11 @@ class Model:
         ``positions`` (B, 1, 3) int are an M-RoPE arch's rotary positions
         (ignored by other archs, as in the JAX package).  Left out, every
         axis takes the slot's decode position: what the JAX package's
-        servers feed."""
+        servers feed.
+
+        Under ``opts.sharding`` (the dry run's layout) ``params`` are this
+        rank's shards and each layer's are gathered at its use, as in
+        ``loss_fn``; the cache holds this rank's rows."""
         if (paged is None) == (pos is None):
             raise ValueError("decode_step takes pos= (dense cache) or "
                              "paged= (page pools), exactly one")
@@ -740,6 +774,7 @@ class Model:
         if given is None:
             raise ValueError(f"decode_step: arch {cfg.name} takes "
                              f"{cfg.input_mode}")
+        params = self._gather_top(params)
         x = self._embed(params, {cfg.input_mode: given})
         if not cfg.mrope_sections:
             positions = None
@@ -748,7 +783,11 @@ class Model:
                 (x.shape[0],), int(pos), dtype=torch.int32, device=x.device)
             positions = self._mrope_override(at, 1)
         views = {}      # the dense caches' page tables, one a cap a step
-        for p, kind, c in self._layers(params, cache):
+        for (p, kind, c), spec in zip(self._layers(params, cache),
+                                      self._layer_specs()):
+            if spec is not None:
+                p = self.opts.sharding.gather_tree(
+                    p, spec, keep_experts=self.opts.moe_mesh is not None)
             pages = None
             if paged is None and "k" in c:
                 b, cap = c["k"].shape[:2]
@@ -800,6 +839,12 @@ class Model:
                 if lay.n_periods else [],
                 "tail": [caches(k) for k in lay.tail]}
 
+    def cache_specs(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """``init_cache``'s tree on ``meta`` (JAX's
+        ``jax.eval_shape(init_cache)``)."""
+        return Model(self.cfg, self.dt, "meta", self.opts).init_cache(
+            batch, max_len)
+
     def leading_layers(self, params: Params, n: int) -> List[Params]:
         """The params of the first ``n`` layers in execution order (views
         into stacked periods)."""
@@ -807,6 +852,44 @@ class Model:
             raise ValueError(f"{self.cfg.name} has {self.cfg.n_layers} "
                              f"layers, not {n}")
         return list(itertools.islice(self._walk(params), n))
+
+
+class _ShapeGenerator(torch.Generator):
+    """A generator that says it lives on ``meta``: the init functions
+    allocate on ``gen.device`` and draw with ``gen``, and a draw into a
+    ``meta`` tensor records its shape and draws nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+# --------------------------------------------------------------------------
+# parameter accounting
+# --------------------------------------------------------------------------
+
+def param_counts(cfg: ArchConfig) -> Dict[str, float]:
+    """Exact counts from the ``meta`` param tree, with the JAX package's
+    MODEL_FLOPS conventions: ``n_flops`` (N of 6*N*D) leaves out the
+    gather-only input table and counts the LM head's matmul once, even
+    when tied; ``n_active`` leaves out the experts a token does not
+    reach."""
+    return dict(_param_counts(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_counts(cfg: ArchConfig) -> Dict[str, float]:
+    specs = Model(cfg, device="meta").param_specs()
+    total = sum(math.prod(leaf.shape) for leaf in tree_mod.leaves(specs))
+    embed = cfg.vocab_size * cfg.d_model
+    n_flops = total - (0 if cfg.tie_embeddings else embed)
+    n_active = n_flops
+    if cfg.n_experts:
+        per_total, per_active = moe.moe_param_count(_moe_spec(cfg))
+        n_moe_layers = sum(1 for k in cfg.layer_kinds() if k[1] == "moe")
+        n_active = n_flops - n_moe_layers * (per_total - per_active)
+    return {"total": total, "embed": embed,
+            "n_flops": n_flops, "n_active": n_active}
 
 
 def _cast(tree, dtype: torch.dtype):

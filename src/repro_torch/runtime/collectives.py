@@ -19,6 +19,15 @@ A group without a process group (``pg`` None: the one-rank mesh that
 one member, and its collectives return their input.  Every collective
 that reaches ``torch.distributed`` is counted (``collective_counts``).
 
+A :class:`RecordingGroup` is a group of an abstract mesh
+(``launch/mesh.AbstractMesh``, the dry run's production mesh): no
+process group and no wire.  It records each collective that would reach
+the wire (``recording``) and returns tensors of the result's shape on
+the input's device (``meta`` in the dry run).  The composed collectives
+keep their composition, so the record holds what the port moves:
+``psum`` is an all-gather (then the sum in rank order, done locally),
+``reduce_scatter`` an all-to-all of the whole buffer.
+
 Which backend a group runs on is the mesh's rule (NCCL when every rank
 has a card of its own, gloo on the CPU or when ranks share a card), and
 one more rule follows from it: under gloo a CUDA tensor is staged
@@ -46,8 +55,9 @@ alike from replicated values:
 """
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -198,6 +208,71 @@ class Group:
         out: List[Any] = [None] * self.size
         dist.all_gather_object(out, obj, group=self.pg)
         return out
+
+
+# (op, operand bytes, group size) of each collective a RecordingGroup was
+# asked for inside ``recording()``
+_records: Optional[List[Tuple[str, int, int]]] = None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[Tuple[str, int, int]]]:
+    """The collectives of every ``RecordingGroup`` inside the block, in
+    call order: (op, operand bytes, group size) in
+    ``roofline.analysis.CollectiveOp``'s convention (an all-gather's
+    bytes are its result's)."""
+    global _records
+    prev, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = prev
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class RecordingGroup(Group):
+    """A group of an abstract mesh, seen from rank 0 (``index`` 0): its
+    tensor collectives move nothing, record themselves (``recording``)
+    and return new tensors of the result's shape and dtype on the input's
+    device; the host-value ones (``broadcast_float``, ``barrier``,
+    ``all_gather_object``) have no ranks to reach and are not
+    supported.  A one-member group records nothing."""
+
+    def __init__(self, ranks: List[int]):
+        super().__init__(None, ranks, 0, "abstract")
+
+    @property
+    def local(self) -> bool:
+        return self.size == 1
+
+    def _record(self, op: str, nbytes: int) -> None:
+        if _records is not None:
+            _records.append((op, int(nbytes), self.size))
+
+    def _gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        if self.local:
+            return [t.detach()]
+        src = t.detach().contiguous()
+        self._record("all-gather", _nbytes(src) * self.size)
+        return [torch.empty_like(src) for _ in range(self.size)]
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
+                             f"not split into {self.size} blocks")
+        if self.local:
+            return t.detach()
+        self._record("all-to-all", _nbytes(t))
+        return torch.empty_like(t.detach().contiguous())
+
+    def ppermute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        if self.local:
+            return t.detach()
+        self._record("collective-permute", _nbytes(t))
+        return torch.empty_like(t.detach().contiguous())
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,10 @@ moments and residual are this rank's shards and the batch its rows: the
 loss runs gather-at-use (``ExecOptions.sharding``), so every
 microbatch's gradients arrive in the stored layout, as JAX constrains
 them; the norm, the compression and the int8 moments see whole leaves.
+
+``abstract_train_state`` is the dry run's currency: the state on
+``meta``, nothing allocated.  ``make_serve_step`` is the one-token
+decode step over the dense cache.
 """
 from __future__ import annotations
 
@@ -110,3 +114,33 @@ def init_train_state(model: Model, cfg: TrainStepConfig, seed: int = 0
     if cfg.compress is not None:
         opt = (opt, init_residual(params))
     return params, opt
+
+
+def abstract_train_state(model: Model, cfg: TrainStepConfig
+                         ) -> Tuple[Any, Any]:
+    """(params, opt_state) on ``meta`` (JAX's ``jax.eval_shape`` of
+    ``init_train_state``): ``Model.param_specs`` and the optimizer state
+    built from them, with the compression residual when ``cfg.compress``
+    is set."""
+    params = model.param_specs()
+    opt = adamw_init(params, cfg.opt)
+    if cfg.compress is not None:
+        opt = (opt, init_residual(params))
+    return params, opt
+
+
+def make_serve_step(model: Model) -> Callable:
+    """serve_step(params, cache, batch, pos) -> (logits (B, V), cache):
+    one new token for every sequence of ``batch`` ("tokens" (B, 1), or
+    "embeddings" (B, 1, d); "positions" (B, 1, 3) for an M-RoPE arch) at
+    position ``pos`` against the resident dense cache, which is written
+    in place and returned."""
+
+    def serve_step(params, cache, batch: Dict[str, torch.Tensor], pos: int):
+        logits = model.decode_step(params, cache, batch.get("tokens"),
+                                   pos=pos,
+                                   embeddings=batch.get("embeddings"),
+                                   positions=batch.get("positions"))
+        return logits, cache
+
+    return serve_step

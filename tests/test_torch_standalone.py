@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the entry points
-run on the card unless the caller asks for the CPU by name."""
+"""The port stands alone: no module of ``src/repro_torch`` or
+``examples_torch`` and not ``chip_smoke.py`` imports JAX or the JAX
+package, and the entry points run on the card unless the caller asks for
+the CPU by name."""
 import ast
 import os
 import shutil
@@ -18,6 +19,7 @@ from repro_torch.models.transformer import Model
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples_torch").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 

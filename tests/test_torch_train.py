@@ -251,12 +251,16 @@ def test_forward_and_prefill_match_jax(jax_losses):
 
 
 def test_unported_remat_policy_raises():
+    """A policy the port does not have is refused; "dots" is ported
+    (tests/test_torch_remat_dots.py holds it to "full" and to JAX)."""
     cfg = ARCHS["gemma-2b"].smoke()
+    with pytest.raises(ValueError, match="remat_policy"):
+        Model(cfg, device="cpu", opts=ExecOptions(remat_policy="offload"))
     model = Model(cfg, device="cpu", opts=ExecOptions(remat_policy="dots"))
     params = model.init(0)
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
-        model.loss_fn(params, {"tokens": toks, "labels": toks})
+    loss, _ = model.loss_fn(params, {"tokens": toks, "labels": toks})
+    assert torch.isfinite(loss)
 
 
 # ------------------------------------------------------------ optimizer
