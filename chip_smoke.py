@@ -1343,6 +1343,128 @@ def check_flash(torch, dtype_name: str):
     return rows
 
 
+def _live_pairs_at(sq: int, offset: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention scores for ``sq``
+    query rows at key positions ``offset ..``."""
+    return sum(min(offset + i + 1, window) if window else offset + i + 1
+               for i in range(sq))
+
+
+# B6/B7 at a query offset: one rank's sequence block of a (1, 2)
+# sequence-striped gemma-2b layer (heads 8, hd 256, Sk 1024, its second
+# half of queries), causal and under the swa window; (dtype, window)
+FLASH_OFFSET = dict(b=2, h=8, sk=1024, sq=512, offset=512, hd=256)
+FLASH_OFFSET_CASES = (("bfloat16", 0), ("bfloat16", 256), ("float32", 0))
+
+
+def check_flash_offset(torch):
+    """B6 and B7 with q's Sq rows at key offset ``q_offset`` of Sk keys
+    (``FLASH_OFFSET``), on the route ``flash_route`` names (wgmma for the
+    bf16 rows, simt for the fp32 one), against their plain versions at
+    the same offset, with the limits of ``check_flash`` (and B7's
+    ``||err|| / ||plain||`` on wgmma); B7 twice must give the same bits.
+    Beside each: one ``scaled_dot_product_attention`` call with an
+    explicit boolean mask of the same band (and its backward), for the
+    time column only."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_cuda,
+                                               flash_attention_plain)
+    from repro_torch.kernels.attention.flash import flash_route
+    b, h, sk, sq, off, hd = (FLASH_OFFSET[k] for k in
+                             ("b", "h", "sk", "sq", "offset", "hd"))
+    rows = []
+    for dtype_name, window in FLASH_OFFSET_CASES:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(11 + window)
+        q = torch.randn(b, h, sq, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, h, sk, hd, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        do = torch.randn(b, h, sq, hd, generator=gen, device="cuda")
+        route = flash_route(dtype, hd)
+        case = (f"B={b} H={h} Sq={sq} Sk={sk} q_offset={off} hd={hd} "
+                f"causal window={window}")
+        kw = dict(causal=True, window=window, q_offset=off)
+        dispatch.reset_launch_counts()
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        counts = dispatch.route_counts()
+        if (counts[f"flash_attention/{route}"],
+                counts[f"flash_attention_bwd/{route}"]) != (1, 1):
+            raise AssertionError(f"flash {case} {dtype_name}: routes "
+                                 f"{counts}, expected {route}")
+        o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+        err = max(compare(torch, "flash_attention " + case, o, o_p,
+                          dtype_name),
+                  compare(torch, "flash_attention lse " + case, lse, lse_p,
+                          dtype_name))
+        qpos = torch.arange(off, off + sq, device="cuda")[:, None]
+        kpos = torch.arange(sk, device="cuda")[None, :]
+        band = kpos <= qpos
+        if window:
+            band &= kpos > qpos - window
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=band)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=band)
+        do_lib = do.to(dtype)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qg, kg, vg), do_lib,
+                                       retain_graph=True)
+        pairs = b * h * _live_pairs_at(sq, off, window)
+        nq, nk, size = q.numel(), k.numel(), q.element_size()
+
+        def fwd():
+            return flash_attention_cuda(q, k, v, **kw)
+        rows.append(row(
+            "flash_attention", case, dtype_name, err, time_ms(torch, fwd),
+            time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw)),
+            bound((nq + 2 * nk) * size + nq * 4 + b * h * sq * 4,
+                  4.0 * hd * pairs, dtype_name), time_ms(torch, sdpa),
+            route=route, device_ms=device_ms(torch, fwd),
+            library_device_ms=device_ms(torch, sdpa)))
+
+        got = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {case}: two runs "
+                                 f"on the same inputs differ")
+        want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
+        err = max(compare(torch, f"flash_attention_bwd {name} {case}",
+                          g, w_, dtype_name)
+                  for name, g, w_ in zip(("dq", "dk", "dv"), got, want))
+        split = {}
+        if route == "wgmma":
+            split = {name: ((g - w_).norm() / w_.norm()).item()
+                     for name, g, w_ in zip(("dq", "dk", "dv"), got, want)}
+            if not all(split[n] <= BWD_SPLIT_LIMIT[n] for n in split):
+                raise AssertionError(
+                    f"flash_attention_bwd {case}: ||err|| / ||plain|| "
+                    f"{split} over {BWD_SPLIT_LIMIT}")
+        del got, again, want
+
+        def bwd():
+            return flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+        rows.append(row(
+            "flash_attention_bwd", case, dtype_name, err, time_ms(torch, bwd),
+            time_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, o_p, lse_p, do, **kw)),
+            bound((nq + 2 * nk) * size + 2 * nq * 4 + b * h * sq * 4
+                  + (nq + 2 * nk) * 4, 10.0 * hd * pairs, dtype_name),
+            time_ms(torch, sdpa_bwd), deterministic=True, route=route,
+            device_ms=device_ms(torch, bwd),
+            library_device_ms=device_ms(torch, sdpa_bwd),
+            norm_rel_err=split or None))
+        del q, k, v, do, o, lse, o_p, lse_p, qg, kg, vg, out
+    return rows
+
+
 def flash_drafter_row(torch):
     """B6 alone (the drafter runs no backward) at ``FLASH_DRAFTER`` in
     bf16, causal, on the wgmma route, against its plain version, beside
@@ -2227,6 +2349,50 @@ DECODE_TP = [dict(DECODE_SERVE, h=4, windows=(0,)),
 PREFILL_TP = [dict(PREFILL_SERVE, h=4, windows=(0,), route="wgmma"),
               dict(PREFILL_SERVE, h=16, hkv=16, hd=128, windows=(0,),
                    route="wgmma")]
+
+
+# B1's fp32 output for bf16 operands (``repro_matmul_f32out``): the
+# row-parallel products of a (1, 2) model axis at training's 2 x 512 rows,
+# gemma-2b's wo (K = 4 heads x 256) and wd (K = 8192) shards, the second
+# taking split_plan's split; (M, K, N)
+F32OUT_CASES = ((1024, 1024, 2048), (1024, 8192, 2048))
+
+
+def check_matmul_f32out(torch):
+    """B1 with ``out_dtype=torch.float32`` on bf16 operands (the model
+    axis's row-parallel partial sums, rounded once after they are added)
+    against its plain version at ``F32OUT_CASES``, in fp32's limit; beside
+    it ``torch.matmul`` of the fp32 upcasts (one PyTorch call computing
+    the same function) and B1's bf16 output at the same shape."""
+    from repro_torch.kernels.matmul import matmul_cuda, matmul_plain
+    from repro_torch.kernels.matmul.matmul import split_plan
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for m, k, n in F32OUT_CASES:
+        a = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+        b = (torch.randn(k, n, generator=gen, device="cuda")
+             / math.sqrt(k)).to(bf16)
+        case = f"M={m} K={k} N={n} bf16 operands, fp32 out"
+
+        def kernel():
+            return matmul_cuda(a, b, out_dtype=f32)
+        got = kernel()
+        if got.dtype != f32:
+            raise AssertionError(f"matmul {case}: out {got.dtype}")
+        err = compare(torch, "matmul " + case, got,
+                      matmul_plain(a, b, out_dtype=f32), "float32")
+        a32, b32 = a.float(), b.float()
+        rows.append(row(
+            "matmul", case, "bfloat16", err, time_ms(torch, kernel),
+            time_ms(torch, lambda: matmul_plain(a, b, out_dtype=f32)),
+            bound((m * k + k * n) * 2 + m * n * 4, 2.0 * m * n * k,
+                  "bfloat16"),
+            time_ms(torch, lambda: torch.matmul(a32, b32)),
+            device_ms=device_ms(torch, kernel),
+            b1_bf16_device_ms=device_ms(torch, lambda: matmul_cuda(a, b)),
+            split=list(split_plan(k, n, bf16))))
+    return rows
 
 
 def check_tp_shapes(torch):
@@ -4084,8 +4250,16 @@ def train_parity_phase(torch, phase: str, cfg, seed: int = 7):
 # speed result: the ranks time-share the card and every collective goes
 # through host memory)
 SHARDED_RANKS = 2
-# make_host_mesh's (1, 2) for two ranks, and the data-parallel (2, 1)
-SHARDED_MESHES = ((1, 2), (2, 1))
+# make_host_mesh's (1, 2) for two ranks -- the model axis splitting each
+# layer's work, its residual replicated (the CLI's layout), striped over
+# the sequence ("seq": the dry run's make_constrain) and with
+# attn_prefer_seq ("attn_seq": B6/B7 on each rank's block of S / 2 query
+# rows at its offset) -- and the data-parallel (2, 1); (mesh, layout)
+SHARDED_MESHES = (((1, 2), ""), ((1, 2), "seq"), ((1, 2), "attn_seq"),
+                  ((2, 1), ""))
+# (1, 2)'s split of B1's work: each rank's multiply-adds within this of
+# half of one process's
+SHARDED_MACS_LIMIT = 0.01
 SHARDED_PARITY_LAYERS, SHARDED_PARITY_BATCH, SHARDED_PARITY_SEQ = 2, 2, 128
 SHARDED_STEPS = 2
 # the CLI's run: gemma-2b at full width, its depth cut from 18 layers to
@@ -4097,12 +4271,17 @@ SHARDED_PIPE = dict(m=4, mb=512, d=2048)
 SHARDED_LIMITS = {"loss": 1e-5, "grad": 1e-3, "grad_norm": 1e-5}
 
 
-def _fp32_opts():
+def _fp32_opts(rules=None, layout: str = ""):
     # the fp32 runs without remat: each leaf gathered once a forward
     # through the host, not again in the backward (the CLI's bf16 run
-    # keeps remat and its gathers inside the recompute)
+    # keeps remat and its gathers inside the recompute); ``layout`` "seq"
+    # and "attn_seq" set the dry run's hooks on ``rules``
+    from repro_torch.launch import dryrun
     from repro_torch.models.transformer import ExecOptions
-    return ExecOptions(remat=False)
+    if not layout:
+        return ExecOptions(remat=False)
+    return ExecOptions(remat=False, constrain=dryrun.make_constrain(rules),
+                       attn_constrain=dryrun.attn_hook(rules))
 
 
 def sharded_config(layers: int):
@@ -4121,9 +4300,10 @@ def sharded_batches(torch, cfg, n: int, seed: int):
              for k, v in data.batch_at(i).items()} for i in range(n)]
 
 
-def sharded_fp32(torch, rules, seed: int):
+def sharded_fp32(torch, rules, seed: int, layout: str = ""):
     """The fp32 model at SHARDED_PARITY_LAYERS and its train step on
-    ``rules.mesh``: (model, step config, state, spec tree, sharding)."""
+    ``rules.mesh`` in ``layout`` (``_fp32_opts``): (model, step config,
+    state, spec tree, sharding)."""
     from repro_torch.core.memory import DtypePolicy
     from repro_torch.launch.train import sharded_train_state
     from repro_torch.models.transformer import Model
@@ -4131,7 +4311,7 @@ def sharded_fp32(torch, rules, seed: int):
     from repro_torch.train.steps import TrainStepConfig
     cfg = sharded_config(SHARDED_PARITY_LAYERS)
     model = Model(cfg, dt=DtypePolicy(compute=torch.float32), device="cuda",
-                  opts=_fp32_opts())
+                  opts=_fp32_opts(rules, layout))
     ts = TrainStepConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
                                          total_steps=SHARDED_STEPS))
     state, specs, shd, _ = sharded_train_state(model, ts, rules,
@@ -4147,10 +4327,11 @@ def digest(torch, t) -> str:
 
 def one_process_grads_and_steps(torch, batches):
     """The fp32 gemma-2b at SHARDED_PARITY_LAYERS in this process alone:
-    the loss and the gradient at the drawn params (on the card), and the
-    metrics of SHARDED_STEPS train steps."""
+    the loss and the gradient at the drawn params (on the card), the
+    metrics of SHARDED_STEPS train steps and their B1 multiply-adds."""
     from repro_torch.core import tree
     from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import (TrainStepConfig, init_train_state,
@@ -4170,28 +4351,35 @@ def one_process_grads_and_steps(torch, batches):
         t.requires_grad_(False)
     step = make_train_step(model, ts)
     metrics = []
+    dispatch.reset_launch_counts()
     for batch in batches:
         params, opt, met = step(params, opt, batch)
         metrics.append({k: float(v) for k, v in met.items()})
     return {"loss": float(loss.detach()), "grads": grads,
-            "metrics": metrics}
+            "metrics": metrics, "macs": dispatch.matmul_macs()}
 
 
-def sharded_grads_and_steps(torch, mesh, batches, one):
+def sharded_grads_and_steps(torch, mesh, batches, one, layout: str = ""):
     """On this rank, the fp32 gemma-2b at SHARDED_PARITY_LAYERS laid out
-    on ``mesh``: the loss and the gradient at the drawn params, each
-    leaf's shard held to the same block of one process's gradient
-    (``one``; over the ranks, the gathered leaf), then SHARDED_STEPS
-    train steps.  Returns the row (loss, the worst gradient error over
-    its leaf's max |grad| and that leaf, the metrics, a digest of every
-    leaf no axis splits) and the run (model, step config, state, spec
-    tree, sharding)."""
+    on ``mesh`` in ``layout`` (``SHARDED_MESHES``): the loss and the
+    gradient at the drawn params, each leaf's shard held to the same
+    block of one process's gradient (``one``; over the ranks, the
+    gathered leaf), then SHARDED_STEPS train steps.  Returns the row
+    (loss, the worst gradient error over its leaf's max |grad| and that
+    leaf, the metrics, a digest of every leaf no axis splits, the steps'
+    B1 multiply-adds, the (q, k, q_offset) shapes of every B6/B7 launch,
+    the leaves gathered whole over the model axis) and the run (model,
+    step config, state, spec tree, sharding)."""
     from repro_torch.core import tree
+    from repro_torch.kernels import dispatch
     from repro_torch.models.transformer import Model
     from repro_torch.runtime import sharding
     from repro_torch.train.steps import make_train_step
     rules = sharding.make_rules(mesh, fsdp=True)
-    model, ts, (params, opt), specs, shd = sharded_fp32(torch, rules, 2)
+    if layout == "attn_seq":
+        rules = dataclasses.replace(rules, attn_prefer_seq=True)
+    model, ts, (params, opt), specs, shd = sharded_fp32(torch, rules, 2,
+                                                        layout)
     view = Model(model.cfg, model.dt, model.device,
                  dataclasses.replace(model.opts, sharding=shd))
     flat, rebuild = tree.flatten(params)
@@ -4211,14 +4399,34 @@ def sharded_grads_and_steps(torch, mesh, batches, one):
     step = make_train_step(model, dataclasses.replace(ts,
                                                       grad_shardings=shd))
     metrics = []
-    for batch in batches:
-        params, opt, met = step(params, opt, shd.split_batch(batch))
-        metrics.append({k: float(v) for k, v in met.items()})
+    shapes = []
+    kernels = {name: getattr(dispatch, name) for name in
+               ("flash_attention_cuda", "flash_attention_bwd_cuda")}
+
+    def recording(name):
+        def launch(q, k, *args, **kw):
+            shapes.append((name, tuple(q.shape), tuple(k.shape),
+                           kw.get("q_offset", 0)))
+            return kernels[name](q, k, *args, **kw)
+        return launch
+    dispatch.reset_launch_counts()
+    sharding.reset_model_gathers()
+    try:
+        for name in kernels:
+            setattr(dispatch, name, recording(name))
+        for batch in batches:
+            params, opt, met = step(params, opt, shd.split_batch(batch))
+            metrics.append({k: float(v) for k, v in met.items()})
+    finally:
+        for name, fn in kernels.items():
+            setattr(dispatch, name, fn)
     digests = [digest(torch, t) for t, spec in zip(
         tree.leaves((params, opt)), sharding.spec_leaves(specs))
         if not sharding.sharded_axes(spec, mesh)]
     row = {"loss": float(loss.detach()), "grad_worst": worst,
-           "metrics": metrics, "digests": digests}
+           "metrics": metrics, "digests": digests,
+           "macs": dispatch.matmul_macs(), "flash_shapes": shapes,
+           "model_gathers": sharding.model_gathers()}
     return row, (model, ts, (params, opt), specs, shd)
 
 
@@ -4337,6 +4545,7 @@ def sharded_cli(torch) -> dict:
     torch.cuda.synchronize()
     return {"losses": losses, "mesh": report["mesh"],
             "launches": dispatch.launch_counts(),
+            "b1_macs": dispatch.matmul_macs(),
             "flash_routes": {k: n for k, n in dispatch.route_counts().items()
                              if k.startswith("flash_attention")},
             "plain": [f"{op}/{r}" for (op, r) in report["routes"]
@@ -4372,14 +4581,15 @@ def sharded_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     batches = sharded_batches(torch, cfg, SHARDED_STEPS, seed=11)
     # one process's run, on each rank alone, to hold its shards to
     one = one_process_grads_and_steps(torch, batches)
-    out["one_process"] = {"loss": one["loss"], "metrics": one["metrics"]}
+    out["one_process"] = {"loss": one["loss"], "metrics": one["metrics"],
+                          "macs": one["macs"]}
     out["t"]["one process"] = time.time() - t0
     out["meshes"] = {}
-    for shape in SHARDED_MESHES:
+    for shape, layout in SHARDED_MESHES:
         mesh = make_mesh(shape, ("data", "model"), device="cuda")
-        out["meshes"][shape], run = sharded_grads_and_steps(
-            torch, mesh, batches, one)
-        out["t"][f"parity {shape}"] = time.time() - t0
+        out["meshes"][shape, layout], run = sharded_grads_and_steps(
+            torch, mesh, batches, one, layout)
+        out["t"][f"parity {shape} {layout}"] = time.time() - t0
     del one
     torch.cuda.empty_cache()
     # the elastic check on the last mesh's run, (2, 1)
@@ -4409,7 +4619,12 @@ def sharded_train_phase(torch) -> dict:
     process's gradient: over the ranks, the gathered leaf) against one
     process's (1e-5 relative, 1e-3 of the leaf's max |grad|),
     SHARDED_STEPS steps' losses and grad norms (1e-5), the ranks'
-    replicated leaves and metrics equal bit for bit.  Elastic (from the
+    replicated leaves and metrics equal bit for bit; on (1, 2) also with
+    the residual striped over the sequence and with attn_prefer_seq, each
+    run's split of the model axis held: each rank's B1 multiply-adds
+    within SHARDED_MACS_LIMIT of half of one process's, every B6/B7
+    launch on 4 of the 8 heads (or, under attn_prefer_seq, on S / 2 query
+    rows at the rank's offset), no leaf gathered whole.  Elastic (from the
     (2, 1) run): restore onto (1, 2) equal to the live reshard shard for
     shard, the plain manager's whole leaves equal to both, one more step
     on each layout within the fp32 gate.  The pipeline within TOL's fp32
@@ -4437,6 +4652,7 @@ def sharded_train_phase(torch) -> dict:
               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
               "losses": cli["losses"], "step_seconds": cli["step_seconds"],
               "max_memory_allocated": cli["peak"],
+              "b1_macs": cli["b1_macs"],
               "state_bytes": cli["state_bytes"],
               "one_process_state_bytes": one_process_bytes,
               "launches": got, "expected_launches": want,
@@ -4454,8 +4670,9 @@ def sharded_train_phase(torch) -> dict:
                           f"flash {cli['flash_routes']}, mesh "
                           f"{cli['mesh']}, bytes {cli['state_bytes']}")
     one = ranks[0]["one_process"]
-    for shape in SHARDED_MESHES:
-        got = [r["meshes"][shape] for r in ranks]
+    heads = sharded_config(SHARDED_PARITY_LAYERS).n_heads
+    for shape, layout in SHARDED_MESHES:
+        got = [r["meshes"][shape, layout] for r in ranks]
         ratio, leaf = max(g["grad_worst"] for g in got)
         loss_rel = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
         steps = [(abs(g["loss"] - w["loss"]) / abs(w["loss"]),
@@ -4464,7 +4681,31 @@ def sharded_train_phase(torch) -> dict:
         equal = all(g["metrics"] == got[0]["metrics"]
                     and g["digests"] == got[0]["digests"] for g in got) \
             and all(r["one_process"] == one for r in ranks)
+        # the model axis's split: each rank's B1 multiply-adds half of one
+        # process's; B6/B7 on its H/2 heads, or under attn_seq its S/2
+        # rows of every head at its offset; no leaf gathered whole
+        m = shape[1]
+        split_ok = True
+        macs = [g["macs"] / one["macs"] for g in got]
+        if m > 1:
+            split_ok = all(abs(x * m - 1) <= SHARDED_MACS_LIMIT
+                           for x in macs) \
+                and all(g["model_gathers"] == 0 for g in got)
+            for r, g in enumerate(got):
+                for _, q, k, offset in g["flash_shapes"]:
+                    if layout == "attn_seq":
+                        rows = SHARDED_PARITY_SEQ // m
+                        split_ok &= (q[1], q[2], k[2], offset) == (
+                            heads, rows, SHARDED_PARITY_SEQ, r * rows)
+                    else:
+                        split_ok &= (q[1], q[2], offset) == (
+                            heads // m, SHARDED_PARITY_SEQ, 0)
+                split_ok &= len(g["flash_shapes"]) > 0
         emit({"phase": "sharded_train", "run": "fp32 parity",
+              "layout": layout or "replicated residual",
+              "macs_over_one_process": macs,
+              "flash_shapes": sorted({x[1:] for x in got[0]["flash_shapes"]}),
+              "model_gathers": [g["model_gathers"] for g in got],
               "mesh": dict(zip(("data", "model"), shape)),
               "layers": SHARDED_PARITY_LAYERS,
               "batch": SHARDED_PARITY_BATCH, "seq": SHARDED_PARITY_SEQ,
@@ -4475,13 +4716,14 @@ def sharded_train_phase(torch) -> dict:
               "replicated_leaves": len(got[0]["digests"]),
               "ranks_bit_equal": equal})
         if not (loss_rel <= SHARDED_LIMITS["loss"]
-                and ratio <= SHARDED_LIMITS["grad"] and equal
+                and ratio <= SHARDED_LIMITS["grad"] and equal and split_ok
                 and all(a <= SHARDED_LIMITS["loss"]
                         and b <= SHARDED_LIMITS["grad_norm"]
                         for a, b in steps)):
-            failed.append(f"fp32 parity on {shape}: loss {loss_rel:.3e}, "
-                          f"grad {ratio:.3e} (leaf {leaf}), steps {steps}, "
-                          f"ranks equal {equal}")
+            failed.append(f"fp32 parity on {shape} {layout}: loss "
+                          f"{loss_rel:.3e}, grad {ratio:.3e} (leaf {leaf}), "
+                          f"steps {steps}, ranks equal {equal}, split "
+                          f"{split_ok} (macs {macs})")
     el = [r["elastic"] for r in ranks]
     kept, moved = el[0]["metrics_kept"], el[0]["metrics_resharded"]
     more = (abs(moved["loss"] - kept["loss"]) / abs(kept["loss"]),
@@ -4734,7 +4976,7 @@ def dryrun_phase(torch, smi: str) -> None:
                   "compute_s", "memory_s", "collective_s", "dominant",
                   "step_s", "roofline_fraction")},
               "roofline_model": res["hardware_model"],
-              "model_axis": res["model_axis"],
+              "model_axis": res.get("model_axis", "split (train cell)"),
               "seconds": time.time() - c0})
         if set(meshes) != {"pod", "multipod"} or not all(
                 m["argument_bytes_per_device"] > 0
@@ -5053,8 +5295,11 @@ def run_phases(torch, args, smi: str, empty_cache: Path) -> int:
         rows += check_decode(torch, dtype_name)
         rows += check_prefill(torch, dtype_name)
         rows += check_flash(torch, dtype_name)
+        if dtype_name == "bfloat16":
+            rows += check_flash_offset(torch)
         rows += check_matmul_backward(torch, dtype_name)
     rows += check_tp_shapes(torch)
+    rows += check_matmul_f32out(torch)
     torch.cuda.empty_cache()
     for check in (check_wkv, check_wkv_bwd, check_stencil, check_nbody,
                   check_histogram):

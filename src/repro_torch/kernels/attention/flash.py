@@ -8,10 +8,14 @@ the kernels are ``kernels/csrc/flash_attention.cu``, one per route
 the port of ``repro/kernels/attention/ref.py::attention_ref`` and
 ``::attention_lse_ref``.
 
-Layout: q, k, v (B, H, S, hd), bf16 or fp32, one type for all three.
-Returns o (B, H, S, hd) fp32 and, with ``return_lse``, the per-row
-logsumexp of the masked scaled scores, lse (B, H, S) fp32 -- the only
-forward state the fused backward (``backward.py``) needs beyond q/k/v/o.
+Layout: q (B, H, Sq, hd), k, v (B, H, Sk, hd), bf16 or fp32, one type
+for all three.  q's rows sit at key positions ``q_offset .. q_offset +
+Sq - 1`` (default 0; Sq == Sk is self-attention over the whole
+sequence, a smaller Sq one rank's block of a sequence-striped layer),
+and the causal and window masks read those positions.  Returns o (B, H,
+Sq, hd) fp32 and, with ``return_lse``, the per-row logsumexp of the
+masked scaled scores, lse (B, H, Sq) fp32 -- the only forward state the
+fused backward (``backward.py``) needs beyond q/k/v/o.
 """
 from __future__ import annotations
 
@@ -23,15 +27,16 @@ from .. import cuda
 
 
 def masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                  window: int) -> torch.Tensor:
-    """Dense (B, H, S, S) fp32 scaled scores, masked to -1e30 outside the
-    causal / window band: the one definition of the mask semantics."""
-    s, hd = q.shape[2], q.shape[3]
+                  window: int, q_offset: int = 0) -> torch.Tensor:
+    """Dense (B, H, Sq, Sk) fp32 scaled scores, masked to -1e30 outside
+    the causal / window band of q's rows at positions ``q_offset + i``:
+    the one definition of the mask semantics."""
+    sq, hd, sk = q.shape[2], q.shape[3], k.shape[2]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         / math.sqrt(hd)
-    pos = torch.arange(s, device=q.device)
-    qpos, kpos = pos[:, None], pos[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(q_offset, q_offset + sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window > 0:
@@ -41,10 +46,10 @@ def masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
-                          return_lse: bool = False):
+                          return_lse: bool = False, q_offset: int = 0):
     """Dense fp32 softmax over the masked scores; P is cast to V's dtype
     before the P @ V product, as in the kernel."""
-    scores = masked_scores(q, k, causal, window)
+    scores = masked_scores(q, k, causal, window, q_offset)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float())
     if return_lse:
@@ -52,12 +57,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def check_bhsd(name: str, *tensors: torch.Tensor) -> None:
-    """Equal (B, H, S, hd) shapes of one float dtype."""
-    q = tensors[0]
-    if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
-        raise ValueError(f"{name}: want equal (B, H, S, hd) shapes, got "
-                         f"{[tuple(t.shape) for t in tensors]}")
+def check_bhsd(name: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, q_offset: int = 0) -> None:
+    """q (B, H, Sq, hd) and equal k, v (B, H, Sk, hd) of one float dtype,
+    q's rows inside the keys: 0 <= q_offset, q_offset + Sq <= Sk."""
+    tensors = (q, k, v)
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{name}: want q (B, H, Sq, hd) and k, v (B, H, "
+                         f"Sk, hd), got {[tuple(t.shape) for t in tensors]}")
+    if q_offset < 0 or q_offset + q.shape[2] > k.shape[2]:
+        raise ValueError(f"{name}: q's {q.shape[2]} rows at offset "
+                         f"{q_offset} do not lie in {k.shape[2]} keys")
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{name}: q, k and v must share one dtype, got "
                         f"{[t.dtype for t in tensors]}")
@@ -108,15 +119,16 @@ def check_aligned16(name: str, *tensors: torch.Tensor) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False, q_offset: int = 0):
     """Launch ``repro_flash_attention_wgmma`` (grid: batch x head, tiles
     of 64 query rows) or ``repro_flash_attention`` (tiles of 32), as
-    ``flash_route`` names: q, k, v contiguous (B, H, S, hd) of one type on
-    one CUDA device.  Counts one launch per call, and one on its route in
+    ``flash_route`` names: q (B, H, Sq, hd) and k, v (B, H, Sk, hd)
+    contiguous, of one type on one CUDA device, q's rows at key positions
+    ``q_offset ..``.  Counts one launch per call, and one on its route in
     ``flash_attention_cuda.routes``.  Returns new fp32 o (and lse); raises
     on anything the kernels do not take."""
     cuda.require_cuda("flash_attention", q, k, v)
-    check_bhsd("flash_attention", q, k, v)
+    check_bhsd("flash_attention", q, k, v, q_offset)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     b, h, s, hd = q.shape
@@ -125,7 +137,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_aligned16("flash_attention", q, k, v)
     out = torch.empty((b, h, s, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    sizes = cuda.c_ints("flash_attention", b * h, s, hd, int(causal), window)
+    sizes = cuda.c_ints("flash_attention", b * h, s, k.shape[2], q_offset,
+                        hd, int(causal), window)
     lib = cuda.library()
     if route == "wgmma":
         rc = lib.repro_flash_attention_wgmma(

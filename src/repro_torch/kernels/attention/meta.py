@@ -12,8 +12,8 @@ it and the wgmma route's bf16 halves of dO allocated around it, as
 kernels' operand and output bytes and their live set.
 
 The FLOP formulas are the plain versions' dense products, as
-``FlopCounterMode`` counts them: 4 B H Sq Sk hd forward (Q K^T, P V) and
-10 backward (S recomputed, then dP, dV, dQ, dK); masked tiles are
+``FlopCounterMode`` counts them: 4 B H Sq Sk hd forward (Q K^T, P V; a
+query block at an offset has Sq < Sk) and 10 backward (S recomputed, then dP, dV, dQ, dK); masked tiles are
 counted, as in the JAX reference lowering.  The ops have no kernel on
 any other device.
 """
@@ -33,12 +33,12 @@ _BWD = "repro_torch::flash_attention_bwd_meta"
 
 @torch.library.custom_op(_FWD, mutates_args=())
 def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-         window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+         window: int, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     raise RuntimeError(f"{_FWD} runs on meta tensors only")
 
 
 @_fwd.register_fake
-def _fwd_fake(q, k, v, causal, window):
+def _fwd_fake(q, k, v, causal, window, q_offset):
     b, h, s, hd = q.shape
     return (q.new_empty((b, h, s, hd), dtype=torch.float32),
             q.new_empty((b, h, s), dtype=torch.float32))
@@ -47,15 +47,15 @@ def _fwd_fake(q, k, v, causal, window):
 @torch.library.custom_op(_BWD, mutates_args=())
 def _bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          o: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-         do: torch.Tensor, causal: bool, window: int
+         do: torch.Tensor, causal: bool, window: int, q_offset: int
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     raise RuntimeError(f"{_BWD} runs on meta tensors only")
 
 
 @_bwd.register_fake
-def _bwd_fake(q, k, v, o, lse, delta, do, causal, window):
-    return tuple(q.new_empty(q.shape, dtype=torch.float32)
-                 for _ in range(3))
+def _bwd_fake(q, k, v, o, lse, delta, do, causal, window, q_offset):
+    return tuple(q.new_empty(t.shape, dtype=torch.float32)
+                 for t in (q, k, v))
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_meta)
@@ -72,23 +72,26 @@ def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
 
 def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
-    """``flash_attention_cuda``'s outputs on meta (B, H, S, hd) tensors."""
+                         return_lse: bool = False, q_offset: int = 0):
+    """``flash_attention_cuda``'s outputs on meta q (B, H, Sq, hd), k, v
+    (B, H, Sk, hd) tensors."""
     out, lse = torch.ops.repro_torch.flash_attention_meta(
-        q, k, v, bool(causal), int(window))
+        q, k, v, bool(causal), int(window), int(q_offset))
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
-                             causal: bool = True, window: int = 0) -> Grads:
+                             causal: bool = True, window: int = 0,
+                             q_offset: int = 0) -> Grads:
     """``flash_attention_bwd_cuda``'s outputs and scratch on meta
     tensors."""
     delta = _delta(o, do)
     split = (q.new_empty((2, *q.shape), dtype=torch.bfloat16)
              if flash_route(q.dtype, q.shape[-1]) == "wgmma" else None)
     grads = torch.ops.repro_torch.flash_attention_bwd_meta(
-        q, k, v, o, lse, delta, do, bool(causal), int(window))
+        q, k, v, o, lse, delta, do, bool(causal), int(window),
+        int(q_offset))
     del split
     return grads

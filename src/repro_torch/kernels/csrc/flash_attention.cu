@@ -42,6 +42,12 @@
 // key.  Ragged edges (S not a multiple of the tile) are masked, not
 // asserted.  The flush divides by max(l, 1e-30) and writes lse = m +
 // log(max(l, 1e-30)), exactly as the TPU kernel's flush.
+//
+// A query block at an offset.  q holds Sq rows at positions q_off ..
+// q_off + Sq - 1 of k/v's Sk rows (Sq + q_off <= Sk): the query block of
+// one rank of a sequence-striped layer.  The causal and window masks and
+// the dead-tile bounds read those positions; o and lse have q's Sq rows.
+// The TPU kernel takes Sq == Sk and q_off == 0 only.
 #include "flash_sm90.cuh"
 
 namespace {
@@ -54,12 +60,13 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int S, int hd, int causal,
-                 int window) {
+                 float* __restrict__ lse, int Sq, int Sk, int q_off, int hd,
+                 int causal, int window) {
   extern __shared__ float smem[];
   const int q0 = blockIdx.y * BQ;
-  const int nq = min(BQ, S - q0);
-  const long long base = (long long)blockIdx.x * S * hd;
+  const int nq = min(BQ, Sq - q0);
+  const long long base = (long long)blockIdx.x * Sq * hd;
+  const long long kbase = (long long)blockIdx.x * Sk * hd;
   const int kstride = hd + 1;  // padded K rows: the score loop's lanes
                                // walk keys, so rows must not share banks
   float* q_s = smem;                    // BQ x hd
@@ -85,16 +92,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // keys some row of this block can see: [k_begin, k_end)
-  const int q_hi = q0 + nq - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q_hi + 1) : S;
+  const int q_hi = q_off + q0 + nq - 1;
+  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
 
   for (int k_lo = (k_begin / TK) * TK; k_lo < k_end; k_lo += TK) {
     for (int i = tid; i < TK * hd; i += THREADS) {
       const int t = i / hd, d = i % hd, kpos = k_lo + t;
       float kv = 0.f, vv = 0.f;
       if (kpos < k_end) {
-        const long long off = base + (long long)kpos * hd + d;
+        const long long off = kbase + (long long)kpos * hd + d;
         kv = to_f32(k[off]);
         vv = to_f32(v[off]);
       }
@@ -105,7 +112,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // scores: one thread per (query row, key)
     for (int i = tid; i < BQ * TK; i += THREADS) {
       const int r = i / TK, t = i % TK;
-      const int qpos = q0 + r, kpos = k_lo + t;
+      const int qpos = q_off + q0 + r, kpos = k_lo + t;
       float s = 0.f;
       for (int d = 0; d < hd; ++d)
         s = fmaf(q_s[r * hd + d], k_s[t * kstride + d], s);
@@ -146,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     out[base + (long long)q0 * hd + i] = acc_s[i] / fmaxf(l_s[r], 1e-30f);
   }
   for (int r = tid; r < nq; r += THREADS)
-    lse[(long long)blockIdx.x * S + q0 + r] =
+    lse[(long long)blockIdx.x * Sq + q0 + r] =
         m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
@@ -157,18 +164,18 @@ size_t smem_bytes(int hd) {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int BH, int S, int hd, int causal, int window,
+           int BH, int Sq, int Sk, int q_off, int hd, int causal, int window,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (S + BQ - 1) / BQ);
+  const dim3 grid(BH, (Sq + BQ - 1) / BQ);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), S, hd, causal, window);
+      static_cast<float*>(lse), Sq, Sk, q_off, hd, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,7 +210,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        float* __restrict__ out, float* __restrict__ lse,
-                       int S, int causal, int window) {
+                       int Sq, int Sk, int q_off, int causal, int window) {
   using L = FwdSmem<HD>;
   constexpr int R = HD / 2;  // O accumulator registers a thread
   extern __shared__ uint8_t smem_raw[];
@@ -213,10 +220,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WQ;  // heaviest first
-  const int q_hi = min(S, q0 + WQ) - 1;
+  const int q_hi = q_off + min(Sq, q0 + WQ) - 1;
   // keys some row of this block can see: [k_begin, k_end), in tiles
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q_hi + 1) : S;
+  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
   const int t0 = k_begin / WK;
   const int nt = (k_end + WK - 1) / WK - t0;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
@@ -240,8 +247,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int t = 0; t < min(nt, WSTAGES); ++t) issue_kv(t);
   }
 
-  // this thread's rows (accumulator registers i with i & 2 are r1's)
+  // this thread's rows (accumulator registers i with i & 2 are r1's) and
+  // their positions among the keys
   const int r0 = q0 + 16 * warp + lane / 4, r1 = r0 + 8;
+  const int p0 = q_off + r0, p1 = q_off + r1;
   float o[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) o[i] = 0.f;
@@ -271,9 +280,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float mx0 = NEG_BIG, mx1 = NEG_BIG;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int row = (i & 2) ? r1 : r0;
+      const int row = (i & 2) ? p1 : p0;
       const int col = kb + 8 * (i / 4) + (i & 1);
-      const bool ok = col < S && (!causal || col <= row) &&
+      const bool ok = col < Sk && (!causal || col <= row) &&
                       (window == 0 || col > row - window);
       sc[i] = ok ? sc[i] * scale : NEG_BIG;
       if (i & 2)
@@ -319,78 +328,89 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const float d0 = fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = fmaxf(quad_sum(l1), 1e-30f);
-  float* ob = out + static_cast<long long>(bh) * S * HD;
+  float* ob = out + static_cast<long long>(bh) * Sq * HD;
 #pragma unroll
   for (int i = 0; i < R; i += 2) {
     const int row = (i & 2) ? r1 : r0;
     const float d = (i & 2) ? d1 : d0;
-    if (row < S)
+    if (row < Sq)
       *reinterpret_cast<float2*>(ob + static_cast<long long>(row) * HD +
                                  8 * (i / 4) + 2 * (lane % 4)) =
           make_float2(o[i] / d, o[i + 1] / d);
   }
   if (lane % 4 == 0) {
-    float* lb = lse + static_cast<long long>(bh) * S;
-    if (r0 < S) lb[r0] = m0 + logf(d0);
-    if (r1 < S) lb[r1] = m1 + logf(d1);
+    float* lb = lse + static_cast<long long>(bh) * Sq;
+    if (r0 < Sq) lb[r0] = m0 + logf(d0);
+    if (r1 < Sq) lb[r1] = m1 + logf(d1);
   }
 }
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 void* lse, int BH, int S, int causal, int window,
-                 cudaStream_t stream) {
+                 void* lse, int BH, int Sq, int Sk, int q_off, int causal,
+                 int window, cudaStream_t stream) {
   CUtensorMap tq = {}, tk = {}, tv = {};
-  if (!encode_bhsd_map(&tq, q, BH, S, HD, WQ) ||
-      !encode_bhsd_map(&tk, k, BH, S, HD, WK) ||
-      !encode_bhsd_map(&tv, v, BH, S, HD, WK))
+  if (!encode_bhsd_map(&tq, q, BH, Sq, HD, WQ) ||
+      !encode_bhsd_map(&tk, k, BH, Sk, HD, WK) ||
+      !encode_bhsd_map(&tv, v, BH, Sk, HD, WK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = FwdSmem<HD>::BYTES;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (S + WQ - 1) / WQ);
+  const dim3 grid(BH, (Sq + WQ - 1) / WQ);
   flash_fwd_wgmma_kernel<HD><<<grid, WTHREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse), S,
-      causal, window);
+      tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse), Sq, Sk,
+      q_off, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The simt route: q, k, v (BH, S, hd) of the float type `dtype`; out
-// (BH, S, hd) fp32; lse (BH, S) fp32; all contiguous.  causal 0/1;
-// window 0 = none.  Returns a cudaError_t.
+// The simt route: q (BH, Sq, hd) and k, v (BH, Sk, hd) of the float type
+// `dtype`, q's rows at key positions q_off .. q_off + Sq - 1 (q_off + Sq
+// <= Sk); out (BH, Sq, hd) fp32; lse (BH, Sq) fp32; all contiguous.
+// causal 0/1; window 0 = none.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, void* lse,
-                                     int BH, int S, int hd, int causal,
-                                     int window, int dtype, void* stream) {
+                                     int BH, int Sq, int Sk, int q_off, int hd,
+                                     int causal, int window, int dtype,
+                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH == 0 || S == 0) return 0;
+  if (BH == 0 || Sq == 0) return 0;
+  if (q_off < 0 || q_off + Sq > Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k, v, out, lse, BH, S, hd, causal,
-                                 window, s);
+    return launch<__nv_bfloat16>(q, k, v, out, lse, BH, Sq, Sk, q_off, hd,
+                                 causal, window, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k, v, out, lse, BH, S, hd, causal, window, s);
+    return launch<float>(q, k, v, out, lse, BH, Sq, Sk, q_off, hd, causal,
+                         window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The wgmma route: q, k, v (BH, S, hd) bf16, hd 64, 128 or 256, each
-// 16-byte aligned; out (BH, S, hd) fp32; lse (BH, S) fp32; all
-// contiguous.  causal 0/1; window 0 = none.  Returns a cudaError_t.
+// The wgmma route: q (BH, Sq, hd) and k, v (BH, Sk, hd) bf16, hd 64, 128 or
+// 256, each 16-byte aligned, q's rows at key positions q_off .. q_off + Sq
+// - 1; out (BH, Sq, hd) fp32; lse (BH, Sq) fp32; all contiguous.  causal
+// 0/1; window 0 = none.  Returns a cudaError_t.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* out,
-                                           void* lse, int BH, int S, int hd,
-                                           int causal, int window,
-                                           void* stream) {
+                                           void* lse, int BH, int Sq, int Sk,
+                                           int q_off, int hd, int causal,
+                                           int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH == 0 || S == 0) return 0;
+  if (BH == 0 || Sq == 0) return 0;
+  if (q_off < 0 || q_off + Sq > Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return launch_wgmma<64>(q, k, v, out, lse, BH, S, causal, window, s);
+    return launch_wgmma<64>(q, k, v, out, lse, BH, Sq, Sk, q_off, causal,
+                            window, s);
   if (hd == 128)
-    return launch_wgmma<128>(q, k, v, out, lse, BH, S, causal, window, s);
+    return launch_wgmma<128>(q, k, v, out, lse, BH, Sq, Sk, q_off, causal,
+                             window, s);
   if (hd == 256)
-    return launch_wgmma<256>(q, k, v, out, lse, BH, S, causal, window, s);
+    return launch_wgmma<256>(q, k, v, out, lse, BH, Sq, Sk, q_off, causal,
+                             window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

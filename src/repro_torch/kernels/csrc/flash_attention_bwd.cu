@@ -50,6 +50,12 @@
 //   At hd = 256 the dKV block holds 201 KB of shared memory (of 227 KB);
 //   32-row tiles are what make two fp32 accumulators fit.  All products
 //   run on fp32 FMA units.
+//
+// A query block at an offset, as in the forward (flash_attention.cu): q,
+// dO, lse and delta have Sq rows at key positions q_off .. q_off + Sq - 1
+// of k/v's Sk rows.  dK and dV are then this block's part of the whole
+// gradient: the rows of other blocks add theirs (the caller's
+// reduce-scatter).  Keys no row of the block sees get zeros.
 #include <algorithm>
 
 #include "flash_sm90.cuh"
@@ -87,12 +93,13 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
-                int S, int hd, int causal, int window) {
+                int Sq, int Sk, int q_off, int hd, int causal, int window) {
   extern __shared__ float smem[];
   const int q0 = blockIdx.y * BQ;
-  const int nq = min(BQ, S - q0);
-  const long long base = (long long)blockIdx.x * S * hd;
-  const long long row_base = (long long)blockIdx.x * S;
+  const int nq = min(BQ, Sq - q0);
+  const long long base = (long long)blockIdx.x * Sq * hd;
+  const long long kbase = (long long)blockIdx.x * Sk * hd;
+  const long long row_base = (long long)blockIdx.x * Sq;
   const int kstride = hd + 1;
   float* q_s = smem;                    // BQ x hd
   float* do_s = q_s + BQ * hd;          // BQ x hd
@@ -118,16 +125,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  const int q_hi = q0 + nq - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q_hi + 1) : S;
+  const int q_hi = q_off + q0 + nq - 1;
+  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
 
   for (int k_lo = (k_begin / TK) * TK; k_lo < k_end; k_lo += TK) {
     for (int i = tid; i < TK * hd; i += THREADS) {
       const int t = i / hd, d = i % hd, kpos = k_lo + t;
       float kv = 0.f, vv = 0.f;
       if (kpos < k_end) {
-        const long long off = base + (long long)kpos * hd + d;
+        const long long off = kbase + (long long)kpos * hd + d;
         kv = to_f32(k[off]);
         vv = to_f32(v[off]);
       }
@@ -137,7 +144,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < BQ * TK; i += THREADS) {
       const int r = i / TK, t = i % TK;
-      const int qpos = q0 + r, kpos = k_lo + t;
+      const int qpos = q_off + q0 + r, kpos = k_lo + t;
       float p, ds;
       p_and_ds(q_s + r * hd, do_s + r * hd, k_s + t * kstride,
                v_s + t * kstride, hd, scale, lse_s[r], delta_s[r],
@@ -167,13 +174,14 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int S, int hd, int causal,
-                 int window) {
+                 float* __restrict__ dv, int Sq, int Sk, int q_off, int hd,
+                 int causal, int window) {
   extern __shared__ float smem[];
   const int k0 = blockIdx.y * TK;
-  const int nk = min(TK, S - k0);
-  const long long base = (long long)blockIdx.x * S * hd;
-  const long long row_base = (long long)blockIdx.x * S;
+  const int nk = min(TK, Sk - k0);
+  const long long base = (long long)blockIdx.x * Sq * hd;
+  const long long kbase = (long long)blockIdx.x * Sk * hd;
+  const long long row_base = (long long)blockIdx.x * Sq;
   const int kstride = hd + 1;
   float* k_s = smem;                    // TK x kstride
   float* v_s = k_s + TK * kstride;      // TK x kstride
@@ -192,7 +200,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = i / hd, d = i % hd;
     float kv = 0.f, vv = 0.f;
     if (t < nk) {
-      const long long off = base + (long long)(k0 + t) * hd + d;
+      const long long off = kbase + (long long)(k0 + t) * hd + d;
       kv = to_f32(k[off]);
       vv = to_f32(v[off]);
     }
@@ -203,10 +211,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // query rows some key of this block is visible to: [q_begin, q_end)
+  // q's rows some key of this block is visible to: [q_begin, q_end)
   const int k_hi = k0 + nk - 1;
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k_hi + window) : S;
+  const int q_begin = max(0, (causal ? k0 : 0) - q_off);
+  const int q_end =
+      max(q_begin, window > 0 ? min(Sq, k_hi + window - q_off) : Sq);
 
   for (int q_lo = (q_begin / BQ) * BQ; q_lo < q_end; q_lo += BQ) {
     for (int i = tid; i < BQ * hd; i += THREADS) {
@@ -223,11 +232,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < BQ * TK; i += THREADS) {
       const int r = i / TK, t = i % TK;
-      const int qpos = q_lo + r, kpos = k0 + t;
+      const int qpos = q_off + q_lo + r, kpos = k0 + t;
       float p, ds;
       p_and_ds(q_s + r * hd, do_s + r * hd, k_s + t * kstride,
                v_s + t * kstride, hd, scale, lse_s[r], delta_s[r],
-               qpos < q_end && t < nk && visible(qpos, kpos, causal, window),
+               q_lo + r < q_end && t < nk &&
+                   visible(qpos, kpos, causal, window),
                &p, &ds);
       p_s[i] = p;                 // dO is fp32: P is not rounded
       ds_s[i] = round_via<T>(ds);
@@ -248,7 +258,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int i = tid; i < nk * hd; i += THREADS) {
-    const long long off = base + (long long)k0 * hd + i;
+    const long long off = kbase + (long long)k0 * hd + i;
     dk[off] = dk_s[i] * scale;
     dv[off] = dv_s[i];
   }
@@ -267,7 +277,7 @@ size_t dkv_smem_bytes(int hd) {
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv,
-           int BH, int S, int hd, int causal, int window,
+           int BH, int Sq, int Sk, int q_off, int hd, int causal, int window,
            cudaStream_t stream) {
   const size_t smem_q = dq_smem_bytes(hd), smem_kv = dkv_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
@@ -284,17 +294,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* dot = static_cast<const float*>(dout);
   const float* lset = static_cast<const float*>(lse);
   const float* dlt = static_cast<const float*>(delta);
-  flash_dq_kernel<T><<<dim3(BH, (S + BQ - 1) / BQ), THREADS, smem_q,
+  flash_dq_kernel<T><<<dim3(BH, (Sq + BQ - 1) / BQ), THREADS, smem_q,
                        stream>>>(qt, kt, vt, dot, lset, dlt,
-                                 static_cast<float*>(dq), S, hd, causal,
-                                 window);
+                                 static_cast<float*>(dq), Sq, Sk, q_off, hd,
+                                 causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_dkv_kernel<T><<<dim3(BH, (S + TK - 1) / TK), THREADS, smem_kv,
+  flash_dkv_kernel<T><<<dim3(BH, (Sk + TK - 1) / TK), THREADS, smem_kv,
                         stream>>>(qt, kt, vt, dot, lset, dlt,
                                   static_cast<float*>(dk),
-                                  static_cast<float*>(dv), S, hd, causal,
-                                  window);
+                                  static_cast<float*>(dv), Sq, Sk, q_off, hd,
+                                  causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,7 +361,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_lo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq,
-                      int S, int causal, int window) {
+                      int Sq, int Sk, int q_off, int causal, int window) {
   using L = BwdSmem<HD>;
   constexpr int R = HD / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -364,9 +374,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * WT;  // heaviest first
-  const int q_hi = min(S, q0 + WT) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(S, q_hi + 1) : S;
+  const int q_hi = q_off + min(Sq, q0 + WT) - 1;
+  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
   const int t0 = k_begin / WT;
   const int nt = (k_end + WT - 1) / WT - t0;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
@@ -393,11 +403,11 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   const int r0 = q0 + 16 * warp + lane / 4, r1 = r0 + 8;
-  const long long rows = static_cast<long long>(bh) * S;
-  const float lse0 = r0 < S ? lse[rows + r0] : 0.f;
-  const float lse1 = r1 < S ? lse[rows + r1] : 0.f;
-  const float dl0 = r0 < S ? delta[rows + r0] : 0.f;
-  const float dl1 = r1 < S ? delta[rows + r1] : 0.f;
+  const long long rows = static_cast<long long>(bh) * Sq;
+  const float lse0 = r0 < Sq ? lse[rows + r0] : 0.f;
+  const float lse1 = r1 < Sq ? lse[rows + r1] : 0.f;
+  const float dl0 = r0 < Sq ? delta[rows + r0] : 0.f;
+  const float dl1 = r1 < Sq ? delta[rows + r1] : 0.f;
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
@@ -434,9 +444,10 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int row = (i & 2) ? r1 : r0;
+      const int pos = q_off + row;
       const int col = kb + 8 * (i / 4) + (i & 1);
-      const bool ok = row < S && col < S && (!causal || col <= row) &&
-                      (window == 0 || col > row - window);
+      const bool ok = row < Sq && col < Sk && (!causal || col <= pos) &&
+                      (window == 0 || col > pos - window);
       const float p =
           ok ? __expf(sc[i] * scale - ((i & 2) ? lse1 : lse0)) : 0.f;
       sc[i] = p * (dp[i] - ((i & 2) ? dl1 : dl0));
@@ -460,7 +471,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < R; i += 2) {
     const int row = (i & 2) ? r1 : r0;
-    if (row < S)
+    if (row < Sq)
       *reinterpret_cast<float2*>(out + static_cast<long long>(row) * HD +
                                  8 * (i / 4) + 2 * (lane % 4)) =
           make_float2(acc[i] * scale, acc[i + 1] * scale);
@@ -476,8 +487,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_lo,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       float* __restrict__ dk, float* __restrict__ dv, int S,
-                       int causal, int window) {
+                       float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                       int Sk, int q_off, int causal, int window) {
   using L = BwdSmem<HD>;
   constexpr int R = HD / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -491,10 +502,11 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = wt / 32, lane = tid % 32;
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * WT;  // heaviest (causal: first) first
-  const int k_hi = min(S, k0 + WT) - 1;
-  // query rows some key of this block is visible to: [q_begin, q_end)
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k_hi + window) : S;
+  const int k_hi = min(Sk, k0 + WT) - 1;
+  // q's rows some key of this block is visible to: [q_begin, q_end)
+  const int q_begin = max(0, (causal ? k0 : 0) - q_off);
+  const int q_end =
+      max(q_begin, window > 0 ? min(Sq, k_hi + window - q_off) : Sq);
   const int t0 = q_begin / WQ2;
   const int nt = (q_end + WQ2 - 1) / WQ2 - t0;
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
@@ -524,7 +536,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // this thread's key rows; its query columns of a 64 x 32 fragment are
   // qb + 8 (i / 4) + 2 (lane % 4) + (i & 1)
   const int kr0 = k0 + 16 * warp + lane / 4, kr1 = kr0 + 8;
-  const long long rows = static_cast<long long>(bh) * S;
+  const long long rows = static_cast<long long>(bh) * Sq;
   float acc[R];  // warpgroup 0: dV; warpgroup 1: dK / scale
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
@@ -554,8 +566,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < 16; ++i) {
         const int key = (i & 2) ? kr1 : kr0;
         const int qc = qb + 8 * (i / 4) + (i & 1);
-        const bool ok = key < S && qc < S && (!causal || key <= qc) &&
-                        (window == 0 || key > qc - window);
+        const int pos = q_off + qc;
+        const bool ok = key < Sk && qc < Sq && (!causal || key <= pos) &&
+                        (window == 0 || key > pos - window);
         f[i] = ok ? __expf(f[i] * scale - lse[rows + qc]) : 0.f;
         p_s[i * 128 + wt] = f[i];
       }
@@ -600,7 +613,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int qc = qb + 8 * (i / 4) + (i & 1);
-        const float dl = qc < S ? delta[rows + qc] : 0.f;
+        const float dl = qc < Sq ? delta[rows + qc] : 0.f;
         f[i] = p_s[i * 128 + wt] * (f[i] - dl);
       }
       // dK += dS^T Q, dS rounded to bf16
@@ -619,12 +632,12 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0 && t + WSTAGES < nt) issue_q(t + WSTAGES);
   }
 
-  float* out = (wg == 0 ? dv : dk) + rows * HD;
+  float* out = (wg == 0 ? dv : dk) + static_cast<long long>(bh) * Sk * HD;
   const float mul = wg == 0 ? 1.f : scale;
 #pragma unroll
   for (int i = 0; i < R; i += 2) {
     const int key = (i & 2) ? kr1 : kr0;
-    if (key < S)
+    if (key < Sk)
       *reinterpret_cast<float2*>(out + static_cast<long long>(key) * HD +
                                  8 * (i / 4) + 2 * (lane % 4)) =
           make_float2(acc[i] * mul, acc[i + 1] * mul);
@@ -645,21 +658,22 @@ template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dq, void* dk, void* dv, void* dout_split, int BH,
-                 int S, int causal, int window, cudaStream_t stream) {
+                 int Sq, int Sk, int q_off, int causal, int window,
+                 cudaStream_t stream) {
   using L = BwdSmem<HD>;
-  const long long n = static_cast<long long>(BH) * S * HD;
+  const long long n = static_cast<long long>(BH) * Sq * HD;
   __nv_bfloat16* hi = static_cast<__nv_bfloat16*>(dout_split);
   __nv_bfloat16* lo = hi + n;
   CUtensorMap tq = {}, tk = {}, tv = {}, thi = {}, tlo = {};
   CUtensorMap tq32 = {}, thi32 = {}, tlo32 = {};
-  if (!encode_bhsd_map(&tq, q, BH, S, HD, WT) ||
-      !encode_bhsd_map(&tk, k, BH, S, HD, WT) ||
-      !encode_bhsd_map(&tv, v, BH, S, HD, WT) ||
-      !encode_bhsd_map(&thi, hi, BH, S, HD, WT) ||
-      !encode_bhsd_map(&tlo, lo, BH, S, HD, WT) ||
-      !encode_bhsd_map(&tq32, q, BH, S, HD, WQ2) ||
-      !encode_bhsd_map(&thi32, hi, BH, S, HD, WQ2) ||
-      !encode_bhsd_map(&tlo32, lo, BH, S, HD, WQ2))
+  if (!encode_bhsd_map(&tq, q, BH, Sq, HD, WT) ||
+      !encode_bhsd_map(&tk, k, BH, Sk, HD, WT) ||
+      !encode_bhsd_map(&tv, v, BH, Sk, HD, WT) ||
+      !encode_bhsd_map(&thi, hi, BH, Sq, HD, WT) ||
+      !encode_bhsd_map(&tlo, lo, BH, Sq, HD, WT) ||
+      !encode_bhsd_map(&tq32, q, BH, Sq, HD, WQ2) ||
+      !encode_bhsd_map(&thi32, hi, BH, Sq, HD, WQ2) ||
+      !encode_bhsd_map(&tlo32, lo, BH, Sq, HD, WQ2))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n4 = n / 4;
   const long long blocks = std::min<long long>((n4 + 255) / 256, 132 * 8);
@@ -671,61 +685,69 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   rc = launch_kernel(flash_dq_wgmma_kernel<HD>,
-                     dim3(BH, (S + WT - 1) / WT), 128, L::DQ_BYTES, stream,
+                     dim3(BH, (Sq + WT - 1) / WT), 128, L::DQ_BYTES, stream,
                      tq, tk, tv, thi, tlo, lse_f, delta_f,
-                     static_cast<float*>(dq), S, causal, window);
+                     static_cast<float*>(dq), Sq, Sk, q_off, causal, window);
   if (rc) return rc;
   return launch_kernel(flash_dkv_wgmma_kernel<HD>,
-                       dim3(BH, (S + WT - 1) / WT), 256, L::KV_BYTES, stream,
+                       dim3(BH, (Sk + WT - 1) / WT), 256, L::KV_BYTES, stream,
                        tq32, tk, tv, thi32, tlo32, lse_f, delta_f,
-                       static_cast<float*>(dk), static_cast<float*>(dv), S,
-                       causal, window);
+                       static_cast<float*>(dk), static_cast<float*>(dv), Sq,
+                       Sk, q_off, causal, window);
 }
 
 }  // namespace
 
-// The simt route: q, k, v (BH, S, hd) of the float type `dtype`; dout
-// (BH, S, hd) fp32; lse, delta (BH, S) fp32; dq, dk, dv (BH, S, hd)
-// fp32; all contiguous.  Launches the dQ sweep, then the dK/dV sweep.
-// Returns a cudaError_t.
+// The simt route: q (BH, Sq, hd) and k, v (BH, Sk, hd) of the float type
+// `dtype`, q's rows at key positions q_off .. q_off + Sq - 1 (q_off + Sq
+// <= Sk); dout (BH, Sq, hd) fp32; lse, delta (BH, Sq) fp32; dq (BH, Sq,
+// hd), dk, dv (BH, Sk, hd) fp32; all contiguous.  Launches the dQ sweep,
+// then the dK/dV sweep.  Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* delta,
                                          void* dq, void* dk, void* dv, int BH,
-                                         int S, int hd, int causal,
-                                         int window, int dtype,
+                                         int Sq, int Sk, int q_off, int hd,
+                                         int causal, int window, int dtype,
                                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH == 0 || S == 0) return 0;
+  if (BH == 0 || Sk == 0) return 0;
+  if (q_off < 0 || q_off + Sq > Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_BF16)
     return launch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
-                                 S, hd, causal, window, s);
+                                 Sq, Sk, q_off, hd, causal, window, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k, v, dout, lse, delta, dq, dk, dv, BH, S, hd,
-                         causal, window, s);
+    return launch<float>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Sk,
+                         q_off, hd, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The wgmma route: q, k, v (BH, S, hd) bf16, hd 64, 128 or 256; dout
-// (BH, S, hd) fp32; lse, delta (BH, S) fp32; dq, dk, dv (BH, S, hd) fp32;
-// dout_split 2 x BH x S x hd bf16 of scratch (dO's halves); all
+// The wgmma route: q (BH, Sq, hd) and k, v (BH, Sk, hd) bf16, hd 64, 128
+// or 256, q's rows at key positions q_off .. q_off + Sq - 1; dout (BH, Sq,
+// hd) fp32; lse, delta (BH, Sq) fp32; dq (BH, Sq, hd), dk, dv (BH, Sk, hd)
+// fp32; dout_split 2 x BH x Sq x hd bf16 of scratch (dO's halves); all
 // contiguous and 16-byte aligned.  Splits dO, then launches the dQ sweep
 // and the dK/dV sweep.  Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    void* dout_split, int BH, int S, int hd, int causal, int window,
-    void* stream) {
+    void* dout_split, int BH, int Sq, int Sk, int q_off, int hd, int causal,
+    int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH == 0 || S == 0) return 0;
+  if (BH == 0 || Sk == 0) return 0;
+  if (q_off < 0 || q_off + Sq > Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
     return launch_wgmma<64>(q, k, v, dout, lse, delta, dq, dk, dv,
-                            dout_split, BH, S, causal, window, s);
+                            dout_split, BH, Sq, Sk, q_off, causal, window, s);
   if (hd == 128)
     return launch_wgmma<128>(q, k, v, dout, lse, delta, dq, dk, dv,
-                             dout_split, BH, S, causal, window, s);
+                             dout_split, BH, Sq, Sk, q_off, causal, window,
+                             s);
   if (hd == 256)
     return launch_wgmma<256>(q, k, v, dout, lse, delta, dq, dk, dv,
-                             dout_split, BH, S, causal, window, s);
+                             dout_split, BH, Sq, Sk, q_off, causal, window,
+                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

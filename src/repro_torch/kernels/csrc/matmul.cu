@@ -89,14 +89,16 @@ constexpr int BM = 128, BN = 128;
 // the K unit of a split's slice (kernels/matmul/matmul.py's TILE_K)
 constexpr int SLICE_K32 = 32;
 
-// the block's output: straight to c, or its rank's partial to scratch,
-// where a rank's partials span `rank_rows` rows (every group's M)
+// the block's output: straight to c, or (wherever there is a scratch) its
+// rank's partial to scratch, where a rank's partials span `rank_rows` rows
+// (every group's M); a split of 1 with a scratch writes the fp32 sums
+// themselves (repro_matmul_f32out)
 template <typename TC>
 __device__ __forceinline__ void put(TC* __restrict__ c,
                                     float* __restrict__ scratch, int split,
                                     int rank, long long rank_rows, int N,
                                     int gm, int gn, float v) {
-  if (split == 1)
+  if (scratch == nullptr)
     c[static_cast<long long>(gm) * N + gn] = from_f32<TC>(v);
   else
     scratch[(rank * rank_rows + gm) * N + gn] = v;
@@ -662,9 +664,11 @@ int launch_short(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                 p.sbk, p.sbn, use_tma, store_tma);
 }
 
-int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                __nv_bfloat16* c, float* scratch, const Problem& p,
-                cudaStream_t stream) {
+// the bf16 routes' products: into c, or (with a scratch) their fp32 sums
+// into it, a split's partials rank by rank
+int launch_bf16_products(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                         __nv_bfloat16* c, float* scratch, const Problem& p,
+                         cudaStream_t stream) {
   const bool kmajor = p.sbn != 1;  // else sbk == 1 (checked by the caller)
   CUtensorMap tm_a = {}, tm_b = {};
   // TMA wants 16-byte bases and row strides, and so every group's base
@@ -679,17 +683,21 @@ int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
     use_tma = 0;
   }
   if (p.short_k) return launch_short(tm_a, tm_b, a, b, c, p, use_tma, stream);
-  int rc;
   if (p.grouped)
-    rc = kmajor ? launch_bf16_as<true, true>(tm_a, tm_b, a, b, c, scratch, p,
-                                             use_tma, stream)
-                : launch_bf16_as<false, true>(tm_a, tm_b, a, b, c, scratch,
-                                              p, use_tma, stream);
-  else
-    rc = kmajor ? launch_bf16_as<true, false>(tm_a, tm_b, a, b, c, scratch,
-                                              p, use_tma, stream)
+    return kmajor ? launch_bf16_as<true, true>(tm_a, tm_b, a, b, c, scratch,
+                                               p, use_tma, stream)
+                  : launch_bf16_as<false, true>(tm_a, tm_b, a, b, c, scratch,
+                                                p, use_tma, stream);
+  return kmajor ? launch_bf16_as<true, false>(tm_a, tm_b, a, b, c, scratch, p,
+                                              use_tma, stream)
                 : launch_bf16_as<false, false>(tm_a, tm_b, a, b, c, scratch,
                                                p, use_tma, stream);
+}
+
+int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                __nv_bfloat16* c, float* scratch, const Problem& p,
+                cudaStream_t stream) {
+  const int rc = launch_bf16_products(a, b, c, scratch, p, stream);
   return rc ? rc
             : reduce_splits(scratch, c, static_cast<long long>(p.G) * p.M,
                             p.N, p.split, stream);
@@ -758,6 +766,27 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c,
                             int dtype, void* stream) {
   const Problem p{1, M, N, K, lda, 0, 0, sbk, sbn, split, slice_steps, false};
   return run(a, b, c, scratch, p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// As repro_matmul for bf16 a and b, with c (M, N) fp32: the products'
+// fp32 sums, not rounded to bf16 (a row-parallel shard's partial sums,
+// added over the model axis before the one rounding).  scratch holds the
+// split x M x N partials where split > 1 (null otherwise).
+extern "C" int repro_matmul_f32out(const void* a, const void* b, void* c,
+                                   void* scratch, int M, int N, int K,
+                                   int lda, int sbk, int sbn, int split,
+                                   int slice_steps, void* stream) {
+  const Problem p{1, M, N, K, lda, 0, 0, sbk, sbn, split, slice_steps, false};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(c);
+  float* part = split > 1 ? static_cast<float*>(scratch) : out;
+  if ((p.sbk != 1 && p.sbn != 1) || split < 1 || split > 8 ||
+      slice_steps < 0 || (M + BM - 1) / BM > 65535 || part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = launch_bf16_products(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), nullptr, part, p, s);
+  return rc ? rc : reduce_splits(part, out, M, N, split, s);
 }
 
 // G groups, in one launch: group g computes a_g (M, K) @ b_g (K, N) into

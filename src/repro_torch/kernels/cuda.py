@@ -45,16 +45,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points: pointers and the stream as c_void_p, sizes as c_int
 SIGNATURES = {
     "repro_matmul": [_P] * 4 + [_I] * 9 + [_P],
+    "repro_matmul_f32out": [_P] * 4 + [_I] * 8 + [_P],
     "repro_grouped_matmul": [_P] * 4 + [_I] * 14 + [_P],
     "repro_quantized_matmul": [_P] * 5 + [_I] * 7 + [_P],
     "repro_decode_attention": [_P] * 7 + [_I] * 11 + [_P],
     "repro_decode_attention_int8": [_P] * 9 + [_I] * 11 + [_P],
     "repro_prefill_attention": [_P] * 7 + [_I] * 13 + [_P],
     "repro_prefill_attention_int8": [_P] * 9 + [_I] * 13 + [_P],
-    "repro_flash_attention": [_P] * 5 + [_I] * 6 + [_P],
-    "repro_flash_attention_wgmma": [_P] * 5 + [_I] * 5 + [_P],
-    "repro_flash_attention_bwd": [_P] * 9 + [_I] * 6 + [_P],
-    "repro_flash_attention_bwd_wgmma": [_P] * 10 + [_I] * 5 + [_P],
+    "repro_flash_attention": [_P] * 5 + [_I] * 8 + [_P],
+    "repro_flash_attention_wgmma": [_P] * 5 + [_I] * 7 + [_P],
+    "repro_flash_attention_bwd": [_P] * 9 + [_I] * 8 + [_P],
+    "repro_flash_attention_bwd_wgmma": [_P] * 10 + [_I] * 7 + [_P],
     "repro_wkv": [_P] * 6 + [_I] * 8 + [_P],
     "repro_wkv_mma": [_P] * 6 + [_I] * 7 + [_P],
     "repro_wkv_bwd": [_P] * 12 + [_I] * 5 + [_P],

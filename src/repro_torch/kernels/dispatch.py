@@ -67,6 +67,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..runtime import collectives as coll
 from ..tune import cache as tune_cache
 from . import registry
 from .attention import (decode_attention_cuda, decode_attention_int8_cuda,
@@ -109,10 +110,15 @@ def _tp_complete(op: str, out: torch.Tensor,
             f"{sorted(contracts)}); sharded serving cannot complete this "
             "call inside the tensor-parallel step")
     how = contracts[tp]
+    # under autograd the differentiable forms (the same bits forward):
+    # psum's cotangent goes to every member whole, an all-gather's is
+    # reduce-scattered back
+    grad = torch.is_grad_enabled() and out.requires_grad
     if how == "psum":
-        return group.psum(out)
+        return coll.psum(out, group) if grad else group.psum(out)
     if how is not None:
-        return group.all_gather(out, how[1])
+        return coll.gather_shards(out, group, how[1]) if grad \
+            else group.all_gather(out, how[1])
     return out
 
 
@@ -123,8 +129,17 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "macs"):
+            fn.macs = 0
         for route in getattr(fn, "routes", ()):
             fn.routes[route] = 0
+
+
+def matmul_macs() -> int:
+    """B1's multiply-adds (M x K x N summed over its launches, the
+    grouped route's not counted) since the last ``reset_launch_counts``:
+    how a model-axis rank's share of the GEMM work shows on the card."""
+    return matmul_cuda.macs
 
 
 def route_counts() -> Dict[str, int]:
@@ -158,9 +173,12 @@ def _kernel_plan(op: str, *args, spec: Optional[str] = None):
     return None if key is None else _plan(op, spec.namespace, *key)
 
 
-def _b1(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _b1(op: str, a: torch.Tensor, b: torch.Tensor,
+        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One GEMM on B1 at the tuned plan of its (K, N, dtype)."""
-    return matmul_cuda(a, b, plan=_kernel_plan(op, a, b, spec="matmul"))
+    kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+    return matmul_cuda(a, b, plan=_kernel_plan(op, a, b, spec="matmul"),
+                       **kw)
 
 
 def _grad_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -218,18 +236,22 @@ class _Matmul(torch.autograd.Function):
     through its strides) and db = a.T @ g (a.T made contiguous, as B1's
     A operand must be), each cast back to its primal dtype.  Inside a
     ``RematTape`` a ``saveable`` call's output is kept by the forward and
-    returned by the recompute (route ``saved``: no launch)."""
+    returned by the recompute (route ``saved``: no launch).  ``out_dtype``
+    fp32 keeps bf16 operands' fp32 sums unrounded; with ``grad_group`` (a
+    column-parallel shard's product) dx's fp32 sums are added over the
+    group before their one rounding."""
 
     @staticmethod
-    def forward(ctx, a, b, saveable):
+    def forward(ctx, a, b, saveable, out_dtype, grad_group):
         a = a.contiguous()
         ctx.save_for_backward(a, b)
+        ctx.grad_group = grad_group
         tape = _tape if saveable else None
         if tape is not None and tape.replaying:
             registry.count_route("matmul", "saved")
             return tape.take()
-        out = _b1("matmul", a, b) if _on_card("matmul", a) \
-            else matmul_plain(a, b)
+        out = _b1("matmul", a, b, out_dtype) if _on_card("matmul", a) \
+            else matmul_plain(a, b, out_dtype=out_dtype)
         if tape is not None:
             tape.outputs.append(out.detach())
         return out
@@ -240,24 +262,35 @@ class _Matmul(torch.autograd.Function):
         g = g.float().contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _grad_gemm(g, b.float().T).to(a.dtype)
+            da = _grad_gemm(g, b.float().T)
+            if ctx.grad_group is not None:
+                da = ctx.grad_group.psum(da)
+            da = da.to(a.dtype)
         if ctx.needs_input_grad[1]:
             db = _grad_gemm(a.float().T.contiguous(), g).to(b.dtype)
-        return da, db, None
+        return da, db, None, None, None
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
-           tp: Optional[str] = None, saveable: bool = True) -> torch.Tensor:
+           tp: Optional[str] = None, saveable: bool = True,
+           out_dtype: Optional[torch.dtype] = None,
+           grad_group=None) -> torch.Tensor:
     """Contract the last axis of ``x`` with the first axis of ``w``.
 
     x: (..., K); w: (K, N1[, N2, ...]).  Returns x.shape[:-1] + w.shape[1:]
-    in the promoted input dtype; differentiable in both.  ``tp`` tags the
-    call's tensor-parallel contract ("col": output channels local, no
+    in the promoted input dtype (``out_dtype`` fp32: bf16 operands' fp32
+    sums, unrounded: a row-parallel shard's partial sums, which the model
+    axis adds before one rounding); differentiable in both.  ``tp`` tags
+    the call's tensor-parallel contract ("col": output channels local, no
     collective; "row": contraction sharded, psum of the output).
     ``saveable``: whether a ``dots`` remat keeps the output (False for a
-    product whose output the backward never reads)."""
+    product whose output the backward never reads).  ``grad_group`` (a
+    ``runtime.collectives.Group``: ``w`` is a column-parallel shard, x
+    whole and alike on its members): the backward adds the members' fp32
+    dx before rounding it to x's dtype, so dx is the whole product's."""
     k = x.shape[-1]
-    out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1), saveable)
+    out = _Matmul.apply(x.reshape(-1, k), w.reshape(k, -1), saveable,
+                        out_dtype, grad_group)
     return _tp_complete("matmul", out.reshape(x.shape[:-1] + w.shape[1:]),
                         tp)
 
@@ -333,39 +366,45 @@ class _Attention(torch.autograd.Function):
     what the kernels hold, not the plain versions' dense scores."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, out_dtype):
+    def forward(ctx, q, k, v, causal, window, out_dtype, q_offset):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         fn = flash_attention_cuda if _on_card("attention", q) \
             else flash_attention_meta if q.is_meta else flash_attention_plain
         o, lse = fn(qt, kt, vt, causal=causal, window=window,
-                    return_lse=True)
+                    return_lse=True, q_offset=q_offset)
         ctx.save_for_backward(qt, kt, vt, o, lse)
-        ctx.mask = (causal, window)
+        ctx.mask = (causal, window, q_offset)
         return o.transpose(1, 2).to(out_dtype,
                                     memory_format=torch.contiguous_format)
 
     @staticmethod
     def backward(ctx, g):
         qt, kt, vt, o, lse = ctx.saved_tensors
-        causal, window = ctx.mask
+        causal, window, q_offset = ctx.mask
         gt = g.transpose(1, 2).float().contiguous()
         fn = flash_attention_bwd_cuda if _on_card("attention_bwd", g) \
             else flash_attention_bwd_meta if g.is_meta \
             else flash_attention_bwd_plain
-        grads = fn(qt, kt, vt, o, lse, gt, causal=causal, window=window)
+        grads = fn(qt, kt, vt, o, lse, gt, causal=causal, window=window,
+                   q_offset=q_offset)
         dq, dk, dv = (d.transpose(1, 2).to(t.dtype)
                       for d, t in zip(grads, (qt, kt, vt)))
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Self-attention over model-layout tensors: q, k, v (B, S, H, hd),
-    k and v already GQA-expanded to H heads.  Returns (B, S, H, hd) in
-    ``out_dtype`` (default q's dtype); differentiable in q, k and v."""
+              out_dtype: Optional[torch.dtype] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """Self-attention over model-layout tensors: q (B, Sq, H, hd), k and v
+    (B, Sk, H, hd) already GQA-expanded to H heads, q's rows at key
+    positions ``q_offset ..`` (one rank's block of a sequence-striped
+    layer; default the whole sequence, Sq == Sk).  Returns (B, Sq, H,
+    hd) in ``out_dtype`` (default q's dtype); differentiable in q, k and
+    v (k and v's gradient is then this block's part)."""
     return _Attention.apply(q, k, v, bool(causal), int(window),
-                            q.dtype if out_dtype is None else out_dtype)
+                            q.dtype if out_dtype is None else out_dtype,
+                            int(q_offset))
 
 
 class _Wkv(torch.autograd.Function):

@@ -19,9 +19,12 @@ import torch
 from .. import cuda
 
 
-def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (M, K) @ b (K, N), accumulated in fp32, in the promoted dtype."""
-    out_dtype = torch.promote_types(a.dtype, b.dtype)
+def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
+                 out_dtype: torch.dtype = None) -> torch.Tensor:
+    """a (M, K) @ b (K, N), accumulated in fp32, in the promoted dtype (or
+    ``out_dtype``: fp32 keeps the sums unrounded)."""
+    if out_dtype is None:
+        out_dtype = torch.promote_types(a.dtype, b.dtype)
     return (a.float() @ b.float()).to(out_dtype)
 
 
@@ -134,19 +137,28 @@ def check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
-                plan=None) -> torch.Tensor:
+                plan=None, out_dtype: torch.dtype = None) -> torch.Tensor:
     """Launch ``repro_matmul``: a (M, K) contiguous, b (K, N) at two
     strides of which one is 1 (weights are N-contiguous, the tied head
     passes the K-contiguous ``embed.T``), both bf16 or both fp32, on one
     CUDA device.  K splits by ``split_plan``, or by ``plan``'s
     ``{"split": s}`` (a tuned plan).  Returns a new (M, N) tensor of a's
-    dtype."""
+    dtype, or with ``out_dtype`` fp32 for bf16 operands the products' fp32
+    sums unrounded (``repro_matmul_f32out``: a row-parallel shard's
+    partial sums, completed before their one rounding).  Counts one
+    launch per call, and its M x K x N multiply-adds in
+    ``matmul_cuda.macs``."""
     cuda.require_cuda("matmul", a, b, contiguous=False)
     check_operands(a, b)
     m, k = a.shape
     n = b.shape[1]
     code = cuda.dtype_code(a)
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    f32out = out_dtype == torch.float32 and a.dtype == torch.bfloat16
+    if out_dtype not in (None, a.dtype) and not f32out:
+        raise ValueError(f"matmul: out_dtype {out_dtype} for {a.dtype} "
+                         "operands (fp32 out takes bf16 operands)")
+    c = torch.empty((m, n), dtype=torch.float32 if f32out else a.dtype,
+                    device=a.device)
     if m == 0 or n == 0:
         return c
     _check_rows("matmul", m, TILE_M)
@@ -155,17 +167,25 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     # the split's partial products, summed in rank order by a second pass
     scratch = (torch.empty((split, m, n), dtype=torch.float32,
                            device=a.device) if split > 1 else None)
-    rc = cuda.library().repro_matmul(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        *cuda.c_ints("matmul", m, n, k, k, b.stride(0), b.stride(1), split,
-                     per), code, cuda.stream_of(a))
+    sizes = cuda.c_ints("matmul", m, n, k, k, b.stride(0), b.stride(1),
+                        split, per)
+    part = None if scratch is None else scratch.data_ptr()
+    if f32out:
+        rc = cuda.library().repro_matmul_f32out(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), part, *sizes,
+            cuda.stream_of(a))
+    else:
+        rc = cuda.library().repro_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), part, *sizes, code,
+            cuda.stream_of(a))
     cuda.check(rc, "matmul")
     matmul_cuda.launches += 1
+    matmul_cuda.macs += m * k * n
     return c
 
 
 matmul_cuda.launches = 0
+matmul_cuda.macs = 0
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

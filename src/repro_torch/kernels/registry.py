@@ -444,8 +444,10 @@ def _flash_bwd_inputs(shape, dtype, device="cuda"):
 
 
 def _flash_eligible(bwd: bool):
-    def eligible(q, k, v, *rest) -> bool:
-        return _ok(lambda: (check_bhsd("flash", q, k, v),
+    """q (B, H, Sq, hd) over k, v (B, H, Sk, hd), q's rows at key positions
+    ``q_offset ..`` inside the keys, on a route whose tiles fit."""
+    def eligible(q, k, v, *rest, q_offset: int = 0) -> bool:
+        return _ok(lambda: (check_bhsd("flash", q, k, v, q_offset),
                             check_route("flash", q.dtype, q.shape[-1], bwd)))
     return eligible
 

@@ -27,14 +27,18 @@ forward and backward are ops that hold and move what the kernels do
 (``kernels/attention/meta.py``), not the plain versions' dense scores.
 ``compile_seconds`` is the seconds the ``meta`` run took.
 
-Two departures from the JAX cells, written into every cell's JSON with
-what the peak counts:
+The models are JAX's: ``build_model`` sets the residual-stream hook
+(``make_constrain``: Megatron-SP striping of the sequence over
+``model``) and the q/k/v hook (``attn_hook``), and a train cell's model
+axis splits each layer's work (``runtime/model_axis.py``): its
+per-device FLOPs are the step's over all chips.
 
-* ``model_axis``: until the activation and attention sharding hooks
-  (JAX's ``make_constrain`` and ``attn_hook``; ROADMAP item 14d) are
-  ported, the ranks of the model axis compute alike on the whole
-  activations.  The per-device FLOPs are the total over the data axes,
-  not over all chips.
+Departures from the JAX cells, written into each cell's JSON with what
+the peak counts:
+
+* ``model_axis`` (serving cells only): the prefill and decode steps
+  still run the model axis's ranks alike on whole weights (ROADMAP item
+  14e); their per-device FLOPs are the total over the data axes.
 * ``collectives``: ``Group.psum`` is an all-gather and a sum in rank
   order, so it is counted as an all-gather (not a ring all-reduce), and
   ``reduce_scatter`` as the all-to-all it is.
@@ -73,10 +77,12 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 BIG_PARAM_THRESHOLD = 30e9      # archs above this get bf16 params + int8 Adam
 
+SERVING_DEPARTURES = {
+    "model_axis": "replicated compute (item 14e): the serving steps run "
+                  "the model axis's ranks alike on whole weights; "
+                  "per-device FLOPs are the total over the data axes",
+}
 DEPARTURES = {
-    "model_axis": "replicated compute (item 14d): the model axis's ranks "
-                  "compute alike; per-device FLOPs are the total over the "
-                  "data axes",
     "collectives": "the port's psum is an all-gather plus a rank-order sum, "
                    "counted as an all-gather; reduce_scatter is an "
                    "all-to-all",
@@ -119,12 +125,46 @@ def microbatches(cfg: ArchConfig, mode: str) -> int:
     return 4 if ((big or deep_vocab) and mode == "mem") else 1
 
 
+def departures(shape: ShapeSpec) -> Dict[str, str]:
+    """The departures a cell of ``shape`` records."""
+    if shape.kind == "train":
+        return dict(DEPARTURES)
+    return {**SERVING_DEPARTURES, **DEPARTURES}
+
+
+def make_constrain(rules: MeshRules) -> Callable:
+    """The residual stream's layout (JAX's ``make_constrain``): the spec of
+    a (B, S, d) activation -- batch over the data axes, sequence over
+    ``model`` (Megatron-SP) -- or None where nothing fits.  The port's
+    sharded step reads it (``TrainSharding.model_split``) and moves the
+    residual into it; JAX constrains the array to it."""
+    def con(shape):
+        return rules.activation_spec(tuple(shape))
+    return con
+
+
+def attn_hook(rules: MeshRules) -> Callable:
+    """q/k/v's layout at attention entry (JAX's ``attn_hook``, the
+    Megatron SP -> TP transition): the spec of a (B, S, H, hd) tensor of
+    ``role`` "q" or "k"/"v" by ``MeshRules.attn_spec`` -- heads over
+    ``model`` when they divide it, else q over the sequence and k/v
+    whole; under ``attn_prefer_seq`` q over the sequence with every head.
+    The port's attention lays q/k/v out by it
+    (``models/layers.attention_split``)."""
+    def hook(shape, role):
+        return rules.attn_spec(tuple(shape), role)
+    return hook
+
+
 def build_model(cfg: ArchConfig, shape: ShapeSpec, rules: MeshRules,
                 dt: DtypePolicy) -> Model:
-    """The cell's model on ``meta``: remat on, the JAX blocks, the MoE
-    layers expert-parallel over the rules' EP axes."""
+    """The cell's model on ``meta``: remat on, the JAX blocks, the
+    residual and attention hooks, the MoE layers expert-parallel over the
+    rules' EP axes."""
     bq, bkv = block_sizes(shape.seq_len)
     opts = ExecOptions(block_q=bq, block_kv=bkv, remat=True,
+                       constrain=make_constrain(rules),
+                       attn_constrain=attn_hook(rules),
                        moe_mesh=rules.mesh, moe_dp_axes=rules.dp_axes,
                        moe_ep_axes=rules.ep_axes,
                        expert_pad=rules.axis_size(rules.ep_axes))
@@ -324,7 +364,7 @@ def run_cell(arch, shape_name, *, multipod: bool = True,
     out_path = out_dir / f"{arch}--{shape_name}.json"
     result: Dict = {"arch": arch, "shape": shape_name,
                     "shape_detail": dataclasses.asdict(shape),
-                    **DEPARTURES}
+                    **departures(shape)}
 
     ok, reason = shape_applicable(cfg, shape)
     if not ok:

@@ -14,12 +14,12 @@ Knobs (all optional; defaults reproduce the baseline):
   capacity=FLOAT              MoE capacity factor
   microbatches=INT            gradient-accumulation splits (train cells)
   xent_chunks=INT             sequence tiles for the loss
-  seq_shard=0|1, attn_seq=0|1, embed_stripe=0|1
-                              need the activation and attention sharding
-                              hooks (ROADMAP item 14d); only the layout
-                              the port has is accepted (seq_shard=0,
-                              attn_seq=0, embed_stripe=1), any other
-                              value raises NotImplementedError
+  seq_shard=0|1               Megatron-SP striping of the residual
+                              (dryrun.make_constrain; default 1)
+  attn_seq=0|1                MeshRules.attn_prefer_seq: q/k/v stay
+                              sequence-striped at attention entry
+  embed_stripe=0|1            MeshRules.stripe_embed: the embedding and
+                              head also stripe d over `data` (default 1)
 
 JAX's ``block_kv`` knob (the reference lowering's KV tile) is not one:
 the port's attention kernels keep their own tiles, so no tile of the
@@ -46,15 +46,13 @@ RESULTS = Path(__file__).resolve().parents[3] / "build" / "perf"
 
 @dataclasses.dataclass
 class Variant:
-    """A set of knobs.  ``seq_shard`` defaults to False, where JAX's
-    defaults to True: the port has no Megatron-SP residual sharding yet
-    (item 14d), and its baseline is the layout it runs."""
+    """A set of knobs, at JAX's defaults."""
     name: str = "baseline"
     remat: str = "full"
     rwkv_chunk: int = 0
     rwkv_intra: str = ""         # "" = config default
     fsdp: bool = True
-    seq_shard: bool = False
+    seq_shard: bool = True
     embed_stripe: bool = True
     attn_seq: bool = False
     capacity: float = 0.0
@@ -64,17 +62,6 @@ class Variant:
 
 
 def check_variant(v: Variant) -> None:
-    """Refuse the knobs that need item 14d's hooks, at any value but the
-    port's own layout."""
-    wants = [name for name, ok in (("seq_shard", not v.seq_shard),
-                                   ("attn_seq", not v.attn_seq),
-                                   ("embed_stripe", v.embed_stripe))
-             if not ok]
-    if wants:
-        raise NotImplementedError(
-            f"{', '.join(wants)}: the activation and attention sharding "
-            "hooks (JAX's make_constrain / attn_hook, stripe_embed) are "
-            "not ported yet (ROADMAP item 14d)")
     if v.remat not in ("full", "dots", "none"):
         raise ValueError(f"remat {v.remat!r} (full, dots or none)")
 
@@ -92,7 +79,8 @@ def apply_variant(cfg, shape, v: Variant, rules):
     opts = ExecOptions(
         block_q=bq, block_kv=bkv, remat=v.remat != "none",
         remat_policy=v.remat if v.remat != "none" else "full",
-        moe_mesh=rules.mesh, moe_dp_axes=rules.dp_axes,
+        constrain=dryrun.make_constrain(rules) if v.seq_shard else None,
+        attn_constrain=dryrun.attn_hook(rules), moe_mesh=rules.mesh, moe_dp_axes=rules.dp_axes,
         moe_ep_axes=rules.ep_axes,
         expert_pad=rules.axis_size(rules.ep_axes),
         xent_chunks=v.xent_chunks)
@@ -105,7 +93,9 @@ def run_variant(arch: str, shape_name: str, v: Variant, log=print,
     cfg0 = get_arch(arch)
     shape = SHAPES[shape_name]
     mesh = make_production_mesh()
-    rules = make_rules(mesh, fsdp=v.fsdp)
+    rules = dataclasses.replace(make_rules(mesh, fsdp=v.fsdp),
+                                stripe_embed=v.embed_stripe,
+                                attn_prefer_seq=v.attn_seq)
     chips = mesh.size
 
     def builder(cfg, shape_, rules_, dt):
@@ -120,7 +110,7 @@ def run_variant(arch: str, shape_name: str, v: Variant, log=print,
     row = {"variant": dataclasses.asdict(v), "arch": arch,
            "shape": shape_name, "roofline": rl.to_dict(),
            "cost": ct, "wall_s": round(time.time() - t0, 1),
-           **dryrun.DEPARTURES}
+           **dryrun.departures(shape)}
     if v.mem_proof:
         row["mem"] = dryrun.analyze_cell(cfg0, shape, rules, "mem",
                                          builder=builder)

@@ -22,8 +22,11 @@ The state is laid out on the host mesh as the JAX CLI lays it out:
 --nproc-per-node N`` for more, N = 2 giving (data 1, model 2)) and
 ``make_rules(mesh, fsdp=True)``.  Each rank stores its shards of the
 params and the optimizer state, takes its rows of every batch, and
-gathers each leaf at its use (``runtime/sharding.TrainSharding``); a MoE
-arch runs expert-parallel.  On one rank every spec replicates and no
+gathers each leaf at its use over the data axis
+(``runtime/sharding.TrainSharding``); the model axis splits each
+layer's work (``runtime/model_axis.py``), its residual stream
+replicated, as JAX's CLI sets no ``constrain``; a MoE arch runs
+expert-parallel.  On one rank every spec replicates and no
 collective runs.  Only rank 0 prints.  Ranks on one card run gloo and
 draw the state in turn.
 

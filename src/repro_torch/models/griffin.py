@@ -97,13 +97,19 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _rglru_coeffs(p: Params, s: GriffinSpec, x: torch.Tensor
+def _rglru_coeffs(p: Params, s: GriffinSpec, x: torch.Tensor,
+                  gates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The recurrence weight a_t and input b_t, all fp32.  x: (..., lru)."""
+    """The recurrence weight a_t and input b_t, all fp32.  x: (..., lru);
+    ``gates``: the block-diagonal products x wa and x wx, where the caller
+    made them."""
     f32 = torch.float32
     xf = x.to(f32)
-    r = torch.sigmoid(_block_diag(xf, p["wa"].to(f32), s) + p["ba"])
-    i = torch.sigmoid(_block_diag(xf, p["wx"].to(f32), s) + p["bx"])
+    if gates is None:
+        gates = (_block_diag(xf, p["wa"].to(f32), s),
+                 _block_diag(xf, p["wx"].to(f32), s))
+    r = torch.sigmoid(gates[0] + p["ba"])
+    i = torch.sigmoid(gates[1] + p["bx"])
     log_a = -_C * r * _softplus(p["lam"])        # log a_t <= 0
     a = torch.exp(log_a)
     # sqrt(1 - a^2) in a numerically safe form
@@ -160,11 +166,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def rglru_block_apply(p: Params, s: GriffinSpec, x: torch.Tensor,
-                      cdt: torch.dtype) -> torch.Tensor:
+                      cdt: torch.dtype, split=None) -> torch.Tensor:
     """The block over whole sequences x (B, S, d) from a zero state: the
     gate and main branches, the causal conv from a zero delay buffer,
     the RG-LRU scan in fp32, the gated output projection.  Returns
-    (B, S, d)."""
+    (B, S, d).  With ``split`` (``rglru_block_split``) it runs on the
+    model axis's shards."""
+    if split is not None:
+        return rglru_block_split(p, s, x, cdt, split)
     gate = F.gelu(x @ p["w_gate"].to(cdt), approximate="tanh")
     main = x @ p["w_main"].to(cdt)
     prev = main.new_zeros((x.shape[0], s.conv_width - 1, s.lru_width))
@@ -172,6 +181,42 @@ def rglru_block_apply(p: Params, s: GriffinSpec, x: torch.Tensor,
     a, bb = _rglru_coeffs(p, s, main)
     h = rglru_scan(a, bb).to(cdt)
     return (h * gate) @ p["w_out"].to(cdt)
+
+
+def rglru_block_split(p: Params, s: GriffinSpec, x: torch.Tensor,
+                      cdt: torch.dtype, split) -> torch.Tensor:
+    """The block on the model axis's shards (x whole, from
+    ``split.branch``): ``w_main`` / ``w_gate`` give the rank's lru / m
+    channels (column-parallel), ``w_out`` takes them (row-parallel,
+    completed into the residual's layout); the conv, the gate biases, lam
+    and the scan are per channel, on the rank's.  The block-diagonal
+    gates take the rank's blocks where the blocks divide the axis, else
+    their products run alike on whole channels and each rank keeps its
+    own."""
+    gate = F.gelu(split.col(x, p["w_gate"].to(cdt)), approximate="tanh")
+    main = split.col(x, p["w_main"].to(cdt))
+    w = main.shape[-1]
+    local = {k: split.local(p[k], p[k].dim() - 1, w)
+             for k in ("conv_w", "conv_b", "lam", "ba", "bx")}
+    prev = main.new_zeros((x.shape[0], s.conv_width - 1, w))
+    main = _causal_conv(main, local["conv_w"], local["conv_b"], prev)
+    f32 = torch.float32
+    if p["wa"].shape[0] * s.block_width == w:     # the rank's blocks
+        ls = dataclasses.replace(s, lru_width=w)
+        gates = tuple(_block_diag(main.to(f32), p[k].to(f32), ls)
+                      for k in ("wa", "wx"))
+    else:
+        def both(m):
+            return torch.stack([_block_diag(m, p[k].to(f32), s)
+                                for k in ("wa", "wx")])
+        gates = split.own(split.alike(both, split.whole(main.to(f32), 2)),
+                          3).unbind(0)
+    a, bb = _rglru_coeffs(local, s, main, gates)
+    h = rglru_scan(a, bb).to(cdt)
+    # the row-parallel partials as fp32 sums, rounded once after the model
+    # axis adds them
+    return split.complete((h * gate).float() @ p["w_out"].to(cdt).float(),
+                          cdt)
 
 
 def rglru_block_decode(p: Params, s: GriffinSpec, x: torch.Tensor,

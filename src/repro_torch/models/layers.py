@@ -5,6 +5,13 @@ Every matmul and attention contraction routes through
 ``kernels.dispatch``, which picks the CUDA kernel for CUDA tensors and the
 plain PyTorch version for CPU tensors.  Tensor layouts are the JAX
 package's: activations (B, S, d), heads (B, S, H, hd), weights (K, ...).
+
+In the sharded train step the whole-sequence layers take a ``split``
+(``runtime/model_axis.ModelSplit``): their weights are this rank's
+shards on the model axis (column-parallel q/k/v and up projections,
+row-parallel output and down projections, the vocabulary rows of the
+embedding and the head), their input the residual stream in its layout,
+and their output the branch completed back into it.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch.utils.checkpoint
 from ..core import quant
 from ..core.memory import DtypePolicy
 from ..kernels import dispatch
+from ..runtime import collectives as coll
 
 Params = Dict[str, torch.Tensor]
 # an int8 projection weight: {"q": int8 of the float weight's shape,
@@ -148,15 +156,17 @@ def quantize_weight(w: torch.Tensor, n_lead: int,
 
 
 def project(x: torch.Tensor, w: Weight, weights_dtype: str = "", *,
-            tp: Optional[str] = None, saveable: bool = True
-            ) -> torch.Tensor:
+            tp: Optional[str] = None, saveable: bool = True,
+            out_dtype: Optional[torch.dtype] = None,
+            grad_group=None) -> torch.Tensor:
     """Contract x (..., K) with a weight (K, ...) at the configured weight
     dtype.  ``"int8"`` takes a ``quantize_weight`` dict and routes through
     ``dispatch.quantized_matmul`` (the fp32 result cast back to x's
     dtype, as the JAX package does); "" takes a float weight.  ``tp``
     names the op's tensor-parallel contract ("col"/"row"), inert outside
     a ``dispatch.tp_scope``; a "row" shard's int8 partials are summed in
-    fp32, before the cast.  ``saveable`` as in ``dispatch.matmul``."""
+    fp32, before the cast.  ``saveable``, ``out_dtype`` and ``grad_group``
+    (float weights) as in ``dispatch.matmul``."""
     if weights_dtype == "int8":
         if not isinstance(w, dict):
             raise TypeError("weights_dtype='int8' needs weights quantized "
@@ -168,7 +178,8 @@ def project(x: torch.Tensor, w: Weight, weights_dtype: str = "", *,
     if weights_dtype:
         raise ValueError(f"weights_dtype {weights_dtype!r} is not supported "
                          "(float '' or 'int8')")
-    return dispatch.matmul(x, w, tp=tp, saveable=saveable)
+    return dispatch.matmul(x, w, tp=tp, saveable=saveable,
+                           out_dtype=out_dtype, grad_group=grad_group)
 
 
 def _cast(w: Weight, dtype: torch.dtype) -> Weight:
@@ -241,20 +252,119 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 def attention_blockwise(p: Params, s: AttnSpec, x: torch.Tensor,
                         positions: torch.Tensor, dt: DtypePolicy, *,
-                        block_q: int = 512, block_kv: int = 512
-                        ) -> torch.Tensor:
+                        block_q: int = 512, block_kv: int = 512,
+                        split=None) -> torch.Tensor:
     """Causal (sliding-window when ``s.window``) self-attention of a whole
     sequence through ``dispatch.attention``: the flash kernel and its
     fused backward on the card, the dense plain versions on the CPU.
     x: (B, S, d); positions (B, S).  The kernels keep their own tile
     geometry, so ``block_q`` / ``block_kv`` (the JAX reference lowering's
-    tiles) do not change the result.  Returns (B, S, d)."""
+    tiles) do not change the result.  Returns (B, S, d).
+
+    With ``split`` (the sharded train step's model axis) ``p`` holds this
+    rank's shards, x is the whole sequence from ``split.branch``, and the
+    result is completed into the residual's layout
+    (``attention_split``)."""
     del block_q, block_kv
+    if split is not None:
+        return attention_split(p, s, x, positions, dt, split)
     q, k, v = _qkv(p, s, x, positions, dt)
     out = dispatch.attention(q, _expand_kv(k, s.n_heads),
                              _expand_kv(v, s.n_heads), causal=True,
                              window=s.window, out_dtype=dt.compute)
     return _out_proj(p, s, out, dt)
+
+
+def _local_bias(split, b: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (H, hd) bias cut to a projection's local (heads, hd) block: a
+    shard already, or this rank's block of a replicated leaf."""
+    for dim in (0, 1):
+        b = split.local(b, dim, like.shape[2 + dim])
+    return b
+
+
+def attention_split(p: Params, s: AttnSpec, x: torch.Tensor,
+                    positions: torch.Tensor, dt: DtypePolicy, split
+                    ) -> torch.Tensor:
+    """Attention on the model axis's shards (Megatron): x (B, S, d) whole
+    (``split.branch``'s); q/k/v projected column-parallel -- the rank's
+    heads, or its head_dim block where the heads do not divide the axis
+    (MQA/GQA k/v, whose head_dim is gathered before RoPE, which rotates
+    its halves) -- then laid out as JAX's ``attn_hook`` says
+    (``split.attn_layout``):
+
+    * ``heads``: the rank's q heads over the whole sequence, k/v its kv
+      heads (or all of them, alike, expanded to every q head and cut to
+      its own);
+    * ``seq``: q on the rank's block of S / m rows with every head (an
+      all-to-all), at key offset rank x S / m, k/v whole: B6/B7 at a
+      query offset, whose dk/dv are this block's part;
+    * ``whole``: every rank attends alike on whole q/k/v.
+
+    The output returns to wo's layout (heads or head_dim) and the
+    row-parallel product is completed into the residual's
+    (``split.complete``)."""
+    cdt = dt.compute
+    b, sq, _ = x.shape
+    h, hkv, hd = s.n_heads, s.n_kv_heads, s.head_dim
+
+    def proj(name):
+        t = project(x, _cast(p[name], cdt), s.weights_dtype,
+                    grad_group=split.col_group)
+        bias = "b" + name[1]
+        if s.qkv_bias:
+            t = t + _local_bias(split, p[bias], t).to(cdt)
+        return t
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
+    q_lay = split.attn_layout((b, sq, h, hd), "q")
+    kv_lay = split.attn_layout((b, sq, hkv, hd), "k")
+
+    def rope(t, pos):
+        return apply_rope(t, pos, theta=s.rope_theta,
+                          mrope_sections=s.mrope_sections)
+
+    # k/v: the rank's kv heads ("heads"), else whole (every head): its
+    # head_dim gathered before RoPE
+    if kv_lay == "heads" and q_lay == "heads":
+        kv_heads = k.shape[2]
+    else:
+        kv_heads = hkv
+        dim = 2 if k.shape[2] < hkv else 3
+        # a rank's use holds a part of the cotangent (its query rows, or
+        # in the striped layout its heads); else every rank's use is
+        # alike and each keeps its block's
+        parts = q_lay == "seq" or (q_lay == "heads" and split.partial)
+        k, v = ((split.gather if parts else split.whole)(t, dim)
+                for t in (k, v))
+    k = rope(k, positions)
+    q_heads = h * kv_heads // hkv
+    k, v = _expand_kv(k, q_heads), _expand_kv(v, q_heads)
+
+    q_dim = 2 if q.shape[2] < h else 3     # where q is split
+    offset = 0
+    if q_lay == "heads":
+        q = rope(q, positions)
+        if k.shape[2] != q.shape[2]:   # every q head's k/v: the rank's
+            k, v = (split.local(t, 2, q.shape[2]) for t in (k, v))
+    elif q_lay == "seq":
+        q = rope(split.to_seq(q, q_dim), split.seq_rows(positions))
+        offset = split.index * (sq // split.size)
+    else:
+        q = rope(split.whole(q, q_dim), positions)
+    out = dispatch.attention(q, k, v, causal=True, window=s.window,
+                             out_dtype=cdt, q_offset=offset)
+
+    # back to wo's layout: its heads, or its head_dim block
+    wo = _cast(p["wo"], cdt)
+    wo_dim = 2 if wo.shape[0] < h else 3
+    if q_lay == "seq":
+        out = split.from_seq(out, wo_dim)
+    elif q_lay == "whole":
+        out = split.own(out, wo_dim)
+    bo, so = out.shape[:2]
+    part = project(out.reshape(bo, so, -1), wo.reshape(-1, s.d_model),
+                   s.weights_dtype, out_dtype=torch.float32)
+    return split.complete(part, cdt)
 
 
 def attention_naive(p: Params, s: AttnSpec, x: torch.Tensor,
@@ -494,28 +604,43 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, activation: str,
 
 def mlp_apply(p: Params, x: torch.Tensor, activation: str,
               dt: DtypePolicy, weights_dtype: str = "", *,
-              tagged: bool = True) -> torch.Tensor:
+              tagged: bool = True, split=None) -> torch.Tensor:
     """The dense MLP.  Its projections carry Megatron's tensor-parallel
     tags: the up projections column-parallel (no collective), the down
     projection row-parallel (the block's psum).  A MoE layer's shared MLP
     stays replicated under tensor parallelism and passes ``tagged=False``
     (the JAX package tags it too, so its sharded serving would sum the
     replicated shared MLP once a shard).  The down projection's output
-    only enters a sum, so a ``dots`` remat does not keep it."""
+    only enters a sum, so a ``dots`` remat does not keep it.
+
+    With ``split`` (the sharded train step) the weights are the rank's
+    hidden columns and rows, x the whole sequence, and the down
+    projection's partial sums are completed into the residual's layout
+    (``split.complete``)."""
     cdt = dt.compute
 
     def mm(h, name, tp="col"):
+        # a split's partial sums in fp32, added over the model axis before
+        # their one rounding: the row-parallel output's, the
+        # column-parallel input gradient's
+        row = split is not None and tp == "row"
+        col = split is not None and tp == "col"
         return project(h, _cast(p[name], cdt), weights_dtype,
-                       tp=tp if tagged else None, saveable=name != "wd")
+                       tp=tp if tagged else None, saveable=name != "wd",
+                       out_dtype=torch.float32 if row else None,
+                       grad_group=split.col_group if col else None)
     if activation in ("swiglu", "geglu"):
         g = mm(x, "wg")
         u = mm(x, "wu")
         act = F.silu(g) if activation == "swiglu" \
             else F.gelu(g, approximate="tanh")
-        return mm(act * u, "wd", "row")
-    h = mm(x, "wi")
-    h = F.relu(h) if activation == "relu" else F.gelu(h, approximate="tanh")
-    return mm(h, "wd", "row")
+        out = mm(act * u, "wd", "row")
+    else:
+        h = mm(x, "wi")
+        h = F.relu(h) if activation == "relu" \
+            else F.gelu(h, approximate="tanh")
+        out = mm(h, "wd", "row")
+    return out if split is None else split.complete(out, cdt)
 
 
 # output axes of each projection weight: q/k/v (d, heads, hd) end in
@@ -562,23 +687,62 @@ def _xent_chunk(x_c: torch.Tensor, head: torch.Tensor,
     return (lse - label_logit).sum()
 
 
+def _xent_chunk_split(x_c: torch.Tensor, head: torch.Tensor,
+                      l_c: torch.Tensor, split) -> torch.Tensor:
+    """``_xent_chunk`` on the rank's vocabulary columns of the head
+    (Megatron's vocab-parallel cross entropy): the max and the sum of
+    exps over every rank's columns, the label's logit from the rank that
+    holds it.  The head's columns are a column-parallel product: x's
+    gradient is added over the ranks in fp32."""
+    logits = dispatch.matmul(x_c, head, grad_group=split.col_group).float()
+    v_loc = logits.shape[-1]
+    m = split.group.all_gather(logits.amax(dim=-1, keepdim=True).detach(),
+                               -1).amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(coll.psum(torch.exp(shifted).sum(dim=-1), split.group))
+    label = l_c.long() - split.index * v_loc
+    inside = (label >= 0) & (label < v_loc)
+    picked = torch.gather(shifted, -1, label.clamp(0, v_loc - 1)[..., None])
+    label_logit = coll.psum(torch.where(inside, picked[..., 0], 0.0),
+                            split.group)
+    return (lse - label_logit).sum()
+
+
 def chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                 *, n_chunks: int, remat: bool = True) -> torch.Tensor:
+                 *, n_chunks: int, remat: bool = True,
+                 split=None) -> torch.Tensor:
     """Head matmul + cross entropy, tiled over the sequence (§3.4): only
     one (B, S/n_chunks, V) logits tile is alive at a time, and with
     ``remat`` each tile is recomputed in the backward
     (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint(chunk)``).
-    x: (B, S, d) post-final-norm; head (d, V).  Returns the mean."""
+    x: (B, S, d) post-final-norm; head (d, V).  Returns the mean.  With
+    ``split`` the head is the rank's (d, V / m) vocabulary columns and the
+    mean is the whole vocabulary's, equal on every rank."""
     b, sq, _ = x.shape
     while n_chunks > 1 and sq % n_chunks != 0:
         n_chunks //= 2
     c = sq // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=x.device)
+    fn = _xent_chunk if split is None \
+        else lambda x_c, w, l_c: _xent_chunk_split(x_c, w, l_c, split)
     for i in range(n_chunks):
         x_c, l_c = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if remat:
             total = total + torch.utils.checkpoint.checkpoint(
-                _xent_chunk, x_c, head, l_c, use_reentrant=False)
+                fn, x_c, head, l_c, use_reentrant=False)
         else:
-            total = total + _xent_chunk(x_c, head, l_c)
+            total = total + fn(x_c, head, l_c)
     return total / (b * sq)
+
+
+def embed_split(table: torch.Tensor, tokens: torch.Tensor, split
+                ) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (B, S) from the rank's vocabulary
+    rows ``table`` (V / m, d): the rows it holds, zeros for the others,
+    added over the model axis into the residual's layout (each token's
+    row comes from one rank, so the sum is that row's bits)."""
+    v_loc = table.shape[0]
+    ids = tokens.long() - split.index * v_loc
+    inside = ((ids >= 0) & (ids < v_loc))[..., None]
+    rows = torch.where(inside, table[ids.clamp(0, v_loc - 1)], 0.0)
+    return split.complete(rows.to(table.dtype))

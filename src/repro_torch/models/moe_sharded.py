@@ -110,7 +110,7 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
                       dt: DtypePolicy, *, mesh, dp_axes: Tuple[str, ...],
                       model_axis: str = "model",
                       ep_axes: Tuple[str, ...] = ("model",),
-                      batch_local: bool = False
+                      batch_local: bool = False, split=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d), replicated on every rank -> (out (B, S, d)
     replicated, aux loss fp32 scalar).  ``p`` holds this rank's shards:
@@ -123,7 +123,14 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
     rows of a batch split over ``dp_axes``, and so is the output; the aux
     loss still comes from the means over every rank's tokens, and the
     router's gradient is added over the other axes only (the caller adds
-    it over ``dp_axes``)."""
+    it over ``dp_axes``).
+
+    ``split`` (the sharded train step's ``model_axis.ModelSplit``, with
+    ``batch_local``): x is already this rank's tokens over the model axis
+    too (its sequence block), the output stays so, the shared MLP is left
+    to the caller, which runs it on the model axis's shards over the
+    whole sequence, and in the striped layout (``split.partial``) the
+    router's gradient is added over the model axis by the caller too."""
     cdt = dt.compute
     n_model = mesh.shape[model_axis]
     ep = mesh.group(ep_axes)
@@ -135,16 +142,17 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
     b, sq, d = x.shape
     dp_size = math.prod(mesh.shape[a] for a in dp_axes)
     batch_split = bool(dp_axes) and (batch_local or b % dp_size == 0)
-    seq_split = sq % n_model == 0 and sq > 1
-    t_dev = (b * sq) // ((dp_size if batch_split and not batch_local
-                          else 1) * (n_model if seq_split else 1))
+    seq_split = split is not None or (sq % n_model == 0 and sq > 1)
+    t_dev = b * sq if split is not None else (b * sq) // (
+        (dp_size if batch_split and not batch_local else 1)
+        * (n_model if seq_split else 1))
     cap = math.ceil(t_dev * s.top_k * s.capacity_factor / s.n_experts)
     cap = max(8, -(-cap // 8) * 8)
 
     # the axes that split the tokens, and those whose ranks route the
     # same tokens (a replicated use: psum of the cotangents back, and a
     # share of the output's)
-    split = []
+    model_split, split = split, []
     if batch_split:
         split.append((dp_axes, 0))
     if seq_split:
@@ -153,13 +161,17 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
            if not any(a in axes for axes, _ in split)]
     # the axes whose split happens here (not already the caller's)
     here = split[1:] if batch_local and batch_split else split
+    if model_split is not None:
+        here = []
     xl = x
     for axes, dim in here:
         xl = coll.split(xl, mesh.group(axes), dim)
     if dup:
         xl = coll.broadcast(xl, mesh.group(dup))
     inner = [a for a in mesh.axes
-             if not (batch_local and a in dp_axes)]
+             if not (batch_local and a in dp_axes)
+             and not (model_split is not None and model_split.partial
+                      and a == model_axis)]
     router = coll.broadcast(p["router"], mesh.group(inner)) if inner \
         else p["router"]
 
@@ -227,7 +239,7 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
         combined = coll.identical(combined, mesh.group(dup))
     for axes, dim in reversed(here):
         combined = coll.unsplit(combined, mesh.group(axes), dim)
-    if s.n_shared_experts:
+    if s.n_shared_experts and model_split is None:
         combined = combined + mlp_apply(p["shared"], x.to(cdt),
                                         s.activation, dt, tagged=False)
     return combined, aux

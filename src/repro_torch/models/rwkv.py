@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import dispatch
+from ..runtime import collectives as coll
 
 Params = Dict[str, torch.Tensor]
 
@@ -89,16 +90,17 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _rkvgw(p: Params, s: RwkvSpec, x: torch.Tensor, x_prev: torch.Tensor,
-           cdt: torch.dtype):
+           cdt: torch.dtype, col=torch.matmul):
     """r, k, v, g in the compute dtype and the log-decay lw <= 0 in fp32
-    (the decay LoRA runs in fp32), each (B, S, d)."""
+    (the decay LoRA runs in fp32), each (B, S, d).  ``col``: the product
+    of the column-parallel weights (wr/wk/wv/wg, wb)."""
     xx = _token_shift(x, x_prev)
     mix = [x + (xx - x) * p["mu"][i].to(x.dtype) for i in range(5)]
-    r, k, v, g = (m @ p[name].to(cdt) for m, name in zip(
+    r, k, v, g = (col(m, p[name].to(cdt)) for m, name in zip(
         mix, ("wr", "wk", "wv", "wg")))
     f32 = torch.float32
-    lw = -torch.exp(p["w0"].to(f32) + torch.tanh(
-        mix[4].to(f32) @ p["wa"].to(f32)) @ p["wb"].to(f32))
+    lw = -torch.exp(p["w0"].to(f32) + col(torch.tanh(
+        mix[4].to(f32) @ p["wa"].to(f32)), p["wb"].to(f32)))
     return r, k, v, g, lw
 
 
@@ -119,11 +121,14 @@ def _group_norm(p: Params, o: torch.Tensor, s: RwkvSpec,
 
 
 def time_mix_apply(p: Params, s: RwkvSpec, x: torch.Tensor,
-                   cdt: torch.dtype) -> torch.Tensor:
+                   cdt: torch.dtype, split=None) -> torch.Tensor:
     """The time mix of whole sequences x (B, S, d), token-shifted against
     zeros: the WKV recurrence from a zero state through
     ``dispatch.wkv`` (its final state is dropped), then the group norm
-    in fp32 and the output gate.  Returns (B, S, d)."""
+    in fp32 and the output gate.  Returns (B, S, d).  With ``split``
+    (``time_mix_split``) it runs on the model axis's shards."""
+    if split is not None:
+        return time_mix_split(p, s, x, cdt, split)
     r, k, v, g, lw = _rkvgw(p, s, x, x.new_zeros((x.shape[0], s.d_model)),
                             cdt)
     o = dispatch.wkv(*(_heads(t, s) for t in (r, k, v, lw)), p["u"],
@@ -131,6 +136,51 @@ def time_mix_apply(p: Params, s: RwkvSpec, x: torch.Tensor,
     o = _group_norm(p, o, s).to(cdt)
     o = o * F.silu(g)
     return o @ p["wo"].to(cdt)
+
+
+def time_mix_split(p: Params, s: RwkvSpec, x: torch.Tensor,
+                   cdt: torch.dtype, split) -> torch.Tensor:
+    """The time mix on the model axis's shards (x whole, from
+    ``split.branch``): ``wr/wk/wv/wg`` and ``wb`` give the rank's d / m
+    channels (column-parallel), ``wo`` takes them (row-parallel, completed
+    into the residual's layout), ``mu``, ``w0``, ``wa`` and the group
+    norm's scale and bias are replicated (``w0`` and the norm's cut to the
+    rank's channels).  Where the rank's channels are whole heads (H
+    divides the axis and JAX's ``attn_hook`` puts r/k/v on heads), the
+    WKV runs on them: B8 and its backward at H / m heads.  Else -- the
+    heads do not divide the axis, or ``attn_prefer_seq`` would stripe the
+    sequence, which the recurrence cannot take without passing its state
+    between ranks -- r/k/v/lw are gathered whole and the WKV and the group
+    norm run alike on every rank, each keeping its channels of the
+    result."""
+    d_loc = p["wr"].shape[-1]
+    local = dict(p, w0=split.local(p["w0"], 0, d_loc))
+    r, k, v, g, lw = _rkvgw(local, s, x,
+                            x.new_zeros((x.shape[0], s.d_model)), cdt,
+                            split.col)
+    b, sq, _ = r.shape
+    layout = split.attn_layout((b, sq, s.n_heads, s.head_dim), "q")
+    if layout == "heads":
+        ls = dataclasses.replace(s, d_model=d_loc)
+        o = dispatch.wkv(*(_heads(t, ls) for t in (r, k, v, lw)), p["u"],
+                         chunk=s.chunk, intra=s.intra, subchunk=s.subchunk)
+        norm = {k_: split.local(p[k_], 0, d_loc)
+                for k_ in ("ln_scale", "ln_bias")}
+        o = _group_norm(norm, o, ls).to(cdt)
+    else:
+        def whole_mix(r, k, v, lw, *u):
+            o = dispatch.wkv(*(_heads(t, s) for t in (r, k, v, lw)),
+                             u[0] if u else p["u"], chunk=s.chunk,
+                             intra=s.intra, subchunk=s.subchunk)
+            return _group_norm(p, o, s)
+        whole = [split.whole(t, 2) for t in (r, k, v, lw)]
+        if p["u"].shape[0] < s.n_heads:    # a shard: the rank's heads
+            whole.append(split.whole(p["u"], 0))
+        o = split.own(split.alike(whole_mix, *whole), 2).to(cdt)
+    o = o * F.silu(g)
+    # the row-parallel partials as fp32 sums, rounded once after the
+    # model axis adds them
+    return split.complete((o.float() @ p["wo"].to(cdt).float()), cdt)
 
 
 def time_mix_decode(p: Params, s: RwkvSpec, x: torch.Tensor,
@@ -171,16 +221,28 @@ def channel_mix_init(gen: torch.Generator, s: RwkvSpec, lead=()) -> Params:
 
 def channel_mix_apply(p: Params, s: RwkvSpec, x: torch.Tensor,
                       cdt: torch.dtype,
-                      x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      x_prev: Optional[torch.Tensor] = None,
+                      split=None) -> torch.Tensor:
     """The channel mix of x (B, S, d), token-shifted against ``x_prev``
-    (B, d; zeros when None)."""
+    (B, d; zeros when None).  With ``split`` (x whole, from
+    ``split.branch``) ``wk`` gives the rank's d_ff columns and ``wv`` takes
+    them, its partial sums completed (``psum``) before the gate; ``wr``
+    gives the rank's d / m channels of the gate, which take their
+    channels of the completed product; the gated channels are gathered
+    and settled into the residual's layout."""
     prev = x_prev if x_prev is not None else x.new_zeros(
         (x.shape[0], s.d_model))
     xx = _token_shift(x, prev)
     xk = x + (xx - x) * p["mu"][0].to(x.dtype)
     xr = x + (xx - x) * p["mu"][1].to(x.dtype)
-    k = torch.square(F.relu(xk @ p["wk"].to(cdt)))
-    return torch.sigmoid(xr @ p["wr"].to(cdt)) * (k @ p["wv"].to(cdt))
+    col = torch.matmul if split is None else split.col
+    k = torch.square(F.relu(col(xk, p["wk"].to(cdt))))
+    r = torch.sigmoid(col(xr, p["wr"].to(cdt)))
+    if split is None:
+        return r * (k @ p["wv"].to(cdt))
+    kv = coll.psum(k.float() @ p["wv"].to(cdt).float(), split.group)
+    kv = split.own(kv.to(cdt), 2)
+    return split.settle(split.whole(r * kv, 2))
 
 
 def rwkv_cache_init(b: int, s: RwkvSpec, dtype: torch.dtype, device,

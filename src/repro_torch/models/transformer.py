@@ -68,10 +68,20 @@ class ExecOptions:
     expert_pad: int = 1
     # sharded training (runtime/sharding.TrainSharding): the params are
     # this rank's shards and the batch its rows; every leaf is gathered
-    # at its use (a layer's inside its remat recompute), the loss is the
+    # over the batch axes at its use (a layer's inside its remat
+    # recompute) and used as its shard on the model axis, whose ranks
+    # split each layer's work (runtime/model_axis.py); the loss is the
     # mean over the batch axes, and a MoE layer (with moe_mesh) routes
     # the rank's own tokens, its experts kept as shards
     sharding: Optional[Any] = None
+    # the residual stream's layout (JAX's make_constrain: a (B, S, d)
+    # shape's spec; S on the model axis is Megatron-SP striping) and the
+    # q/k/v layout at attention entry (JAX's attn_hook: a (B, S, H, hd)
+    # shape's spec by role), read by the sharded train step; None: the
+    # residual replicated over the model axis, attention by
+    # MeshRules.attn_spec
+    constrain: Optional[Any] = None
+    attn_constrain: Optional[Any] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,12 +342,16 @@ def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
 
 def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
                 x: torch.Tensor, positions: torch.Tensor, dt: DtypePolicy,
-                opts: ExecOptions
+                opts: ExecOptions, split=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training / dense forward over whole sequences:
     x (B, S, d) -> ((B, S, d), the FFN's aux loss or None).  The
     recurrent mixers and the channel mix start from a zero state, as the
-    JAX package's do."""
+    JAX package's do.  With ``split`` (``layer_apply_split``) the layer
+    runs on the model axis's shards."""
+    if split is not None:
+        return layer_apply_split(p, cfg, kind, x, positions, dt, opts,
+                                 split)
     mixer, ffn = kind
     cdt = dt.compute
     h = layers.rmsnorm(p["ln1"], x)
@@ -361,16 +375,74 @@ def layer_apply(p: Params, cfg: ArchConfig, kind: LayerKind,
     return x + h, aux
 
 
+def layer_apply_split(p: Params, cfg: ArchConfig, kind: LayerKind,
+                      x: torch.Tensor, positions: torch.Tensor,
+                      dt: DtypePolicy, opts: ExecOptions, split
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``layer_apply`` on the model axis's shards: x in the residual's
+    layout (``split``); each branch takes the whole sequence
+    (``split.branch``; the norm runs on it alike on every rank) and comes
+    back completed into that layout, as JAX constrains the branch outputs
+    inside the remat boundary (``repro/models/transformer.py:158-192``).
+    A MoE FFN routes the rank's own tokens and runs its shared MLP on the
+    shards over the whole sequence."""
+    mixer, ffn = kind
+    cdt = dt.compute
+    h = layers.rmsnorm(p["ln1"], split.branch(x))
+    if mixer == "rwkv":
+        h = rwkv.time_mix_apply(p["tm"], _rwkv_spec(cfg), h, cdt,
+                                split=split)
+    elif mixer == "rglru":
+        h = griffin.rglru_block_apply(p["rec"], _griffin_spec(cfg), h, cdt,
+                                      split=split)
+    else:
+        h = layers.attention_blockwise(p["attn"], _attn_spec(cfg, mixer), h,
+                                       positions, dt, split=split)
+    x = x + h
+    if ffn == "moe":
+        # the rank's own tokens: its block of the striped residual, or of
+        # the whole normed stream
+        if split.seq:
+            tokens = layers.rmsnorm(p["ln2"], x)
+            h = split.gather(tokens, 1)
+        else:
+            h = layers.rmsnorm(p["ln2"], x)
+            tokens = split.own(h, 1)
+        spec = _moe_spec(cfg, opts.expert_pad)
+        out, aux = moe_sharded.moe_apply_sharded(
+            p["moe"], spec, tokens, dt, mesh=opts.moe_mesh,
+            dp_axes=opts.sharding.batch, ep_axes=opts.moe_ep_axes,
+            batch_local=True, split=split)
+        if spec.n_shared_experts:
+            # the shared MLP on the model axis's shards over the whole
+            # sequence, its partial sums reduce-scattered to the rank's
+            # tokens
+            out = out + layers.mlp_apply(
+                p["moe"]["shared"], h, cfg.activation, dt, tagged=False,
+                split=dataclasses.replace(split, to_tokens=True))
+        return x + split.untokens(out), aux
+    h = layers.rmsnorm(p["ln2"], split.branch(x))
+    if ffn == "rwkv_cm":
+        return x + rwkv.channel_mix_apply(p["cm"], _rwkv_spec(cfg), h, cdt,
+                                          split=split), None
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                                cfg.weights_dtype, split=split), None
+
+
 def _gathered_layer(p: Params, specs, cfg: ArchConfig, kind: LayerKind,
                     x: torch.Tensor, positions: torch.Tensor,
-                    dt: DtypePolicy, opts: ExecOptions
+                    dt: DtypePolicy, opts: ExecOptions, split=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``layer_apply`` on a layer's shards, gathered here (so a remat
-    recompute gathers them again, and the whole weights live only while
-    the layer runs)."""
+    """``layer_apply`` on a layer's shards, gathered here over the batch
+    axes (so a remat recompute gathers them again, and the gathered
+    weights live only while the layer runs); on the model axis each
+    stays the rank's shard under ``split``, else (a serving forward) it
+    is gathered whole."""
     p = opts.sharding.gather_tree(p, specs,
-                                  keep_experts=opts.moe_mesh is not None)
-    return layer_apply(p, cfg, kind, x, positions, dt, opts)
+                                  keep_experts=opts.moe_mesh is not None,
+                                  whole=split is None,
+                                  partial=split is not None and split.partial)
+    return layer_apply(p, cfg, kind, x, positions, dt, opts, split)
 
 
 def _unstacked(specs):
@@ -494,14 +566,22 @@ class Model:
         return out
 
     # ------------------------------ pieces -----------------------------
-    def _embed(self, params: Params, batch: Dict[str, torch.Tensor]
-               ) -> torch.Tensor:
+    def _embed(self, params: Params, batch: Dict[str, torch.Tensor],
+               split=None) -> torch.Tensor:
         """The (B, S, d) input of the stack in the compute dtype:
         ``batch["embeddings"]`` for an embedding-input arch, else the
-        embedding rows of ``batch["tokens"]``; then the ``embed_scale``."""
+        embedding rows of ``batch["tokens"]``; then the ``embed_scale``.
+        With ``split`` the input is in the residual's layout: the
+        embeddings cut to the rank's block, the rows looked up
+        vocab-parallel (``layers.embed_split``)."""
         cdt = self.dt.compute
         if self.cfg.input_mode == "embeddings":
             x = batch["embeddings"].to(cdt)
+            if split is not None:
+                x = split.enter(x)
+        elif split is not None:
+            x = layers.embed_split(params["embed"].to(cdt), batch["tokens"],
+                                   split)
         else:
             x = params["embed"].to(cdt)[batch["tokens"].long()]
         if self.cfg.embed_scale:
@@ -579,14 +659,15 @@ class Model:
                             device=self.device)[None, :].expand(b, s)
 
     def _run_stack(self, params: Params, x: torch.Tensor,
-                   positions: torch.Tensor
+                   positions: torch.Tensor, split=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every layer in order; with ``opts.remat`` each layer is
         recomputed in the backward (``torch.utils.checkpoint``, as the
         JAX package's per-layer ``jax.checkpoint``); under
         ``remat_policy="dots"`` the recompute takes the layer's saved
-        products from its ``dispatch.RematTape``.  Returns (x, the
-        layers' aux losses summed in layer order)."""
+        products from its ``dispatch.RematTape``.  ``split``: the model
+        axis of the sharded train step (x in the residual's layout).
+        Returns (x, the layers' aux losses summed in layer order)."""
         cfg, dt, opts, lay = self.cfg, self.dt, self.opts, self.layout
 
         auxes = []
@@ -596,7 +677,8 @@ class Model:
             if opts.remat_policy == "dots" else {}
 
         def one(p, kind, x, spec):
-            fn, args = layer_apply, (p, cfg, kind, x, positions, dt, opts)
+            fn, args = layer_apply, (p, cfg, kind, x, positions, dt, opts,
+                                     split)
             if sharded:
                 fn, args = _gathered_layer, (p, spec) + args[1:]
             if opts.remat:
@@ -629,18 +711,34 @@ class Model:
             aux_total = aux_total + aux
         return x, aux_total
 
-    def _gather_top(self, params: Params) -> Params:
+    def _gather_top(self, params: Params, split=None) -> Params:
         """Under ``opts.sharding``: ``params`` with ``embed``, ``head`` and
         ``final_norm`` gathered, once (the tied ``embed`` serves the input
-        and the head); the layers are gathered at their use."""
+        and the head); the layers are gathered at their use.  With
+        ``split`` (the train step) the embedding and the head stay the
+        rank's vocabulary rows; without it (serving) they are whole."""
         shd = self.opts.sharding
         if shd is None:
             return params
         out = dict(params)
         for k in ("embed", "head", "final_norm"):
             if k in params:
-                out[k] = shd.gather_tree(params[k], shd.specs[k])
+                out[k] = shd.gather_tree(
+                    params[k], shd.specs[k], whole=split is None,
+                    partial=split is not None and split.partial)
         return out
+
+    def _split(self, batch: Dict[str, torch.Tensor]):
+        """The model axis of a training forward over ``batch`` under
+        ``opts.sharding`` (``TrainSharding.model_split``), or None."""
+        shd = self.opts.sharding
+        if shd is None:
+            return None
+        given = batch["embeddings"] if self.cfg.input_mode == "embeddings" \
+            else batch["tokens"]
+        shape = tuple(given.shape[:2]) + (self.cfg.d_model,)
+        return shd.model_split(shape, self.opts.constrain,
+                               self.opts.attn_constrain)
 
     def _head(self, params: Params) -> torch.Tensor:
         head = params["embed"].T if self.cfg.tie_embeddings \
@@ -654,14 +752,21 @@ class Model:
         int) plus the MoE layers' load-balancing aux loss (0 without MoE
         layers).  Returns (loss, {"loss", "xent", "aux"}).  Under
         ``opts.sharding`` the xent is the mean over the ranks' rows, equal
-        on every rank."""
-        params = self._gather_top(params)
-        x = self._embed(params, batch)
-        b, s = x.shape[:2]
-        x, aux = self._run_stack(params, x, self._positions(batch, b, s))
+        on every rank; a model axis of two or more ranks splits each
+        layer's work (``layer_apply_split``), the lookup and the xent
+        vocab-parallel."""
+        split = self._split(batch)
+        params = self._gather_top(params, split)
+        x = self._embed(params, batch, split)
+        b, s = batch["labels"].shape
+        x, aux = self._run_stack(params, x, self._positions(batch, b, s),
+                                 split)
+        if split is not None:
+            x = split.branch(x)
         x = layers.rmsnorm(params["final_norm"], x)
         xent = layers.chunked_xent(x, self._head(params), batch["labels"],
-                                   n_chunks=min(self.opts.xent_chunks, s))
+                                   n_chunks=min(self.opts.xent_chunks, s),
+                                   split=split)
         if self.opts.sharding is not None:
             xent = self.opts.sharding.mean(xent)
         loss = xent + aux
@@ -787,7 +892,8 @@ class Model:
                                       self._layer_specs()):
             if spec is not None:
                 p = self.opts.sharding.gather_tree(
-                    p, spec, keep_experts=self.opts.moe_mesh is not None)
+                    p, spec, keep_experts=self.opts.moe_mesh is not None,
+                    whole=True)
             pages = None
             if paged is None and "k" in c:
                 b, cap = c["k"].shape[:2]

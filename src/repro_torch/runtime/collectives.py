@@ -26,7 +26,8 @@ the wire (``recording``) and returns tensors of the result's shape on
 the input's device (``meta`` in the dry run).  The composed collectives
 keep their composition, so the record holds what the port moves:
 ``psum`` is an all-gather (then the sum in rank order, done locally),
-``reduce_scatter`` an all-to-all of the whole buffer.
+``reduce_scatter`` a reduce-scatter of the whole buffer (on the wire,
+the all-to-all it is composed of).
 
 Which backend a group runs on is the mesh's rule (NCCL when every rank
 has a card of its own, gloo on the CPU or when ranks share a card), and
@@ -38,7 +39,10 @@ The autograd Functions are the transposes a sharded layer needs
 alike from replicated values:
 
 * ``all_gather`` of a sharded weight whose users each hold a part of
-  its cotangent <-> reduce-scatter (``gather_shards``);
+  its cotangent <-> reduce-scatter (``gather_shards``), and its mirror,
+  the members' partial sums reduce-scattered to each member's block <->
+  all_gather of the blocks' cotangents (``scatter_sum``: Megatron's
+  sequence-parallel pair);
 * ``all_to_all`` <-> the reverse all_to_all (``exchange``);
 * a replicated tensor cut to this rank's slice <-> all_gather of the
   slices' cotangents (``split``), and the slices' results gathered back
@@ -268,6 +272,15 @@ class RecordingGroup(Group):
         self._record("all-to-all", _nbytes(t))
         return torch.empty_like(t.detach().contiguous())
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"into {self.size} blocks")
+        if self.local:
+            return t.detach()
+        self._record("reduce-scatter", _nbytes(t))
+        return self.chunk(t.detach(), dim)
+
     def ppermute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
         if self.local:
             return t.detach()
@@ -288,6 +301,17 @@ class _GatherShards(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.group.reduce_scatter(g, ctx.dim), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
 
 
 class _Exchange(torch.autograd.Function):
@@ -373,6 +397,15 @@ def gather_shards(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     """all_gather of a sharded tensor on ``dim``; the backward
     reduce-scatters (each member's cotangent is a part of the whole)."""
     return _GatherShards.apply(t, group, dim)
+
+
+def scatter_sum(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """This member's block on ``dim`` of the members' ``t`` added in rank
+    order (``reduce_scatter``: a row-parallel layer's partial sums
+    completed into a sequence-striped output); the backward all-gathers
+    the blocks' cotangents (every member's part of the sum takes the
+    whole cotangent)."""
+    return _ScatterSum.apply(t, group, dim)
 
 
 def exchange(t: torch.Tensor, group: Group) -> torch.Tensor:

@@ -16,10 +16,12 @@ tree's spec tree by the leaves' paths, which are the strings JAX builds
 
 JAX lays the state out with ``device_put`` and lets GSPMD choose the
 collectives.  Here each rank stores its shards (``shard_state``) and
-:class:`TrainSharding` says how the train step uses them: every leaf is
-gathered at its use with the transpose its axes need, so its gradient
-comes back in the stored layout.  ``gather_state`` brings whole leaves
-back, one at a time; ``tp.shard_leaf`` cuts one.
+:class:`TrainSharding` says how the train step uses them: a leaf is
+gathered at its use over the axes that split the batch (FSDP), with the
+transpose its axes need, and used as its shard on ``model``, whose
+ranks split the layer's work (``runtime/model_axis.py``); so its
+gradient comes back in the stored layout.  ``gather_state`` brings
+whole leaves back, one at a time; ``tp.shard_leaf`` cuts one.
 """
 from __future__ import annotations
 
@@ -67,15 +69,18 @@ def _names(entry: Axis) -> Tuple[str, ...]:
 @dataclasses.dataclass(frozen=True)
 class MeshRules:
     """The rules over ``mesh`` (``launch/mesh.Mesh``, or anything with its
-    ``shape`` dict and ``axes``).  JAX's ``stripe_embed`` and
-    ``attn_prefer_seq`` knobs, which only its ``launch/{perf,dryrun}.py``
-    set, are not ported: the embedding and head always stripe."""
+    ``shape`` dict and ``axes``), with JAX's two knobs that only
+    ``launch/{perf,dryrun}.py`` set: ``stripe_embed`` (the embedding and
+    the head also stripe d over the FSDP axes) and ``attn_prefer_seq``
+    (``attn_spec``: q/k/v stay sequence-striped at attention entry)."""
     mesh: Any
     dp_axes: Tuple[str, ...]              # ("pod", "data") or ("data",)
     model_axis: str = "model"
     fsdp: bool = True
     fsdp_axes: Tuple[str, ...] = ("data",)
     ep_axes: Tuple[str, ...] = ("model",)
+    stripe_embed: bool = True
+    attn_prefer_seq: bool = False
 
     @property
     def fsdp_axis(self) -> Axis:
@@ -112,9 +117,9 @@ class MeshRules:
 
         name = path.rsplit(".", 1)[-1]
         if name == "embed":
-            return out(model, fsdp)                    # (V, d)
+            return out(model, fsdp if self.stripe_embed else None)  # (V, d)
         if name == "head":
-            return out(fsdp, model)                    # (d, V)
+            return out(fsdp if self.stripe_embed else None, model)  # (d, V)
         if ".attn." in path:
             if name in ("wq", "wk", "wv"):
                 # prefer TP on heads; MQA/GQA fall back to head_dim
@@ -190,6 +195,30 @@ class MeshRules:
         if dp is None and seq is None:
             return None
         return P(dp, seq, None)
+
+    def attn_spec(self, shape: Tuple[int, ...], role: str) -> Optional[P]:
+        """q (``role`` "q") or k/v (B, S, H, hd) at attention entry (JAX's
+        ``attn_hook``, the Megatron SP -> TP transition): heads over
+        ``model`` where they divide it; else q over the sequence (its rows
+        are independent) and k/v replicated; under ``attn_prefer_seq``
+        (and a sequence that splits) q over the sequence with every head,
+        k/v replicated.  None for anything not 4-D."""
+        if len(shape) != 4:
+            return None
+        model = self.model_axis
+        msz = self.axis_size(model)
+        b, sq, h, _ = shape
+        dp: Axis = self.dp_axes if b % self.axis_size(self.dp_axes) == 0 \
+            else ("data" if b % self.axis_size("data") == 0 else None)
+        seq_ok = sq > 1 and sq % msz == 0
+        if self.attn_prefer_seq and seq_ok:
+            return P(dp, model, None, None) if role == "q" \
+                else P(dp, None, None, None)
+        if h % msz == 0:
+            return P(dp, None, model, None)
+        if role == "q" and seq_ok:
+            return P(dp, model, None, None)
+        return P(dp, None, None, None)
 
     def cache_spec(self, path: str, shape: Tuple[int, ...]) -> P:
         """KV/state caches: batch over DP; heads (or sequence) over
@@ -435,6 +464,19 @@ def batch_axes(rules: MeshRules, rows: int) -> Tuple[str, ...]:
     return tuple(a for a in names if rules.axis_size(a) > 1)
 
 
+# leaves gathered whole over the model axis (``TrainSharding.gather`` with
+# ``whole``: the serving steps' layout), since the last reset
+_MODEL_GATHERS = [0]
+
+
+def model_gathers() -> int:
+    return _MODEL_GATHERS[0]
+
+
+def reset_model_gathers() -> None:
+    _MODEL_GATHERS[0] = 0
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class TrainSharding:
     """How the sharded train step stores and uses the params (the port's
@@ -442,13 +484,21 @@ class TrainSharding:
     (``tree_specs``), ``paths`` their leaf paths, ``batch`` the axes that
     split each (micro)batch's rows.
 
-    Every leaf is stored as its shard and gathered at its use: over an
-    axis that splits the batch with ``gather_shards`` (its backward
-    reduce-scatters the ranks' parts of the gradient), over one whose
-    ranks compute alike with ``unsplit`` (the backward takes this rank's
-    block); a leaf not split over a batch axis goes through ``broadcast``
-    there (the backward adds the ranks' parts).  So the gradients come
-    back in the stored layout, with the bits of a rank-ordered sum."""
+    Every leaf is stored as its shard and gathered at its use over the
+    axes that split the batch with ``gather_shards`` (its backward
+    reduce-scatters the ranks' parts of the gradient); a leaf not split
+    over a batch axis goes through ``broadcast`` there (the backward adds
+    the ranks' parts).  On the model axis the leaf stays the rank's
+    shard: the ranks split the layer's work (``runtime/model_axis.py``),
+    each shard's gradient is its rank's own, and a replicated leaf's is
+    whole on every rank, or (``partial``, the striped layout) the rank's
+    part, added over ``model``.  So the gradients come back in the stored
+    layout, with the bits of a rank-ordered sum.
+
+    The serving steps under this layout (the dry run's prefill and
+    decode cells) still run every model rank alike: with ``whole`` a
+    model-split dim is gathered with ``unsplit`` (counted in
+    ``model_gathers``)."""
     rules: MeshRules
     specs: Any
     paths: Tuple[str, ...]
@@ -458,19 +508,29 @@ class TrainSharding:
     def mesh(self):
         return self.rules.mesh
 
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape.get(self.rules.model_axis, 1)
+
     @functools.cached_property
     def leaf_specs(self) -> List[P]:
         """The specs in ``core.tree``'s leaf order."""
         return spec_leaves(self.specs)
 
-    def gather(self, t: torch.Tensor, spec: P, keep: bool = False
-               ) -> torch.Tensor:
-        """The whole leaf of shard ``t`` (``keep``: the shard itself, for
-        the expert leaves ``moe_apply_sharded`` takes as shards), with
-        the transposes above."""
-        mesh = self.mesh
-        rest = tuple(a for a in self.batch
-                     if a not in sharded_axes(spec, mesh))
+    def gather(self, t: torch.Tensor, spec: P, keep: bool = False,
+               whole: bool = False, partial: bool = False) -> torch.Tensor:
+        """Shard ``t`` at its use: gathered over the batch axes, the
+        rank's shard on ``model`` (``whole``: gathered there too; ``keep``:
+        the shard itself, for the expert leaves ``moe_apply_sharded``
+        takes as shards), with the transposes above; with ``partial``
+        (the model axis's striped layout, where a rank's gradient of a
+        leaf replicated over ``model`` is its part) such a leaf also goes
+        through ``broadcast`` over ``model``."""
+        mesh, model = self.mesh, self.rules.model_axis
+        split_on = sharded_axes(spec, mesh)
+        rest = tuple(a for a in self.batch if a not in split_on)
+        if partial and self.model_size > 1 and model not in split_on:
+            rest = tuple(a for a in mesh.axes if a in rest + (model,))
         if rest:
             t = coll.broadcast(t, mesh.group(rest))
         if keep:
@@ -483,15 +543,19 @@ class TrainSharding:
             group = mesh.group(names)
             if set(names) <= set(self.batch):
                 t = coll.gather_shards(t, group, d)
+            elif names == (model,) and not whole:
+                continue
             elif set(names).isdisjoint(self.batch):
+                if model in names:
+                    _MODEL_GATHERS[0] += 1
                 t = coll.unsplit(t, group, d)
             else:
                 raise ValueError(f"dim {d} of spec {spec} mixes batch and "
                                  f"model axes ({self.batch})")
         return t
 
-    def gather_tree(self, tree: Any, specs: Any, keep_experts: bool = False
-                    ) -> Any:
+    def gather_tree(self, tree: Any, specs: Any, keep_experts: bool = False,
+                    whole: bool = False, partial: bool = False) -> Any:
         """``gather`` over a (layer's) subtree and its spec tree; with
         ``keep_experts`` a MoE layer's expert leaves stay shards."""
         def walk(node, spec, names):
@@ -501,8 +565,27 @@ class TrainSharding:
             keep = keep_experts and "moe" in names \
                 and "shared" not in names and names[-1] in ("wg", "wu",
                                                              "wd")
-            return self.gather(node, spec, keep)
+            return self.gather(node, spec, keep, whole, partial)
         return walk(tree, specs, ())
+
+    def model_split(self, shape: Tuple[int, ...], constrain=None,
+                    attn_constrain=None):
+        """The ``model_axis.ModelSplit`` of a forward whose residual stream
+        is (B, S, d) ``shape`` on this layout (None without a model axis
+        of two or more ranks): the residual striped over the sequence
+        where ``constrain`` (JAX's ``make_constrain``: a (B, S, d) shape's
+        spec, or None) puts S on ``model``, else replicated; attention
+        laid out by ``attn_constrain`` (JAX's ``attn_hook``: a q/k/v
+        shape's spec; default ``MeshRules.attn_spec``)."""
+        if self.model_size <= 1:
+            return None
+        from .model_axis import ModelSplit
+        model = self.rules.model_axis
+        spec = constrain(tuple(shape)) if constrain is not None else None
+        seq = spec is not None and model in _names(spec[1])
+        return ModelSplit(self.mesh.group(model), seq=seq,
+                          attn=attn_constrain or self.rules.attn_spec,
+                          model_axis=model)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over the batch axes of a per-rank value (the loss);

@@ -171,9 +171,12 @@ def moe_worker(rank, world, store, out_dir, shape, spec_kw, np_p, np_x,
 def sharded_setup(case, mesh):
     """The sharded train step of ``case`` on ``mesh``: fp32 policy, AdamW
     at ``case["lr"]``, ``microbatches``, ``compress`` and ``int8`` as the
-    case says, a MoE arch expert-parallel with ``expert_pad``; the state
-    drawn from the numpy params ``case["params"]`` and sharded.  Returns
-    (step, state, specs, sharding)."""
+    case says, a MoE arch expert-parallel with ``expert_pad``; with
+    ``constrain`` the residual striped over the sequence (the dry run's
+    ``make_constrain``), with ``attn_seq`` the rules'
+    ``attn_prefer_seq`` (through ``attn_hook``); the state drawn from the
+    numpy params ``case["params"]`` and sharded.  Returns (step, state,
+    specs, sharding)."""
     from repro_torch.convert import params_from_jax
     from repro_torch.core.memory import DtypePolicy
     from repro_torch.models.transformer import ExecOptions, Model
@@ -181,9 +184,15 @@ def sharded_setup(case, mesh):
     from repro_torch.optim.compress import CompressorConfig, init_residual
     from repro_torch.runtime import sharding
     from repro_torch.train.steps import TrainStepConfig, make_train_step
+    from repro_torch.launch import dryrun
     rules = sharding.make_rules(mesh, fsdp=True)
+    if case.get("attn_seq"):
+        rules = dataclasses.replace(rules, attn_prefer_seq=True)
     cfg = case["cfg"]
-    opts = ExecOptions(block_q=16, block_kv=16)
+    opts = ExecOptions(block_q=16, block_kv=16,
+                       constrain=dryrun.make_constrain(rules)
+                       if case.get("constrain") else None,
+                       attn_constrain=dryrun.attn_hook(rules))
     if any(f == "moe" for _, f in cfg.layer_kinds()):
         opts = dataclasses.replace(opts, moe_mesh=mesh,
                                    moe_dp_axes=rules.dp_axes,
@@ -221,30 +230,77 @@ def run_steps(step, state, shd, batches, microbatches=1):
     return state, metrics
 
 
-def sharded_steps(case):
+def sharded_steps(case, mesh=None):
     """Every batch of ``case["batches"]`` through ``sharded_setup``'s step
     on a ``case["shape"]`` mesh over ``case["axes"]``: the per-step
-    metrics, the collectives the steps ran and the whole state, gathered
-    (on every rank)."""
+    metrics, the collectives the steps ran, the leaves gathered whole
+    over the model axis, the attention calls' shapes and the whole
+    state, gathered (on every rank).  ``mesh`` (a mesh over some of the
+    ranks running) replaces ``make_mesh``'s."""
+    from repro_torch.kernels import dispatch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime import collectives, sharding
-    mesh = make_mesh(case["shape"], case["axes"], device="cpu")
+    if mesh is None:
+        mesh = make_mesh(case["shape"], case["axes"], device="cpu")
     step, state, specs, shd = sharded_setup(case, mesh)
     collectives.reset_collective_counts()
-    state, metrics = run_steps(step, state, shd, case["batches"],
-                               case.get("microbatches", 1))
+    sharding.reset_model_gathers()
+    shapes = []
+    attention = dispatch.attention
+
+    def record(q, k, v, **kw):
+        shapes.append((tuple(q.shape), tuple(k.shape),
+                       kw.get("q_offset", 0)))
+        return attention(q, k, v, **kw)
+    dispatch.attention = record
+    try:
+        state, metrics = run_steps(step, state, shd, case["batches"],
+                                   case.get("microbatches", 1))
+    finally:
+        dispatch.attention = attention
     return {"metrics": metrics, "batch_axes": shd.batch,
             "collectives": collectives.collective_counts(),
+            "model_gathers": sharding.model_gathers(),
+            "attention": shapes,
             "state": sharding.gather_state(state, specs, mesh)}
 
 
+def megatron_worker(rank, world, store, out_dir, cases):
+    """Every ``sharded_steps`` case on a mesh over ranks ``0..n-1`` of the
+    ``world`` running (each rank joins every mesh's process groups; the
+    ranks outside a case's mesh sit it out, with None)."""
+    _join(rank, world, store)
+    from repro_torch.launch.mesh import Mesh
+    results = []
+    for case in cases:
+        mesh = Mesh(case["shape"], case["axes"], torch.device("cpu"),
+                    "gloo")
+        results.append(sharded_steps(case, mesh) if rank < mesh.size
+                       else None)
+        dist.barrier()
+    _leave(rank, out_dir, results)
+
+
+MATMUL_OPS = ("mm", "addmm", "bmm")
+
+
+def matmul_flops(counter) -> int:
+    """The matmul FLOPs a ``FlopCounterMode`` counted."""
+    return sum(n for op, n in counter.get_flop_counts()["Global"].items()
+               if str(op).split(".")[1] in MATMUL_OPS)
+
+
 def cli_run(argv):
-    """``train.main`` on ``argv``: its losses, restarts and routes."""
+    """``train.main`` on ``argv``: its losses, restarts, routes and the
+    matmul FLOPs this rank ran."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.launch import train
     rep = {}
-    losses = train.main(argv, report=rep)
+    with FlopCounterMode(display=False) as flops:
+        losses = train.main(argv, report=rep)
     return {"losses": losses, "restarts": rep["restarts"],
-            "routes": rep["routes"]}
+            "routes": rep["routes"], "matmul_flops": matmul_flops(flops)}
 
 
 def train_worker(rank, world, store, out_dir, cases, cli_argvs, elastic):

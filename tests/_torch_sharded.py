@@ -53,23 +53,41 @@ AXES = ("data", "model")
 MOE_CF = 8.0
 
 
-def config(arch, jax_side):
-    cfg = (JAX_ARCHS if jax_side else ARCHS)[arch].smoke()
+def config(arch, jax_side, **over):
+    """The smoke config of ``arch`` on either side, with ``over``'s fields
+    replaced."""
+    cfg = dataclasses.replace((JAX_ARCHS if jax_side else ARCHS)[arch]
+                              .smoke(), **over)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=MOE_CF)
     return dataclasses.replace(cfg, dispatch="reference") if jax_side \
         else cfg
 
 
-def batches(seed, n=STEPS):
+def batches(seed, n=STEPS, cfg=None):
+    """``n`` batches of B x S: tokens and labels, or for an
+    embedding-input ``cfg`` (B, S, d) embeddings, and M-RoPE positions
+    (B, S, 3) (each row's stream from its own offset) where it has
+    sections."""
     rng = np.random.default_rng(seed)
-    return [{"tokens": rng.integers(0, 512, (B, S)).astype(np.int32),
-             "labels": rng.integers(0, 512, (B, S)).astype(np.int32)}
-            for _ in range(n)]
+    out = []
+    for _ in range(n):
+        batch = {"labels": rng.integers(0, 512, (B, S)).astype(np.int32)}
+        if cfg is not None and cfg.input_mode == "embeddings":
+            batch["embeddings"] = rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)
+            if cfg.mrope_sections:
+                start = rng.integers(0, 64, (B, 1, 3))
+                batch["positions"] = (start + np.arange(S)[None, :, None]
+                                      ).astype(np.int32)
+        else:
+            batch["tokens"] = rng.integers(0, 512, (B, S)).astype(np.int32)
+        out.append(batch)
+    return out
 
 
-def _model(arch):
-    return JaxModel(config(arch, True),
+def _model(arch, over=None):
+    return JaxModel(config(arch, True, **(over or {})),
                     dt=jax_memory.DtypePolicy(compute=jnp.float32),
                     opts=JaxOptions(mode="run", block_q=16, block_kv=16,
                                     remat=False))
@@ -79,9 +97,12 @@ def case_inputs(spec, seed):
     """A case of ``(arch, mesh shape, options)`` for the ranks: its numpy
     params (JAX's ``Model.init``), batches and options."""
     arch, shape, opts = spec
-    params = jax.device_get(jax.jit(_model(arch).init)(jax.random.key(0)))
-    return dict(opts, cfg=config(arch, False), shape=shape, axes=AXES,
-                params=params, batches=batches(seed), lr=LR)
+    over = opts.get("over", {})
+    params = jax.device_get(jax.jit(_model(arch, over).init)(
+        jax.random.key(0)))
+    cfg = config(arch, False, **over)
+    return dict(opts, cfg=cfg, shape=shape, axes=AXES, params=params,
+                batches=batches(seed, cfg=cfg), lr=LR)
 
 
 def jax_reference(arch, case):
@@ -91,7 +112,7 @@ def jax_reference(arch, case):
         opt=JaxAdamW(lr=LR, int8_moments=case.get("int8", False)),
         microbatches=case.get("microbatches", 1),
         compress=JaxCompressor() if case.get("compress") else None)
-    model = _model(arch)
+    model = _model(arch, case.get("over"))
     params = jax.tree.map(jnp.asarray, case["params"])
     opt = jax_adamw.adamw_init(params, ts.opt)
     if ts.compress is not None:

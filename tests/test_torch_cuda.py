@@ -938,6 +938,61 @@ def test_flash_kernels_match_plain(card, dtype, causal, window, s, hd):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [0, 13])
+@pytest.mark.parametrize("sq,sk,offset,hd", [(37, 100, 63, 64),
+                                             (64, 256, 100, 256),
+                                             (1, 50, 49, 128),
+                                             (200, 512, 0, 128),
+                                             (96, 96, 0, 40)])
+def test_flash_kernels_at_a_query_offset(card, dtype, window, sq, sk, offset,
+                                         hd):
+    """q's Sq rows at key positions offset .. offset + Sq - 1 of Sk keys
+    (one rank's block of a sequence-striped layer): o, lse and the
+    gradients (dk, dv this block's part) against the plain versions at
+    the same offset, on both routes."""
+    from repro_torch.kernels.attention import (flash_attention_bwd_cuda,
+                                               flash_attention_bwd_plain,
+                                               flash_attention_cuda,
+                                               flash_attention_plain)
+    gen = torch.Generator(device=card).manual_seed(sq + sk + window)
+    q = torch.randn(2, 3, sq, hd, generator=gen, device=card).to(dtype)
+    k, v = (torch.randn(2, 3, sk, hd, generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    do = torch.randn(2, 3, sq, hd, generator=gen, device=card)
+    kw = dict(causal=True, window=window, q_offset=offset)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert o.shape == (2, 3, sq, hd) and lse.shape == (2, 3, sq)
+    _close(o, o_p, dtype)
+    _close(lse, lse_p, torch.float32)
+    got = flash_attention_bwd_cuda(q, k, v, o_p, lse_p, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o_p, lse_p, do, **kw)
+    assert got[1].shape == got[2].shape == (2, 3, sk, hd)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+    with pytest.raises(ValueError, match="do not lie"):
+        flash_attention_cuda(q, k, v, causal=True, q_offset=sk - sq + 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 64, 70), (1024, 8192, 2048),
+                                   (256, 1024, 512)])
+def test_matmul_f32_out_keeps_bf16_operands_sums(card, m, k, n):
+    """B1 with ``out_dtype=torch.float32`` on bf16 operands: the fp32 sums
+    of the plain version (within fp32's limit), at a split and without
+    one; rounding them gives B1's bf16 output."""
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    a = torch.randn(m, k, generator=gen, device=card).to(torch.bfloat16)
+    # weights at a layer's scale: outputs of order one, whose fp32 sums
+    # over K = 8192 the order of addition moves by less than the limit
+    b = (torch.randn(k, n, generator=gen, device=card)
+         / k ** 0.5).to(torch.bfloat16)
+    got = matmul_cuda(a, b, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _close(got, matmul_plain(a, b, out_dtype=torch.float32), torch.float32)
+    _close(got.to(torch.bfloat16), matmul_cuda(a, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s", [96, 512])
 def test_flash_backward_is_deterministic(card, dtype, s):
     """No atomics: two runs of the backward give the same bits, on both

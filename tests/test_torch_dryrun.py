@@ -27,8 +27,7 @@ torch.set_num_threads(1)
 MESH = ((2, 2), ("data", "model"))
 TINY = ShapeSpec("train_tiny", 32, 4, "train")
 JSON_KEYS = {"arch", "shape", "shape_detail", "params", "model_flops",
-             "mesh", "cost", "roofline", "model_axis", "collectives",
-             "hardware_model"}
+             "mesh", "cost", "roofline", "collectives", "hardware_model"}
 MEM_KEYS = {"flops_per_device", "hbm_bytes_per_device",
             "collective_bytes_per_chip", "collective_count",
             "collective_by_op", "argument_bytes_per_device",
@@ -55,7 +54,12 @@ def test_run_cell_on_a_small_mesh(tmp_path):
     res = dryrun.run_cell(cfg, TINY, out_dir=tmp_path,
                           meshes={"small": _mesh()}, log=lambda *a: None)
     assert JSON_KEYS <= set(res)
-    assert res["model_axis"].startswith("replicated compute (item 14d)")
+    # a train cell splits the model axis's work; the serving cells keep
+    # the departure (item 14e)
+    assert "model_axis" not in res
+    decode = ShapeSpec("decode_tiny", 32, 4, "decode")
+    assert dryrun.departures(decode)["model_axis"].startswith(
+        "replicated compute (item 14e)")
     assert "all-gather" in res["collectives"]
     mem = res["mesh"]["small"]
     assert MEM_KEYS <= set(mem) and mem["fits_hbm"]
@@ -89,9 +93,9 @@ def test_long_context_cell_of_a_full_attention_arch_is_skipped(tmp_path):
                       )["skipped"] == res["skipped"]
 
 
-def _jax_rules():
-    mesh = types.SimpleNamespace(axis_names=MESH[1],
-                                 shape=dict(zip(MESH[1], MESH[0])))
+def _jax_rules(mesh=MESH):
+    mesh = types.SimpleNamespace(axis_names=mesh[1],
+                                 shape=dict(zip(mesh[1], mesh[0])))
     return jax_make_rules(mesh, fsdp=True)
 
 
@@ -101,11 +105,11 @@ def _names(entry):
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def _jax_param_leaves():
+def _jax_param_leaves(mesh=MESH):
     """(path, shape, itemsize, JAX spec) of the smoke params' leaves."""
     jcfg = JAX_ARCHS["gemma-2b"].smoke()
     specs = jax_tfm.Model(jcfg).param_specs()
-    rules = _jax_rules()
+    rules = _jax_rules(mesh)
     flat, _ = jax.tree_util.tree_flatten_with_path(specs)
     out = []
     for p, x in flat:
@@ -137,45 +141,58 @@ def test_argument_bytes_are_the_rules_shard_sizes():
 
 
 def test_recorded_all_gathers_are_what_the_specs_imply():
-    """Every param leaf is gathered at its use, data-axis dims first: the
-    layers' twice (forward and remat recompute), the top leaves once; a
-    leaf not split over the data axis (which splits the batch) adds the
-    psum (an all-gather) of its gradient's shard over it; the loss's
-    pmean and the gradient norm's psum (one per set of split axes) add
-    theirs.  Each all-gather is recorded with its result's bytes."""
-    sizes = dict(zip(MESH[1], MESH[0]))
-    batch = {"data"}
+    """On a (data 2, model 4) mesh, where a collective's group size names
+    its axes: every param leaf is gathered at its use over the data axis
+    only, data-axis dims first -- the layers' twice (forward and remat
+    recompute), the top leaves once -- and stays its shard on the model
+    axis; a leaf not split over an axis whose ranks hold parts of its
+    gradient (data, which splits the batch; model, for a leaf replicated
+    there, since the cell's residual is striped over the sequence) adds
+    the psum (an all-gather) of its gradient's shard over those axes; the
+    loss's pmean and the gradient norm's psum (one per set of split axes)
+    add theirs.  Each all-gather is recorded with its result's bytes.
+    The model axis's own all-gathers (group size 4) carry activations:
+    the striped residual's, k/v's head_dim and the vocab-parallel
+    loss's."""
+    mesh = ((2, 4), ("data", "model"))
+    sizes = dict(zip(mesh[1], mesh[0]))
     want = Counter()
     norm_sets = Counter()
-    for path, shape, item, spec in _jax_param_leaves():
-        cur = list(_shard(shape, spec, sizes))
+    for path, shape, item, spec in _jax_param_leaves(mesh):
+        shard = _shard(shape, spec, sizes)
+        cur = list(shard)
         uses = 1 if path in ("embed", "final_norm.scale") else 2
-        dims = [(d, _names(e)) for d, e in enumerate(spec) if _names(e)]
-        dims.sort(key=lambda dn: not set(dn[1]) <= batch)
-        split = {a for _, names in dims for a in names}
-        for d, names in dims:
-            n = math.prod(sizes[a] for a in names)
-            cur[d] *= n
-            want[(math.prod(cur) * item, n)] += uses
-        if not split & batch:
-            want[(math.prod(_shard(shape, spec, sizes)) * item
-                  * sizes["data"], sizes["data"])] += 1
+        split = {a for e in spec for a in _names(e)}
+        for d, e in enumerate(spec):
+            if "data" in _names(e):
+                cur[d] *= sizes["data"]
+                want[(math.prod(cur) * item, sizes["data"])] += uses
+        rest = [a for a in mesh[1] if a not in split]
+        if rest:
+            n = math.prod(sizes[a] for a in rest)
+            want[(math.prod(shard) * item * n, n)] += 1
         if split:
-            norm_sets[tuple(a for a in MESH[1] if a in split)] += 1
+            norm_sets[tuple(a for a in mesh[1] if a in split)] += 1
     want[(4 * sizes["data"], sizes["data"])] += 1          # the loss
     for axes, n in norm_sets.items():
         size = math.prod(sizes[a] for a in axes)
         want[(4 * n * size, size)] += 1
+    model = sizes["model"]
+    want = Counter({k: v for k, v in want.items() if k[1] != model})
 
     fn, args, _ = dryrun.cell_step(get_arch("gemma-2b").smoke(), TINY,
-                                   make_rules(_mesh()), "cost")
+                                   make_rules(AbstractMesh(*mesh)), "cost")
     with collectives.recording() as rec:
         fn(*args)
-    got = Counter((nbytes, n) for op, nbytes, n in rec if op == "all-gather")
+    got = Counter((nbytes, n) for op, nbytes, n in rec
+                  if op == "all-gather" and n != model)
     assert got == want
-    # every gradient gathered over the data axis comes back through the
-    # reduce-scatter's all-to-all
-    assert any(op == "all-to-all" for op, _, _ in rec)
+    # every gradient gathered over the data axis comes back through a
+    # reduce-scatter; the striped residual's branches come back through
+    # the model axis's
+    sizes_rs = {n for op, _, n in rec if op == "reduce-scatter"}
+    assert sizes_rs == {sizes["data"], model}
+    assert any(op == "all-gather" and n == model for op, _, n in rec)
 
 
 def test_perf_main_runs_dots_and_refuses_item_14d_knobs(tmp_path):
@@ -190,10 +207,16 @@ def test_perf_main_runs_dots_and_refuses_item_14d_knobs(tmp_path):
         < base["cost"]["totals"]["flops_per_device"]
     lines = (tmp_path / "gemma-2b--train_4k.jsonl").read_text().splitlines()
     assert len(lines) == 2
-    for knob in ("seq_shard=1", "attn_seq=1", "embed_stripe=0"):
-        with pytest.raises(NotImplementedError, match="item 14d"):
-            perf.main(["--arch", "gemma-2b", "--shape", "train_4k",
-                       "--out", str(tmp_path), knob])
+    # item 14d's knobs run at JAX's values (seq_shard defaults to 1)
+    assert base["variant"]["seq_shard"] is True
+    assert "model_axis" not in base
+    flops = base["cost"]["totals"]["flops_per_device"]
+    for knob in ("seq_shard=0", "attn_seq=1", "embed_stripe=0"):
+        other = perf.main(["--arch", "gemma-2b", "--shape", "train_4k",
+                           "--out", str(tmp_path), knob])
+        # the same step's work, split as before over the chips
+        assert other["cost"]["totals"]["flops_per_device"] \
+            == pytest.approx(flops, rel=0.02)
     # JAX's block_kv tile has no reader in the port: refused, not ignored
     with pytest.raises(SystemExit, match="block_kv"):
         perf.main(["--arch", "gemma-2b", "--shape", "train_4k",

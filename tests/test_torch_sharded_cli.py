@@ -5,12 +5,15 @@ widths.
 Two steps held to JAX's one-device ``make_train_step`` by the gates of
 ``tests/_torch_sharded.py``: gemma-2b on (2,1) and (1,2) (MQA: wk and wv
 fall back to sharding head_dim over model), rwkv6-7b and
-recurrentgemma-9b on (1,2) (the ``.tm.`` and ``.rec.`` rules).
+recurrentgemma-9b on (1,2) (the ``.tm.`` and ``.rec.`` rules); on (1,2)
+the model axis splits each layer's work (``runtime/model_axis.py``).
 
 The CLI lays its state out on ``make_host_mesh()``: on two ranks that is
-(data 1, model 2), which splits no batch rows, so the first loss is one
-process's bit for bit; ``--inject-failures`` there restores every rank
-to the saved step and ends with the uninterrupted run's losses.  On one
+(data 1, model 2), which splits no batch rows but splits the work: each
+rank runs half of one process's matmul FLOPs, and its losses are one
+process's within 1e-5 (row-parallel partial sums and the vocab-parallel
+softmax reorder fp32 sums); ``--inject-failures`` there restores every
+rank to the saved step and ends with the uninterrupted run's losses.  On one
 process every spec replicates and no collective runs: the CLI's losses,
 checkpoint bytes and params are those of the unsharded
 ``make_train_step``, bit for bit.
@@ -19,6 +22,7 @@ import concurrent.futures
 
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 import _torch_ranks as ranks
 import _torch_sharded as ref
@@ -102,13 +106,17 @@ def test_cli_on_two_ranks_restarts_to_the_uninterrupted_losses(runs):
 
 
 def test_cli_on_two_ranks_matches_one_process(runs, tmp_path):
-    """(1, 2) splits no batch rows: the first loss is one process's bit for
-    bit; later ones move by the order of the grad norm's sums."""
-    one = train_cli.main(CLI + ["--ckpt-dir", str(tmp_path / "one")])
-    got = runs[2][0]["cli"][0]["losses"]
-    assert got[0] == one[0]
-    for a, b in zip(got, one):
-        assert ref.rel(a, b) <= 1e-5, (got, one)
+    """(1, 2) splits no batch rows but each layer's work: every loss is one
+    process's within 1e-5, and each rank runs half of its matmul FLOPs
+    (within 1%)."""
+    with FlopCounterMode(display=False) as flops:
+        one = train_cli.main(CLI + ["--ckpt-dir", str(tmp_path / "one")])
+    for rank in runs[2]:
+        got = rank["cli"][0]
+        for a, b in zip(got["losses"], one):
+            assert ref.rel(a, b) <= 1e-5, (got["losses"], one)
+        assert 2 * got["matmul_flops"] == pytest.approx(
+            ranks.matmul_flops(flops), rel=0.01)
 
 
 def unsharded_cli(steps, batch, seq, ckpt_dir):
