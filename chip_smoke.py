@@ -289,6 +289,32 @@ Phases, one output line or more each:
               2e-4 of the sequential product, 5 launches a rank.  The
               older train phases run on the CLI's one-rank mesh: no
               collective.
+6g. sharded serve -- two ranks sharing cuda:0 over gloo on (1, 2), the
+              dry run's serving builders (``dryrun.prefill_step``,
+              ``dryrun.serve_step``) on real tensors: gemma-2b at full
+              width and depth in bf16, a prefill of 2 x 504 tokens and
+              16 greedy decode steps from position 504 against a dense
+              cache of 1024 slots filled with seeded values (512 a rank:
+              the one kv head stripes the sequence), so decode crosses
+              from rank 0's block into rank 1's; each rank's B1
+              launches equal to one process's with half its
+              multiply-adds (within 1%), every B6 call on 4 of the 8
+              heads, 18 B2 launches a decode step, each with its
+              log-sum-exp over the rank's 512 slots, no plain route, no
+              leaf gathered whole over ``model``, the ranks' tokens
+              bit-equal and their first divergence from one process's
+              reported.  fp32 at 2 layers and full width against one
+              process: prefill and 4 teacher-forced decode steps' logits
+              within 1e-5 of max |logit| for gemma-2b (stripe, decode
+              crossing the blocks), codeqwen1.5-7b (kv heads) and
+              rwkv6-7b (decode on heads; the prefill under
+              attn_prefer_seq, its WKV on each rank's half of the
+              sequence).  rwkv6-7b's fp32 loss and gradient under
+              attn_prefer_seq at 2 layers against one process's
+              (SHARDED_LIMITS), B8 and its backward on mma on each
+              rank's (1, 64, 64, 64) block.  B2's log-sum-exp row (2
+              merged stripes against the whole cache) runs with phase
+              2's rows.
 6f. remat dots -- full-width gemma-2b at 2 layers, one loss and
               backward under ``remat_policy="full"`` and one under
               ``"dots"`` (each layer's forward keeps the products its
@@ -1074,6 +1100,82 @@ def decode_rows(torch, dtype_name: str, shape: dict, int8: bool,
     return rows
 
 
+# B2's log-sum-exp (the sharded decode's sequence stripe, phase 6g): at
+# DECODE_LONG's gemma-2b heads and 8192 keys, the whole cache against its
+# two 4096-key stripes attended apart and merged; lse within this
+# relative of the whole call's
+DECODE_LSE_STRIPES, DECODE_LSE_LIMIT = 2, 1e-5
+
+
+def decode_lse_row(torch, dtype_name: str):
+    """B2 with ``return_lse`` at DECODE_LONG: its output bits equal the
+    call without it; the whole cache's (out, lse) against the
+    DECODE_LSE_STRIPES stripes' calls merged in rank order
+    (``model_axis.merge_stripes``; the 2049- and 1-key slots leave the
+    second stripe empty, lse -inf), the output within the kernel's
+    tolerance and the lse within DECODE_LSE_LIMIT relative; device ms
+    with and without the lse."""
+    from repro_torch.kernels.attention.decode import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.runtime.model_axis import merge_stripes
+    shape = DECODE_LONG
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, h, hkv, hd, page, n_pages = (shape[k] for k in (
+        "b", "h", "hkv", "hd", "page", "n_pages"))
+    kp, vp, table = paged_inputs(torch, dtype, gen, b=b, h=h, hkv=hkv,
+                                 hd=hd, page=page, n_pages=n_pages)
+    q = torch.randn(b, h, hd, generator=gen, device="cuda").to(dtype)
+    lens = list(shape["lens"])
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, table, lengths)
+
+    def call():
+        return decode_attention_cuda(*args, return_lse=True)
+    out, lse = call()
+    if not torch.equal(out, decode_attention_cuda(*args)):
+        raise AssertionError("decode_attention return_lse: the output's "
+                             "bits moved")
+    n = n_pages // DECODE_LSE_STRIPES
+    keys = n * page
+    parts = [decode_attention_cuda(
+        q, kp, vp, table[:, r * n:(r + 1) * n].contiguous(),
+        (lengths - r * keys).clamp(0, keys).to(torch.int32),
+        return_lse=True) for r in range(DECODE_LSE_STRIPES)]
+    merged = merge_stripes(torch.stack([o for o, _ in parts]),
+                           torch.stack([x for _, x in parts]))
+    whole_lse = torch.logsumexp(torch.stack([x for _, x in parts]), 0)
+    case = (f"B={b} H={h} Hkv={hkv} hd={hd} page={page} lengths={lens} "
+            f"return_lse, {DECODE_LSE_STRIPES} merged stripes of {keys} "
+            f"keys")
+    err = compare(torch, f"decode_attention {case}", merged, out,
+                  dtype_name)
+    _, plain_lse = decode_attention_plain(*args, return_lse=True)
+    lse_rel = ((whole_lse - lse).abs() / lse.abs()).max().item()
+    plain_rel = ((plain_lse - lse).abs() / plain_lse.abs()).max().item()
+    if not (lse_rel <= DECODE_LSE_LIMIT and plain_rel <= DECODE_LSE_LIMIT
+            and bool(torch.isinf(parts[-1][1][2:]).all())):
+        raise AssertionError(f"decode_attention {case}: lse of the merged "
+                             f"stripes {lse_rel:.3e}, of the plain version "
+                             f"{plain_rel:.3e} (limit {DECODE_LSE_LIMIT})")
+    live = sum(lens)
+    nbytes = (q.numel() * q.element_size() + 2 * live * hkv * hd
+              * q.element_size() + table.numel() * 4 + b * 4
+              + b * h * (hd + 1) * 4)
+    r = row("decode_attention", case, dtype_name, err,
+            time_ms(torch, call, 20),
+            time_ms(torch, lambda: decode_attention_plain(
+                *args, return_lse=True), 20),
+            bound(nbytes, 4.0 * h * hd * live, dtype_name),
+            device_ms=device_ms(torch, call, 20),
+            device_ms_without_lse=device_ms(
+                torch, lambda: decode_attention_cuda(*args), 20),
+            lse_rel_err=lse_rel, plain_lse_rel_err=plain_rel)
+    del kp, vp, args
+    torch.cuda.empty_cache()
+    return [r]
+
+
 def check_decode(torch, dtype_name: str):
     rows = []
     for int8 in (False, True):
@@ -1086,7 +1188,7 @@ def check_decode(torch, dtype_name: str):
             rows += decode_rows(torch, dtype_name, DECODE_MOE, int8, 50)
     for shape in DECODE_DENSE:
         rows += decode_rows(torch, dtype_name, shape, False, 20)
-    return rows
+    return rows + decode_lse_row(torch, dtype_name)
 
 
 # B3/B4b's cases: the serving row (gemma-2b's heads, a first chunk and one
@@ -3018,8 +3120,8 @@ def recurrent_serve_phase(torch):
             prof.step()
             return out
 
-        def logits(self, params, x):
-            out = real_logits(self, params, x)
+        def logits(self, params, x, *args):
+            out = real_logits(self, params, x, *args)
             finite.append(torch.stack([torch.isfinite(x).all(),
                                        torch.isfinite(out).all()]))
             return out
@@ -4761,6 +4863,368 @@ def sharded_train_phase(torch) -> dict:
     return dict(launches)
 
 
+# ------------------------------------------------------------ phase 6g
+SERVE_AXIS_RANKS = 2
+SERVE_AXIS_ARCH = "gemma-2b"
+# the bf16 run: a prefill of batch x prompt tokens, then steps greedy
+# decode steps from position pos against a dense cache of cap slots
+# (cap / 2 a rank), filled with seeded values
+SERVE_AXIS_BF16 = dict(batch=2, prompt=504, cap=1024, pos=504, steps=16)
+# the fp32 runs at full width and SERVE_AXIS_LAYERS layers: teacher-
+# forced decode steps from pos, crossing the middle of the cache
+SERVE_AXIS_LAYERS = 2
+SERVE_AXIS_FP32 = dict(batch=2, prompt=128, cap=256, pos=126, steps=4)
+SERVE_AXIS_ARCHS = ("gemma-2b", "codeqwen1.5-7b", "rwkv6-7b")
+SERVE_AXIS_LIMIT = 1e-5          # of max |logit|, fp32
+SERVE_AXIS_SEED = 21
+
+
+def serve_axis_config(arch: str, layers: int = 0):
+    """``arch`` at its published width, its depth cut to ``layers`` (0:
+    all of it)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def serve_axis_run(torch, cfg, dt, spec: dict, *, mesh=None,
+                   greedy: bool = False, attn_seq: bool = False) -> dict:
+    """A prefill and ``spec["steps"]`` dense decode steps of ``cfg`` on
+    the card from seeded params, prompt and cache: in this process alone
+    (``mesh`` None), or on this rank's shards and cache block through
+    the dry run's builders on ``mesh`` (with ``attn_seq``, the rules'
+    attn_prefer_seq).  Greedy tokens, or teacher-forced seeded ones.
+    Returns the prefill and decode logits (fp32, on the host; greedy:
+    the tokens only), the B1 launches and multiply-adds of the run, the
+    plain routes, each B2 call's (pool shape, return_lse), each B6 call's
+    q shape, the leaves gathered whole over the model axis and the
+    seconds."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import sharding
+    b, s, cap, pos0 = (spec[k] for k in ("batch", "prompt", "cap", "pos"))
+    model = Model(cfg, dt=dt, device="cuda")
+    params = model.init(seed=SERVE_AXIS_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_AXIS_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    forced = torch.randint(0, cfg.vocab_size, (spec["steps"], b, 1),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    cache = filled_cache(model.init_cache(b, cap), gen)
+    if mesh is None:
+        def prefill():
+            return model.prefill(params, {"tokens": prompt})
+
+        def decode(tok, pos):
+            return model.decode_step(params, cache, tok, pos=pos)
+    else:
+        rules = sharding.make_rules(mesh, fsdp=True)
+        if attn_seq:
+            rules = dataclasses.replace(rules, attn_prefer_seq=True)
+        pstep, pargs, _ = dryrun.prefill_step(
+            cfg, ShapeSpec("prefill_axis", s, b, "prefill"), rules, dt=dt,
+            device="cuda", params=params, batch={"tokens": prompt})
+        dstep, (local, block, _), _ = dryrun.serve_step(
+            cfg, ShapeSpec("decode_axis", cap, b, "decode"), rules, dt=dt,
+            device="cuda", params=params, batch={"tokens": forced[0]},
+            cache=cache)
+        del params, cache, model
+
+        def prefill():
+            return pstep(*pargs)
+
+        # (1, 2): the batch is not split, every rank takes all rows
+        def decode(tok, pos):
+            return dstep(local, block, {"tokens": tok}, pos)[0]
+    torch.cuda.empty_cache()
+    b2, b6 = [], []
+    kernels = {"decode_attention_cuda": (b2, lambda q, k, *a, **kw: (
+        tuple(k.shape), kw.get("return_lse", False))),
+               "flash_attention_cuda": (b6, lambda q, *a, **kw: tuple(
+                   q.shape))}
+    saved = {name: getattr(dispatch, name) for name in kernels}
+
+    def recording(name):
+        seen, what = kernels[name]
+
+        def launch(*args, **kw):
+            seen.append(what(*args, **kw))
+            return saved[name](*args, **kw)
+        return launch
+    out = {"decode": [], "tokens": []}
+    dispatch.reset_launch_counts()
+    sharding.reset_model_gathers()
+    t0 = time.perf_counter()
+    try:
+        for name in kernels:
+            setattr(dispatch, name, recording(name))
+        with torch.no_grad(), dispatch.stats_scope() as stats:
+            logits = prefill()
+            out["prefill"] = logits.float().cpu()
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            for i in range(spec["steps"]):
+                logits = decode(tok if greedy else forced[i], pos0 + i)
+                nxt = logits.argmax(-1).to(torch.int32)[:, None]
+                out["tokens"].append(nxt.cpu().reshape(-1).tolist())
+                if not greedy:
+                    out["decode"].append(logits.float().cpu())
+                tok = nxt
+            torch.cuda.synchronize()
+            routes = stats()
+    finally:
+        for name, fn in saved.items():
+            setattr(dispatch, name, fn)
+    out.update(seconds=time.perf_counter() - t0,
+               launches=dispatch.launch_counts(),
+               macs=dispatch.matmul_macs(),
+               plain=[f"{op}/{r}" for (op, r) in routes if r != "kernel"],
+               b2=b2, b6=b6, model_gathers=sharding.model_gathers())
+    if greedy:
+        out["prefill"] = digest(torch, out["prefill"])
+    return out
+
+
+def serve_axis_train(torch, mesh) -> dict:
+    """rwkv6-7b at full width and SERVE_AXIS_LAYERS layers in fp32: the
+    loss and gradient of one process at the drawn params, then on this
+    rank's shards under attn_prefer_seq with the residual striped (the
+    dry run's hooks), each gradient leaf's shard held to the same block
+    of one process's.  Returns the losses, the worst gradient error over
+    its leaf's max |grad| and that leaf, the WKV forward launches' r
+    shapes and the WKV routes and backward launches."""
+    from repro_torch.core import tree
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import sharding
+    cfg = serve_axis_config("rwkv6-7b", SERVE_AXIS_LAYERS)
+    dt = DtypePolicy(param=torch.float32, compute=torch.float32)
+    batch = sharded_batches(torch, cfg, 1, seed=13)[0]
+    model = Model(cfg, dt=dt, device="cuda", opts=_fp32_opts())
+    params = model.init(seed=SERVE_AXIS_SEED)
+
+    def loss_and_grads(view, state, rows):
+        flat, rebuild = tree.flatten(state)
+        for t in flat:
+            t.requires_grad_(True)
+        loss, _ = view.loss_fn(rebuild(flat), rows)
+        grads = torch.autograd.grad(loss, flat)
+        for t in flat:
+            t.requires_grad_(False)
+        return float(loss.detach()), grads
+    loss_one, want = loss_and_grads(model, params, batch)
+    rules = dataclasses.replace(sharding.make_rules(mesh, fsdp=True),
+                                attn_prefer_seq=True)
+    shd = sharding.train_sharding(rules, params, SHARDED_PARITY_BATCH)
+    local = sharding.shard_state(params, shd.specs, mesh)
+    del params
+    view = Model(cfg, dt, "cuda", dataclasses.replace(
+        _fp32_opts(rules, "attn_seq"), sharding=shd))
+    shapes = []
+    wkv = dispatch.wkv_cuda
+
+    def record(r, *args, **kw):
+        shapes.append(tuple(r.shape))
+        return wkv(r, *args, **kw)
+    dispatch.reset_launch_counts()
+    dispatch.wkv_cuda = record
+    try:
+        loss, grads = loss_and_grads(view, local, shd.split_batch(batch))
+    finally:
+        dispatch.wkv_cuda = wkv
+    torch.cuda.synchronize()
+    worst = (0.0, -1)
+    for i, (g, spec, w) in enumerate(zip(grads, shd.leaf_specs, want)):
+        scale = w.abs().max().item()
+        err = (g - sharding.shard_leaf(w, spec, mesh)).abs().max().item()
+        worst = max(worst, (err / scale if scale > 0 else err, i))
+    launches = dispatch.launch_counts()
+    return {"loss": loss, "loss_one_process": loss_one,
+            "grad_worst": worst, "wkv_shapes": shapes,
+            "wkv_routes": {k: n for k, n in dispatch.route_counts().items()
+                           if k.startswith("wkv")},
+            "wkv_bwd": launches["wkv_bwd"], "launches": launches}
+
+
+def serve_axis_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of the SERVE_AXIS_RANKS processes sharing cuda:0 over gloo:
+    the bf16 run, the fp32 runs and the rwkv6-7b gradient check on the
+    (1, 2) mesh.  Results to ``out_dir``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=3))
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, SERVE_AXIS_RANKS), ("data", "model"),
+                     device="cuda")
+    t0 = time.time()
+    cfg = serve_axis_config(SERVE_AXIS_ARCH)
+    out = {"t": {}, "bf16": serve_axis_run(
+        torch, cfg, dryrun.policy_for(cfg, "decode")[0], SERVE_AXIS_BF16,
+        mesh=mesh, greedy=True)}
+    out["t"]["bf16"] = time.time() - t0
+    release(torch)
+    fp32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    out["fp32"] = {}
+    for arch in SERVE_AXIS_ARCHS:
+        out["fp32"][arch] = serve_axis_run(
+            torch, serve_axis_config(arch, SERVE_AXIS_LAYERS), fp32,
+            SERVE_AXIS_FP32, mesh=mesh, attn_seq=arch == "rwkv6-7b")
+        release(torch)
+        out["t"][f"fp32 {arch}"] = time.time() - t0
+    out["train"] = serve_axis_train(torch, mesh)
+    out["t"]["rwkv train"] = time.time() - t0
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def first_divergence(a: list, b: list):
+    """The first decode step whose tokens differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def serve_axis_phase(torch) -> dict:
+    """Phase 6g: one process's runs here, then SERVE_AXIS_RANKS ranks
+    sharing cuda:0 over gloo (``torch.multiprocessing.spawn``, a
+    ``file://`` store) run the same on (1, 2) through the dry run's
+    serving builders; the checks of the module docstring.  Returns the
+    ranks' launches."""
+    import torch.multiprocessing as mp
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    cfg = serve_axis_config(SERVE_AXIS_ARCH)
+    one = serve_axis_run(torch, cfg, dryrun.policy_for(cfg, "decode")[0],
+                         SERVE_AXIS_BF16, greedy=True)
+    release(torch)
+    fp32 = DtypePolicy(param=torch.float32, compute=torch.float32)
+    one_fp32 = {}
+    for arch in SERVE_AXIS_ARCHS:
+        one_fp32[arch] = serve_axis_run(
+            torch, serve_axis_config(arch, SERVE_AXIS_LAYERS), fp32,
+            SERVE_AXIS_FP32)
+        release(torch)
+    one_seconds = time.time() - t0
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mp.spawn(serve_axis_rank, args=(SERVE_AXIS_RANKS,
+                                        str(Path(tmp) / "store"), tmp),
+                 nprocs=SERVE_AXIS_RANKS, join=True)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(SERVE_AXIS_RANKS)]
+    failed = []
+    launches = Counter()
+    m = SERVE_AXIS_RANKS
+    bf = [r["bf16"] for r in ranks]
+    steps, cap = SERVE_AXIS_BF16["steps"], SERVE_AXIS_BF16["cap"]
+    macs = [g["macs"] / one["macs"] for g in bf]
+    b2_ok = all(len(g["b2"]) == cfg.n_layers * steps and all(
+        lse and shape[0] * shape[1] == SERVE_AXIS_BF16["batch"] * cap // m
+        for shape, lse in g["b2"]) for g in bf)
+    b6_ok = all(len(g["b6"]) == cfg.n_layers and all(
+        q[1] == cfg.n_heads // m for q in g["b6"]) for g in bf)
+    equal = all(g["tokens"] == bf[0]["tokens"]
+                and g["prefill"] == bf[0]["prefill"] for g in bf)
+    for g in bf:
+        launches.update(g["launches"])
+    emit({"phase": "sharded_serve", "run": "bf16", "arch": cfg.name,
+          "layers": cfg.n_layers, "mesh": {"data": 1, "model": m},
+          "ranks_share": "cuda:0 over gloo, collectives through host",
+          **{k: SERVE_AXIS_BF16[k] for k in SERVE_AXIS_BF16},
+          "b1_launches": [g["launches"]["matmul"] for g in bf],
+          "b1_launches_one_process": one["launches"]["matmul"],
+          "macs_over_one_process": macs,
+          "b2_launches": [g["launches"]["decode_attention"] for g in bf],
+          "b2_keys_a_rank": sorted({s[0] * s[1] for g in bf
+                                    for s, _ in g["b2"]}),
+          "b6_q_shapes": sorted({q for g in bf for q in g["b6"]}),
+          "plain": [g["plain"] for g in bf],
+          "model_gathers": [g["model_gathers"] for g in bf],
+          "ranks_bit_equal": equal,
+          "first_divergence_from_one_process": first_divergence(
+              bf[0]["tokens"], one["tokens"]),
+          "tokens_rank0": bf[0]["tokens"], "tokens_one_process":
+          one["tokens"], "seconds": [g["seconds"] for g in bf],
+          "seconds_one_process": one["seconds"]})
+    if not (equal and b2_ok and b6_ok
+            and all(g["launches"]["matmul"] == one["launches"]["matmul"]
+                    and abs(x * m - 1) <= SHARDED_MACS_LIMIT
+                    and not g["plain"] and g["model_gathers"] == 0
+                    for g, x in zip(bf, macs))):
+        failed.append(f"bf16: ranks equal {equal}, B2 {b2_ok}, B6 "
+                      f"{b6_ok}, macs {macs}, launches "
+                      f"{[g['launches'] for g in bf]} (one process "
+                      f"{one['launches']}), plain "
+                      f"{[g['plain'] for g in bf]}")
+    for arch in SERVE_AXIS_ARCHS:
+        got = [r["fp32"][arch] for r in ranks]
+        want = one_fp32[arch]
+        for g in got:
+            launches.update(g["launches"])
+        rels = []
+        for a, w in zip([got[0]["prefill"]] + got[0]["decode"],
+                        [want["prefill"]] + want["decode"]):
+            rels.append((a - w).abs().max().item() / w.abs().max().item())
+        equal = all(torch.equal(g["prefill"], got[0]["prefill"]) and all(
+            torch.equal(x, y) for x, y in zip(g["decode"], got[0]["decode"]))
+            for g in got)
+        emit({"phase": "sharded_serve", "run": "fp32 parity", "arch": arch,
+              "layers": SERVE_AXIS_LAYERS, **SERVE_AXIS_FP32,
+              "prefill_and_decode_rel_err": rels,
+              "b2_shapes_lse": sorted(set(got[0]["b2"])),
+              "b6_q_shapes": sorted(set(got[0]["b6"])),
+              "plain": [g["plain"] for g in got],
+              "model_gathers": [g["model_gathers"] for g in got],
+              "ranks_bit_equal": equal})
+        if not (equal and max(rels) <= SERVE_AXIS_LIMIT and all(
+                not g["plain"] and g["model_gathers"] == 0 for g in got)):
+            failed.append(f"fp32 {arch}: rel err {rels}, ranks equal "
+                          f"{equal}, plain {[g['plain'] for g in got]}")
+    tr = [r["train"] for r in ranks]
+    rwkv = serve_axis_config("rwkv6-7b")
+    heads = rwkv.d_model // rwkv.rwkv_head_dim
+    rows = SHARDED_PARITY_SEQ // m
+    ratio, leaf = max(t["grad_worst"] for t in tr)
+    loss_rel = abs(tr[0]["loss"] - tr[0]["loss_one_process"]) \
+        / abs(tr[0]["loss_one_process"])
+    wkv_ok = all(t["wkv_shapes"] and all(
+        sh == (SHARDED_PARITY_BATCH, rows, heads, rwkv.rwkv_head_dim)
+        for sh in t["wkv_shapes"])
+        and t["wkv_routes"].get("wkv/mma") == SERVE_AXIS_LAYERS
+        and t["wkv_bwd"] == SERVE_AXIS_LAYERS for t in tr)
+    for t in tr:
+        launches.update(t["launches"])
+    emit({"phase": "sharded_serve", "run": "rwkv6-7b fp32 striped WKV "
+          "loss and gradient", "layers": SERVE_AXIS_LAYERS,
+          "batch": SHARDED_PARITY_BATCH, "seq": SHARDED_PARITY_SEQ,
+          "loss": tr[0]["loss"], "loss_one_process":
+          tr[0]["loss_one_process"], "loss_rel_err": loss_rel,
+          "worst_grad_err_over_max_grad": ratio, "worst_leaf": leaf,
+          "wkv_shapes": sorted(set(tr[0]["wkv_shapes"])),
+          "wkv_routes": [t["wkv_routes"] for t in tr],
+          "wkv_bwd_launches": [t["wkv_bwd"] for t in tr]})
+    if not (loss_rel <= SHARDED_LIMITS["loss"]
+            and ratio <= SHARDED_LIMITS["grad"] and wkv_ok):
+        failed.append(f"rwkv train: loss {loss_rel:.3e}, grad {ratio:.3e} "
+                      f"(leaf {leaf}), wkv {wkv_ok}: "
+                      f"{[t['wkv_routes'] for t in tr]}")
+    emit({"phase": "sharded_serve", "seconds": time.time() - t0,
+          "one_process_seconds": one_seconds,
+          "rank_seconds": [r["t"] for r in ranks]})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return dict(launches)
+
+
 # ------------------------------------------------------------ main
 # ------------------------------------------------------------ phase 2c
 # the tune phase: cells of the shapes the main paths launch (PERF.md §6),
@@ -4961,7 +5425,7 @@ def dryrun_phase(torch, smi: str) -> None:
         c0 = time.time()
         res = dryrun.run_cell(arch, shape, out_dir=out_dir,
                               log=lambda *a: None)
-        if "skipped" in res or "error" in res:
+        if "skipped" in res or "error" in res or "model_axis" in res:
             raise AssertionError(f"dryrun: {arch} x {shape}: {res}")
         meshes = {name: {k: m[k] for k in (
             "argument_bytes_per_device", "peak_bytes_per_device",
@@ -4976,7 +5440,7 @@ def dryrun_phase(torch, smi: str) -> None:
                   "compute_s", "memory_s", "collective_s", "dominant",
                   "step_s", "roofline_fraction")},
               "roofline_model": res["hardware_model"],
-              "model_axis": res.get("model_axis", "split (train cell)"),
+              "model_axis": "split",
               "seconds": time.time() - c0})
         if set(meshes) != {"pod", "multipod"} or not all(
                 m["argument_bytes_per_device"] > 0
@@ -5385,6 +5849,9 @@ def run_phases(torch, args, smi: str, empty_cache: Path) -> int:
                            recurrent_train_config(arch, parity=True))
         release(torch)
     for op, n in sharded_train_phase(torch).items():
+        launches[op] = launches.get(op, 0) + n
+    release(torch)
+    for op, n in serve_axis_phase(torch).items():
         launches[op] = launches.get(op, 0) + n
     release(torch)
     for op, n in library_phase(torch).items():

@@ -8,7 +8,10 @@ the port of ``repro/kernels/attention/ref.py::decode_attention_ref``.
 Layout: q (B, H, hd) -- one token per slot, GQA-grouped so that head h
 reads kv head h // grp; k_pages / v_pages (P, page, Hkv, hd); table
 (B, n_pages) int32 page ids; lengths (B,) int32 valid tokens per slot
-(0 = inactive slot -> zero output, no NaNs).  Returns (B, H, hd) fp32.
+(0 = inactive slot -> zero output, no NaNs).  Returns (B, H, hd) fp32;
+with ``return_lse`` also each row's (B, H) fp32 log-sum-exp of its scaled
+scores (-inf for an inactive slot), what merges the outputs of key ranges
+attended apart (a cache striped over ranks).
 
 int8 pools (the quantized branch of the TPU kernel) come with k_scale /
 v_scale (P, Hkv) f32, one scale per (page, kv head): the plain version
@@ -51,11 +54,12 @@ def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                            lengths: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None, *,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0, return_lse: bool = False):
     """Gather pages to a dense view (dequantizing int8 pools), mask keys
     past each slot's length (and older than its window), fp32 softmax; P
     is cast to V's dtype before the P @ V product, as in the kernel (fp32
-    for dequantized int8 pools)."""
+    for dequantized int8 pools).  ``return_lse``: also the (B, H) fp32
+    log-sum-exp of the live scores, -inf where a slot has none."""
     b, h, hd = q.shape
     k = expand_kv(gather_pages(k_pages, table, k_scale), h)
     v = expand_kv(gather_pages(v_pages, table, v_scale), h)
@@ -70,7 +74,12 @@ def decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhs,bshd->bhd", probs.float(), v.float())
     # fully-masked rows (inactive slots, lengths == 0) -> exact zeros
-    return torch.where(lengths[:, :, None] > 0, out, 0.0)
+    out = torch.where(lengths[:, :, None] > 0, out, 0.0)
+    if not return_lse:
+        return out
+    lse = torch.where(lengths > 0, torch.logsumexp(scores, dim=-1),
+                      float("-inf"))
+    return out, lse
 
 
 def _check_paged(name: str, q, k_pages, v_pages, table, lengths,
@@ -169,9 +178,10 @@ def planned_split(name: str, n_pages: int, page: int, hkv: int,
 
 
 def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
-            window: int, plan) -> torch.Tensor:
+            window: int, plan, return_lse: bool = False):
     """Launch ``repro_decode_attention`` (float pools) or its int8 entry
-    (the split kernel, then the rank-order combine) and count the call on
+    (the split kernel, then the rank-order combine, which also writes the
+    rows' log-sum-exp with ``return_lse``) and count the call on
     ``wrapper``."""
     name = "decode_attention" if k_scale is None else "decode_attention_int8"
     _check_paged(name, q, k_pages, v_pages, table, lengths, 1, k_scale,
@@ -183,58 +193,66 @@ def _launch(wrapper, q, k_pages, v_pages, table, lengths, k_scale, v_scale,
                          f"{MAX_HEAD_DIM} (32 columns a lane)")
     n_pages = table.shape[1]
     split_keys, splits = planned_split(name, n_pages, page, hkv, plan)
-    # one allocation on the host's hot path: the output, then the splits'
-    # fp32 partials (acc, then m and l), merged by the combine kernel
+    # one allocation on the host's hot path: the output, the log-sum-exp,
+    # then the splits' fp32 partials (acc, then m and l), merged by the
+    # combine kernel
     n_out = b * h * hd
+    n_lse = b * h if return_lse else 0
     n_part = b * h * splits * (hd + 2)
-    buf = torch.empty(n_out + n_part, dtype=torch.float32, device=q.device)
+    buf = torch.empty(n_out + n_lse + n_part, dtype=torch.float32,
+                      device=q.device)
     out = buf[:n_out].view(b, h, hd)
+    lse = buf[n_out:n_out + n_lse].view(b, h) if return_lse else None
     if n_out == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = cuda.library()
-    scratch = buf.data_ptr() + 4 * n_out
+    lse_ptr = lse.data_ptr() if return_lse else None
+    scratch = buf.data_ptr() + 4 * (n_out + n_lse)
     sizes = cuda.c_ints(name, b, h, hkv, hd, page, n_pages,
                         k_pages.shape[0], max(0, int(window)), split_keys,
                         splits)
     if k_scale is None:
         rc = lib.repro_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            table.data_ptr(), lengths.data_ptr(), out.data_ptr(), scratch,
-            *sizes, cuda.dtype_code(q), cuda.stream_of(q))
+            table.data_ptr(), lengths.data_ptr(), out.data_ptr(), lse_ptr,
+            scratch, *sizes, cuda.dtype_code(q), cuda.stream_of(q))
     else:
         rc = lib.repro_decode_attention_int8(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), scratch, *sizes,
+            lengths.data_ptr(), out.data_ptr(), lse_ptr, scratch, *sizes,
             cuda.dtype_code(q), cuda.stream_of(q))
     cuda.check(rc, name)
     wrapper.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, table: torch.Tensor,
                           lengths: torch.Tensor, *, window: int = 0,
-                          plan=None) -> torch.Tensor:
+                          plan=None, return_lse: bool = False):
     """Launch the float-pool kernel, its keys split by
     ``decode_split_plan`` or ``plan``; raises on anything it does not
-    take."""
+    take.  ``return_lse``: (out, the rows' (B, H) fp32 log-sum-exp)."""
     return _launch(decode_attention_cuda, q, k_pages, v_pages, table,
-                   lengths, None, None, window, plan)
+                   lengths, None, None, window, plan, return_lse)
 
 
 def decode_attention_int8_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, table: torch.Tensor,
                                lengths: torch.Tensor, k_scale: torch.Tensor,
                                v_scale: torch.Tensor, *,
-                               window: int = 0, plan=None) -> torch.Tensor:
+                               window: int = 0, plan=None,
+                               return_lse: bool = False):
     """Launch the int8-pool kernel (B4a): int8 pools with their (P, Hkv)
-    fp32 scales, a bf16 or fp32 q; raises on anything it does not take."""
+    fp32 scales, a bf16 or fp32 q; raises on anything it does not take.
+    ``return_lse`` as in ``decode_attention_cuda`` (the same combine
+    kernel)."""
     if k_scale is None or v_scale is None:
         raise ValueError("decode_attention_int8: k_scale and v_scale are "
                          "required")
     return _launch(decode_attention_int8_cuda, q, k_pages, v_pages, table,
-                   lengths, k_scale, v_scale, window, plan)
+                   lengths, k_scale, v_scale, window, plan, return_lse)
 
 
 decode_attention_cuda.launches = 0

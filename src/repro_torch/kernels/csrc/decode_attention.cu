@@ -47,6 +47,9 @@
 //   kv head merge in rank order in decode_combine_kernel.  No atomics: a
 //   rerun gives the same bits, and a slot's bits do not depend on the other
 //   slots of its batch.  A slot with no live key writes exact zeros.
+// - Asked for it (lse not null), the combine kernel also writes each row's
+//   log-sum-exp from the merged m and l it holds (-inf for no live key):
+//   what merges the ranks' blocks of a cache striped over a model axis.
 // - Rows whose width is not a multiple of a piece, or pools not aligned to
 //   one, load element by element in the same kernel (VEC = 1); wider heads
 //   (up to 1024) hold more columns a lane and fewer query heads a pass.
@@ -76,6 +79,7 @@ constexpr int COMBINE_THREADS = COMBINE_COLS * COMBINE_RANKS;
 constexpr int RING_BYTES = 64 * 1024;
 constexpr int MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
@@ -86,6 +90,8 @@ struct Args {
   const int* table;
   const int* lengths;
   float* out;
+  // (B, H) fp32 log-sum-exp of each row's scaled scores, or null
+  float* lse;
   // acc (B * Hkv, splits, grp, hd), then (m, l) (B * Hkv, splits, grp,
   // 2), fp32; m in base 2
   float* part;
@@ -517,9 +523,12 @@ decode_split_kernel(const Args a) {
 // fixed order.  A block takes COMBINE_COLS columns of one query head; its
 // COMBINE_RANKS rows of threads take the splits r = row (mod
 // COMBINE_RANKS) in rank order, and their sums are added row by row.
+// With lse, column 0's thread also writes the row's natural log-sum-exp,
+// m ln 2 + ln l (m in base 2), or -inf for a row with no live key.
 __global__ void __launch_bounds__(COMBINE_THREADS)
 decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
-                      int n_bh, int grp, int hd, int splits) {
+                      float* __restrict__ lse, int n_bh, int grp, int hd,
+                      int splits) {
   __shared__ float red[3][COMBINE_RANKS][COMBINE_COLS];
   const int chunks = (hd + COMBINE_COLS - 1) / COMBINE_COLS;
   const int bh = blockIdx.x / (grp * chunks);
@@ -560,6 +569,9 @@ decode_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
       merge(mb, lsum, asum, red[0][k][col], red[1][k][col], red[2][k][col]);
     out[(static_cast<long long>(bh) * grp + g) * hd + d] =
         asum * (1.f / fmaxf(lsum, 1e-30f));
+    if (lse != nullptr && d == 0)
+      lse[static_cast<long long>(bh) * grp + g] =
+          lsum > 0.f ? mb * LN2 + logf(lsum) : __int_as_float(0xff800000);
   }
 }
 
@@ -586,7 +598,7 @@ int run(Args a, cudaStream_t stream) {
   if (cblocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   decode_combine_kernel<<<dim3(static_cast<unsigned>(cblocks)),
                           COMBINE_THREADS, 0, stream>>>(
-      a.part, a.out, a.B * a.Hkv, grp, a.hd, a.splits);
+      a.part, a.out, a.lse, a.B * a.Hkv, grp, a.hd, a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -625,35 +637,38 @@ int dispatch(const Args& a, cudaStream_t stream) {
 
 Args make_args(const void* q, const void* k_pages, const void* v_pages,
                const void* k_scale, const void* v_scale, const void* table,
-               const void* lengths, void* out, void* scratch, int B, int H,
-               int Hkv, int hd, int page, int n_pages, int n_pool,
-               int window, int split_keys, int splits) {
+               const void* lengths, void* out, void* lse, void* scratch,
+               int B, int H, int Hkv, int hd, int page, int n_pages,
+               int n_pool, int window, int split_keys, int splits) {
   return Args{q, k_pages, v_pages, static_cast<const float*>(k_scale),
               static_cast<const float*>(v_scale),
               static_cast<const int*>(table),
               static_cast<const int*>(lengths), static_cast<float*>(out),
-              static_cast<float*>(scratch), B, H, Hkv, hd, page, n_pages,
-              n_pool, window, split_keys, splits, 32};
+              static_cast<float*>(lse), static_cast<float*>(scratch), B, H,
+              Hkv, hd, page, n_pages, n_pool, window, split_keys, splits,
+              32};
 }
 
 }  // namespace
 
 // q (B, H, hd); k/v_pages (n_pool, page, Hkv, hd) of q's type; table
-// (B, n_pages) int32; lengths (B,) int32; out (B, H, hd) fp32; all
-// contiguous.  split_keys and splits: the plan of
-// attention/decode.py::decode_split_plan; scratch: the splits' partials,
-// B * Hkv * splits * (H / Hkv) * (hd + 2) fp32.  Returns a cudaError_t.
+// (B, n_pages) int32; lengths (B,) int32; out (B, H, hd) fp32; lse null
+// or (B, H) fp32, each row's log-sum-exp; all contiguous.  split_keys
+// and splits: the plan of attention/decode.py::decode_split_plan;
+// scratch: the splits' partials, B * Hkv * splits * (H / Hkv) * (hd + 2)
+// fp32.  Returns a cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k_pages,
                                       const void* v_pages, const void* table,
                                       const void* lengths, void* out,
-                                      void* scratch, int B, int H, int Hkv,
-                                      int hd, int page, int n_pages,
+                                      void* lse, void* scratch, int B, int H,
+                                      int Hkv, int hd, int page, int n_pages,
                                       int n_pool, int window, int split_keys,
                                       int splits, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a = make_args(q, k_pages, v_pages, nullptr, nullptr, table,
-                           lengths, out, scratch, B, H, Hkv, hd, page,
-                           n_pages, n_pool, window, split_keys, splits);
+                           lengths, out, lse, scratch, B, H, Hkv, hd,
+                           page, n_pages, n_pool, window, split_keys,
+                           splits);
   if (dtype == DTYPE_BF16) return dispatch<__nv_bfloat16, __nv_bfloat16>(a, s);
   if (dtype == DTYPE_F32) return dispatch<float, float>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -664,13 +679,14 @@ extern "C" int repro_decode_attention(const void* q, const void* k_pages,
 extern "C" int repro_decode_attention_int8(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* table,
-    const void* lengths, void* out, void* scratch, int B, int H, int Hkv,
-    int hd, int page, int n_pages, int n_pool, int window, int split_keys,
-    int splits, int dtype, void* stream) {
+    const void* lengths, void* out, void* lse, void* scratch, int B, int H,
+    int Hkv, int hd, int page, int n_pages, int n_pool, int window,
+    int split_keys, int splits, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a = make_args(q, k_pages, v_pages, k_scale, v_scale, table,
-                           lengths, out, scratch, B, H, Hkv, hd, page,
-                           n_pages, n_pool, window, split_keys, splits);
+                           lengths, out, lse, scratch, B, H, Hkv, hd,
+                           page, n_pages, n_pool, window, split_keys,
+                           splits);
   if (dtype == DTYPE_BF16) return dispatch<__nv_bfloat16, int8_t>(a, s);
   if (dtype == DTYPE_F32) return dispatch<float, int8_t>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);

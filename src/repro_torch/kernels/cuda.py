@@ -48,8 +48,8 @@ SIGNATURES = {
     "repro_matmul_f32out": [_P] * 4 + [_I] * 8 + [_P],
     "repro_grouped_matmul": [_P] * 4 + [_I] * 14 + [_P],
     "repro_quantized_matmul": [_P] * 5 + [_I] * 7 + [_P],
-    "repro_decode_attention": [_P] * 7 + [_I] * 11 + [_P],
-    "repro_decode_attention_int8": [_P] * 9 + [_I] * 11 + [_P],
+    "repro_decode_attention": [_P] * 8 + [_I] * 11 + [_P],
+    "repro_decode_attention_int8": [_P] * 10 + [_I] * 11 + [_P],
     "repro_prefill_attention": [_P] * 7 + [_I] * 13 + [_P],
     "repro_prefill_attention_int8": [_P] * 9 + [_I] * 13 + [_P],
     "repro_flash_attention": [_P] * 5 + [_I] * 8 + [_P],

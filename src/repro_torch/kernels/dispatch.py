@@ -483,30 +483,36 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None, *,
                      window: int = 0,
-                     out_dtype: Optional[torch.dtype] = None
-                     ) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     return_lse: bool = False):
     """Ragged decode attention over a paged KV cache (layout in
     ``attention/decode.py``).  int8 pools pass their (P, Hkv) fp32
     ``k_scale`` / ``v_scale`` (both or neither) and take the int8 branch,
     op ``decode_attention_int8``.  Returns (B, H, hd) in ``out_dtype``
-    (default q's dtype).  Inside a ``tp_scope`` q and the pools hold this
-    shard's heads and the output is all-gathered to every head."""
+    (default q's dtype); with ``return_lse`` (out, the rows' (B, H) fp32
+    log-sum-exp), which the dense decode's sequence stripe merges by.
+    Inside a ``tp_scope`` q and the pools hold this shard's heads and the
+    output is all-gathered to every head."""
     op = "decode_attention" if k_scale is None else "decode_attention_int8"
+    lse = {"return_lse": True} if return_lse else {}
     if _on_card(op, q):
         plan = _kernel_plan(op, q, k_pages, v_pages, table, lengths)
         if k_scale is None:
             out = decode_attention_cuda(q, k_pages, v_pages, table, lengths,
-                                        window=window, plan=plan)
+                                        window=window, plan=plan, **lse)
         else:
             out = decode_attention_int8_cuda(q, k_pages, v_pages, table,
                                              lengths, k_scale, v_scale,
-                                             window=window, plan=plan)
+                                             window=window, plan=plan,
+                                             **lse)
     else:
         out = decode_attention_plain(q, k_pages, v_pages, table, lengths,
-                                     k_scale, v_scale, window=window)
-    return _tp_complete("decode_attention",
-                        out.to(q.dtype if out_dtype is None else out_dtype),
-                        "heads")
+                                     k_scale, v_scale, window=window, **lse)
+    out, lse = out if return_lse else (out, None)
+    out = _tp_complete("decode_attention",
+                       out.to(q.dtype if out_dtype is None else out_dtype),
+                       "heads")
+    return (out, lse) if return_lse else out
 
 
 def prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -8,10 +8,11 @@ For every (architecture x input shape) cell this driver:
    process group;
 2. runs rank 0's full-depth step on ``meta`` with the state laid out by
    the port's rules (``runtime/sharding``): the sharded train step
-   (``TrainSharding``), or the prefill or the one-token decode step with
-   each layer's params gathered at use, and records what it asks of the
-   device and the wire (``roofline.analysis.analyze_step``): argument
-   and peak bytes a device (fits the H100's 80 GB?) and the collectives;
+   (``TrainSharding``), the prefill, or the one-token decode step on the
+   rank's block of the dense cache (``MeshRules.cache_spec``), and
+   records what it asks of the device and the wire
+   (``roofline.analysis.analyze_step``): argument and peak bytes a
+   device (fits the H100's 80 GB?) and the collectives;
 3. runs the *cost* steps -- 0 layers, then 1 layer of each kind -- and
    extrapolates FLOPs, HBM bytes and collective bytes to full depth by
    the affine method (``roofline.analysis.combine_affine``), with the
@@ -29,16 +30,17 @@ forward and backward are ops that hold and move what the kernels do
 
 The models are JAX's: ``build_model`` sets the residual-stream hook
 (``make_constrain``: Megatron-SP striping of the sequence over
-``model``) and the q/k/v hook (``attn_hook``), and a train cell's model
+``model``) and the q/k/v hook (``attn_hook``), and every cell's model
 axis splits each layer's work (``runtime/model_axis.py``): its
-per-device FLOPs are the step's over all chips.
+per-device FLOPs are the step's over all chips.  The same builders make
+the serving steps on real tensors over a host mesh
+(``launch/mesh.make_host_mesh``): pass ``device``, ``dt`` and the whole
+``params`` (and ``batch``, ``cache``) to ``prefill_step`` /
+``serve_step``.
 
 Departures from the JAX cells, written into each cell's JSON with what
 the peak counts:
 
-* ``model_axis`` (serving cells only): the prefill and decode steps
-  still run the model axis's ranks alike on whole weights (ROADMAP item
-  14e); their per-device FLOPs are the total over the data axes.
 * ``collectives``: ``Group.psum`` is an all-gather and a sum in rank
   order, so it is counted as an all-gather (not a ring all-reduce), and
   ``reduce_scatter`` as the all-to-all it is.
@@ -77,11 +79,6 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 BIG_PARAM_THRESHOLD = 30e9      # archs above this get bf16 params + int8 Adam
 
-SERVING_DEPARTURES = {
-    "model_axis": "replicated compute (item 14e): the serving steps run "
-                  "the model axis's ranks alike on whole weights; "
-                  "per-device FLOPs are the total over the data axes",
-}
 DEPARTURES = {
     "collectives": "the port's psum is an all-gather plus a rank-order sum, "
                    "counted as an all-gather; reduce_scatter is an "
@@ -126,10 +123,10 @@ def microbatches(cfg: ArchConfig, mode: str) -> int:
 
 
 def departures(shape: ShapeSpec) -> Dict[str, str]:
-    """The departures a cell of ``shape`` records."""
-    if shape.kind == "train":
-        return dict(DEPARTURES)
-    return {**SERVING_DEPARTURES, **DEPARTURES}
+    """The departures a cell of ``shape`` records: the same for every
+    kind of cell."""
+    del shape
+    return dict(DEPARTURES)
 
 
 def make_constrain(rules: MeshRules) -> Callable:
@@ -197,46 +194,66 @@ def train_step(cfg: ArchConfig, shape: ShapeSpec, rules: MeshRules,
 
 
 def _serving_model(cfg: ArchConfig, shape: ShapeSpec, rules: MeshRules,
-                   rows: int, builder: Builder):
-    """A serving model whose params are rank 0's shards, gathered at use,
-    and those shards."""
-    dt, _ = policy_for(cfg, "decode")
-    model = builder(cfg, shape, rules, dt)
-    params = model.param_specs()
-    shd = train_sharding(rules, params, rows)
-    model = Model(model.cfg, model.dt, "meta",
+                   builder: Builder, dt: Optional[DtypePolicy],
+                   device, params, cache=None):
+    """A serving model on ``device`` laid out on ``rules.mesh``: (the
+    model, its ``TrainSharding``, this rank's shards of ``params`` (the
+    whole tree; None: ``param_specs`` on meta), this rank's block of the
+    whole dense cache ``cache`` by ``MeshRules.cache_spec``, or None)."""
+    model = builder(cfg, shape, rules,
+                    dt or policy_for(cfg, "decode")[0])
+    whole = model.param_specs() if params is None else params
+    shd = train_sharding(rules, whole, shape.global_batch, cache)
+    model = Model(model.cfg, model.dt, device,
                   dataclasses.replace(model.opts, sharding=shd))
-    return model, shd, shard_state(params, shd.specs, rules.mesh)
+    block = None if cache is None \
+        else shard_state(cache, shd.cache, rules.mesh)
+    return model, shd, shard_state(whole, shd.specs, rules.mesh), block
 
 
 def prefill_step(cfg: ArchConfig, shape: ShapeSpec, rules: MeshRules,
-                 builder: Builder = build_model) -> Step:
-    """Inference prefill: forward only, last-token logits out."""
-    model, shd, params = _serving_model(cfg, shape, rules,
-                                        shape.global_batch, builder)
-    batch = shd.split_batch(input_specs(cfg, shape))
+                 builder: Builder = build_model, *,
+                 dt: Optional[DtypePolicy] = None, device="meta",
+                 params=None, batch=None) -> Step:
+    """Inference prefill: forward only, last-token logits (B, V) out, the
+    same on every rank.  Its arguments are this rank's shards of
+    ``params`` and its rows of the whole ``batch`` (default: the meta
+    params and ``input_specs``)."""
+    model, shd, local, _ = _serving_model(cfg, shape, rules, builder, dt,
+                                          device, params)
+    batch = shd.split_batch(input_specs(cfg, shape) if batch is None
+                            else batch)
 
     @torch.no_grad()
     def step(params, batch):
         return model.prefill(params, batch)
-    return step, (params, batch), rules.mesh.size
+    return step, (local, batch), rules.mesh.size
 
 
 def serve_step(cfg: ArchConfig, shape: ShapeSpec, rules: MeshRules,
-               builder: Builder = build_model) -> Step:
-    """One decode token for the rank's rows against a dense cache of
-    ``seq_len`` positions, at its last position."""
-    model, shd, params = _serving_model(cfg, shape, rules,
-                                        shape.global_batch, builder)
-    batch = shd.split_batch(input_specs(cfg, shape))
-    rows = next(iter(batch.values())).shape[0]
-    cache = model.cache_specs(rows, shape.seq_len)
+               builder: Builder = build_model, *,
+               dt: Optional[DtypePolicy] = None, device="meta",
+               params=None, batch=None, cache=None) -> Step:
+    """One decode token for the rank's rows against its block of a dense
+    cache of ``seq_len`` positions (``MeshRules.cache_spec``, as JAX's
+    ``tree_shardings(kind="cache")``), at position ``pos`` (default the
+    last).  Its arguments are this rank's shards of ``params``, its block
+    of the whole ``cache`` (default: ``cache_specs`` on meta) and its
+    rows of the whole ``batch``; the block is written in place."""
+    dt = dt or policy_for(cfg, "decode")[0]
+    if cache is None:
+        cache = builder(cfg, shape, rules, dt).cache_specs(
+            shape.global_batch, shape.seq_len)
+    model, shd, local, block = _serving_model(cfg, shape, rules, builder,
+                                              dt, device, params, cache)
+    batch = shd.split_batch(input_specs(cfg, shape) if batch is None
+                            else batch)
     fn = make_serve_step(model)
 
     @torch.no_grad()
-    def step(params, cache, batch):
-        return fn(params, cache, batch, shape.seq_len - 1)
-    return step, (params, cache, batch), rules.mesh.size
+    def step(params, cache, batch, pos: int = shape.seq_len - 1):
+        return fn(params, cache, batch, pos)
+    return step, (local, block, batch), rules.mesh.size
 
 
 def cell_step(cfg: ArchConfig, shape: ShapeSpec, rules: MeshRules,

@@ -195,23 +195,10 @@ def rglru_block_split(p: Params, s: GriffinSpec, x: torch.Tensor,
     own."""
     gate = F.gelu(split.col(x, p["w_gate"].to(cdt)), approximate="tanh")
     main = split.col(x, p["w_main"].to(cdt))
-    w = main.shape[-1]
-    local = {k: split.local(p[k], p[k].dim() - 1, w)
-             for k in ("conv_w", "conv_b", "lam", "ba", "bx")}
-    prev = main.new_zeros((x.shape[0], s.conv_width - 1, w))
+    local = _local_channels(p, main.shape[-1], split)
+    prev = main.new_zeros((x.shape[0], s.conv_width - 1, main.shape[-1]))
     main = _causal_conv(main, local["conv_w"], local["conv_b"], prev)
-    f32 = torch.float32
-    if p["wa"].shape[0] * s.block_width == w:     # the rank's blocks
-        ls = dataclasses.replace(s, lru_width=w)
-        gates = tuple(_block_diag(main.to(f32), p[k].to(f32), ls)
-                      for k in ("wa", "wx"))
-    else:
-        def both(m):
-            return torch.stack([_block_diag(m, p[k].to(f32), s)
-                                for k in ("wa", "wx")])
-        gates = split.own(split.alike(both, split.whole(main.to(f32), 2)),
-                          3).unbind(0)
-    a, bb = _rglru_coeffs(local, s, main, gates)
+    a, bb = _rglru_coeffs(local, s, main, _split_gates(p, s, main, split))
     h = rglru_scan(a, bb).to(cdt)
     # the row-parallel partials as fp32 sums, rounded once after the model
     # axis adds them
@@ -219,21 +206,57 @@ def rglru_block_split(p: Params, s: GriffinSpec, x: torch.Tensor,
                           cdt)
 
 
+def _local_channels(p: Params, w: int, split) -> Params:
+    """The per-channel leaves (conv, gate biases, lam) cut to the rank's
+    ``w`` channels."""
+    return {k: split.local(p[k], p[k].dim() - 1, w)
+            for k in ("conv_w", "conv_b", "lam", "ba", "bx")}
+
+
+def _split_gates(p: Params, s: GriffinSpec, main: torch.Tensor, split
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block-diagonal gate products of the rank's channels of
+    ``main``: on the rank's blocks where the blocks divide the axis, else
+    run alike on whole channels, each rank keeping its own."""
+    f32 = torch.float32
+    w = main.shape[-1]
+    if p["wa"].shape[0] * s.block_width == w:     # the rank's blocks
+        ls = dataclasses.replace(s, lru_width=w)
+        return tuple(_block_diag(main.to(f32), p[k].to(f32), ls)
+                     for k in ("wa", "wx"))
+
+    def both(m):
+        return torch.stack([_block_diag(m, p[k].to(f32), s)
+                            for k in ("wa", "wx")])
+    return split.own(split.alike(both, split.whole(main.to(f32), 2)),
+                     3).unbind(0)
+
+
 def rglru_block_decode(p: Params, s: GriffinSpec, x: torch.Tensor,
                        cache: Dict[str, torch.Tensor],
-                       cdt: torch.dtype) -> torch.Tensor:
+                       cdt: torch.dtype, split=None) -> torch.Tensor:
     """One token of the block.  x: (B, 1, d); cache: ``h`` (B, lru) fp32
     and ``conv`` (B, K-1, lru), both written in place: the delay buffer
-    takes the pre-conv main branch.  Returns (B, 1, d)."""
-    gate = F.gelu(x @ p["w_gate"].to(cdt), approximate="tanh")
-    main = x @ p["w_main"].to(cdt)                        # (B, 1, lru)
+    takes the pre-conv main branch.  Returns (B, 1, d).  With ``split``
+    (the sharded decode, x alike on every rank) the projections split as
+    ``rglru_block_split``'s and ``h`` and ``conv`` hold the rank's
+    channels (``MeshRules.cache_spec``), its recurrence its own."""
+    mm = torch.matmul if split is None else split.col
+    gate = F.gelu(mm(x, p["w_gate"].to(cdt)), approximate="tanh")
+    main = mm(x, p["w_main"].to(cdt))                    # (B, 1, lru)
+    local = p if split is None else _local_channels(p, main.shape[-1],
+                                                     split)
     conv = cache["conv"]
-    main_c = _causal_conv(main, p["conv_w"], p["conv_b"], conv)
+    main_c = _causal_conv(main, local["conv_w"], local["conv_b"], conv)
     conv.copy_(torch.cat([conv[:, 1:], main.to(conv.dtype)], dim=1))
-    a, bb = _rglru_coeffs(p, s, main_c)
+    gates = None if split is None else _split_gates(p, s, main_c, split)
+    a, bb = _rglru_coeffs(local, s, main_c, gates)
     h = a[:, 0] * cache["h"] + bb[:, 0]                  # (B, lru) fp32
     cache["h"].copy_(h)
-    return (h[:, None].to(cdt) * gate) @ p["w_out"].to(cdt)
+    if split is None:
+        return (h[:, None].to(cdt) * gate) @ p["w_out"].to(cdt)
+    return split.complete((h[:, None].to(cdt) * gate).float()
+                          @ p["w_out"].to(cdt).float(), cdt)
 
 
 def griffin_cache_init(b: int, s: GriffinSpec, dtype: torch.dtype, device,

@@ -6,12 +6,12 @@ Every matmul and attention contraction routes through
 plain PyTorch version for CPU tensors.  Tensor layouts are the JAX
 package's: activations (B, S, d), heads (B, S, H, hd), weights (K, ...).
 
-In the sharded train step the whole-sequence layers take a ``split``
-(``runtime/model_axis.ModelSplit``): their weights are this rank's
-shards on the model axis (column-parallel q/k/v and up projections,
-row-parallel output and down projections, the vocabulary rows of the
-embedding and the head), their input the residual stream in its layout,
-and their output the branch completed back into it.
+In the sharded steps the whole-sequence layers and the dense decode take
+a ``split`` (``runtime/model_axis.ModelSplit``): their weights are this
+rank's shards on the model axis (column-parallel q/k/v and up
+projections, row-parallel output and down projections, the vocabulary
+rows of the embedding and the head), their input the residual stream in
+its layout, and their output the branch completed back into it.
 """
 from __future__ import annotations
 
@@ -388,7 +388,9 @@ def dense_pages(batch: int, cap: int, pos: int, device
     """(table (B, cap / page), lengths (B,)), both int32, that read
     ``batch`` dense (cap, Hkv, hd) caches at position ``pos`` as pages of
     ``dense_page(cap)``: slot b's table is its own run of pages, every
-    length ``min(pos + 1, cap)`` (``attention_decode``)."""
+    length ``min(pos + 1, cap)`` (``attention_decode``; a rank's block of
+    a striped cache passes its live slots less one,
+    ``ModelSplit.stripe``)."""
     n_pages = cap // dense_page(cap)
     table = torch.arange(batch * n_pages, dtype=torch.int32,
                          device=device).view(batch, n_pages)
@@ -401,8 +403,8 @@ def attention_decode(p: Params, s: AttnSpec, x: torch.Tensor, pos: int,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      dt: DtypePolicy,
                      pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                     positions: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     positions: Optional[torch.Tensor] = None, *,
+                     split=None, kv: str = "whole") -> torch.Tensor:
     """One-token decode against a dense KV cache, written in place.
 
     x: (B, 1, d).  pos: the current position, shared by every slot.
@@ -425,7 +427,12 @@ def attention_decode(p: Params, s: AttnSpec, x: torch.Tensor, pos: int,
     to the previous occupant's entries too.  ``pages`` = ``dense_pages(B,
     cap, pos)``, built once a step for all layers of one cap, or here.
     ``positions`` (B, 1, 3) replaces ``pos`` in an M-RoPE arch's rotation
-    (the cache slot stays ``pos``'s)."""
+    (the cache slot stays ``pos``'s).  With ``split`` (the sharded decode)
+    the weights and the cache are the rank's, the cache in ``kv``'s layout
+    (``attention_decode_split``)."""
+    if split is not None:
+        return attention_decode_split(p, s, x, pos, k_cache, v_cache, dt,
+                                      pages, positions, split, kv)
     b, cap, hkv, hd = k_cache.shape
     if positions is None:
         positions = torch.full((b, 1), pos, dtype=torch.int32,
@@ -443,6 +450,88 @@ def attention_decode(p: Params, s: AttnSpec, x: torch.Tensor, pos: int,
         v_cache.view(b * n_pages, page, hkv, hd), table, lengths,
         out_dtype=dt.compute)
     return _out_proj(p, s, out[:, None], dt)
+
+
+def attention_decode_split(p: Params, s: AttnSpec, x: torch.Tensor,
+                           pos: int, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, dt: DtypePolicy,
+                           pages: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                           positions: Optional[torch.Tensor], split,
+                           kv: str) -> torch.Tensor:
+    """``attention_decode`` on the model axis's shards (x (B, 1, d) alike
+    on every rank; under ``torch.no_grad``): q/k/v projected
+    column-parallel -- the rank's heads, or its head_dim block -- and the
+    cache in ``MeshRules.cache_spec``'s layout ``kv``
+    (``ModelSplit.kv_layout``):
+
+    * ``heads``: the rank's q and kv heads; B2 over the local cache;
+    * ``seq``: q/k/v gathered whole (one all-gather; k/v's head_dim
+      before RoPE); the rank that holds slot ``pos`` (mod cap for a
+      rolling buffer) writes it; B2 runs over the rank's block, whose
+      live slots are its part of the valid prefix
+      (``ModelSplit.stripe``), with its log-sum-exp, and the ranks'
+      results merge (``ModelSplit.merge_stripes``);
+    * ``whole``: q/k/v whole, every rank writes and attends alike.
+
+    The output is cut to wo's layout (its heads or head_dim block) and
+    the row-parallel product completed over the ranks.  ``pages``: the
+    rank's ``dense_pages`` of this cap, or built here."""
+    cdt = dt.compute
+    b, cap_loc, hkv_loc, _ = k_cache.shape
+    h, hkv, hd = s.n_heads, s.n_kv_heads, s.head_dim
+    if positions is None:
+        positions = torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device)
+
+    def proj(name):
+        t = project(x, _cast(p[name], cdt), s.weights_dtype)
+        if s.qkv_bias:
+            t = t + _local_bias(split, p["b" + name[1]], t).to(cdt)
+        return t
+    qkv = [proj("wq"), proj("wk"), proj("wv")]
+    if kv != "heads":
+        # every head whole: each projection split on its heads or its
+        # head_dim (a leaf the axis does not divide is whole already)
+        parts = [(i, 2 if t.shape[2] < n else 3) for i, (t, n) in
+                 enumerate(zip(qkv, (h, hkv, hkv)))
+                 if t.shape[2] < n or t.shape[3] < hd]
+        if parts:
+            got = split.gather_whole(*((qkv[i], d) for i, d in parts))
+            for (i, _), t in zip(parts, got):
+                qkv[i] = t
+    q, k, v = qkv
+    q = apply_rope(q, positions, theta=s.rope_theta,
+                   mrope_sections=s.mrope_sections)
+    k = apply_rope(k, positions, theta=s.rope_theta,
+                   mrope_sections=s.mrope_sections)
+    cap = cap_loc * split.size if kv == "seq" else cap_loc
+    slot = pos % cap if s.window > 0 else pos
+    first, live = split.stripe(pos, cap_loc, kv)
+    if first <= slot < first + cap_loc:
+        k_cache[:, slot - first] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot - first] = v[:, 0].to(v_cache.dtype)
+    page = dense_page(cap_loc)
+    n_pages = cap_loc // page
+    table, lengths = (pages if pages is not None else dense_pages(
+        b, cap_loc, live - 1, x.device))
+    views = (k_cache.view(b * n_pages, page, hkv_loc, hd),
+             v_cache.view(b * n_pages, page, hkv_loc, hd))
+    if kv == "seq":
+        out, lse = dispatch.decode_attention(
+            q[:, 0], *views, table, lengths, out_dtype=torch.float32,
+            return_lse=True)
+        out = split.merge_stripes(out, lse).to(cdt)
+    else:
+        out = dispatch.decode_attention(q[:, 0], *views, table, lengths,
+                                        out_dtype=cdt)
+    # to wo's layout: its heads, or its head_dim block
+    wo = _cast(p["wo"], cdt)
+    if kv != "heads":
+        dim = 1 if wo.shape[0] < h else 2
+        out = split.local(out, dim, wo.shape[dim - 1])
+    part = project(out.reshape(b, 1, -1), wo.reshape(-1, s.d_model),
+                   s.weights_dtype, out_dtype=torch.float32)
+    return split.complete(part, cdt)
 
 
 def attention_decode_paged(p: Params, s: AttnSpec, x: torch.Tensor,

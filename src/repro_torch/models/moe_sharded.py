@@ -110,7 +110,8 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
                       dt: DtypePolicy, *, mesh, dp_axes: Tuple[str, ...],
                       model_axis: str = "model",
                       ep_axes: Tuple[str, ...] = ("model",),
-                      batch_local: bool = False, split=None
+                      batch_local: bool = False, split=None,
+                      shared_split=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d), replicated on every rank -> (out (B, S, d)
     replicated, aux loss fp32 scalar).  ``p`` holds this rank's shards:
@@ -130,7 +131,12 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
     too (its sequence block), the output stays so, the shared MLP is left
     to the caller, which runs it on the model axis's shards over the
     whole sequence, and in the striped layout (``split.partial``) the
-    router's gradient is added over the model axis by the caller too."""
+    router's gradient is added over the model axis by the caller too.
+
+    ``shared_split`` (a sharded decode step's ``ModelSplit``, x alike on
+    every model rank): the shared MLP's leaves are the rank's shards on
+    the model axis, and it runs on them, its row-parallel sum
+    completed."""
     cdt = dt.compute
     n_model = mesh.shape[model_axis]
     ep = mesh.group(ep_axes)
@@ -241,5 +247,6 @@ def moe_apply_sharded(p: Params, s: MoESpec, x: torch.Tensor,
         combined = coll.unsplit(combined, mesh.group(axes), dim)
     if s.n_shared_experts and model_split is None:
         combined = combined + mlp_apply(p["shared"], x.to(cdt),
-                                        s.activation, dt, tagged=False)
+                                        s.activation, dt, tagged=False,
+                                        split=shared_split)
     return combined, aux

@@ -21,7 +21,10 @@ runs there).  Over a whole sequence (``time_mix_apply``) the recurrence
 is the model's WKV op, ``kernels.dispatch.wkv``: the WKV kernel and its
 backward kernel on the card, ``wkv_chunked`` and its autograd on the
 CPU.  The decode runs it one token at a time over a carried (B, H, hd,
-hd) fp32 state.
+hd) fp32 state.  On the model axis of the sharded steps (``split``) the
+whole-sequence recurrence runs on the rank's heads or on its block of a
+striped sequence (``time_mix_split``), and the decode on the rank's
+heads of the state (``time_mix_decode``).
 """
 from __future__ import annotations
 
@@ -145,14 +148,21 @@ def time_mix_split(p: Params, s: RwkvSpec, x: torch.Tensor,
     channels (column-parallel), ``wo`` takes them (row-parallel, completed
     into the residual's layout), ``mu``, ``w0``, ``wa`` and the group
     norm's scale and bias are replicated (``w0`` and the norm's cut to the
-    rank's channels).  Where the rank's channels are whole heads (H
-    divides the axis and JAX's ``attn_hook`` puts r/k/v on heads), the
-    WKV runs on them: B8 and its backward at H / m heads.  Else -- the
-    heads do not divide the axis, or ``attn_prefer_seq`` would stripe the
-    sequence, which the recurrence cannot take without passing its state
-    between ranks -- r/k/v/lw are gathered whole and the WKV and the group
-    norm run alike on every rank, each keeping its channels of the
-    result."""
+    rank's channels).  The WKV takes the layout JAX's ``attn_hook`` gives
+    r/k/v (``split.attn_layout``):
+
+    * ``heads`` (H divides the axis): B8 and its backward on the rank's
+      H / m heads;
+    * ``seq`` (``attn_prefer_seq``, or the heads do not divide the axis
+      and the sequence does): r/k/v/lw go to the rank's S / m rows with
+      every head (``split.to_seq``), B8 runs on the block from a zero
+      state, and the state the earlier blocks carry in
+      (``split.carry_in``) adds r_t e^(c_{t-1}) S_in to each row, c the
+      block's inclusive cumsum of lw; the group norm runs on the rank's
+      rows, and the output returns to the rank's channels
+      (``split.from_seq``);
+    * ``whole`` (neither divides): r/k/v/lw gathered whole, the WKV and
+      the group norm alike on every rank, each keeping its channels."""
     d_loc = p["wr"].shape[-1]
     local = dict(p, w0=split.local(p["w0"], 0, d_loc))
     r, k, v, g, lw = _rkvgw(local, s, x,
@@ -167,6 +177,8 @@ def time_mix_split(p: Params, s: RwkvSpec, x: torch.Tensor,
         norm = {k_: split.local(p[k_], 0, d_loc)
                 for k_ in ("ln_scale", "ln_bias")}
         o = _group_norm(norm, o, ls).to(cdt)
+    elif layout == "seq":
+        o = _striped_wkv(p, s, r, k, v, lw, cdt, split)
     else:
         def whole_mix(r, k, v, lw, *u):
             o = dispatch.wkv(*(_heads(t, s) for t in (r, k, v, lw)),
@@ -183,26 +195,96 @@ def time_mix_split(p: Params, s: RwkvSpec, x: torch.Tensor,
     return split.complete((o.float() @ p["wo"].to(cdt).float()), cdt)
 
 
-def time_mix_decode(p: Params, s: RwkvSpec, x: torch.Tensor,
-                    cache: Dict[str, torch.Tensor],
-                    cdt: torch.dtype) -> torch.Tensor:
-    """One token of the time mix.  x: (B, 1, d); cache: ``state`` (B, H,
-    hd, hd) fp32 and ``xprev`` (B, d), both written in place.  Returns
-    (B, 1, d)."""
-    r, k, v, g, lw = _rkvgw(p, s, x, cache["xprev"], cdt)
+def _striped_wkv(p: Params, s: RwkvSpec, r, k, v, lw, cdt: torch.dtype,
+                 split) -> torch.Tensor:
+    """``time_mix_split``'s ``seq`` layout: r/k/v/lw (B, S, d / m) on the
+    rank's channels -> the group-normed WKV output (B, S, d / m) in
+    ``cdt``, computed on the rank's block of S / m rows of every head."""
+    f32 = torch.float32
+    rb, kb, vb, lwb = (_heads(split.to_seq(t, 2), s) for t in (r, k, v, lw))
+    u = p["u"]
+    u = split.gather(u, 0) if u.shape[0] < s.n_heads else split.rows_use(u)
+    o = dispatch.wkv(rb, kb, vb, lwb, u, chunk=s.chunk, intra=s.intra,
+                     subchunk=s.subchunk)
+    # the block's own state from zero and its total decay, then the
+    # earlier blocks' state carried in (plain differentiable products)
+    cum = torch.cumsum(lwb, dim=1)                      # inclusive
+    total = cum[:, -1]                                  # (B, H, hd)
+    kf, vf = kb.to(f32), vb.to(f32)
+    own = torch.einsum("bthk,bthv->bhkv", kf * torch.exp(total[:, None]
+                                                         - cum), vf)
+    carried = split.carry_in(own, total)
+    o = o + torch.einsum("bthk,bhkv->bthv",
+                         rb.to(f32) * torch.exp(cum - lwb), carried)
+    norm = {k_: split.rows_use(p[k_]) for k_ in ("ln_scale", "ln_bias")}
+    o = _group_norm(norm, o, s).to(cdt)
+    return split.from_seq(o, 2)
+
+
+def _wkv_token(s: RwkvSpec, r, k, v, lw, u,
+               state: torch.Tensor) -> torch.Tensor:
+    """One token of the WKV recurrence over ``state`` (B, H, hd, hd) fp32,
+    written in place: r/k/v/lw (B, 1, H * hd), u (H, hd) -> o (B, H,
+    hd) fp32."""
     f32 = torch.float32
     rh, kh, vh = (_heads(t, s)[:, 0].to(f32) for t in (r, k, v))
     w = torch.exp(_heads(lw, s)[:, 0])                       # (B, H, hd)
-    state = cache["state"]
     o = torch.einsum("bhk,bhkv->bhv", rh, state) \
-        + torch.einsum("bhk,hk,bhk->bh", rh, p["u"].to(f32),
+        + torch.einsum("bhk,hk,bhk->bh", rh, u.to(f32),
                        kh)[..., None] * vh
     state.copy_(w[..., None] * state
                 + torch.einsum("bhk,bhv->bhkv", kh, vh))
+    return o
+
+
+def time_mix_decode(p: Params, s: RwkvSpec, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor],
+                    cdt: torch.dtype, split=None,
+                    x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token of the time mix.  x: (B, 1, d); cache: ``state`` (B, H,
+    hd, hd) fp32 and ``xprev`` (B, d), both written in place.  Returns
+    (B, 1, d).  With ``split`` (``time_mix_decode_split``) it runs on the
+    model axis's shards, ``x_prev`` the whole token shift."""
+    if split is not None:
+        return time_mix_decode_split(p, s, x, cache, cdt, split, x_prev)
+    r, k, v, g, lw = _rkvgw(p, s, x, cache["xprev"], cdt)
+    o = _wkv_token(s, r, k, v, lw, p["u"], cache["state"])
     cache["xprev"].copy_(x[:, 0])
     o = _group_norm(p, o[:, None], s).to(cdt)
     o = o * F.silu(g)
     return o @ p["wo"].to(cdt)
+
+
+def time_mix_decode_split(p: Params, s: RwkvSpec, x: torch.Tensor,
+                          cache: Dict[str, torch.Tensor], cdt: torch.dtype,
+                          split, x_prev: torch.Tensor) -> torch.Tensor:
+    """One token of the time mix on the model axis's shards (x (B, 1, d)
+    alike on every rank, ``x_prev`` the whole (B, d) token shift; under
+    ``torch.no_grad``): ``wr/wk/wv/wg`` give the rank's d / m channels,
+    ``wo`` takes them (row-parallel, completed).  The cache is in
+    ``MeshRules.cache_spec``'s layout: ``xprev`` the rank's channels,
+    ``state`` its heads, where the axis divides them; the recurrence and
+    the group norm run on the rank's heads.  Where the state is whole
+    (the heads do not divide the axis), r/k/v/lw are gathered whole and
+    the recurrence runs alike on every rank, each keeping its channels."""
+    d_loc = p["wr"].shape[-1]
+    local = dict(p, w0=split.local(p["w0"], 0, d_loc))
+    r, k, v, g, lw = _rkvgw(local, s, x, x_prev, cdt)
+    state = cache["state"]
+    if state.shape[1] * s.head_dim == d_loc:        # the rank's heads
+        ls = dataclasses.replace(s, d_model=d_loc)
+        o = _wkv_token(ls, r, k, v, lw, p["u"], state)
+        norm = {k_: split.local(p[k_], 0, d_loc)
+                for k_ in ("ln_scale", "ln_bias")}
+        o = _group_norm(norm, o[:, None], ls).to(cdt)
+    else:
+        r, k, v, lw = split.gather_whole(*((t, 2) for t in (r, k, v, lw)))
+        o = _wkv_token(s, r, k, v, lw, p["u"], state)
+        o = split.local(_group_norm(p, o[:, None], s), 2, d_loc).to(cdt)
+    xprev = cache["xprev"]
+    xprev.copy_(split.local(x[:, 0], 1, xprev.shape[1]))
+    o = o * F.silu(g)
+    return split.complete(o.float() @ p["wo"].to(cdt).float(), cdt)
 
 
 # --------------------------------------------------------------------------

@@ -282,14 +282,19 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
                  paged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  positions: Optional[torch.Tensor] = None,
-                 opts: Optional[ExecOptions] = None) -> torch.Tensor:
+                 opts: Optional[ExecOptions] = None, split=None,
+                 kv: str = "whole") -> torch.Tensor:
     """One decode token per slot through one layer.  ``paged`` = (lengths,
     table) takes the paged ragged path (every slot at its own length);
     otherwise every slot decodes at the shared ``pos`` against its dense
     cache, read as ``pages`` (``layers.dense_pages``) where given.
     ``positions`` (B, 1, 3) rotates an M-RoPE arch's q and k.  Recurrent
     mixers and the channel mix carry their state in the same cache tree
-    (dense only).  The caches are written in place."""
+    (dense only).  The caches are written in place.  With ``split``
+    (``layer_decode_split``) the layer runs on the model axis's shards."""
+    if split is not None:
+        return layer_decode_split(p, cfg, kind, x, cache, dt, pos, pages,
+                                  positions, opts, split, kv)
     mixer, ffn = kind
     cdt = dt.compute
     h = layers.rmsnorm(p["ln1"], x)
@@ -319,6 +324,57 @@ def layer_decode(p: Params, cfg: ArchConfig, kind: LayerKind,
         cache["cm_xprev"].copy_(x[:, 0])
         return x + h
     return x + _ffn(p, cfg, kind, layers.rmsnorm(p["ln2"], x), dt, opts)[0]
+
+
+def layer_decode_split(p: Params, cfg: ArchConfig, kind: LayerKind,
+                       x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                       dt: DtypePolicy, pos: int,
+                       pages: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                       positions: Optional[torch.Tensor],
+                       opts: ExecOptions, split, kv: str) -> torch.Tensor:
+    """``layer_decode`` on the model axis's shards: x (B, 1, d) alike on
+    every rank (the residual replicated), the params the rank's shards
+    and the dense cache its block in ``MeshRules.cache_spec``'s layout
+    (``kv``: an attention layer's, ``ModelSplit.kv_layout``).  Attention
+    as ``layers.attention_decode_split``; RWKV's mixes and the RG-LRU on
+    the rank's heads and channels, the token shifts they read whole
+    gathered in one all-gather; the MLP column- then row-parallel; a MoE
+    FFN routes the same tokens on every model rank over its expert
+    shards, its shared MLP on the rank's shards."""
+    mixer, ffn = kind
+    cdt = dt.compute
+    h = layers.rmsnorm(p["ln1"], x)
+    shifts = {n: cache[n] for n in ("xprev", "cm_xprev") if n in cache}
+    parted = [n for n, t in shifts.items() if t.shape[-1] < cfg.d_model]
+    if parted:
+        shifts.update(zip(parted, split.gather_whole(
+            *((shifts[n], 1) for n in parted))))
+    if mixer == "rwkv":
+        h = rwkv.time_mix_decode(p["tm"], _rwkv_spec(cfg), h, cache, cdt,
+                                 split, shifts["xprev"])
+    elif mixer == "rglru":
+        h = griffin.rglru_block_decode(p["rec"], _griffin_spec(cfg), h,
+                                       cache, cdt, split)
+    else:
+        h = layers.attention_decode(p["attn"], _attn_spec(cfg, mixer), h,
+                                    pos, cache["k"], cache["v"], dt, pages,
+                                    positions=positions, split=split, kv=kv)
+    x = x + h
+    h = layers.rmsnorm(p["ln2"], x)
+    if ffn == "rwkv_cm":
+        h = rwkv.channel_mix_apply(p["cm"], _rwkv_spec(cfg), h, cdt,
+                                   x_prev=shifts["cm_xprev"], split=split)
+        prev = cache["cm_xprev"]
+        prev.copy_(split.local(x[:, 0], 1, prev.shape[1]))
+        return x + h
+    if ffn == "moe":
+        out, _ = moe_sharded.moe_apply_sharded(
+            p["moe"], _moe_spec(cfg, opts.expert_pad), h, dt,
+            mesh=opts.moe_mesh, dp_axes=opts.sharding.batch,
+            ep_axes=opts.moe_ep_axes, batch_local=True, shared_split=split)
+        return x + out
+    return x + layers.mlp_apply(p["mlp"], h, cfg.activation, dt,
+                                cfg.weights_dtype, split=split)
 
 
 def layer_verify_paged(p: Params, cfg: ArchConfig, kind: LayerKind,
@@ -436,11 +492,9 @@ def _gathered_layer(p: Params, specs, cfg: ArchConfig, kind: LayerKind,
     """``layer_apply`` on a layer's shards, gathered here over the batch
     axes (so a remat recompute gathers them again, and the gathered
     weights live only while the layer runs); on the model axis each
-    stays the rank's shard under ``split``, else (a serving forward) it
-    is gathered whole."""
+    stays the rank's shard (``split``)."""
     p = opts.sharding.gather_tree(p, specs,
                                   keep_experts=opts.moe_mesh is not None,
-                                  whole=split is None,
                                   partial=split is not None and split.partial)
     return layer_apply(p, cfg, kind, x, positions, dt, opts, split)
 
@@ -590,13 +644,21 @@ class Model:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=cdt).item()
         return x
 
-    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, params: Params, x: torch.Tensor,
+                split=None) -> torch.Tensor:
+        """The final norm and the head of x (B, S, d).  With ``split``
+        (the sharded serving steps, x whole on every rank) the head is the
+        rank's vocabulary columns and the logits are gathered whole over
+        the model axis, in rank order."""
         x = layers.rmsnorm(params["final_norm"], x)
         # the tied head is a transposed view; the matmul kernel reads it
         # through its strides, so no 256000-row copy is made per call
         head = params["embed"].T if self.cfg.tie_embeddings \
             else params["head"]
-        return dispatch.matmul(x, head.to(self.dt.compute))
+        logits = dispatch.matmul(x, head.to(self.dt.compute))
+        if split is not None and head.shape[-1] < self.cfg.vocab_size:
+            logits = split.gather_whole((logits, logits.dim() - 1))[0]
+        return logits
 
     def _walk(self, tree) -> Iterator[Any]:
         """The per-layer subtrees of a params or cache tree in execution
@@ -614,19 +676,19 @@ class Model:
         return zip(self._walk(params), self.cfg.layer_kinds(),
                    self._walk(cache))
 
-    def _layer_specs(self) -> Iterator[Any]:
-        """Under ``opts.sharding``, each layer's spec tree in execution
-        order (a stacked period's without its period axis); else None
-        for every layer."""
-        shd, lay = self.opts.sharding, self.layout
-        if shd is None:
+    def _layer_specs(self, specs) -> Iterator[Any]:
+        """Each layer's subtree of the spec tree ``specs`` (of the params or
+        of the dense cache) in execution order, a stacked period's without
+        its period axis; None for every layer where ``specs`` is None."""
+        lay = self.layout
+        if specs is None:
             yield from itertools.repeat(None, self.cfg.n_layers)
             return
-        yield from shd.specs["prefix"]
+        yield from specs["prefix"]
         for _ in range(lay.n_periods):
             for j in range(len(lay.period)):
-                yield _unstacked(shd.specs["stack"][j])
-        yield from shd.specs["tail"]
+                yield _unstacked(specs["stack"][j])
+        yield from specs["tail"]
 
     def _require_tokens(self, what: str) -> None:
         """The paged prefill and verify forwards' refusal of
@@ -713,10 +775,10 @@ class Model:
 
     def _gather_top(self, params: Params, split=None) -> Params:
         """Under ``opts.sharding``: ``params`` with ``embed``, ``head`` and
-        ``final_norm`` gathered, once (the tied ``embed`` serves the input
-        and the head); the layers are gathered at their use.  With
-        ``split`` (the train step) the embedding and the head stay the
-        rank's vocabulary rows; without it (serving) they are whole."""
+        ``final_norm`` gathered over the batch axes, once (the tied
+        ``embed`` serves the input and the head); the embedding and the
+        head stay the rank's vocabulary rows on the model axis.  The
+        layers are gathered at their use."""
         shd = self.opts.sharding
         if shd is None:
             return params
@@ -724,12 +786,12 @@ class Model:
         for k in ("embed", "head", "final_norm"):
             if k in params:
                 out[k] = shd.gather_tree(
-                    params[k], shd.specs[k], whole=split is None,
+                    params[k], shd.specs[k],
                     partial=split is not None and split.partial)
         return out
 
     def _split(self, batch: Dict[str, torch.Tensor]):
-        """The model axis of a training forward over ``batch`` under
+        """The model axis of a forward over ``batch`` under
         ``opts.sharding`` (``TrainSharding.model_split``), or None."""
         shd = self.opts.sharding
         if shd is None:
@@ -772,31 +834,53 @@ class Model:
         loss = xent + aux
         return loss, {"loss": loss, "xent": xent, "aux": aux}
 
+    def _stack_out(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """(the stack's output, the model axis's split or None) of a
+        forward over ``batch``; under ``opts.sharding`` each layer splits
+        its work over the model axis as in ``loss_fn``, and the output is
+        in the residual's layout."""
+        split = self._split(batch)
+        params = self._gather_top(params, split)
+        x = self._embed(params, batch, split)
+        given = batch["embeddings"] if self.cfg.input_mode == "embeddings" \
+            else batch["tokens"]
+        b, s = given.shape[:2]
+        x, _ = self._run_stack(params, x, self._positions(batch, b, s),
+                               split)
+        return params, x, split
+
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
         """Full logits (B, S, V) of ``batch`` (its "tokens" or
         "embeddings", and "positions" for an M-RoPE arch; small-scale eval
         and tests)."""
-        params = self._gather_top(params)
-        x = self._embed(params, batch)
-        b, s = x.shape[:2]
-        x, _ = self._run_stack(params, x, self._positions(batch, b, s))
-        return self._logits(params, x)
+        params, x, split = self._stack_out(params, batch)
+        if split is not None:
+            x = split.branch(x)
+        return self._logits(params, x, split)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run the stack over the prompt and return only the last
         position's logits (B, V), or with ``last_idx`` (B,) those of
         position ``last_idx[b]`` of each row (the final norm and the head
-        run on those rows alone)."""
-        params = self._gather_top(params)
-        x = self._embed(params, batch)
+        run on those rows alone).  Under ``opts.sharding`` (the dry run's
+        prefill cell) ``params`` are this rank's shards and ``batch`` its
+        rows: each layer splits its work over the model axis, as in
+        ``loss_fn``, and the head runs on the rank's vocabulary columns,
+        the logits gathered whole."""
+        params, x, split = self._stack_out(params, batch)
+        if split is not None and split.seq and last_idx is None:
+            # the last row of the sequence: rank m - 1's block's last
+            x = split.gather_whole((x[:, -1:], 1))[0]
+        elif split is not None:
+            x = split.branch(x)
         b, s = x.shape[:2]
-        x, _ = self._run_stack(params, x, self._positions(batch, b, s))
         if last_idx is None:
-            return self._logits(params, x[:, s - 1:])[:, 0]
+            return self._logits(params, x[:, s - 1:], split)[:, 0]
         rows = torch.arange(b, device=x.device)
-        return self._logits(params, x[rows, last_idx.long()][:, None])[:, 0]
+        return self._logits(params, x[rows, last_idx.long()][:, None],
+                            split)[:, 0]
 
     # ------------------------------ paged serving ---------------------
     def init_paged_cache(self, slots: int, max_len: int, page_size: int,
@@ -867,8 +951,11 @@ class Model:
         servers feed.
 
         Under ``opts.sharding`` (the dry run's layout) ``params`` are this
-        rank's shards and each layer's are gathered at its use, as in
-        ``loss_fn``; the cache holds this rank's rows."""
+        rank's shards, gathered over the batch axes at their use, and the
+        dense cache is this rank's block in ``MeshRules.cache_spec``'s
+        layout (``TrainSharding.cache``): a model axis of two or more
+        ranks splits each layer's work (``layer_decode_split``), the
+        lookup and the head vocab-parallel, the logits gathered whole."""
         if (paged is None) == (pos is None):
             raise ValueError("decode_step takes pos= (dense cache) or "
                              "paged= (page pools), exactly one")
@@ -879,33 +966,46 @@ class Model:
         if given is None:
             raise ValueError(f"decode_step: arch {cfg.name} takes "
                              f"{cfg.input_mode}")
-        params = self._gather_top(params)
-        x = self._embed(params, {cfg.input_mode: given})
+        shd = self.opts.sharding
+        split = self._split({cfg.input_mode: given})
+        if split is not None and (paged is not None or shd.cache is None):
+            raise ValueError("decode_step on a model axis takes the dense "
+                             "cache laid out by TrainSharding.cache "
+                             "(train_sharding(..., cache=))")
+        params = self._gather_top(params, split)
+        x = self._embed(params, {cfg.input_mode: given}, split)
         if not cfg.mrope_sections:
             positions = None
         elif positions is None:
             at = paged[0] if paged is not None else torch.full(
                 (x.shape[0],), int(pos), dtype=torch.int32, device=x.device)
             positions = self._mrope_override(at, 1)
-        views = {}      # the dense caches' page tables, one a cap a step
-        for (p, kind, c), spec in zip(self._layers(params, cache),
-                                      self._layer_specs()):
+        # the dense caches' page tables, one a (cap, layout) a step
+        views = {}
+        for (p, kind, c), spec, c_spec in zip(
+                self._layers(params, cache),
+                self._layer_specs(shd.specs if shd else None),
+                self._layer_specs(shd.cache if split else None)):
             if spec is not None:
-                p = self.opts.sharding.gather_tree(
-                    p, spec, keep_experts=self.opts.moe_mesh is not None,
-                    whole=True)
-            pages = None
+                p = shd.gather_tree(
+                    p, spec, keep_experts=self.opts.moe_mesh is not None)
+            pages, kv = None, "whole"
             if paged is None and "k" in c:
                 b, cap = c["k"].shape[:2]
-                if cap not in views:
-                    views[cap] = layers.dense_pages(b, cap, int(pos),
-                                                    x.device)
-                pages = views[cap]
+                at = int(pos)
+                if split is not None:
+                    # the rank's block: its live slots, less one
+                    kv = split.kv_layout(c_spec["k"])
+                    at = split.stripe(at, cap, kv)[1] - 1
+                if (cap, kv) not in views:
+                    views[cap, kv] = layers.dense_pages(b, cap, at,
+                                                        x.device)
+                pages = views[cap, kv]
             x = layer_decode(p, cfg, kind, x, c, self.dt,
                              pos=None if pos is None else int(pos),
                              paged=paged, pages=pages, positions=positions,
-                             opts=self.opts)
-        return self._logits(params, x)[:, 0]
+                             opts=self.opts, split=split, kv=kv)
+        return self._logits(params, x, split)[:, 0]
 
     def verify_step_paged(self, params: Params, cache, tokens: torch.Tensor,
                           lengths: torch.Tensor,

@@ -1,8 +1,10 @@
-"""The model axis of the sharded train step: how a layer's work splits
-over the ranks of ``model`` (Megatron tensor parallelism, with its
+"""The model axis of the sharded steps: how a layer's work splits over
+the ranks of ``model`` (Megatron tensor parallelism, with its
 sequence-parallel residual) -- the port of what JAX's GSPMD makes of the
-params' ``tree_shardings`` and the ``make_constrain`` / ``attn_hook``
-constraints (``repro/launch/dryrun.py:70-121``).
+params' ``tree_shardings``, the dense cache's (``kind="cache"``) and the
+``make_constrain`` / ``attn_hook`` constraints
+(``repro/launch/dryrun.py:70-121, 162-195``): the train step, the
+prefill and the one-token dense decode.
 
 Each rank holds the shards ``MeshRules.spec_for`` gives it: q/k/v
 columns of its heads (or of its head_dim block where the heads do not
@@ -48,11 +50,39 @@ gradient is then a part of each rank's, added in its own dtype) or
 the rank's own tokens: its router's gradient is a part a rank, added
 over the axis by ``moe_apply_sharded`` (replicated layout) or
 ``TrainSharding.gather`` (striped).
+
+RWKV's recurrence follows the same hook.  On ``heads`` the WKV runs on
+the rank's heads; on ``seq`` r/k/v/lw go to the rank's block of S / m
+rows with every head (``to_seq``), the WKV runs on the block from a zero
+state, and the state the blocks before it carry in is added outside the
+kernel (``carry_in``: each block's state and total decay gathered, summed
+in rank order, differentiable, so its gradient crosses the ranks).
+
+The serving steps run under ``torch.no_grad``.  The prefill is the train
+step's forward; its logits come from the rank's vocabulary columns,
+gathered whole.  A decode step's residual is replicated (S = 1 never
+stripes) and its dense cache is laid out by ``MeshRules.cache_spec``,
+which ``kv_layout`` reads:
+
+* ``heads``: the rank's kv heads (Hkv divides the axis); q/k/v on the
+  rank's heads, B2 over the local cache;
+* ``seq`` (Hkv does not divide the axis, the cache length does): rank r
+  holds cache slots [r cap / m, (r + 1) cap / m); q/k/v are gathered
+  whole (one all-gather), the slot's owner writes the new k/v, B2 runs
+  over the rank's block and returns its log-sum-exp, and the ranks'
+  (out, lse) are gathered and merged in fp32 in rank order
+  (``merge_stripes``, flash-decoding's merge);
+* ``whole``: every rank holds the whole cache and attends alike.
+
+The RWKV state and the RG-LRU state sit on the rank's heads or channels,
+so their recurrences run on the rank's own; the token-shift and conv
+buffers hold the rank's channels and are gathered where a mix reads them
+whole.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -83,6 +113,24 @@ def from_seq(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     got = coll.exchange(blocks, group).movedim(0, 1)
     return got.reshape((got.shape[0], got.shape[1] * got.shape[2])
                        + got.shape[3:])
+
+
+def merge_stripes(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Attention over m key blocks from each block's own: ``outs`` (m, B,
+    H, hd) and ``lses`` (m, B, H) (``-inf`` for a block with no live key)
+    -> (B, H, hd) fp32, sum_r exp(lse_r - LSE) out_r with LSE the blocks'
+    log-sum-exp, every sum in fp32 in block order."""
+    outs, lses = outs.float(), lses.float()
+    top = lses.amax(0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    total = torch.zeros_like(top)
+    for r in range(lses.shape[0]):
+        total = total + torch.exp(lses[r] - top)
+    log_total = top + torch.log(total)
+    merged = torch.zeros_like(outs[0])
+    for r in range(lses.shape[0]):
+        merged = merged + torch.exp(lses[r] - log_total)[..., None] * outs[r]
+    return merged
 
 
 class _ColumnProduct(torch.autograd.Function):
@@ -248,3 +296,84 @@ class ModelSplit:
         carries no gradient (positions)."""
         n = t.shape[1] // self.size
         return t.narrow(1, self.index * n, n)
+
+    def rows_use(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole leaf every rank holds alike, used on the rank's block
+        of the sequence only, so its cotangent there is the rank's part:
+        in the replicated layout through ``broadcast`` (its backward adds
+        the parts); in the striped one ``TrainSharding.gather`` adds
+        them."""
+        return t if self.partial else coll.broadcast(t, self.group)
+
+    # ------------------------------------------------------------ serving
+    def gather_whole(self, *parts: Tuple[torch.Tensor, int]
+                     ) -> List[torch.Tensor]:
+        """(block, dim) pairs, each this rank's block of a tensor split
+        over the ranks on ``dim``: the whole tensors, by one all-gather of
+        them all (not differentiable: the serving steps').  Mixed float
+        types travel as fp32, which each converts back to exactly."""
+        dtypes = {t.dtype for t, _ in parts}
+        common = dtypes.pop() if len(dtypes) == 1 else torch.float32
+        flat = torch.cat([t.reshape(-1).to(common) for t, _ in parts])
+        got = self.group.all_gather(flat[None], 0)
+        out, at = [], 0
+        for t, dim in parts:
+            n = t.numel()
+            blocks = got[:, at:at + n].reshape((self.size,) + t.shape)
+            out.append(torch.cat(blocks.unbind(0), dim=dim).to(t.dtype))
+            at += n
+        return out
+
+    def kv_layout(self, spec) -> str:
+        """``heads``, ``seq`` or ``whole``: where ``MeshRules.cache_spec``
+        (``spec``, of a (B, cap, Hkv, hd) cache) puts the model axis."""
+        if spec[2] == self.model_axis:
+            return "heads"
+        if spec[1] == self.model_axis:
+            return "seq"
+        return "whole"
+
+    def stripe(self, pos: int, cap_loc: int, layout: str
+               ) -> Tuple[int, int]:
+        """(first slot, live slots) of this rank's block of a dense cache
+        of ``cap_loc`` slots a rank in ``layout`` at decode position
+        ``pos`` (the new entry counted): the valid slots are the first
+        min(pos + 1, cap) of the whole buffer, a prefix."""
+        if layout != "seq":
+            return 0, min(pos + 1, cap_loc)
+        first = self.index * cap_loc
+        cap = cap_loc * self.size
+        return first, min(max(min(pos + 1, cap) - first, 0), cap_loc)
+
+    def merge_stripes(self, out: torch.Tensor, lse: torch.Tensor
+                      ) -> torch.Tensor:
+        """One decode attention over the ranks' key blocks: each rank's
+        (B, H, hd) fp32 ``out`` and (B, H) ``lse`` (``-inf`` for a block
+        with no live key), gathered in one all-gather and merged in fp32 in
+        rank order: out = sum_r exp(lse_r - LSE) out_r."""
+        hd = out.shape[-1]
+        both = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+        got = self.group.all_gather(both[None], 0)
+        return merge_stripes(got[..., :hd], got[..., hd])
+
+    def carry_in(self, state: torch.Tensor, decay: torch.Tensor
+                 ) -> torch.Tensor:
+        """The recurrent state entering this rank's block of a striped
+        sequence: each rank's block ``state`` S_j (B, H, k, v), its own
+        from a zero state, and its total log-decay L_j (B, H, k), gathered
+        (``gather_shards``: the backward reduce-scatters the parts) and
+        summed in rank order, S_in(r) = sum_{j<r} e^(L_{j+1} + ... +
+        L_{r-1}) S_j, the decay acting on the k rows.  Every exponent is
+        <= 0.  Every rank's result depends on every block but the last
+        (the later ones with weight 0), so every rank runs the gather's
+        backward."""
+        both = coll.gather_shards(
+            torch.cat([state, decay[..., None]], dim=-1)[None], self.group,
+            0)
+        carried = torch.zeros_like(state)
+        for j in range(self.size - 1):
+            keep = float(j < self.index)
+            step = torch.exp(both[j, ..., -1])[..., None] * carried \
+                + both[j, ..., :-1]
+            carried = keep * step + (1.0 - keep) * carried
+        return carried

@@ -464,8 +464,10 @@ def batch_axes(rules: MeshRules, rows: int) -> Tuple[str, ...]:
     return tuple(a for a in names if rules.axis_size(a) > 1)
 
 
-# leaves gathered whole over the model axis (``TrainSharding.gather`` with
-# ``whole``: the serving steps' layout), since the last reset
+# leaves gathered whole over the model axis by ``TrainSharding.gather``
+# (a dim split over the model axis together with another axis outside
+# the batch's) since the last reset: the steps split the model axis's
+# work, so this stays 0
 _MODEL_GATHERS = [0]
 
 
@@ -479,10 +481,12 @@ def reset_model_gathers() -> None:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TrainSharding:
-    """How the sharded train step stores and uses the params (the port's
+    """How the sharded steps store and use the params (the port's
     ``grad_shardings``): ``specs`` is the params' spec tree
     (``tree_specs``), ``paths`` their leaf paths, ``batch`` the axes that
-    split each (micro)batch's rows.
+    split each (micro)batch's rows, and ``cache`` the dense decode
+    cache's spec tree (``tree_specs(kind="cache")``, JAX's
+    ``MeshRules.cache_spec``) for the decode step, or None.
 
     Every leaf is stored as its shard and gathered at its use over the
     axes that split the batch with ``gather_shards`` (its backward
@@ -495,14 +499,16 @@ class TrainSharding:
     part, added over ``model``.  So the gradients come back in the stored
     layout, with the bits of a rank-ordered sum.
 
-    The serving steps under this layout (the dry run's prefill and
-    decode cells) still run every model rank alike: with ``whole`` a
-    model-split dim is gathered with ``unsplit`` (counted in
-    ``model_gathers``)."""
+    The serving steps (the dry run's prefill and decode cells) use the
+    same layout under ``torch.no_grad``: the prefill splits each layer's
+    work as the train step's forward does, and the decode step runs on
+    the rank's shards and its block of the cache
+    (``models/transformer.layer_decode_split``)."""
     rules: MeshRules
     specs: Any
     paths: Tuple[str, ...]
     batch: Tuple[str, ...]
+    cache: Any = None
 
     @property
     def mesh(self):
@@ -518,11 +524,11 @@ class TrainSharding:
         return spec_leaves(self.specs)
 
     def gather(self, t: torch.Tensor, spec: P, keep: bool = False,
-               whole: bool = False, partial: bool = False) -> torch.Tensor:
+               partial: bool = False) -> torch.Tensor:
         """Shard ``t`` at its use: gathered over the batch axes, the
-        rank's shard on ``model`` (``whole``: gathered there too; ``keep``:
-        the shard itself, for the expert leaves ``moe_apply_sharded``
-        takes as shards), with the transposes above; with ``partial``
+        rank's shard on ``model`` (``keep``: the shard itself, for the
+        expert leaves ``moe_apply_sharded`` takes as shards), with the
+        transposes above; with ``partial``
         (the model axis's striped layout, where a rank's gradient of a
         leaf replicated over ``model`` is its part) such a leaf also goes
         through ``broadcast`` over ``model``."""
@@ -543,7 +549,7 @@ class TrainSharding:
             group = mesh.group(names)
             if set(names) <= set(self.batch):
                 t = coll.gather_shards(t, group, d)
-            elif names == (model,) and not whole:
+            elif names == (model,):
                 continue
             elif set(names).isdisjoint(self.batch):
                 if model in names:
@@ -555,7 +561,7 @@ class TrainSharding:
         return t
 
     def gather_tree(self, tree: Any, specs: Any, keep_experts: bool = False,
-                    whole: bool = False, partial: bool = False) -> Any:
+                    partial: bool = False) -> Any:
         """``gather`` over a (layer's) subtree and its spec tree; with
         ``keep_experts`` a MoE layer's expert leaves stay shards."""
         def walk(node, spec, names):
@@ -565,7 +571,7 @@ class TrainSharding:
             keep = keep_experts and "moe" in names \
                 and "shared" not in names and names[-1] in ("wg", "wu",
                                                              "wd")
-            return self.gather(node, spec, keep, whole, partial)
+            return self.gather(node, spec, keep, partial)
         return walk(tree, specs, ())
 
     def model_split(self, shape: Tuple[int, ...], constrain=None,
@@ -654,9 +660,13 @@ class TrainSharding:
                                 self.mesh)
 
 
-def train_sharding(rules: MeshRules, params: Any, rows: int
-                   ) -> TrainSharding:
+def train_sharding(rules: MeshRules, params: Any, rows: int,
+                   cache: Any = None) -> TrainSharding:
     """The layout of a whole (global-shaped) params tree on
-    ``rules.mesh``, for (micro)batches of ``rows`` rows."""
+    ``rules.mesh``, for (micro)batches of ``rows`` rows; ``cache``: a
+    whole dense decode cache tree (``Model.cache_specs``) whose blocks the
+    decode step takes."""
     return TrainSharding(rules, tree_specs(rules, params),
-                         tuple(leaf_paths(params)), batch_axes(rules, rows))
+                         tuple(leaf_paths(params)), batch_axes(rules, rows),
+                         None if cache is None
+                         else tree_specs(rules, cache, kind="cache"))

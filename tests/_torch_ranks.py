@@ -234,8 +234,8 @@ def sharded_steps(case, mesh=None):
     """Every batch of ``case["batches"]`` through ``sharded_setup``'s step
     on a ``case["shape"]`` mesh over ``case["axes"]``: the per-step
     metrics, the collectives the steps ran, the leaves gathered whole
-    over the model axis, the attention calls' shapes and the whole
-    state, gathered (on every rank).  ``mesh`` (a mesh over some of the
+    over the model axis, the attention and WKV calls' shapes and the
+    whole state, gathered (on every rank).  ``mesh`` (a mesh over some of the
     ranks running) replaces ``make_mesh``'s."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch.mesh import make_mesh
@@ -245,23 +245,27 @@ def sharded_steps(case, mesh=None):
     step, state, specs, shd = sharded_setup(case, mesh)
     collectives.reset_collective_counts()
     sharding.reset_model_gathers()
-    shapes = []
-    attention = dispatch.attention
+    shapes, wkv_shapes = [], []
+    attention, wkv = dispatch.attention, dispatch.wkv
 
     def record(q, k, v, **kw):
         shapes.append((tuple(q.shape), tuple(k.shape),
                        kw.get("q_offset", 0)))
         return attention(q, k, v, **kw)
-    dispatch.attention = record
+
+    def record_wkv(r, *args, **kw):
+        wkv_shapes.append(tuple(r.shape))
+        return wkv(r, *args, **kw)
+    dispatch.attention, dispatch.wkv = record, record_wkv
     try:
         state, metrics = run_steps(step, state, shd, case["batches"],
                                    case.get("microbatches", 1))
     finally:
-        dispatch.attention = attention
+        dispatch.attention, dispatch.wkv = attention, wkv
     return {"metrics": metrics, "batch_axes": shd.batch,
             "collectives": collectives.collective_counts(),
             "model_gathers": sharding.model_gathers(),
-            "attention": shapes,
+            "attention": shapes, "wkv": wkv_shapes,
             "state": sharding.gather_state(state, specs, mesh)}
 
 
@@ -458,3 +462,79 @@ def card_train_worker(rank, world, store, out_dir, shape):
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(shape, ("data", "model"), device="cuda")
     _leave(rank, out_dir, card_train_step(mesh))
+
+
+# --------------------------------------------------------------------------
+# the serving steps on the model axis (launch/dryrun.py's builders)
+# --------------------------------------------------------------------------
+
+def serve_axis_steps(case, mesh):
+    """The dry run's prefill and decode steps (``dryrun.prefill_step``,
+    ``dryrun.serve_step``) of ``case`` on ``mesh``, fp32 on the CPU, from
+    the whole numpy params, prompt and dense cache: the prefill logits,
+    each decode step's logits, the leaves gathered whole over the model
+    axis, every decode attention call's (q, pool, return_lse) shapes and
+    the cache block's leaf shapes by path."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import dense_cache_from_jax, params_from_jax
+    from repro_torch.core import tree
+    from repro_torch.core.memory import DtypePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime import sharding
+    rules = sharding.make_rules(mesh, fsdp=True)
+    if case.get("attn_seq"):
+        rules = dataclasses.replace(rules, attn_prefer_seq=True)
+    cfg, f32 = case["cfg"], torch.float32
+    dt = DtypePolicy(compute=f32)
+    params = params_from_jax(case["params"], "cpu", f32)
+    prompt = torch.from_numpy(case["prompt"])
+    b, s = prompt.shape
+    sharding.reset_model_gathers()
+    step, args, _ = dryrun.prefill_step(
+        cfg, ShapeSpec("prefill_axis", s, b, "prefill"), rules, dt=dt,
+        device="cpu", params=params, batch={"tokens": prompt})
+    out = {"prefill": step(*args).numpy()}
+    cache = dense_cache_from_jax(case["cache"], "cpu", f32)
+    step, (local, block, _), _ = dryrun.serve_step(
+        cfg, ShapeSpec("decode_axis", case["max_len"], b, "decode"), rules,
+        dt=dt, device="cpu", params=params,
+        batch={"tokens": torch.from_numpy(case["tokens"][0])}, cache=cache)
+    rows = sharding.train_sharding(rules, params, b)
+    calls = []
+    attention = dispatch.decode_attention
+
+    def record(q, k_pages, *args, **kw):
+        calls.append((tuple(q.shape), tuple(k_pages.shape),
+                      kw.get("return_lse", False)))
+        return attention(q, k_pages, *args, **kw)
+    dispatch.decode_attention = record
+    try:
+        out["decode"] = [step(local, block, rows.split_batch(
+            {"tokens": torch.from_numpy(t)}), pos)[0].numpy()
+            for pos, t in zip(case["positions"], case["tokens"])]
+    finally:
+        dispatch.decode_attention = attention
+    out["model_gathers"] = sharding.model_gathers()
+    out["decode_calls"] = calls
+    out["cache_shapes"] = dict(zip(sharding.leaf_paths(block),
+                                   (tuple(x.shape)
+                                    for x in tree.leaves(block))))
+    return out
+
+
+def serve_axis_worker(rank, world, store, out_dir, cases):
+    """Every ``serve_axis_steps`` case on a mesh over ranks ``0..n-1`` of
+    the ``world`` running (the ranks outside a case's mesh sit it out,
+    with None)."""
+    _join(rank, world, store)
+    from repro_torch.launch.mesh import Mesh
+    results = []
+    for case in cases:
+        mesh = Mesh(case["shape"], case["axes"], torch.device("cpu"),
+                    "gloo")
+        with torch.no_grad():
+            results.append(serve_axis_steps(case, mesh) if rank < mesh.size
+                           else None)
+        dist.barrier()
+    _leave(rank, out_dir, results)

@@ -732,6 +732,25 @@ def test_decode_split_kernel_matches_plain_at_full_width(card, dtype, int8,
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("window", [0, 200])
+def test_decode_kernel_returns_the_plain_log_sum_exp(card, dtype, int8,
+                                                     window):
+    """``return_lse``: the same output bits as without it, and each row's
+    log-sum-exp within 1e-5 relative of the plain version's (the scores
+    are fp32 in both), -inf for the empty slot; one launch counted."""
+    args, kernel, _ = _gemma_decode(card, dtype, int8)
+    before = kernel.launches
+    out, lse = kernel(*args, window=window, return_lse=True)
+    assert kernel.launches == before + 1
+    assert torch.equal(out, kernel(*args, window=window))
+    _, want = decode_attention_plain(*args, window=window, return_lse=True)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    assert bool(torch.isinf(lse[0]).all()) and bool((lse[0] < 0).all())
+    torch.testing.assert_close(lse[1:], want[1:], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
 def test_decode_split_kernel_is_batch_invariant_and_deterministic(
         card, dtype, int8):
     """A slot's output equals, bit for bit, its row in a batch with other

@@ -54,12 +54,12 @@ def test_run_cell_on_a_small_mesh(tmp_path):
     res = dryrun.run_cell(cfg, TINY, out_dir=tmp_path,
                           meshes={"small": _mesh()}, log=lambda *a: None)
     assert JSON_KEYS <= set(res)
-    # a train cell splits the model axis's work; the serving cells keep
-    # the departure (item 14e)
+    # every cell splits the model axis's work: no cell records a
+    # model_axis departure
     assert "model_axis" not in res
-    decode = ShapeSpec("decode_tiny", 32, 4, "decode")
-    assert dryrun.departures(decode)["model_axis"].startswith(
-        "replicated compute (item 14e)")
+    for kind in ("prefill", "decode"):
+        assert "model_axis" not in dryrun.departures(
+            ShapeSpec(f"{kind}_tiny", 32, 4, kind))
     assert "all-gather" in res["collectives"]
     mem = res["mesh"]["small"]
     assert MEM_KEYS <= set(mem) and mem["fits_hbm"]

@@ -23,9 +23,9 @@ names:
 * qwen2-vl-2b (embeddings and M-RoPE positions in) on (1, 2), striped;
 * gemma-2b with 6 heads on (1, 4): the heads do not divide the axis, so
   q falls back to the sequence (B6/B7 at an offset) and wo to head_dim;
-* rwkv6-7b on (1, 2) under ``attn_prefer_seq``: the recurrence cannot
-  take a striped sequence, so the WKV runs alike on whole heads (the
-  written departure).
+* rwkv6-7b on (1, 2) under ``attn_prefer_seq``: the WKV runs on each
+  rank's block of the sequence with every head, the state the earlier
+  blocks carry in added across the ranks.
 """
 import concurrent.futures
 import math
@@ -146,6 +146,19 @@ def test_attention_runs_in_the_hooks_layout(name, runs):
             else:
                 assert q == (rows, ref.S, cfg.n_heads // m, cfg.head_dim)
                 assert k == q and offset == 0
+
+
+def test_rwkv_recurrence_runs_on_the_ranks_sequence_block(runs):
+    """Under ``attn_prefer_seq`` each rank's WKV calls take its S/m rows of
+    every head: no r/k/v gathered whole."""
+    inputs, _, got = runs
+    name = "rwkv6-7b-1x2-attnseq"
+    cfg, (data, m) = inputs[name]["cfg"], CASES[name][1]
+    heads = cfg.d_model // cfg.rwkv_head_dim
+    for out in _outs(got, name):
+        assert out["wkv"], name
+        assert all(shape == (ref.B // data, ref.S // m, heads,
+                             cfg.rwkv_head_dim) for shape in out["wkv"])
 
 
 # --------------------------------------------------------------------------

@@ -552,9 +552,9 @@ def decode_rows(torch, cuda, libs, baseline) -> list:
                     ptrs = [t.data_ptr() for t in (q, *pools, *scales,
                                                    table, lengths, out)]
                     rc = getattr(lib, name)(
-                        *ptrs, part.data_ptr(), len(lens), h, hkv, hd, page,
-                        n_pages, pool, 0, keys, splits, cuda.dtype_code(q),
-                        cuda.stream_of(q))
+                        *ptrs, None, part.data_ptr(), len(lens), h, hkv, hd,
+                        page, n_pages, pool, 0, keys, splits,
+                        cuda.dtype_code(q), cuda.stream_of(q))
                     if rc:
                         raise RuntimeError(f"{variant}: CUDA error {rc}")
                 call()
